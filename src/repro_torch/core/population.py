@@ -1,0 +1,11 @@
+"""Population state = stacked trees: the single-agent state with a leading
+member axis on every leaf (``repro.core.population``)."""
+from __future__ import annotations
+
+from repro_torch.tree import stack
+
+
+def population_init(init_fn, generator, n: int):
+    """``n`` members from ``init_fn(generator) -> state``, drawn in turn from
+    one generator, stacked member-first."""
+    return stack([init_fn(generator) for _ in range(n)])

@@ -1,0 +1,124 @@
+"""``ContinuousEvaluator`` — promotion/demotion from live checkpoints
+(``repro.serve.continuous``).
+
+Every new checkpoint step, the watcher reads the JSON extras (fitness,
+population size, step — no array IO), loads ONLY the stacked actor
+params (the ``"actors"`` aux tree, against an agent-derived template),
+embeds every member's behavior on a fixed probe batch, and reselects the
+serving set by fitness + DvD diversity. The latest checkpoint always
+wins; membership changes are recorded as promote/demote events.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch.core.dvd import behavior_embedding
+from repro_torch.serve.ensemble import (ServingSet, make_serving_set,
+                                        select_members)
+from repro_torch.serve.forward import PolicyForward
+from repro_torch.tree import leaves, tree_map
+
+
+def probe_observations(env, generator, size: int = 32, device="cpu"):
+    """A fixed batch of reset observations: the shared probe states every
+    member is embedded on."""
+    _, obs = env.reset(generator, size, device)
+    return obs
+
+
+def load_actor_stack(manager, agent, *, step: int | None = None):
+    """The stacked actor params (tensors on ``agent.device``) + extras of a
+    checkpoint, without a trainer restore: ``peek_extra`` gives size,
+    fitness and step, and the ``"actors"`` aux tree restores against a
+    template built from the agent alone. Raises on a checkpoint without
+    that tree."""
+    step = manager.latest() if step is None else step
+    if step is None:
+        raise FileNotFoundError(
+            f"load_actor_stack: no checkpoint in {manager.dir}")
+    extra = manager.peek_extra(step)
+    template = agent.actor_params(
+        agent.population_init(torch.Generator().manual_seed(0),
+                              extra["size"]))
+    actors = manager.restore_aux("actors", template, step)
+    if actors is None:
+        raise ValueError(
+            f"checkpoint step {step} in {manager.dir} has no 'actors' aux "
+            f"tree — it was written by a producer that does not record the "
+            f"serving params, so it cannot be served")
+    return tree_map(lambda a: torch.from_numpy(a).to(agent.device),
+                    actors), extra
+
+
+class ContinuousEvaluator:
+    """Watches a checkpoint directory and keeps a :class:`ServingSet`
+    promoted from the freshest population.
+
+    ``size`` is the ensemble size; ``probe_obs`` the shared probe batch for
+    behavioral embeddings (None selects on fitness alone);
+    ``diversity_weight`` trades nats of ensemble volume against standard
+    deviations of fitness (0 = pure fitness ranking).
+    """
+
+    def __init__(self, manager, agent, *, size: int = 4, probe_obs=None,
+                 diversity_weight: float = 1.0,
+                 forward: PolicyForward | None = None):
+        self.mgr = manager
+        self.agent = agent
+        self.size = size
+        self.probe_obs = probe_obs
+        self.diversity_weight = diversity_weight
+        self.forward = forward if forward is not None \
+            else PolicyForward.for_agent(agent)
+        self.serving: ServingSet | None = None
+        self.events: list[dict] = []
+        self._last_step: int | None = None
+
+    def select(self, actors, fitness) -> np.ndarray:
+        """The promotion criterion on a loaded actor stack."""
+        n = leaves(actors)[0].shape[0]
+        emb = None
+        if self.probe_obs is not None:
+            with torch.no_grad():
+                emb = behavior_embedding(self.forward.member, actors,
+                                         self.probe_obs)
+            emb = emb.cpu().numpy().astype(np.float64)
+        if fitness is None and emb is None:
+            warnings.warn(
+                "ContinuousEvaluator: checkpoint carries no fitness and no "
+                "probe_obs was given; promoting by member index",
+                stacklevel=2)
+            return np.arange(min(self.size, n), dtype=np.int64)
+        return select_members(fitness, emb, self.size,
+                              diversity_weight=self.diversity_weight)
+
+    def poll(self, server=None) -> ServingSet | None:
+        """Promote from the latest checkpoint if it is newer than the one
+        serving. Returns the new :class:`ServingSet` (installed into
+        ``server`` when given), or None when nothing changed. Each poll
+        that promotes appends ``{"step", "promoted", "demoted",
+        "members"}`` to ``self.events``."""
+        step = self.mgr.latest()
+        if step is None or step == self._last_step:
+            return None
+        actors, extra = load_actor_stack(self.mgr, self.agent, step=step)
+        fitness = extra["fitness"]
+        members = self.select(actors, fitness)
+        new = make_serving_set(actors, members, step=step, fitness=fitness)
+        old = set() if self.serving is None else set(
+            self.serving.members.tolist())
+        now = set(members.tolist())
+        self.events.append({
+            "step": step,
+            "promoted": sorted(now - old),
+            "demoted": sorted(old - now),
+            "members": members.tolist(),
+        })
+        self.serving = new
+        self._last_step = step
+        if server is not None:
+            server.install(new)
+        return new

@@ -1,0 +1,42 @@
+"""``repro_torch`` stands alone: importing every one of its modules pulls in
+neither ``jax`` nor the JAX package ``repro``, and builds nothing."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    for name in ("repro_torch.kernels.pop_matmul", "repro_torch.serve.server",
+                 "repro_torch.launch.serve", "repro_torch.checkpoint.manager",
+                 "repro_torch.core.dvd", "repro_torch.envs.core"):
+        assert name in result["modules"]
+
+
+def test_chip_smoke_imports_no_jax():
+    """The chip smoke script drives the port alone."""
+    text = (SRC.parent / "chip_smoke.py").read_text()
+    assert "import jax" not in text and "from jax" not in text
+    assert "from repro." not in text and "import repro\n" not in text
