@@ -8,13 +8,22 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. card     — the device's name and power limit; TF32 off everywhere;
-  2. build    — every CUDA kernel of the port, built from this checkout's
-                sources (one nvcc per source, all started together);
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                over the serving path's shapes and more, then timed at the
-                path's shapes beside its bound, its plain version and the
-                PyTorch library call that computes the same function;
-  4. serve    — a seeded population of 8 full-width TD3 actors is written
+  2. build    — every kernel of the port from this checkout's sources:
+                ``nvcc`` for the CUDA sources (one process per source, all
+                started together) while Triton compiles ``pop_adam`` with
+                one warm launch;
+  3. kernels  — each kernel against its plain PyTorch version on the card
+                (``pop_matmul`` forward over the serving and training
+                shapes and more, its backward at the training shapes,
+                ``pop_adam`` over ragged sizes, per-member lr and step),
+                then timed at the paths' shapes beside its bound, its plain
+                version and the PyTorch library call that computes the
+                same function;
+  4. update   — one full-width TD3 population update chained 4 times with
+                every kernel, and again with every plain version, from the
+                same state, batches and noise: step-1 gradients and the
+                parameters after 4 steps must agree;
+  5. serve    — a seeded population of 8 full-width TD3 actors is written
                 in the checkpoint layout and served through the port's CLI
                 entry point (``repro_torch.launch.serve.main``, ``--fused-
                 linear --batch 256``) in the mean and best modes, with the
@@ -22,7 +31,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                 just after; answers are checked against the plain ensemble
                 on the same serving set and requests, then a newer
                 checkpoint must promote and demote members as the
-                selection rule says.
+                selection rule says;
+  6. train    — the port's training entry point
+                (``repro_torch.launch.train.main``: TD3, pendulum, 8
+                members, PBT, ``--fused-adam --fused-linear``) with the
+                launch counts set to 0 just before and read just after;
+                counts, losses, fitness, evolutions and the checkpoint are
+                checked, then iteration and update times and the device's
+                busy share are measured;
+  7. train -> serve — the checkpoint just trained, whose extras carry
+                the population's fitness, is served through
+                ``repro_torch.launch.serve.main``: the fittest member must
+                take slot 0, and the answers are checked against the plain
+                ensemble.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
@@ -35,6 +56,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -46,6 +68,15 @@ SRC = ROOT / "src"
 
 # fp32 sums taken in another order than the plain version's
 TOL = dict(rtol=1e-5, atol=1e-5)
+# pow, sqrt and division contract differently in the Triton kernel
+ADAM_TOL = dict(rtol=1e-5, atol=1e-6)
+# fp32 sums of 256 terms in another order, times the activation's
+# derivative
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# the update's gradients at step 1; the parameters after 4 steps, where
+# Adam's normalised step can turn a 1e-6 gradient difference into up to lr
+STEP1_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+PARAMS_AFTER_4_ATOL = 1e-4
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -55,6 +86,16 @@ POPULATION = 8
 ENSEMBLE = 4
 BATCH = 256
 REQUESTS = 64
+# the training entry point's flags: 8 members at the repo's TD3 width,
+# the TD3 paper's batch of 256; 22 iterations, so the last checkpoint
+# follows an evaluation after the evolve at 20 and carries a fitness
+TRAIN = dict(steps=22, pbt_interval=10, eval_every=2, num_envs=8,
+             collect_steps=32, updates_per_iter=32, batch=256)
+EVAL_ENVS, EVAL_STEPS = 4, 200     # the engine's evaluator: envs, steps
+# (K, M, activation) of the training path's layers, and how many of the
+# 24 forward launches of one update step each takes
+ACTOR_LAYERS = ((3, 256, "relu"), (256, 256, "relu"), (256, 1, "tanh"))
+CRITIC_LAYERS = ((4, 256, "relu"), (256, 256, "relu"), (256, 1, "none"))
 
 
 def log(msg: str):
@@ -112,6 +153,13 @@ def eager_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def tol_share(got, want, tol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within ``tol``,
+    as ``torch.testing.assert_close`` judges it."""
+    return ((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+            ).max().item()
+
+
 def pop_matmul_bound(n, bsz, k, m, *, broadcast: bool):
     """Least time (ms) and what bounds it for one launch: each input read
     once (a broadcast x is one (B,K) block), the output written once, and
@@ -128,11 +176,13 @@ def pop_matmul_bound(n, bsz, k, m, *, broadcast: bool):
 # ---------------------------------------------------------------- phases
 def phase_kernels():
     """pop_matmul against its plain version, then timed at the path's
-    shapes. Returns (max_abs_err, per-layer timing rows)."""
+    shapes. Returns (max_abs_err, its share of the tolerance, per-layer
+    timing rows)."""
     from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, cases = 0.0, 0
+    worst = share = 0.0
+    cases = 0
     for n in (1, 4, 8):
         for bsz in (1, 4, 256, 1000):
             for k, m in ((3, 256), (256, 256), (256, 1)):
@@ -148,6 +198,7 @@ def phase_kernels():
                         torch.cuda.synchronize()
                         torch.testing.assert_close(y, ref, **TOL)
                         worst = max(worst, (y - ref).abs().max().item())
+                        share = max(share, tol_share(y, ref, TOL))
                         cases += 1
     log(f"pop_matmul == plain on {cases} cases, max abs err {worst:.3g}")
 
@@ -195,7 +246,241 @@ def phase_kernels():
             f"({row['plain_eager_ms'] * 1e3:.3f} us eager), baddbmm "
             f"{row['library_ms'] * 1e3:.3f} us, bound "
             f"{bound * 1e3:.3f} us ({bound_by})")
-    return worst, rows
+    return worst, share, rows
+
+
+def _shape_rows(layers, count, net):
+    return [(net, k, m, act, count) for k, m, act in layers]
+
+
+TRAIN_SHAPES = (_shape_rows(ACTOR_LAYERS, 2, "actor")       # actor, target
+                + _shape_rows(CRITIC_LAYERS, 6, "critic"))  # 3 x twin heads
+
+
+def phase_pop_matmul_training():
+    """pop_matmul under autograd at the training path's shapes: dx, dw, db
+    through the kernel route (``PopMatmul``) against the plain route,
+    relu and tanh; then the forward and the backward's batched matmuls
+    timed per shape. Returns (max grad err, forward max err, the worst
+    share of its tolerance of either, rows)."""
+    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n, bsz = POPULATION, TRAIN["batch"]
+    worst_grad = worst_fwd = share = 0.0
+    cases = 0
+    for _, k, m, _, _ in TRAIN_SHAPES:
+        for act in ("relu", "tanh"):
+            x = torch.randn((n, bsz, k), generator=gen, device="cuda")
+            w = torch.randn((n, k, m), generator=gen,
+                            device="cuda") / k ** 0.5
+            b = torch.randn((n, m), generator=gen, device="cuda")
+            dy = torch.randn((n, bsz, m), generator=gen, device="cuda")
+            ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            y = pop_matmul(*ins, activation=act)
+            got = torch.autograd.grad(y, ins, dy)
+            ins_p = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            yp = pop_matmul_plain(*ins_p, activation=act)
+            want = torch.autograd.grad(yp, ins_p, dy)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, yp, **TOL)
+            worst_fwd = max(worst_fwd, (y - yp).abs().max().item())
+            share = max(share, tol_share(y, yp, TOL))
+            for name, g, r in zip(("dx", "dw", "db"), got, want):
+                torch.testing.assert_close(g, r, **GRAD_TOL,
+                                           msg=f"{name} K={k} M={m} {act}")
+                worst_grad = max(worst_grad, (g - r).abs().max().item())
+                share = max(share, tol_share(g, r, GRAD_TOL))
+            cases += 1
+    log(f"pop_matmul backward (dx, dw, db) kernel route == plain route on "
+        f"{cases} cases, max abs err {worst_grad:.3g}")
+
+    acts = {"none": lambda t: t, "relu": torch.relu, "tanh": torch.tanh}
+    rows = []
+    for net, k, m, act, count in TRAIN_SHAPES:
+        w = torch.randn((n, k, m), generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn((n, m), generator=gen, device="cuda")
+        x = torch.randn((n, bsz, k), generator=gen, device="cuda")
+        dy = torch.randn((n, bsz, m), generator=gen, device="cuda")
+        y = pop_matmul(x, w, b, activation=act)
+        f = acts[act]
+
+        def backward():
+            # PopMatmul.backward's arithmetic, every gradient asked for
+            d = dy * (y > 0) if act == "relu" else (
+                dy * (1.0 - y * y) if act == "tanh" else dy)
+            return (torch.bmm(d, w.transpose(1, 2)),
+                    torch.bmm(x.transpose(1, 2), d), d.sum(1))
+
+        bound, bound_by = pop_matmul_bound(n, bsz, k, m, broadcast=False)
+        row = {"net": net, "n": n, "b": bsz, "k": k, "m": m, "act": act,
+               "launches_per_update_step": count,
+               "ms": graph_ms(lambda: pop_matmul(x, w, b, activation=act)),
+               "plain_ms": graph_ms(
+                   lambda: pop_matmul_plain(x, w, b, activation=act)),
+               "library_ms": graph_ms(
+                   lambda: f(torch.baddbmm(b[:, None, :], x, w))),
+               "backward_ms": graph_ms(backward),
+               "bound_ms": bound, "bound_by": bound_by}
+        rows.append(row)
+        log(f"pop_matmul {net} (N={n},B={bsz},K={k},M={m},{act}) x{count} "
+            f"per update step: kernel {row['ms'] * 1e3:.3f} us, plain "
+            f"{row['plain_ms'] * 1e3:.3f} us, baddbmm "
+            f"{row['library_ms'] * 1e3:.3f} us, backward bmm "
+            f"{row['backward_ms'] * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
+            f"({bound_by})")
+    return worst_grad, worst_fwd, share, rows
+
+
+def pop_adam_bound(n, p):
+    """Least time (ms) of one pop_adam launch: p, g, mu, nu read and p, mu,
+    nu written once (fp32), lr and step read; 14 fp32 operations per
+    parameter."""
+    nbytes = 28 * n * p + 8 * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 14 * n * p / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_pop_adam():
+    """pop_adam against its plain version over ragged sizes with distinct
+    per-member lr and step, then timed at the training path's two flat
+    sizes (N=8: the actor's and the critic's parameters per member).
+    Returns (max_abs_err, its share of the tolerance, rows)."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def inputs(n, p):
+        params, grads, mu = (torch.randn((n, p), generator=gen,
+                                         device="cuda") for _ in range(3))
+        nu = torch.rand((n, p), generator=gen, device="cuda")
+        lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
+        step = torch.tensor([(1, 2, 1000)[i % 3] for i in range(n)],
+                            dtype=torch.int32, device="cuda")
+        return params, grads, mu, nu, lr, step
+
+    worst = share = 0.0
+    cases = 0
+    for n in (1, 8):
+        for p in (1, 4095, 4096, 67073, 134658):
+            args = inputs(n, p)
+            got = pop_adam(*args)
+            want = pop_adam_plain(*args)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("params", "mu", "nu"), got, want):
+                torch.testing.assert_close(g, r, **ADAM_TOL,
+                                           msg=f"{name} N={n} P={p}")
+                worst = max(worst, (g - r).abs().max().item())
+                share = max(share, tol_share(g, r, ADAM_TOL))
+            cases += 1
+    log(f"pop_adam == plain on {cases} cases (N in {{1,8}}, ragged P, lr "
+        f"per member, step in {{1,2,1000}}), max abs err {worst:.3g}, "
+        f"{share:.3g} of the tolerance")
+
+    rows = []
+    for net, p in (("actor", 67073), ("critic", 134658)):
+        n = POPULATION
+        args = inputs(n, p)
+        lib = [t.clone() for t in args[:4]]
+        lib_step = [torch.tensor(1.0, device="cuda")]
+
+        def library():
+            # one fused Adam over the same flat tensors, with ONE lr shared
+            # by every member (it takes no per-member lr)
+            torch._fused_adam_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
+                               lib_step, amsgrad=False, lr=3e-4, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0, eps=1e-8,
+                               maximize=False, grad_scale=None,
+                               found_inf=None)
+
+        bound, bound_by = pop_adam_bound(n, p)
+        row = {"net": net, "n": n, "p": p, "launches_per_update_step": 1,
+               "ms": graph_ms(lambda: pop_adam(*args)),
+               "plain_ms": graph_ms(lambda: pop_adam_plain(*args)),
+               "library_ms": graph_ms(library),
+               "bound_ms": bound, "bound_by": bound_by,
+               "cache": "L2-warm (the same inputs every launch)"}
+        rows.append(row)
+        log(f"pop_adam {net} (N={n}, P={p}/member): kernel "
+            f"{row['ms'] * 1e3:.3f} us, plain {row['plain_ms'] * 1e3:.3f} "
+            f"us, _fused_adam_ (shared lr) {row['library_ms'] * 1e3:.3f} "
+            f"us, bound {bound * 1e3:.3f} us ({bound_by}), L2-warm")
+    return worst, share, rows
+
+
+def phase_update_parity():
+    """One full-width population update chained 4 times with every kernel
+    and again with every plain version, from one state, batch stack and
+    noise draw. Step-1 gradients are read off Adam's first moment (after
+    one step mu = (1 - b1) g) for the critic of every member and the actor
+    of members whose gate opened. Returns (grad err, param err)."""
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.core.vectorize import chain_steps
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.rl import get_algo, make_agent, td3
+    from repro_torch.tree import leaves
+
+    k_steps, n, bsz = 4, POPULATION, TRAIN["batch"]
+    agent = make_agent("td3", make("pendulum").spec, device="cuda")
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    hypers = sample_hypers(gen, get_algo("td3").hyper_space, n)
+    # the actor's gate opens at step 1 for half the members
+    hypers["policy_freq"] = torch.tensor([1.0, 0.5] * (n // 2),
+                                         device="cuda")
+    shape = (k_steps, n, bsz)
+    batches = {"obs": torch.randn(shape + (3,), generator=gen,
+                                  device="cuda"),
+               "action": torch.rand(shape + (1,), generator=gen,
+                                    device="cuda") * 2 - 1,
+               "reward": torch.randn(shape, generator=gen, device="cuda"),
+               "next_obs": torch.randn(shape + (3,), generator=gen,
+                                       device="cuda"),
+               "done": (torch.rand(shape, generator=gen, device="cuda")
+                        < 0.05).float()}
+    noise = torch.randn(shape + (1,), generator=gen, device="cuda")
+    first = {k: v[0] for k, v in batches.items()}
+    rest = {k: v[1:] for k, v in batches.items()}
+
+    out = {}
+    for route, fused_linear, fused in (("kernels", True, None),
+                                       ("plain", False, False)):
+        update = td3.make_population_update(fused_linear=fused_linear,
+                                            fused=fused)
+        pop_matmul.launches = pop_adam.launches = 0
+        s1, _ = update(state, first, hypers, noise=noise[0])
+        s4, metrics = chain_steps(update, k_steps - 1)(
+            s1, rest, hypers, noise=noise[1:])
+        torch.cuda.synchronize()
+        counts = (pop_matmul.launches, pop_adam.launches)
+        want = (24 * k_steps, 2 * k_steps) if fused is None else (0, 0)
+        if counts != want:
+            raise AssertionError(f"update ({route}): launches "
+                                 f"(pop_matmul, pop_adam) = {counts}, want "
+                                 f"{want}")
+        grads = [m / 0.1 for m in leaves(s1.critic_opt.mu)
+                 + leaves(s1.actor_opt.mu)]
+        out[route] = (grads, leaves((s4.actor, s4.critic, s4.target_actor,
+                                     s4.target_critic)), metrics)
+    grad_err = param_err = 0.0
+    for g, r in zip(out["kernels"][0], out["plain"][0]):
+        torch.testing.assert_close(g, r, **STEP1_GRAD_TOL)
+        grad_err = max(grad_err, (g - r).abs().max().item())
+    for a, b in zip(out["kernels"][1], out["plain"][1]):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=PARAMS_AFTER_4_ATOL)
+        param_err = max(param_err, (a - b).abs().max().item())
+    for name, v in out["kernels"][2].items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"update: non-finite {name}")
+    log(f"update parity, kernels vs plain (N={n}, B={bsz}, full width): "
+        f"step-1 gradients max abs err {grad_err:.3g} (rtol 1e-4, atol "
+        f"1e-6), parameters after {k_steps} steps max abs err "
+        f"{param_err:.3g} (atol {PARAMS_AFTER_4_ATOL})")
+    return grad_err, param_err
 
 
 def write_population(ckpt_dir, step, fitness):
@@ -308,6 +593,177 @@ def phase_serve():
     return results, worst
 
 
+def _sync_ms(fn, reps: int = 3) -> float:
+    """Host wall time of one ``fn()`` call that ends synchronised, the mean
+    of ``reps`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_busy_share(fn):
+    """(busy share, device ms, wall ms) of one synchronised ``fn()`` call:
+    the summed duration of the device's kernels (torch.profiler's CUPTI
+    trace) over the wall time. The share is None when the trace shows no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    share = busy_us / (wall * 1e6) if busy_us > 0 else None
+    return share, busy_us / 1e3, wall * 1e3
+
+
+def phase_train(ckpt_dir):
+    """The training entry point with the launch counts set to 0 just
+    before and read just after; then the path's times."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.replay_buffer import buffer_sample
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.train import main as train_main
+
+    t = TRAIN
+    argv = ["--algo", "td3", "--env", "pendulum",
+            "--population", str(POPULATION), "--steps", str(t["steps"]),
+            "--pbt-interval", str(t["pbt_interval"]),
+            "--eval-every", str(t["eval_every"]),
+            "--num-envs", str(t["num_envs"]),
+            "--collect-steps", str(t["collect_steps"]),
+            "--updates-per-iter", str(t["updates_per_iter"]),
+            "--batch", str(t["batch"]), "--fused-adam", "--fused-linear",
+            "--ckpt-dir", ckpt_dir, "--seed", str(SEED)]
+    pop_matmul.launches = pop_adam.launches = 0
+    t0 = time.perf_counter()
+    report = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pop_matmul": pop_matmul.launches,
+                "pop_adam": pop_adam.launches}
+
+    iters, k = t["steps"], t["updates_per_iter"]
+    per_iter = t["collect_steps"] * t["num_envs"]
+    updating = sum((i + 1) * per_iter >= t["batch"] for i in range(iters))
+    evals = iters // t["eval_every"]
+    want = {"pop_adam": 2 * k * updating,
+            "pop_matmul": (24 * k * updating + 3 * t["collect_steps"] * iters
+                           + 3 * EVAL_STEPS * evals)}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want} (24 "
+                             f"pop_matmul + 2 pop_adam per update step, 3 "
+                             f"pop_matmul per acting and evaluation step)")
+    trainer = report.trainer
+    if report.metrics is None or not all(
+            torch.isfinite(v).all() for v in report.metrics.values()):
+        raise AssertionError(f"train: losses not finite: {report.metrics}")
+    if not np.isfinite(report.best_fitness):
+        raise AssertionError(f"train: fitness {report.best_fitness}")
+    replace = max(1, round(POPULATION * 0.3))
+    moved = [sum(p != i for i, p in enumerate(lin))
+             for _, lin in report.evolutions]
+    if replace not in moved:
+        raise AssertionError(f"train: no evolve replaced {replace} members: "
+                             f"{report.evolutions}")
+    latest = CheckpointManager(ckpt_dir).latest()
+    if latest != iters - 1:
+        raise AssertionError(f"train: latest checkpoint {latest}, want "
+                             f"{iters - 1}")
+    saved_fitness = CheckpointManager(ckpt_dir).peek_extra()["fitness"]
+    if saved_fitness is None or len(saved_fitness) != POPULATION or \
+            not np.isfinite(saved_fitness).all():
+        raise AssertionError(f"train: the checkpoint's fitness is "
+                             f"{saved_fitness}, want {POPULATION} finite "
+                             f"values")
+    log(f"train: {iters} iterations in {wall:.2f}s through the entry point "
+        f"({wall * 1e3 / iters:.1f} ms per iteration, evaluations "
+        f"included); launches {launches}; {len(report.evolutions)} evolves "
+        f"{report.evolutions}; best fitness {report.best_fitness:+.2f}; "
+        f"checkpoint step {latest}")
+
+    # the path's times, after the counted run
+    engine = trainer.rollout
+    iter_ms = _sync_ms(trainer.env_iteration)
+    batches = buffer_sample(engine.bufs, trainer.generator, t["batch"], k,
+                            filled=engine.filled())
+
+    def update():
+        trainer.state, _ = trainer.update(trainer.state, batches,
+                                          trainer.hypers, trainer.generator)
+
+    update_ms = _sync_ms(update)
+    member_step_ms = update_ms / (k * POPULATION)
+    share, busy_ms, busy_wall_ms = device_busy_share(trainer.env_iteration)
+    eval_ms = _sync_ms(trainer.evaluate_fitness, reps=1)
+    log(f"train: {iter_ms:.2f} ms per iteration (collect {t['collect_steps']}"
+        f" x {t['num_envs']} envs + {k} updates), {update_ms:.2f} ms per "
+        f"{k}-step update call, {member_step_ms * 1e3:.2f} us per "
+        f"member-update-step, {eval_ms:.2f} ms per evaluation "
+        f"({EVAL_STEPS} steps x {EVAL_ENVS} envs)")
+    # the profiler slows the host; the device's work is the same, so the
+    # busy time is also given as a share of the unprofiled iteration
+    share_unprofiled = None if share is None else busy_ms / iter_ms
+    log(f"train: device busy {busy_ms:.2f} ms of a {busy_wall_ms:.2f} ms "
+        f"profiled iteration: busy share "
+        f"{'not measured' if share is None else f'{share:.4f}'} "
+        f"({'not measured' if share is None else f'{share_unprofiled:.4f}'}"
+        f" of the {iter_ms:.2f} ms unprofiled iteration)")
+    return {"launches": launches, "seconds": wall,
+            "iter_ms": iter_ms, "update_call_ms": update_ms,
+            "member_update_step_ms": member_step_ms, "eval_ms": eval_ms,
+            "device_busy_share": share, "device_busy_ms": busy_ms,
+            "busy_wall_ms": busy_wall_ms,
+            "device_busy_share_unprofiled": share_unprofiled,
+            "best_fitness": report.best_fitness,
+            "saved_fitness": saved_fitness,
+            "evolutions": report.evolutions}
+
+
+def phase_train_serve(ckpt_dir, fitness):
+    """Serve the checkpoint the train phase wrote, whose extras carry
+    ``fitness``: the fittest member in slot 0, answers vs the plain
+    ensemble. Returns the max abs err."""
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.serve import main as serve_main
+
+    requests = 16
+    argv = ["--algo", "td3", "--env", "pendulum", "--ckpt-dir", ckpt_dir,
+            "--ensemble", str(ENSEMBLE), "--mode", "mean", "--fused-linear",
+            "--batch", str(BATCH), "--requests", str(requests),
+            "--seed", str(SEED)]
+    pop_matmul.launches = 0
+    report = serve_main(argv)
+    torch.cuda.synchronize()
+    if pop_matmul.launches != 3 * (requests + 2):
+        raise AssertionError(f"train -> serve: {pop_matmul.launches} "
+                             f"pop_matmul launches for {requests + 2} "
+                             f"batches (want 3 per batch)")
+    members = report.server.set.members.tolist()
+    if members[0] != int(np.argmax(fitness)):
+        raise AssertionError(f"train -> serve: the fittest member "
+                             f"{int(np.argmax(fitness))} is not in slot 0: "
+                             f"{members}")
+    worst = 0.0
+    for obs, actions in report.batches:
+        worst = max(worst, check_answers(report.server, obs, actions))
+    log(f"train -> serve: the trained checkpoint served "
+        f"{report.requests} requests, {report.req_per_s:.1f} req/s, "
+        f"members {members} (the fittest in slot 0), answers == plain "
+        f"ensemble, max abs err {worst:.3g}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -333,48 +789,122 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: nvcc for the CUDA sources on a thread while Triton compiles
     from repro_torch.kernels import build
+    from repro_torch.kernels.pop_adam import pop_adam
+    built = {}
+
+    def nvcc():
+        t0 = time.perf_counter()
+        built["reports"] = build.build(["pop_matmul"])
+        built["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=nvcc)
+    thread.start()
     t0 = time.perf_counter()
-    reports = build.build(["pop_matmul"])
-    log(f"built {sorted(reports) or 'nothing (up to date)'} in "
-        f"{time.perf_counter() - t0:.2f}s")
-    for src, text in reports.items():
+    one = torch.ones((1, 1), device="cuda")
+    pop_adam(one, one, one, one, one[0], torch.ones(
+        (1,), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    triton_s = time.perf_counter() - t0
+    thread.join()
+    if "reports" not in built:
+        raise RuntimeError("the nvcc build failed (see the thread's error)")
+    log(f"built {sorted(built['reports']) or 'nothing (up to date)'} with "
+        f"nvcc in {built['seconds']:.2f}s; pop_adam compiled by Triton and "
+        f"launched once in {triton_s:.2f}s (in parallel)")
+    for src, text in built["reports"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"{src}: {line.strip()}")
 
     # 3. kernels vs plain, timing
-    kernel_err, rows = phase_kernels()
+    kernel_err, kernel_share, rows = phase_kernels()
+    grad_err, train_fwd_err, train_share, train_rows = \
+        phase_pop_matmul_training()
+    adam_err, adam_share, adam_rows = phase_pop_adam()
 
-    # 4. serve through the port's entry point
+    # 4. one population update, kernels vs plain
+    update_grad_err, update_param_err = phase_update_parity()
+
+    # 5. serve through the port's entry point
     serve, serve_err = phase_serve()
 
+    # 6. train through the port's entry point, 7. serve what it trained
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        train = phase_train(ckpt_dir)
+        trained_serve_err = phase_train_serve(ckpt_dir,
+                                              train["saved_fitness"])
+
     per_batch = lambda key: sum(r[key] for r in rows)
-    bound_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] ==
-                    "operations")
+    per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
+                                   for r in rs)
+    ops_share = per_step("bound_ms", [r for r in train_rows
+                                      if r["bound_by"] == "operations"])
     kernels = [{
         "name": "pop_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pop_matmul.cu",
         "replaces": "src/repro/kernels/pop_matmul.py:83",
-        "launches": serve["mean"]["launches"],
-        "max_abs_err": max(kernel_err, serve_err),
-        "work": f"the {len(rows)} launches of one served batch "
-                f"(E={ENSEMBLE}, B={BATCH}); times are device times",
-        "ms": per_batch("ms"),
-        "plain_ms": per_batch("plain_ms"),
-        "bound_ms": per_batch("bound_ms"),
-        "bound_by": ("operations" if 2 * bound_ops >= per_batch("bound_ms")
-                     else "bytes"),
-        "library_ms": per_batch("library_ms"),
-        "eager_ms": per_batch("eager_ms"),
-        "plain_eager_ms": per_batch("plain_eager_ms"),
-        "per_launch": rows,
+        "launches": train["launches"]["pop_matmul"],
+        "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
+                           trained_serve_err),
+        "tolerance": "rtol=atol=1e-5",
+        "grad_max_abs_err": grad_err,
+        "grad_tolerance": "rtol=atol=1e-4",
+        # max |kernel - plain| / (atol + rtol |plain|) over the forward and
+        # gradient checks: at most 1 within tolerance
+        "max_err_over_tolerance": max(kernel_share, train_share),
+        "work": "the 24 forward launches of one TD3 update step (N=8, "
+                "B=256); times are device times (CUDA graph replay, "
+                "L2-warm)",
+        "ms": per_step("ms", train_rows),
+        "plain_ms": per_step("plain_ms", train_rows),
+        "bound_ms": per_step("bound_ms", train_rows),
+        "bound_by": ("operations" if 2 * ops_share >=
+                     per_step("bound_ms", train_rows) else "bytes"),
+        "library_ms": per_step("library_ms", train_rows),
+        "backward_bmm_ms": per_step("backward_ms", train_rows),
+        "per_launch_training": train_rows,
+        "serve": {"launches": serve["mean"]["launches"],
+                  "work": f"the {len(rows)} launches of one served batch "
+                          f"(E={ENSEMBLE}, B={BATCH})",
+                  "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
+                  "bound_ms": per_batch("bound_ms"),
+                  "library_ms": per_batch("library_ms"),
+                  "eager_ms": per_batch("eager_ms"),
+                  "plain_eager_ms": per_batch("plain_eager_ms"),
+                  "per_launch": rows},
+    }, {
+        "name": "pop_adam",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/pop_adam.py",
+        "replaces": "src/repro/kernels/pop_adam.py:53",
+        "launches": train["launches"]["pop_adam"],
+        "max_abs_err": adam_err,
+        "tolerance": "rtol=1e-5, atol=1e-6",
+        "max_err_over_tolerance": adam_share,
+        "work": "the 2 launches of one TD3 update step (actor and critic, "
+                "N=8); device times, CUDA graph replay, L2-warm",
+        "ms": per_step("ms", adam_rows),
+        "plain_ms": per_step("plain_ms", adam_rows),
+        "bound_ms": per_step("bound_ms", adam_rows),
+        "bound_by": "bytes",
+        "library_ms": per_step("library_ms", adam_rows),
+        "library_call": "torch._fused_adam_ with one lr shared by every "
+                        "member",
+        "per_launch": adam_rows,
     }]
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "
             f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms per batch")
+    log(f"train: {train['iter_ms']:.2f} ms per iteration, "
+        f"{train['member_update_step_ms'] * 1e3:.2f} us per "
+        f"member-update-step, device busy share "
+        f"{train['device_busy_share']}; update parity grads "
+        f"{update_grad_err:.3g}, params {update_param_err:.3g}")
+    print(json.dumps({"train": {k: v for k, v in train.items()
+                                if k != "evolutions"}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

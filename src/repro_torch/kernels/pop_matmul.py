@@ -16,8 +16,16 @@ x may be broadcast over members (``obs[None].expand(N, B, K)``, member
 stride 0): the kernel is given the member stride and reads the one (B,K)
 block for every member, so the broadcast costs no copy.
 
-Forward only: inputs that require grad are refused until the backward
-(an ``autograd.Function`` with batched-matmul gradients) is ported.
+Gradients: when autograd records (grad mode on and an input requires
+grad), the call goes through :class:`PopMatmul`, an
+``autograd.Function`` whose forward is the same kernel (or plain version)
+and whose backward is one code path on every device: the activation's
+derivative from the saved output, then ``torch.bmm`` for dx and dw and a
+sum for db. That is what the JAX package does too: its ``custom_vjp``
+(``repro.rl.networks._pop_matmul_bwd``) takes the backward as batched
+einsums outside any Pallas kernel. Only the gradients autograd asks for
+are computed; a call that records nothing saves nothing (the target
+networks' forwards run under ``torch.no_grad()``).
 """
 from __future__ import annotations
 
@@ -48,10 +56,6 @@ def _check(x, w, b, activation):
         raise ValueError(f"pop_matmul: unsupported activation {activation!r} "
                          f"(one of {ACTIVATIONS})")
     tensors = (x, w) if b is None else (x, w, b)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "pop_matmul is forward-only: an input requires grad, and the "
-            "backward is not ported yet")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"pop_matmul takes float32 tensors, got "
                         f"{[str(t.dtype) for t in tensors]}")
@@ -121,15 +125,55 @@ def _launch(x, w, b, activation):
     return y
 
 
-def pop_matmul(x, w, b=None, *, activation: str = "none"):
-    """``y[n] = act(x[n] @ w[n] + b[n])``: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors, an error for anything else."""
-    _check(x, w, b, activation)
+def _forward(x, w, b, activation):
     if x.device.type == "cpu":
         return pop_matmul_plain(x, w, b, activation=activation)
     if x.device.type != "cuda":
         raise ValueError(f"pop_matmul: no kernel for device {x.device}")
     return _launch(x, w, b, activation)
+
+
+class PopMatmul(torch.autograd.Function):
+    """``pop_matmul`` under autograd. The forward is the kernel (CUDA) or
+    the plain version (CPU) with the bias and activation fused; it saves
+    x, w and the activated output y. The backward, with dy_pre = dy *
+    act'(y) (``y > 0`` for relu, ``1 - y^2`` for tanh):
+
+        dx = dy_pre @ w^T,   dw = x^T @ dy_pre,   db = sum_B dy_pre
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation):
+        y = _forward(x, w, b, activation)
+        ctx.activation = activation
+        ctx.has_bias = b is not None
+        ctx.save_for_backward(x, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        if ctx.activation == "relu":
+            dy = dy * (y > 0)
+        elif ctx.activation == "tanh":
+            dy = dy * (1.0 - y * y)
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = torch.bmm(dy, w.transpose(1, 2)) if need_x else None
+        dw = torch.bmm(x.transpose(1, 2), dy) if need_w else None
+        db = dy.sum(1) if need_b and ctx.has_bias else None
+        return dx, dw, db, None
+
+
+def pop_matmul(x, w, b=None, *, activation: str = "none"):
+    """``y[n] = act(x[n] @ w[n] + b[n])``: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors, an error for anything else.
+    Differentiable: with grad mode on and an input that requires grad the
+    call is recorded through :class:`PopMatmul`."""
+    _check(x, w, b, activation)
+    tensors = (x, w) if b is None else (x, w, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return PopMatmul.apply(x, w, b, activation)
+    return _forward(x, w, b, activation)
 
 
 pop_matmul.launches = 0

@@ -1,0 +1,168 @@
+"""Training entry point (``repro.launch.train``), the RL branch.
+
+``--algo <name>`` trains a population of the registered algorithm on an
+env through ``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
+insert into the population's replay buffers, sample, and
+``--updates-per-iter`` chained population-level updates per iteration,
+with PBT every ``--pbt-interval`` iterations on the evaluator's fitness.
+On the card every population-batched linear (forward and under autograd)
+is one ``pop_matmul`` launch and every Adam step one ``pop_adam`` launch
+for the whole population; ``--fused-adam`` and ``--fused-linear`` are
+taken so that the JAX CLI's command lines run, and change nothing.
+
+    python -m repro_torch.launch.train --algo td3 --env pendulum \\
+        --population 8 --steps 20 --pbt-interval 10 --eval-every 2 \\
+        --num-envs 8 --collect-steps 32 --updates-per-iter 32 --batch 256 \\
+        --fused-adam --fused-linear --ckpt-dir DIR
+
+The checkpoint it writes is served by ``repro_torch.launch.serve``. Runs
+on the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
+versions). Flags of the JAX training CLI whose subsystems are not ported are
+refused, not accepted as no-ops; so is a ``--ckpt-dir`` that already
+holds a checkpoint (there is no resume yet to continue it).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+# flag -> why it is refused
+_REFUSED = {
+    "arch": "LM training comes with the LM slice",
+    "policy_lag": "the overlapped acting engine is not ported yet",
+    "chunk_steps": "chunked collection is not ported yet",
+    "fused_epoch": "fused train-evolve epochs are not ported yet",
+    "epochs": "on-policy (ppo) training is not ported yet",
+    "resume": "checkpoint resume is not ported yet",
+    "resize": "elastic resume is not ported yet",
+    "devices": "multi-device islands are not ported yet",
+    "model_axis": "model-sharded members are not ported yet",
+    "compile_cache": "the port compiles no programs to cache",
+    "log_dir": "telemetry sinks are not ported yet",
+    "profile": "the profiler window is not ported yet",
+}
+
+
+@dataclass
+class TrainReport:
+    """What one training run did."""
+    best_fitness: float
+    seconds: float
+    trainer: object
+    evolutions: list = field(default_factory=list)  # [(iter, lineage)]
+    metrics: dict | None = None                     # last update's metrics
+
+
+def _run_rl(args) -> TrainReport:
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import get_algo, make_agent
+
+    device = resolve_device(args.device)
+    latest = CheckpointManager(args.ckpt_dir).latest()
+    if latest is not None:
+        raise FileExistsError(
+            f"--ckpt-dir {args.ckpt_dir} already holds a checkpoint (step "
+            f"{latest}); resume is not ported yet, so pass an empty "
+            f"directory rather than overwrite it")
+    algo = get_algo(args.algo)
+    env = make(args.env)
+    agent = make_agent(args.algo, env.spec, device=device)
+    n = args.population
+    print(f"[train] algo={algo.name} env={args.env} pop={n} "
+          f"strategy={args.strategy} backend={args.backend} "
+          f"experience={algo.experience_kind} device={device}")
+
+    pcfg = PopulationConfig(
+        size=n, strategy=args.strategy, backend=args.backend,
+        num_steps=args.updates_per_iter, pbt_interval=args.pbt_interval,
+        hyper_space=algo.hyper_space)
+    trainer = PopTrainer(agent, pcfg, seed=args.seed,
+                         checkpoint_dir=args.ckpt_dir)
+    trainer.attach_rollout(env, num_envs=args.num_envs,
+                           collect_steps=args.collect_steps,
+                           batch_size=args.batch)
+
+    t0 = time.time()
+    report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
+                         trainer=trainer)
+
+    def on_iter(it, metrics, stats, fitness, lineage):
+        if metrics is not None:
+            report.metrics = metrics
+        if fitness is not None:
+            best = float(fitness.max())
+            report.best_fitness = max(report.best_fitness, best)
+            print(f"[train] iter {it + 1}: eval best {best:+.2f}")
+        if lineage is not None:
+            report.evolutions.append((it + 1, lineage.tolist()))
+            print(f"[train] evolve at iter {it + 1}: "
+                  f"lineage={lineage.tolist()} strategy="
+                  f"{type(trainer.strategy).__name__}")
+        if (it + 1) % args.ckpt_every == 0 or it == args.steps - 1:
+            trainer.save()
+
+    trainer.run_env_loop(args.steps, eval_every=args.eval_every,
+                         on_iter=on_iter)
+    report.seconds = time.time() - t0
+    print(f"[train] done in {report.seconds:.1f}s, "
+          f"best fitness {report.best_fitness:+.2f}")
+    return report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", default=None,
+                    help="RL algorithm from the repro_torch.rl.ALGOS "
+                    "registry (td3)")
+    ap.add_argument("--env", default="pendulum",
+                    help="env name for the --algo workload")
+    ap.add_argument("--population", type=int, default=1)
+    ap.add_argument("--strategy", default="pbt", choices=["pbt", "none"])
+    ap.add_argument("--backend", default="vectorized",
+                    help="update backend (vectorized; the others are not "
+                    "ported yet)")
+    ap.add_argument("--num-envs", type=int, default=8)
+    ap.add_argument("--collect-steps", type=int, default=32)
+    ap.add_argument("--updates-per-iter", type=int, default=32,
+                    help="chained off-policy updates per iteration")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--eval-every", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=200,
+                    help="train iterations")
+    ap.add_argument("--pbt-interval", type=int, default=50)
+    ap.add_argument("--fused-adam", action="store_true",
+                    help="taken for the JAX CLI's command lines: every Adam "
+                    "step runs the pop_adam kernel on the card anyway")
+    ap.add_argument("--fused-linear", action="store_true",
+                    help="taken for the JAX CLI's command lines: every "
+                    "population-batched linear runs the pop_matmul kernel "
+                    "on the card anyway")
+    ap.add_argument("--ckpt-dir", required=True,
+                    help="empty directory for the population checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="cuda (default) or cpu")
+    for flag in _REFUSED:
+        ap.add_argument("--" + flag.replace("_", "-"), nargs="?",
+                        const=True, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+
+    for flag, why in _REFUSED.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not supported by the port: "
+                f"{why}")
+    if args.algo is None:
+        ap.error("pass --algo (RL training; --arch is not ported yet)")
+    return _run_rl(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,2 +1,2 @@
 """RL algorithms of the port (TD3 so far) and the algorithm registry."""
-from repro_torch.rl.registry import make_agent  # noqa: F401
+from repro_torch.rl.registry import ALGOS, get_algo, make_agent  # noqa: F401

@@ -1,4 +1,5 @@
-"""The TD3 actor and the population-batched applies (``repro.rl.networks``).
+"""The TD3 actor and twin critic, and the population-batched applies
+(``repro.rl.networks``).
 
 Standard size from Fujimoto et al.: a 256-256 MLP.
 
@@ -13,7 +14,9 @@ activation fused. Routing per linear is decided by ``fused``:
     version for a CPU tensor;
   * ``False``           — always the plain einsum version.
 
-Forward only for now: the wrapper refuses inputs that require grad.
+Both routes are differentiable: the wrapper records its backward through
+``repro_torch.kernels.pop_matmul.PopMatmul`` (batched matmuls), the plain
+version through torch's own autograd.
 """
 from __future__ import annotations
 
@@ -33,6 +36,20 @@ def actor_init(generator, obs_dim: int, act_dim: int, hidden=HIDDEN, *,
 
 def actor_apply(params, obs):
     return torch.tanh(mlp_apply(params, obs))
+
+
+def critic_init(generator, obs_dim: int, act_dim: int, hidden=HIDDEN, *,
+                device="cpu"):
+    """Twin Q networks on ``concat(obs, act)``."""
+    sizes = [obs_dim + act_dim, *hidden, 1]
+    return {"q1": mlp_init(generator, sizes, device=device),
+            "q2": mlp_init(generator, sizes, device=device)}
+
+
+def critic_apply(params, obs, act):
+    x = torch.cat([obs, act], dim=-1)
+    return (mlp_apply(params["q1"], x)[..., 0],
+            mlp_apply(params["q2"], x)[..., 0])
 
 
 def pop_linear_apply(p, x, *, activation: str = "none", fused=None):
@@ -60,3 +77,11 @@ def pop_mlp_apply(p, x, *, activation: str = "relu",
 def pop_actor_apply(params, obs, *, fused=None):
     """Population-level ``actor_apply``: tanh MLP, (N,B,obs) -> (N,B,act)."""
     return pop_mlp_apply(params, obs, final_activation="tanh", fused=fused)
+
+
+def pop_critic_apply(params, obs, act, *, fused=None):
+    """Population-level ``critic_apply``: (N,B,obs), (N,B,act) -> the twin
+    Q values, each (N,B)."""
+    x = torch.cat([obs, act], dim=-1)
+    return (pop_mlp_apply(params["q1"], x, fused=fused)[..., 0],
+            pop_mlp_apply(params["q2"], x, fused=fused)[..., 0])

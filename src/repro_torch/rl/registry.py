@@ -1,11 +1,28 @@
 """Algorithm registry (``repro.rl.registry``): ``--algo`` names as data.
 
-Only TD3 is ported; the JAX package's other algorithms raise "not ported
-yet" rather than an unknown-name error, so a caller can tell the two
-apart."""
+Each entry bundles an agent factory (env-spec aware, so action-space
+mismatches fail loudly), the action space it needs, the PBT hyper-space
+(paper §B.1 style ranges, copied from the JAX package) and the experience
+kind. Only TD3 is ported; the JAX package's other algorithms raise "not
+ported yet" rather than an unknown-name error, so a caller can tell the
+two apart."""
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.configs.base import HyperSpace
+
 _NOT_PORTED = ("sac", "dqn", "ppo")
+
+
+@dataclass(frozen=True)
+class AlgoSpec:
+    name: str
+    make_agent: Callable            # (env_spec, **kw) -> ModuleAgent
+    actions: str                    # "continuous" | "discrete" | "both"
+    hyper_space: HyperSpace
+    experience_kind: str
 
 
 def _make_td3(spec, **kw):
@@ -14,21 +31,37 @@ def _make_td3(spec, **kw):
     return ModuleAgent(td3, spec.obs_dim, spec.act_dim, **kw)
 
 
-# name -> (agent factory, action space it needs)
-ALGOS = {"td3": (_make_td3, "continuous")}
+ALGOS = {
+    "td3": AlgoSpec(
+        "td3", _make_td3, "continuous",
+        HyperSpace(log_uniform=(("actor_lr", 3e-5, 3e-3),
+                                ("critic_lr", 3e-5, 3e-3)),
+                   uniform=(("policy_freq", 0.2, 1.0), ("noise", 0.0, 1.0),
+                            ("explore_noise", 0.0, 1.0),
+                            ("discount", 0.9, 1.0))),
+        "replay"),
+}
+
+
+def get_algo(name: str) -> AlgoSpec:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"algorithm {name!r} is not ported yet (ported: {sorted(ALGOS)})")
+    spec = ALGOS.get(name)
+    if spec is None:
+        raise ValueError(f"unknown algorithm {name!r}; registered: "
+                         f"{sorted(ALGOS)}")
+    return spec
 
 
 def make_agent(name: str, env_spec, **kw):
     """Build the registered agent for an env, validating the action space.
     ``kw`` goes to the agent (``device=`` among them)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ported: {sorted(ALGOS)})")
-    if name not in ALGOS:
-        raise ValueError(f"unknown algorithm {name!r}; registered: "
-                         f"{sorted(ALGOS)}")
-    factory, actions = ALGOS[name]
-    if actions == "continuous" and env_spec.discrete:
+    algo = get_algo(name)
+    if algo.actions == "continuous" and env_spec.discrete:
         raise ValueError(f"{name} needs a continuous action space but env "
                          f"{env_spec.name!r} is discrete")
-    return factory(env_spec, **kw)
+    if algo.actions == "discrete" and not env_spec.discrete:
+        raise ValueError(f"{name} needs a discrete action space but "
+                         f"env {env_spec.name!r} is continuous")
+    return algo.make_agent(env_spec, **kw)

@@ -1,0 +1,74 @@
+"""``Collector`` — the population's acting step (``repro.rollout.
+collector``): each member drives its own ``num_envs`` environments with
+its own exploration noise, whose scale comes from that member's hypers.
+
+Per acting step the member-batched actor forward is ONE population-level
+call (``pop_policy`` -> ``pop_actor_apply``: one ``pop_matmul`` per
+layer), so the kernel runs on the card. Trajectories come back flattened
+to ``(N, num_steps * num_envs, ...)`` time-major per env, ready for the
+FIFO insert. The unflattened trajectory (the PPO kind's), chunked
+collection (``chunk_steps``, ``collect_into``) come with later slices.
+
+The exploration policy contract is ``policy_fn(actors, obs, generator,
+hypers) -> actions`` over member-stacked actors and (N, E, obs)
+observations.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.rollout.vecenv import VecEnv
+from repro_torch.tree import tree_map
+
+
+def exploration_policy(module):
+    """Exploration policy of a functional RL module, driven by per-member
+    hypers. td3-style modules add gaussian ``exploration_noise`` whose
+    scale is the member's ``explore_noise`` hyper, else its ``noise``
+    hyper, else the module's default ``noise``.
+
+    ``explore_noise`` is deliberately its own hyper: td3's ``noise`` is
+    the target-policy smoothing inside the critic update, and reusing it
+    for acting would let PBT disable smoothing while tuning exploration."""
+    defaults = getattr(module, "DEFAULT_HYPERS", {})
+    if "noise" in defaults:
+        def fn(actors, obs, generator, hypers=None):
+            h = hypers if hypers else {}
+            scale = h.get("explore_noise", h.get("noise", defaults["noise"]))
+            return module.pop_policy(actors, obs, generator,
+                                     exploration_noise=scale)
+        return fn
+    return lambda actors, obs, generator, hypers=None: module.pop_policy(
+        actors, obs, generator)
+
+
+def default_exploration(agent):
+    """The exploration policy of a ``repro_torch.pop`` agent's module."""
+    return exploration_policy(agent.exploration_module)
+
+
+class Collector:
+    """Drives a population of actors through their batched envs."""
+
+    def __init__(self, venv: VecEnv, policy_fn):
+        self.venv = venv
+        self.policy_fn = policy_fn
+
+    def init(self, generator, n: int, device="cpu"):
+        """Population VecEnvState (leaves (N, E, ...))."""
+        return self.venv.reset(generator, n, device)
+
+    @torch.no_grad()
+    def collect(self, actors, vstate, generator, num_steps: int,
+                hypers=None):
+        """Act ``num_steps`` batched steps. Returns ``(vstate, traj)`` with
+        traj leaves ``(N, num_steps * num_envs, ...)`` in insertion order
+        (time-major per env, so FIFO eviction drops the oldest first)."""
+        steps = []
+        for _ in range(num_steps):
+            actions = self.policy_fn(actors, vstate.obs, generator, hypers)
+            vstate, trans = self.venv.step(vstate, actions, generator)
+            steps.append(trans)
+        traj = tree_map(
+            lambda *xs: torch.stack(xs, 1).flatten(1, 2), *steps)
+        return vstate, traj

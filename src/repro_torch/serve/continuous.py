@@ -33,16 +33,16 @@ def load_actor_stack(manager, agent, *, step: int | None = None):
     """The stacked actor params (tensors on ``agent.device``) + extras of a
     checkpoint, without a trainer restore: ``peek_extra`` gives size,
     fitness and step, and the ``"actors"`` aux tree restores against a
-    template built from the agent alone. Raises on a checkpoint without
+    template built from the agent alone. The restore takes only the tree
+    structure from the template, so one member's actor (built on the CPU,
+    none of the training state) is enough. Raises on a checkpoint without
     that tree."""
     step = manager.latest() if step is None else step
     if step is None:
         raise FileNotFoundError(
             f"load_actor_stack: no checkpoint in {manager.dir}")
     extra = manager.peek_extra(step)
-    template = agent.actor_params(
-        agent.population_init(torch.Generator().manual_seed(0),
-                              extra["size"]))
+    template = agent.actor_init(torch.Generator().manual_seed(0))
     actors = manager.restore_aux("actors", template, step)
     if actors is None:
         raise ValueError(

@@ -29,6 +29,10 @@ from repro_torch.rl import make_agent
 from repro_torch.serve import load_actor_stack
 from repro_torch.tree import flatten, stack, tree_map, unflatten
 
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _twelve_layers():
     rng = np.random.default_rng(0)

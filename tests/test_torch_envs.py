@@ -15,6 +15,10 @@ from repro.envs.core import _pendulum_obs as jax_obs
 from repro.envs.core import _pendulum_step as jax_step
 from repro_torch.envs import make
 
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -18,7 +18,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({"modules": names, "bad": bad}))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] == "triton")
+print(json.dumps({"modules": names, "bad": bad, "loaded": loaded}))
 """
 
 
@@ -31,8 +32,17 @@ def test_port_imports_no_jax_and_no_repro():
     assert result["bad"] == []
     for name in ("repro_torch.kernels.pop_matmul", "repro_torch.serve.server",
                  "repro_torch.launch.serve", "repro_torch.checkpoint.manager",
-                 "repro_torch.core.dvd", "repro_torch.envs.core"):
+                 "repro_torch.core.dvd", "repro_torch.envs.core",
+                 "repro_torch.kernels.pop_adam", "repro_torch.optim.pop_adam",
+                 "repro_torch.rl.td3", "repro_torch.rl.fused",
+                 "repro_torch.core.pbt", "repro_torch.core.vectorize",
+                 "repro_torch.configs.base", "repro_torch.pop.trainer",
+                 "repro_torch.pop.strategy", "repro_torch.pop.backend",
+                 "repro_torch.data.replay_buffer",
+                 "repro_torch.rollout.engine", "repro_torch.launch.train"):
         assert name in result["modules"]
+    # no module imported triton either: kernels compile at first use
+    assert "triton" not in result["loaded"]
 
 
 def test_chip_smoke_imports_no_jax():

@@ -20,6 +20,10 @@ from repro_torch.nn.basic import lecun_normal, mlp_apply, mlp_init
 from repro_torch.rl import networks as nets
 from repro_torch.rl import td3
 
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 OBS, ACT = 3, 1
 

@@ -5,17 +5,28 @@ act); it is held against the JAX Pallas kernel in interpret mode and
 against the JAX package's oracle ``ref.pop_matmul_ref`` on the serving
 path's shape set cut to small B, all three activations. Tolerance:
 rtol = atol = 1e-5, for fp32 sums taken in another order by the two
-frameworks. The CUDA kernel itself is held against the plain version on
-the card by ``chip_smoke.py``.
+frameworks. The gradients of the port's ``PopMatmul`` (dx, dw, db) are
+held against ``jax.grad`` through the JAX package's ``custom_vjp``
+(``pop_linear_apply(..., fused=True)``, interpret mode) at 2e-4: fp32 sums
+over the batch in another order, times the activation's derivative. The
+CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py``.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro.rl import networks as jax_nets
 from repro_torch.kernels import build
-from repro_torch.kernels.pop_matmul import (_member_stride, pop_matmul,
-                                            pop_matmul_plain)
+from repro_torch.kernels.pop_matmul import (PopMatmul, _member_stride,
+                                            pop_matmul, pop_matmul_plain)
+
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ACTS = ("none", "relu", "tanh")
@@ -88,8 +99,10 @@ def test_member_stride_for_the_kernel():
 
 def test_wrapper_refuses_bad_inputs():
     x, w, bias = (torch.from_numpy(a) for a in _inputs(2, 4, 3, 8))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        pop_matmul(x, w.clone().requires_grad_(True), bias)
+    # an input that requires grad is no longer refused: it is recorded
+    wg = w.clone().requires_grad_(True)
+    y = pop_matmul(x, wg, bias)
+    assert y.grad_fn is not None and y.grad_fn.name().startswith("PopMatmul")
     with pytest.raises(TypeError, match="float32"):
         pop_matmul(x.double(), w.double(), bias.double())
     with pytest.raises(ValueError, match="does not match"):
@@ -122,3 +135,77 @@ def test_build_names_libraries_by_content():
     assert path.name.startswith("libpop_matmul-") and path.suffix == ".so"
     assert path == build.library_path("pop_matmul")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("k,m", [(4, 32), (32, 32), (32, 1)])
+def test_pop_matmul_gradients_match_jax(k, m, act):
+    """dx, dw and db of the port's autograd Function against jax.grad
+    through the JAX package's custom_vjp (Pallas kernel forward in
+    interpret mode, einsum backward), for one cotangent."""
+    n, b = 3, 8
+    x, w, bias = _inputs(n, b, k, m, seed=7)
+    cot = np.random.default_rng(k + m).standard_normal(
+        (n, b, m)).astype(np.float32)
+
+    def jloss(p, xx):
+        y = jax_nets.pop_linear_apply(p, xx, activation=act, fused=True)
+        return jnp.sum(y * cot)
+
+    jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(
+        {"w": jnp.asarray(w), "b": jnp.asarray(bias)}, jnp.asarray(x))
+
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (x, w, bias))
+    y = pop_matmul(tx, tw, tb, activation=act)
+    assert y.grad_fn.name().startswith("PopMatmul")
+    (y * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg_x), **GRAD_TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jg_p["w"]),
+                               **GRAD_TOL)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jg_p["b"]),
+                               **GRAD_TOL)
+
+
+def test_pop_matmul_backward_computes_only_what_is_asked():
+    """Only the gradients autograd asks for are computed, a broadcast x
+    differentiates like its materialized copy, and a call with nothing to
+    record (no_grad, or no input requiring grad) builds no graph."""
+    x, w, bias = (torch.from_numpy(a) for a in _inputs(2, 5, 3, 8))
+    wg, bg = w.clone().requires_grad_(True), bias.clone().requires_grad_(
+        True)
+    y = pop_matmul(x, wg, bg, activation="relu")
+    dw, db = torch.autograd.grad(y.sum(), (wg, bg))
+    want = pop_matmul_plain(x, w.clone().requires_grad_(True), bias,
+                            activation="relu")
+    assert dw.shape == w.shape and db.shape == bias.shape
+    ctx_needs = []
+    orig = PopMatmul.backward
+
+    def spy(ctx, dy):
+        ctx_needs.append(tuple(ctx.needs_input_grad[:3]))
+        return orig(ctx, dy)
+
+    PopMatmul.backward = staticmethod(spy)
+    try:
+        xg = x.clone().requires_grad_(True)
+        torch.autograd.grad(pop_matmul(xg, w, bias).sum(), xg)
+    finally:
+        PopMatmul.backward = staticmethod(orig)
+    assert ctx_needs == [(True, False, False)]
+
+    one = torch.from_numpy(_inputs(1, 5, 3, 8)[0][0])
+    bx = one.unsqueeze(0).expand(2, 5, 3)
+    g_b = torch.autograd.grad(
+        pop_matmul(bx, wg, bg, activation="tanh").sum(), wg)[0]
+    g_m = torch.autograd.grad(
+        pop_matmul(bx.contiguous(), wg, bg, activation="tanh").sum(), wg)[0]
+    torch.testing.assert_close(g_b, g_m, rtol=0, atol=0)
+
+    with torch.no_grad():
+        assert pop_matmul(x, wg, bg).grad_fn is None
+    assert pop_matmul(x, w, bias).grad_fn is None
+    assert want.grad_fn is not None

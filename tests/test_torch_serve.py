@@ -37,6 +37,10 @@ from repro_torch.serve import (BatchServer, ContinuousEvaluator,
                                probe_observations, select_members)
 from repro_torch.telemetry import LatencyWindow
 
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 

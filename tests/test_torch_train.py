@@ -1,0 +1,175 @@
+"""The port's training path end to end on the CPU.
+
+``PopTrainer`` + ``run_env_loop`` train a small TD3 population with PBT
+(updates start once every buffer can serve a batch, an evolve fires); the
+checkpoint it writes is read back bitwise by the JAX package's
+``repro.serve.load_actor_stack``; the train CLI runs with ``--device cpu``
+and the port's serve CLI serves what it wrote. The CLI refuses to run
+without CUDA unless ``--device cpu`` is given, refuses every flag whose
+subsystem is not ported, and refuses a ``--ckpt-dir`` that already holds a
+checkpoint.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import CheckpointManager as JaxCheckpointManager
+from repro.envs import make as jax_make
+from repro.rl import make_agent as jax_make_agent
+from repro.serve import load_actor_stack as jax_load_actor_stack
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import PopulationConfig
+from repro_torch.envs import make
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import _REFUSED
+from repro_torch.launch.train import main as train_main
+from repro_torch.pop import PopTrainer
+from repro_torch.rl import get_algo, make_agent
+from repro_torch.serve import load_actor_stack
+from repro_torch.tree import leaves
+
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
+SMALL = ["--algo", "td3", "--env", "pendulum", "--population", "3",
+         "--steps", "4", "--pbt-interval", "2", "--eval-every", "1",
+         "--num-envs", "2", "--collect-steps", "8", "--updates-per-iter",
+         "2", "--batch", "24", "--fused-adam", "--fused-linear"]
+
+
+def _trainer(tmp_path, n=3):
+    agent = make_agent("td3", make("pendulum").spec, device="cpu")
+    pcfg = PopulationConfig(size=n, num_steps=2, pbt_interval=3,
+                            hyper_space=get_algo("td3").hyper_space)
+    trainer = PopTrainer(agent, pcfg, seed=1, checkpoint_dir=tmp_path)
+    trainer.attach_rollout(make("pendulum"), num_envs=2, collect_steps=8,
+                           batch_size=20, buffer_capacity=256, eval_envs=2)
+    return trainer
+
+
+def test_pop_trainer_env_loop_trains_and_evolves(tmp_path):
+    trainer = _trainer(tmp_path)
+    assert trainer.rollout.update is trainer.update
+    seen = []
+    trainer.run_env_loop(
+        6, eval_every=1,
+        on_iter=lambda it, m, s, f, lin: seen.append((it, m, f, lin)))
+    # 16 transitions per iteration against a batch of 20: the first
+    # iteration only collects
+    assert [m is None for _, m, _, _ in seen] == [True] + [False] * 5
+    assert trainer.state.critic_opt.step.tolist() == [10, 10, 10]
+    evolved = [(it, lin) for it, _, _, lin in seen if lin is not None]
+    assert [it for it, _ in evolved] == [2, 5]
+    for _, lin in evolved:
+        assert (lin != torch.arange(3)).sum() == 1      # round(3 * 0.3)
+    assert all(f.shape == (3,) and torch.isfinite(f).all()
+               for _, _, f, _ in seen)
+    for m in seen[-1][1].values():
+        assert torch.isfinite(m).all()
+    # evolve cleared the window; one more evaluation refills it
+    assert trainer.fitness() is None and trainer.last_fitness is not None
+    trainer.report_fitness(trainer.evaluate_fitness())
+    assert trainer.fitness().shape == (3,)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        trainer.run_env_loop(1, fused=True)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        trainer.attach_rollout(make("pendulum"), policy_lag=1)
+
+
+def test_trainer_step_updates_without_a_rollout(tmp_path):
+    trainer = _trainer(tmp_path)
+    rng = np.random.default_rng(0)
+    shape = (2, 3, 16)
+    batch = {"obs": rng.standard_normal(shape + (3,)),
+             "action": rng.uniform(-1, 1, shape + (1,)),
+             "reward": rng.standard_normal(shape),
+             "next_obs": rng.standard_normal(shape + (3,)),
+             "done": np.zeros(shape)}
+    batch = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in batch.items()}
+    metrics = trainer.run(3, lambda step: batch)
+    assert trainer.step_count == 3
+    assert trainer.state.critic_opt.step.tolist() == [6, 6, 6]
+    assert metrics["critic_loss"].shape == (3,)
+
+
+def test_checkpoint_is_read_bitwise_by_jax(tmp_path):
+    trainer = _trainer(tmp_path)
+    trainer.run_env_loop(2, eval_every=1)
+    trainer.save()
+    extra = CheckpointManager(tmp_path).peek_extra()
+    assert extra["size"] == 3 and extra["step"] == 1
+    assert len(extra["fitness"]) == 3
+
+    jagent = jax_make_agent("td3", jax_make("pendulum").spec)
+    jactors, jextra = jax_load_actor_stack(JaxCheckpointManager(tmp_path),
+                                           jagent)
+    assert jextra["fitness"] == extra["fitness"]
+    want = leaves(trainer.actors)
+    got = jax.tree.leaves(jactors)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy())
+    # and by the port's own serving loader, from one member's template
+    actors, _ = load_actor_stack(CheckpointManager(tmp_path),
+                                 trainer.agent)
+    for g, w in zip(leaves(actors), want):
+        assert torch.equal(g, w)
+    # hypers and the main tree (state, strategy state) are there too
+    hypers = CheckpointManager(tmp_path).restore_aux(
+        "hypers", trainer.hypers)
+    for k in trainer.hypers:
+        np.testing.assert_array_equal(hypers[k], trainer.hypers[k].numpy())
+
+
+def test_train_cli_on_cpu_then_serve_cli(tmp_path, capsys):
+    ckpt = tmp_path / "ck"
+    report = train_main(SMALL + ["--ckpt-dir", str(ckpt), "--device",
+                                 "cpu"])
+    out = capsys.readouterr().out
+    assert "[train] algo=td3 env=pendulum pop=3 strategy=pbt" in out
+    assert out.count("[train] evolve at iter") == 2
+    assert "lineage=" in out and "[train] done in" in out
+    assert [it for it, _ in report.evolutions] == [2, 4]
+    assert np.isfinite(report.best_fitness)
+    assert CheckpointManager(ckpt).latest() == 3
+    served = serve_main(["--algo", "td3", "--ckpt-dir", str(ckpt),
+                         "--ensemble", "2", "--fused-linear", "--batch",
+                         "16", "--requests", "3", "--device", "cpu"])
+    assert served.server.set.size == 2
+    for _, actions in served.batches:
+        assert actions.shape == (16, 1) and np.isfinite(actions).all()
+
+
+def test_train_cli_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal needs its absence")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(SMALL + ["--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flag", sorted(_REFUSED))
+def test_train_cli_refuses_unported_flags(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="not supported by the "
+                                                  "port"):
+        train_main(SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu",
+                            "--" + flag.replace("_", "-"), "1"])
+
+
+def test_train_cli_refuses_unported_choices(tmp_path):
+    base = SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train_main(base + ["--backend", "sequential"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train_main(["--algo", "sac"] + base[2:])
+    with pytest.raises(SystemExit):
+        train_main(base + ["--strategy", "cem"])
+
+
+def test_train_cli_refuses_a_used_ckpt_dir(tmp_path):
+    CheckpointManager(tmp_path).save(
+        0, {"x": np.zeros(2, np.float32)}, {"size": 1, "fitness": None})
+    with pytest.raises(FileExistsError, match="already holds a checkpoint"):
+        train_main(SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"])
