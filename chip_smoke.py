@@ -22,7 +22,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. update   — one full-width TD3 population update chained 4 times with
                 every kernel, and again with every plain version, from the
                 same state, batches and noise: step-1 gradients and the
-                parameters after 4 steps must agree;
+                parameters after 4 steps must agree, and the backwards of
+                the first step, by shape and gradients asked, must be the
+                12 that phase 3 times per update step;
   5. serve    — a seeded population of 8 full-width TD3 actors is written
                 in the checkpoint layout and served through the port's CLI
                 entry point (``repro_torch.launch.serve.main``, ``--fused-
@@ -43,7 +45,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the population's fitness, is served through
                 ``repro_torch.launch.serve.main``: the fittest member must
                 take slot 0, and the answers are checked against the plain
-                ensemble.
+                ensemble;
+  8. scans    — ``wkv6`` and ``ssd`` against their plain versions (head
+                sizes 32 and 64, chunks 16/64/256 with S of one and eight
+                chunks, the model's strided layout, nonzero states, decays
+                as strong as the models give, the served prefill's exact
+                shape), then timed at that shape beside their bounds;
+  9. LM parity — ``rwkv6-1.6b`` (2 layers) and ``zamba2-7b`` (7: one
+                super-block with the shared attention and a 1-layer tail)
+                at full width in float32, weights drawn on the card and
+                copied to the CPU: a 256-token prefill's last logits and
+                every decode-state leaf, card (kernels) against CPU (plain
+                versions);
+ 10. LM serve — both configs at full published size through
+                ``repro_torch.launch.serve.main`` (``--arch A --batch 4
+                --prompt-len 512 --tokens 32``) with every launch count set
+                to 0 just before and read just after: exactly 24 ``wkv6``
+                launches for rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no
+                other kernel; prefill and decode times; one prefill and one
+                decode step profiled.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
@@ -52,6 +72,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -77,6 +98,16 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # Adam's normalised step can turn a 1e-6 gradient difference into up to lr
 STEP1_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAMS_AFTER_4_ATOL = 1e-4
+# wkv6 / ssd against their chunked plain versions: fp32 sums over the head
+# and the chunk in another order (tests/test_kernels.py's fp32 tolerance)
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+# the LM path at full width, card (kernels, cuBLAS) against CPU (plain
+# versions): fp32 sums of up to 14,336 terms in other orders, through 2
+# and 7 layers
+PATH_TOL = dict(rtol=1e-3, atol=1e-3)
+PARITY_PROMPT = 256
+# the LM serving runs: 4 prompts of 512 tokens, 32 new tokens each
+LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -173,6 +204,27 @@ def pop_matmul_bound(n, bsz, k, m, *, broadcast: bool):
                                  else "operations")
 
 
+def pop_matmul_backward_bound(n, bsz, k, m, act, grads):
+    """Least time (ms) and what bounds it for one backward of a recording
+    launch, the gradients in ``grads`` (of "x", "w", "b") asked for: dy
+    read, the saved y read unless act is "none", w read for dx, x read
+    for dw, each gradient written once; act'(y) * dy per output element
+    (1 operation for relu, 3 for tanh), 2*N*B*K*M for each of dx and dw,
+    N*B*M for db."""
+    act_ops = {"none": 0, "relu": 1, "tanh": 3}[act]
+    nbytes = 4 * ((1 + (act != "none")) * n * bsz * m
+                  + ("x" in grads) * (n * k * m + n * bsz * k)
+                  + ("w" in grads) * (n * bsz * k + n * k * m)
+                  + ("b" in grads) * n * m)
+    flops = (act_ops * n * bsz * m
+             + 2 * n * bsz * k * m * (("x" in grads) + ("w" in grads))
+             + ("b" in grads) * n * bsz * m)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 # ---------------------------------------------------------------- phases
 def phase_kernels():
     """pop_matmul against its plain version, then timed at the path's
@@ -250,7 +302,19 @@ def phase_kernels():
 
 
 def _shape_rows(layers, count, net):
-    return [(net, k, m, act, count) for k, m, act in layers]
+    """(net, K, M, act, forwards per update step, backwards per update
+    step as ((gradients asked, count), ...)) for each layer. Of the 24
+    forwards of a step the 9 target ones run under no_grad; the actor loss
+    differentiates the actor, and the critic's Q1 head for dx alone (the
+    critic's weights do not require grad there; its Q2 head records and
+    is never differentiated); the critic loss both heads. A first layer's
+    input (obs, or obs and action) needs no dx: 12 backwards a step."""
+    rows = []
+    for i, (k, m, act) in enumerate(layers):
+        full = "wb" if i == 0 else "xwb"
+        back = ((full, 1),) if net == "actor" else ((full, 2), ("x", 1))
+        rows.append((net, k, m, act, count, back))
+    return rows
 
 
 TRAIN_SHAPES = (_shape_rows(ACTOR_LAYERS, 2, "actor")       # actor, target
@@ -269,7 +333,7 @@ def phase_pop_matmul_training():
     n, bsz = POPULATION, TRAIN["batch"]
     worst_grad = worst_fwd = share = 0.0
     cases = 0
-    for _, k, m, _, _ in TRAIN_SHAPES:
+    for _, k, m, _, _, _ in TRAIN_SHAPES:
         for act in ("relu", "tanh"):
             x = torch.randn((n, bsz, k), generator=gen, device="cuda")
             w = torch.randn((n, k, m), generator=gen,
@@ -297,7 +361,7 @@ def phase_pop_matmul_training():
 
     acts = {"none": lambda t: t, "relu": torch.relu, "tanh": torch.tanh}
     rows = []
-    for net, k, m, act, count in TRAIN_SHAPES:
+    for net, k, m, act, count, back in TRAIN_SHAPES:
         w = torch.randn((n, k, m), generator=gen, device="cuda") / k ** 0.5
         b = torch.randn((n, m), generator=gen, device="cuda")
         x = torch.randn((n, bsz, k), generator=gen, device="cuda")
@@ -305,14 +369,22 @@ def phase_pop_matmul_training():
         y = pop_matmul(x, w, b, activation=act)
         f = acts[act]
 
-        def backward():
-            # PopMatmul.backward's arithmetic, every gradient asked for
+        def backward(grads):
+            # PopMatmul.backward's arithmetic for the gradients asked
             d = dy * (y > 0) if act == "relu" else (
                 dy * (1.0 - y * y) if act == "tanh" else dy)
-            return (torch.bmm(d, w.transpose(1, 2)),
-                    torch.bmm(x.transpose(1, 2), d), d.sum(1))
+            return (torch.bmm(d, w.transpose(1, 2)) if "x" in grads else None,
+                    torch.bmm(x.transpose(1, 2), d) if "w" in grads else None,
+                    d.sum(1) if "b" in grads else None)
 
         bound, bound_by = pop_matmul_bound(n, bsz, k, m, broadcast=False)
+        backs = []
+        for grads, c in back:
+            back_bound, back_by = pop_matmul_backward_bound(n, bsz, k, m,
+                                                            act, grads)
+            backs.append({"grads": grads, "per_update_step": c,
+                          "ms": graph_ms(lambda: backward(grads)),
+                          "bound_ms": back_bound, "bound_by": back_by})
         row = {"net": net, "n": n, "b": bsz, "k": k, "m": m, "act": act,
                "launches_per_update_step": count,
                "ms": graph_ms(lambda: pop_matmul(x, w, b, activation=act)),
@@ -320,15 +392,22 @@ def phase_pop_matmul_training():
                    lambda: pop_matmul_plain(x, w, b, activation=act)),
                "library_ms": graph_ms(
                    lambda: f(torch.baddbmm(b[:, None, :], x, w))),
-               "backward_ms": graph_ms(backward),
+               "backward": backs,
+               "backward_ms_per_step": sum(r["ms"] * r["per_update_step"]
+                                           for r in backs),
+               "backward_bound_ms_per_step": sum(
+                   r["bound_ms"] * r["per_update_step"] for r in backs),
                "bound_ms": bound, "bound_by": bound_by}
         rows.append(row)
+        back_txt = ", ".join(
+            f"d{'/d'.join(r['grads'])} x{r['per_update_step']} "
+            f"{r['ms'] * 1e3:.3f} us (bound {r['bound_ms'] * 1e3:.3f} us, "
+            f"{r['bound_by']})" for r in backs)
         log(f"pop_matmul {net} (N={n},B={bsz},K={k},M={m},{act}) x{count} "
             f"per update step: kernel {row['ms'] * 1e3:.3f} us, plain "
             f"{row['plain_ms'] * 1e3:.3f} us, baddbmm "
-            f"{row['library_ms'] * 1e3:.3f} us, backward bmm "
-            f"{row['backward_ms'] * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
-            f"({bound_by})")
+            f"{row['library_ms'] * 1e3:.3f} us, bound "
+            f"{bound * 1e3:.3f} us ({bound_by}); backward bmm {back_txt}")
     return worst_grad, worst_fwd, share, rows
 
 
@@ -410,6 +489,29 @@ def phase_pop_adam():
     return worst, share, rows
 
 
+def backwards_of(fn):
+    """Runs fn with ``PopMatmul.backward`` counting its calls by (K, M,
+    the gradients asked, of "x", "w", "b"); returns fn's result and the
+    counts."""
+    from repro_torch.kernels import pop_matmul as pm
+
+    seen = collections.Counter()
+    orig = vars(pm.PopMatmul)["backward"]
+
+    def backward(ctx, dy):
+        _, w, _ = ctx.saved_tensors
+        asked = "".join(g for g, need in zip("xwb", ctx.needs_input_grad)
+                        if need)
+        seen[(w.shape[1], w.shape[2], asked)] += 1
+        return orig.__func__(ctx, dy)
+
+    pm.PopMatmul.backward = staticmethod(backward)
+    try:
+        return fn(), seen
+    finally:
+        pm.PopMatmul.backward = orig
+
+
 def phase_update_parity():
     """One full-width population update chained 4 times with every kernel
     and again with every plain version, from one state, batch stack and
@@ -446,13 +548,21 @@ def phase_update_parity():
     first = {k: v[0] for k, v in batches.items()}
     rest = {k: v[1:] for k, v in batches.items()}
 
+    want_backs = collections.Counter()
+    for _, k, m, _, _, back in TRAIN_SHAPES:
+        for grads, count in back:
+            want_backs[(k, m, grads)] += count
     out = {}
     for route, fused_linear, fused in (("kernels", True, None),
                                        ("plain", False, False)):
         update = td3.make_population_update(fused_linear=fused_linear,
                                             fused=fused)
         pop_matmul.launches = pop_adam.launches = 0
-        s1, _ = update(state, first, hypers, noise=noise[0])
+        (s1, _), backs = backwards_of(
+            lambda: update(state, first, hypers, noise=noise[0]))
+        if fused_linear and backs != want_backs:
+            raise AssertionError(f"update: backwards {dict(backs)}, the "
+                                 f"timing table says {dict(want_backs)}")
         s4, metrics = chain_steps(update, k_steps - 1)(
             s1, rest, hypers, noise=noise[1:])
         torch.cuda.synchronize()
@@ -764,6 +874,306 @@ def phase_train_serve(ckpt_dir, fitness):
     return worst
 
 
+# ------------------------------------------------------------ LM serving
+def wkv6_bound(b, h, s, d):
+    """Least time (ms) and what bounds it for one wkv6 launch: r, k, v, lw
+    read and y written once, u, the initial and the final state; the
+    literal recurrence's 5 fp32 operations per token and state element
+    (k v, the decayed update, r S into y), and per token and row one
+    exponential, the bonus scalar sum_k r u k (3) and its rank-1 term
+    into y (2). The chunked form does more (see kernels/wkv6.py)."""
+    nbytes = 4 * (5 * b * h * s * d + h * d + 2 * b * h * d * d)
+    ops = 5 * b * h * s * d * d + 6 * b * h * s * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def ssd_bound(b, h, s, p, n):
+    """Least time (ms) and what bounds it for one ssd launch: x read and y
+    written once, dt, a, b, c, the initial and the final state; the
+    literal recurrence's 5 fp32 operations per token and state element
+    (a multiply and two multiply-adds), dt * x per token and row, and one
+    exponential per token and head."""
+    nbytes = 4 * (2 * b * h * s * p + b * h * s + h + 2 * b * s * n
+                  + 2 * b * h * p * n)
+    ops = 5 * b * h * s * p * n + b * h * s * p + b * h * s
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _wkv6_inputs(gen, b, h, s, d, *, model_layout: bool):
+    """r, k, v, lw, u, state with lw = -exp(U(-3, 3)) (decays down to
+    exp(-e^3) per step, as strong as the model's) and a nonzero state;
+    with ``model_layout`` r/k/v/lw are (B,S,H,D) tensors transposed, as
+    the model hands them over."""
+    shape = (b, s, h, d) if model_layout else (b, h, s, d)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    lw = -torch.exp(torch.rand(shape, generator=gen, device="cuda") * 6 - 3)
+    if model_layout:
+        r, k, v, lw = (t.transpose(1, 2) for t in (r, k, v, lw))
+    u = 0.3 * torch.randn((h, d), generator=gen, device="cuda")
+    state = torch.randn((b, h, d, d), generator=gen, device="cuda")
+    return r, k, v, lw, u, state
+
+
+def _ssd_inputs(gen, b, h, s, p, n, *, model_layout: bool):
+    """x, dt, a, b, c, state with a = -linspace(1, 16, H) (the model's
+    -exp(a_log)), dt = softplus(N(0,1) + 1) and a nonzero state; with
+    ``model_layout`` x, b, c are slices of one (B,S,H*P+2N) tensor and dt
+    a (B,S,H) tensor transposed, as the model hands them over."""
+    if model_layout:
+        xbc = torch.randn((b, s, h * p + 2 * n), generator=gen,
+                          device="cuda")
+        x = xbc[..., :h * p].reshape(b, s, h, p).transpose(1, 2)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, s, h), generator=gen, device="cuda") + 1).transpose(1, 2)
+    else:
+        x = torch.randn((b, h, s, p), generator=gen, device="cuda")
+        bm, cm = (torch.randn((b, s, n), generator=gen, device="cuda")
+                  for _ in range(2))
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, h, s), generator=gen, device="cuda") + 1)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    state = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    return x, dt, a, bm, cm, state
+
+
+def phase_scan_kernel(name):
+    """wkv6 or ssd against its plain version on the card: head size 32 and
+    64 (N=64 for ssd), chunk 16, 64 and 256 with S = chunk and 8 chunks,
+    both layouts, nonzero states, strong decays; then the served path's
+    exact shape, checked and timed beside its bound and the plain
+    version. Returns (max abs err, its share of the tolerance, row)."""
+    if name == "wkv6":
+        from repro_torch.kernels.wkv6 import wkv6 as kernel
+        from repro_torch.kernels.wkv6 import wkv6_plain as plain
+        inputs = lambda gen, b, h, s, d, ml: _wkv6_inputs(
+            gen, b, h, s, d, model_layout=ml)
+        path, chunk_path = (4, 32, 512, 64), 64
+        bound, bound_by = wkv6_bound(*path)
+    else:
+        from repro_torch.kernels.ssd import ssd as kernel
+        from repro_torch.kernels.ssd import ssd_plain as plain
+        inputs = lambda gen, b, h, s, d, ml: _ssd_inputs(
+            gen, b, h, s, d, 64, model_layout=ml)
+        path, chunk_path = (4, 112, 512, 64), 256
+        bound, bound_by = ssd_bound(*path, 64)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = share = 0.0
+    cases = 0
+
+    def check(args, chunk):
+        nonlocal worst, share, cases
+        got = kernel(*args, chunk=chunk)
+        want = plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, **SCAN_TOL)
+            worst = max(worst, (g - r).abs().max().item())
+            share = max(share, tol_share(g, r, SCAN_TOL))
+        cases += 1
+
+    for d in (32, 64):
+        for chunk in (16, 64, 256):
+            for s in (chunk, 8 * chunk):
+                for model_layout in (False, True):
+                    check(inputs(gen, 2, 3, s, d, model_layout), chunk)
+    args = inputs(gen, *path, True)
+    check(args, chunk_path)
+    log(f"{name} == plain on {cases} cases (head size 32/64, chunk "
+        f"16/64/256, S = chunk and 8 chunks, both layouts, the path's "
+        f"{path}), max abs err {worst:.3g}, {share:.3g} of the tolerance")
+    row = {"shape": path, "chunk": chunk_path,
+           "ms": graph_ms(lambda: kernel(*args, chunk=chunk_path)),
+           "plain_ms": graph_ms(lambda: plain(*args, chunk=chunk_path),
+                                reps=5, iters=5),
+           "bound_ms": bound, "bound_by": bound_by}
+    log(f"{name} {path} chunk {chunk_path}: kernel {row['ms'] * 1e3:.3f} us "
+        f"per launch, plain {row['plain_ms'] * 1e3:.3f} us, bound "
+        f"{bound * 1e3:.3f} us ({bound_by}); no PyTorch call computes it")
+    return worst, share, row
+
+
+def _lm_config(arch, **kw):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(**kw)
+
+
+def phase_lm_parity():
+    """The served path at full width and reduced depth, in float32:
+    rwkv6-1.6b with 2 layers, zamba2-7b with 7 (a 6-layer super-block with
+    the shared attention, and a 1-layer tail). Weights drawn once on the
+    card and copied to the CPU; one 256-token prompt prefilled on both;
+    the last logits and every decode-state leaf must agree. Returns
+    {arch: (max abs err, share of the tolerance)}."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+
+    out = {}
+    for arch, layers, kernel in (("rwkv6-1.6b", 2, wkv6),
+                                 ("zamba2-7b", 7, ssd)):
+        cfg = _lm_config(arch, num_layers=layers, dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        params = lm.init_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT),
+                               generator=gen, device="cuda")
+        step = lm.make_serve_step(cfg)
+        kernel.launches = 0
+        logits, state = step(params, {"tokens": tokens},
+                             lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1,
+                                                  device="cuda"), 0)
+        torch.cuda.synchronize()
+        if kernel.launches != layers:
+            raise AssertionError(f"{arch} parity: {kernel.launches} "
+                                 f"{kernel.__name__} launches for {layers} "
+                                 f"layers")
+        cpu_logits, cpu_state = step(
+            tree_map(lambda t: t.cpu(), params), {"tokens": tokens.cpu()},
+            lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1), 0)
+        worst = share = 0.0
+        pairs = [(logits[:, -1], cpu_logits[:, -1])] + list(
+            zip(leaves(state), leaves(cpu_state)))
+        for got, want in pairs:
+            got = got.cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{arch} parity: non-finite values")
+            torch.testing.assert_close(got, want, **PATH_TOL)
+            worst = max(worst, (got - want).abs().max().item())
+            share = max(share, tol_share(got, want, PATH_TOL))
+        log(f"{arch} with {layers} layers at full width, fp32, a "
+            f"{PARITY_PROMPT}-token prefill: card (kernels) == CPU (plain "
+            f"versions) on the last logits and {len(pairs) - 1} state "
+            f"leaves, max abs err {worst:.3g}, {share:.3g} of the tolerance")
+        out[arch] = (worst, share)
+        del params, state, logits, cpu_state, cpu_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_step(step):
+    """(device busy ms, wall ms, top kernels by device time) of one
+    synchronised ``step()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (sum(by_name.values()) / 1e3, wall * 1e3,
+            [(name[:60], us / 1e3) for name, us in top])
+
+
+def phase_lm_serve():
+    """Both configs at their full published size through the port's entry
+    point, ``--batch 4 --prompt-len 512 --tokens 32``: the launch counts
+    set to 0 just before each run and read just after (24 wkv6 launches
+    for rwkv6-1.6b, 81 ssd for zamba2-7b, nothing else), the tokens'
+    shape and range; a second run for warm times; then one prefill and
+    one decode step profiled. Returns {arch: numbers}."""
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import lm
+
+    counters = {"wkv6": wkv6, "ssd": ssd, "pop_matmul": pop_matmul,
+                "pop_adam": pop_adam}
+    out = {}
+    b, s, t = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["tokens"]
+    for arch, want in (("rwkv6-1.6b", {"wkv6": 24}), ("zamba2-7b",
+                                                     {"ssd": 81})):
+        cfg = _lm_config(arch)
+        argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
+                "--tokens", str(t), "--seed", str(SEED)]
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        report = serve_main(argv)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        expected = {k: want.get(k, 0) for k in counters}
+        if counts != expected:
+            raise AssertionError(f"serve {arch}: launches {counts}, want "
+                                 f"{expected}")
+        tokens = report.tokens
+        if tuple(tokens.shape) != (b, 1 + t) or not (
+                0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+            raise AssertionError(f"serve {arch}: tokens {tuple(tokens.shape)}"
+                                 f" in [{int(tokens.min())}, "
+                                 f"{int(tokens.max())}]")
+        peak = torch.cuda.max_memory_allocated()
+        warm = serve_main(argv)
+        state_bytes = sum(
+            int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+            for shape, dt in _shape_leaves(
+                lm.decode_state_shapes(cfg, b, s + t + 1)))
+        log(f"serve {arch} (batch {b}, prompt {s}, {t} tokens): launches "
+            f"{counts}; {report.num_params} parameters, "
+            f"{report.weight_bytes} weight bytes, {state_bytes} decode-state "
+            f"bytes, peak {peak} bytes allocated")
+        log(f"serve {arch}: prefill {report.prefill_ms:.2f} ms cold, "
+            f"{warm.prefill_ms:.2f} ms warm; {report.decode_ms_per_token:.3f}"
+            f" / {warm.decode_ms_per_token:.3f} ms per decode step (cold / "
+            f"warm)")
+
+        # one prefill and one decode step of the same model, profiled
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = lm.init_params(gen, cfg, dtype=lm.compute_dtype(cfg))
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                device="cuda")
+        step = lm.make_serve_step(cfg)
+        state = lm.init_decode_state(cfg, b, s + t + 1, device="cuda")
+        step(params, {"tokens": prompts}, state, 0)        # warm
+        prof = {}
+        for phase, fn in (
+                ("prefill", lambda: step(params, {"tokens": prompts}, state,
+                                         0)),
+                ("decode", lambda: step(params, {"tokens": prompts[:, :1]},
+                                        state, s))):
+            busy, wall, top = _profile_step(fn)
+            prof[phase] = {"busy_ms": busy, "wall_ms": wall, "top": top}
+            log(f"serve {arch} {phase}: device busy {busy:.3f} ms of "
+                f"{wall:.3f} ms profiled ({busy / wall:.4f}); top kernels "
+                + ", ".join(f"{n} {ms:.3f} ms" for n, ms in top[:4]))
+        out[arch] = {"launches": counts, "num_params": report.num_params,
+                     "weight_bytes": report.weight_bytes,
+                     "state_bytes": state_bytes, "peak_bytes": peak,
+                     "prefill_ms_cold": report.prefill_ms,
+                     "prefill_ms": warm.prefill_ms,
+                     "decode_ms_per_token_cold": report.decode_ms_per_token,
+                     "decode_ms_per_token": warm.decode_ms_per_token,
+                     "profile": prof}
+        del report, warm, params, state, prompts
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shape_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _shape_leaves(v)]
+    return [tree]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -782,10 +1192,10 @@ def main() -> int:
         return 2
 
     # 1. card
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    log(f"device {name}; nvidia-smi: {smi}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+    log(f"device {device_name}; nvidia-smi: {smi}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -796,7 +1206,7 @@ def main() -> int:
 
     def nvcc():
         t0 = time.perf_counter()
-        built["reports"] = build.build(["pop_matmul"])
+        built["reports"] = build.build(["pop_matmul", "wkv6", "ssd"])
         built["seconds"] = time.perf_counter() - t0
 
     thread = threading.Thread(target=nvcc)
@@ -836,6 +1246,12 @@ def main() -> int:
         trained_serve_err = phase_train_serve(ckpt_dir,
                                               train["saved_fitness"])
 
+    # 8. wkv6 and ssd vs plain, timing; 9. the LM path, card vs CPU;
+    # 10. LM serving through the port's entry point at full size
+    scans = {k: phase_scan_kernel(k) for k in ("wkv6", "ssd")}
+    lm_parity = phase_lm_parity()
+    lm_serve = phase_lm_serve()
+
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
@@ -864,7 +1280,12 @@ def main() -> int:
         "bound_by": ("operations" if 2 * ops_share >=
                      per_step("bound_ms", train_rows) else "bytes"),
         "library_ms": per_step("library_ms", train_rows),
-        "backward_bmm_ms": per_step("backward_ms", train_rows),
+        # the 12 backwards of one update step, each with the gradients
+        # it is asked for
+        "backward_bmm_ms": sum(r["backward_ms_per_step"]
+                               for r in train_rows),
+        "backward_bound_ms": sum(r["backward_bound_ms_per_step"]
+                                 for r in train_rows),
         "per_launch_training": train_rows,
         "serve": {"launches": serve["mean"]["launches"],
                   "work": f"the {len(rows)} launches of one served batch "
@@ -895,6 +1316,32 @@ def main() -> int:
                         "member",
         "per_launch": adam_rows,
     }]
+    for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
+                                    ("ssd", "zamba2-7b", 81)):
+        err, share, row = scans[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": ("src/repro/kernels/wkv6.py:74" if name == "wkv6"
+                         else "src/repro/kernels/ssd.py:71"),
+            "launches": lm_serve[arch]["launches"][name],
+            "max_abs_err": max(err, lm_parity[arch][0]),
+            "tolerance": "rtol=atol=2e-4 (kernel vs plain); 1e-3 (the "
+                         "path, card vs CPU)",
+            "max_err_over_tolerance": max(share, lm_parity[arch][1]),
+            "work": f"one launch at the {arch} prefill's shape "
+                    f"{row['shape']} (chunk {row['chunk']}), "
+                    f"{per_prefill} per served prefill; device times, CUDA "
+                    f"graph replay, L2-warm",
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes this function",
+            "per_prefill_ms": row["ms"] * per_prefill,
+        })
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "
             f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms per batch")
@@ -903,12 +1350,17 @@ def main() -> int:
         f"member-update-step, device busy share "
         f"{train['device_busy_share']}; update parity grads "
         f"{update_grad_err:.3g}, params {update_param_err:.3g}")
+    for arch, r in lm_serve.items():
+        log(f"serve {arch}: prefill {r['prefill_ms']:.2f} ms, "
+            f"{r['decode_ms_per_token']:.3f} ms per decode step (batch "
+            f"{LM_SERVE['batch']}, prompt {LM_SERVE['prompt_len']}, warm)")
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "evolutions"}}))
+    print(json.dumps({"lm_serve": lm_serve}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

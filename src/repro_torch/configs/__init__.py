@@ -1,2 +1,5 @@
-"""Configuration dataclasses of the port (``repro.configs`` subset)."""
-from repro_torch.configs.base import HyperSpace, PopulationConfig  # noqa: F401
+"""Configuration dataclasses of the port (``repro.configs`` subset) and
+the registry of the LM configs ported so far."""
+from repro_torch.configs.base import (HyperSpace, LMConfig,  # noqa: F401
+                                      PopulationConfig)
+from repro_torch.configs.registry import get_config, list_configs  # noqa: F401

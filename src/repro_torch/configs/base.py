@@ -1,12 +1,68 @@
-"""``HyperSpace`` and ``PopulationConfig``, copied from the JAX package's
-``repro.configs.base`` (the port imports nothing of it). The fields of
-the strategies not ported yet (CEM's, DvD's) come with them; ``donate``
-has no counterpart in the eager port, nor have ``fused_adam`` and
-``fused_linear``: the port's update always runs the kernels on the card.
-The LM configs come with the LM slice."""
+"""``LMConfig``, ``HyperSpace`` and ``PopulationConfig``, copied from the
+JAX package's ``repro.configs.base`` (the port imports nothing of it).
+
+``LMConfig`` keeps the fields that the port's LM serving path reads, for
+the families it runs (RWKV6 and Zamba2); ``replace`` and ``smoke`` give
+the JAX package's values for them. The fields of the attention, MoE, MLA
+and frontend paths, and those of LM training (``remat``), come with the
+slices that port them; the SSM scans always compute in float32.
+
+Of ``PopulationConfig``'s fields, those of the strategies not ported yet
+(CEM's, DvD's) come with it; ``donate`` has no counterpart in the eager
+port, nor have ``fused_adam`` and ``fused_linear``: the port's update
+always runs the kernels on the card."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # defaults to d_model // num_heads
+    activation: str = "silu"       # silu -> SwiGLU, gelu -> GeGLU
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    block_type: str = "rwkv6"      # rwkv6 | mamba2
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0     # zamba2: shared attn block period
+    dtype: str = "bfloat16"
+    ssm_chunk: int = 128           # SSD/WKV chunk length
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def replace(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+    def smoke(self) -> "LMConfig":
+        """Reduced same-family config for CPU smoke tests."""
+        kw = dict(
+            num_layers=min(self.num_layers,
+                           2 if self.shared_attn_every == 0 else 8),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=max(1, min(self.num_kv_heads, 2)),
+            d_ff=256,
+            vocab_size=512,
+            head_dim=32 if self.head_dim else None,
+            dtype="float32",
+            ssm_head_dim=32,
+            ssm_state=16 if self.block_type == "mamba2" else 0,
+        )
+        if self.shared_attn_every:
+            kw["shared_attn_every"] = 4
+        return self.replace(**kw)
 
 
 @dataclass(frozen=True)

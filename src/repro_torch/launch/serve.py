@@ -1,4 +1,18 @@
-"""Serving driver (``repro.launch.serve``), the RL ensemble branch.
+"""Serving entry point (``repro.launch.serve``): both inference workloads
+behind one CLI.
+
+``--arch <id>`` serves a language model: a model of that
+config with random weights (drawn on the device from ``--seed``), a batch of
+random prompts prefilled in ONE call of the serve step, then one decode
+call per new token, sampling from the logits:
+
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --batch 4 \\
+        --prompt-len 512 --tokens 32
+
+On the card every RWKV6 layer's prefill is one launch of the CUDA
+``wkv6`` kernel and every Mamba2 layer's one launch of ``ssd``; decode
+steps take the literal scans. Of the JAX package's archs the port runs
+``rwkv6-1.6b``, ``zamba2-7b`` and ``rwkv6-test``; the others are refused.
 
 ``--algo <name>`` loads a checkpoint a trained population left behind,
 promotes a fitness + diversity serving set
@@ -13,7 +27,7 @@ layer.
         --ckpt-dir DIR --ensemble 4 --mode mean --fused-linear --batch 256
 
 Runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
-plain versions). ``--arch`` (LM decode) is not ported yet.
+plain versions).
 """
 from __future__ import annotations
 
@@ -39,6 +53,92 @@ class ServeReport:
     server: object
     watcher: object
     batches: list = field(default_factory=list)   # [(obs, actions)] numpy
+
+
+@dataclass
+class LMServeReport:
+    """What one LM serving run did: the tokens (the first prompt token and
+    the new ones, (B, 1+T)), the prefill's time and the decode time per
+    new token (host clock, device synchronised), and the weights' size."""
+    tokens: torch.Tensor
+    prefill_ms: float
+    decode_ms_per_token: float
+    num_params: int
+    weight_bytes: int
+
+
+def generate(cfg, params, prompt_tokens, *, steps: int, max_len: int,
+             greedy: bool = True, generator=None, times=None):
+    """The JAX package's ``generate``, with the prompt prefilled in one call
+    of the serve step (the JAX package steps it token by token through
+    the same step): returns the first prompt token followed by ``steps``
+    new tokens, (B, 1+steps). Greedy, or sampled from the logits with
+    ``generator``. With a dict ``times``, the device is synchronised
+    around the prefill and the decode loop and their seconds recorded as
+    ``prefill_s`` and ``decode_s``."""
+    from repro_torch.models import lm
+
+    b, s0 = prompt_tokens.shape
+    serve = lm.make_serve_step(cfg)
+    state = lm.init_decode_state(cfg, b, max_len,
+                                 device=prompt_tokens.device)
+
+    def pick(logits):
+        if greedy:
+            return logits.argmax(-1, keepdim=True)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
+
+    def clock():
+        if prompt_tokens.is_cuda:
+            torch.cuda.synchronize(prompt_tokens.device)
+        return time.perf_counter()
+
+    t0 = clock()
+    logits, state = serve(params, {"tokens": prompt_tokens}, state, 0)
+    out = [prompt_tokens[:, :1], pick(logits[:, -1])]
+    t1 = clock()
+    for t in range(steps - 1):
+        logits, state = serve(params, {"tokens": out[-1]}, state, s0 + t)
+        out.append(pick(logits[:, -1]))
+    t2 = clock()
+    if times is not None:
+        times.update(prefill_s=t1 - t0, decode_s=t2 - t1)
+    return torch.cat(out, dim=1)
+
+
+def _serve_lm(args) -> LMServeReport:
+    """LM branch: random weights and prompts from ``--seed``, drawn on the
+    device, then :func:`generate`, sampling."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init_params(gen, cfg, dtype=lm.compute_dtype(cfg))
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=gen, device=device)
+    times = {}
+    out = generate(cfg, params, prompts, steps=args.tokens,
+                   max_len=args.prompt_len + args.tokens + 1, greedy=False,
+                   generator=gen, times=times)
+    prefill_ms = 1e3 * times["prefill_s"]
+    per_token = 1e3 * times["decode_s"] / max(args.tokens - 1, 1)
+    weights = leaves(params)
+    num_params = sum(t.numel() for t in weights)
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    print(f"[serve] arch={cfg.name} device={device} batch={args.batch} "
+          f"prompt={args.prompt_len}: {num_params} parameters "
+          f"({weight_bytes} bytes); generated {tuple(out.shape)}, prefill "
+          f"{prefill_ms:.2f} ms, {per_token:.3f} ms per decode step")
+    print(f"[serve] tokens[:2] = {out[:2].tolist()}")
+    return LMServeReport(tokens=out, prefill_ms=prefill_ms,
+                         decode_ms_per_token=per_token,
+                         num_params=num_params, weight_bytes=weight_bytes)
 
 
 def _serve_rl(args) -> ServeReport:
@@ -110,14 +210,15 @@ def _serve_rl(args) -> ServeReport:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="LM config id (decode workload) — not ported yet")
+                    help="LM config id: rwkv6-1.6b, zamba2-7b or rwkv6-test")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
                     "as an ensemble")
     ap.add_argument("--env", default="pendulum",
                     help="env of the trained checkpoint")
-    ap.add_argument("--ckpt-dir", required=True,
-                    help="checkpoint dir a population trainer wrote")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint dir a population trainer wrote "
+                    "(with --algo)")
     ap.add_argument("--ensemble", type=int, default=4,
                     help="serving-set size (fitness + DvD selection)")
     ap.add_argument("--mode", default="mean",
@@ -135,8 +236,14 @@ def main(argv=None):
                     help="serve the ensemble through the population-"
                     "batched forward (one pop_matmul launch per layer) "
                     "instead of member by member")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the config's reduced smoke version")
     ap.add_argument("--batch", type=int, default=4,
-                    help="fixed request batch (requests are padded to it)")
+                    help="fixed request batch (requests are padded to it); "
+                    "with --arch, the number of prompts")
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="new tokens to generate per prompt")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
@@ -145,9 +252,9 @@ def main(argv=None):
     if (args.arch is None) == (args.algo is None):
         ap.error("pass exactly one of --arch (LM) or --algo (RL ensemble)")
     if args.arch is not None:
-        raise NotImplementedError(
-            "--arch (LM decode) is not ported yet: it comes with the LM "
-            "slice, the last in ROADMAP.md's port queue")
+        return _serve_lm(args)
+    if args.ckpt_dir is None:
+        ap.error("--algo needs --ckpt-dir")
     return _serve_rl(args)
 
 

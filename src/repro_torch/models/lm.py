@@ -1,0 +1,330 @@
+"""Decoder LM (``repro.models.lm``), the recurrent families: RWKV6 and the
+Zamba2 hybrid (Mamba2 with a shared attention block).
+
+The model is organised, as in the JAX package, as *segments* of
+homogeneous blocks whose parameters are stacked along a leading layer
+axis; the port walks each segment's layers in a Python loop where JAX
+scans. Decode state (WKV states, SSD and convolution states, KV caches)
+is stacked the same way.
+
+Public API:
+    init_params(generator, cfg, dtype=torch.float32)
+    cast_params(params, cfg)
+    forward(params, cfg, batch, state=None, cache_index=None)
+    make_serve_step(cfg)
+    decode_state_shapes(cfg, batch, max_len) / init_decode_state(...)
+
+Differences from the JAX package, none of them in the numbers:
+
+  * parameters are cast to ``cfg.dtype`` once (:func:`cast_params`, or
+    ``init_params(dtype=...)``), not inside every step; ``final_norm``
+    keeps its float32 scale, as JAX reads it uncast;
+  * a step updates the decode state in place and returns it (the states
+    are the largest tensors of a served batch after the weights);
+  * the kernels run wherever the tensors are on the card (prefill: the
+    CUDA ``wkv6`` and ``ssd``; decode: the literal scans), and their plain
+    versions on the CPU.
+
+Not ported: the attention layouts (dense, MoE, MLA), whose stateless
+forward reaches flash attention on a TPU (:func:`layout` refuses them),
+a Mamba2 stack without the shared attention (no config has one), the
+frontends, training (``lm_loss``, the train steps), and ``input_specs``.
+A stateless ``forward`` of Zamba2 raises too: its shared attention must
+not run plain attention where the JAX package runs the flash kernel.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.nn.attention import gqa_apply, gqa_init
+from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
+                                  glu_mlp_init, layernorm_apply,
+                                  layernorm_init, lecun_normal,
+                                  rmsnorm_apply, rmsnorm_init)
+from repro_torch.nn.mamba2 import mamba2_block_apply, mamba2_block_init
+from repro_torch.nn.rwkv6 import (channel_mix_apply, rwkv6_block_init,
+                                  time_mix_apply)
+from repro_torch.tree import tree_map
+
+# ---------------------------------------------------------------------------
+# layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Segment:
+    name: str
+    kind: str            # rwkv | mamba
+    count: int           # layers (or super-blocks) stacked
+    inner: int = 1       # mamba layers per super-block
+
+
+def layout(cfg: LMConfig) -> list[Segment]:
+    """RWKV6: one segment of layers. Zamba2: super-blocks of
+    ``shared_attn_every`` Mamba2 layers, each led by the shared attention
+    block, then a tail super-block of the remaining layers (81 = 13 x 6 +
+    3). Every Mamba2 segment carries the shared attention."""
+    if cfg.block_type == "rwkv6":
+        return [Segment("rwkv", "rwkv", cfg.num_layers)]
+    if cfg.block_type == "mamba2" and cfg.shared_attn_every:
+        inner = cfg.shared_attn_every
+        n_super, rem = divmod(cfg.num_layers, inner)
+        segs = [Segment("mamba_main", "mamba", n_super, inner=inner)]
+        if rem:
+            segs.append(Segment("mamba_tail", "mamba", 1, inner=rem))
+        return segs
+    raise NotImplementedError(
+        f"{cfg.name}: only the RWKV6 and Zamba2 (Mamba2 with a shared "
+        f"attention block) layouts are ported; attention layouts wait for "
+        f"flash_attention (ROADMAP.md §1, item 15)")
+
+
+def compute_dtype(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _attn_block_init(generator, cfg: LMConfig, dtype):
+    dev = generator.device
+    return {"attn_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
+            "mlp_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
+            "attn": gqa_init(generator, d_model=cfg.d_model,
+                             num_heads=cfg.num_heads,
+                             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                             dtype=dtype),
+            "mlp": glu_mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                dtype=dtype)}
+
+
+def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index):
+    y = rmsnorm_apply(p["attn_norm"], h)
+    y, _ = gqa_apply(p["attn"], y, positions, num_heads=cfg.num_heads,
+                     num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                     rope_theta=cfg.rope_theta, cache=cache,
+                     cache_index=cache_index)
+    h = h + y
+    y = glu_mlp_apply(p["mlp"], rmsnorm_apply(p["mlp_norm"], h),
+                      activation=cfg.activation)
+    return h + y
+
+
+def _rwkv_block_init(generator, cfg: LMConfig, dtype):
+    dev = generator.device
+    p = rwkv6_block_init(generator, d_model=cfg.d_model, d_ff=cfg.d_ff,
+                         head_dim=cfg.ssm_head_dim, dtype=dtype)
+    p["ln1"] = layernorm_init(cfg.d_model, device=dev, dtype=dtype)
+    p["ln2"] = layernorm_init(cfg.d_model, device=dev, dtype=dtype)
+    return p
+
+
+def _assign(dst, src):
+    """Write a layer's new state into its slot of the stacked state."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def _rwkv_block_apply(p, cfg: LMConfig, h, state):
+    """state {"wkv", "tm_x", "cm_x"}: this layer's views, updated in place."""
+    x = layernorm_apply(p["ln1"], h)
+    y, wkv, tm_x = time_mix_apply(p["time_mix"], x,
+                                  state["tm_x"].to(h.dtype), state["wkv"],
+                                  head_dim=cfg.ssm_head_dim,
+                                  chunk=min(cfg.ssm_chunk, 64))
+    h = h + y
+    x = layernorm_apply(p["ln2"], h)
+    y, cm_x = channel_mix_apply(p["channel_mix"], x,
+                                state["cm_x"].to(h.dtype))
+    _assign(state, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x})
+    return h + y
+
+
+def _mamba_layer_init(generator, cfg: LMConfig, dtype):
+    return {"norm": rmsnorm_init(cfg.d_model, device=generator.device,
+                                 dtype=dtype),
+            "mamba": mamba2_block_init(generator, d_model=cfg.d_model,
+                                       d_state=cfg.ssm_state,
+                                       head_dim=cfg.ssm_head_dim,
+                                       dtype=dtype)}
+
+
+def _mamba_layer_apply(p, cfg: LMConfig, h, state):
+    """state {"ssm", "conv"}: this layer's views, updated in place."""
+    y, new_state = mamba2_block_apply(
+        p["mamba"], rmsnorm_apply(p["norm"], h), state,
+        d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+        chunk=cfg.ssm_chunk)
+    _assign(state, new_state)
+    return h + y
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _stacked_init(n: int, fn):
+    """``n`` draws of ``fn()`` stacked along a new leading axis, written
+    layer by layer into one allocation (peak: the stack plus one layer)."""
+    first = fn()
+    out = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
+    for i in range(n):
+        layer = first if i == 0 else fn()
+        tree_map(lambda d, s: d[i].copy_(s), out, layer)
+    return out
+
+
+def init_params(generator: torch.Generator, cfg: LMConfig, *,
+                dtype=torch.float32):
+    """Random parameters with the JAX package's tree, shapes and (with the
+    default float32) dtypes, drawn on the generator's device layer by
+    layer. With ``dtype`` given every leaf is cast as it is drawn, except
+    ``final_norm``, which stays float32 (see :func:`cast_params`)."""
+    dev = generator.device
+    params: dict[str, Any] = {
+        "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model,
+                                dtype=dtype),
+        "segments": {}}
+    for seg in layout(cfg):
+        if seg.kind == "rwkv":
+            params["segments"][seg.name] = _stacked_init(
+                seg.count, lambda: _rwkv_block_init(generator, cfg, dtype))
+        else:
+            layer = lambda: _mamba_layer_init(generator, cfg, dtype)
+            params["segments"][seg.name] = _stacked_init(
+                seg.count, lambda: _stacked_init(seg.inner, layer))
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _attn_block_init(generator, cfg, dtype)
+    params["final_norm"] = rmsnorm_init(cfg.d_model, device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": lecun_normal(
+            generator, (cfg.d_model, cfg.vocab_size), dtype=dtype)}
+    return params
+
+
+def cast_params(params, cfg: LMConfig):
+    """The compute copy of a float32 tree (from ``init_params`` or carried
+    across from the JAX package): every floating leaf in ``cfg.dtype``,
+    ``final_norm`` in float32. The JAX package makes the same cast inside
+    every step; here it is made once."""
+    out = cast({k: v for k, v in params.items() if k != "final_norm"},
+               compute_dtype(cfg))
+    out["final_norm"] = cast(params["final_norm"], torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree, i):
+    return tree_map(lambda a: a[i], tree)
+
+
+def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
+    """batch: {"tokens": (B,S) integers}; params from :func:`cast_params`.
+    With a decode state, the S tokens continue the sequence at
+    ``cache_index`` and the state is updated in place. Returns (logits
+    (B,S,V), state)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    emb = params["embed"]["embedding"]
+    if emb.dtype != compute_dtype(cfg):
+        raise TypeError(f"forward: parameters in {emb.dtype}, config "
+                        f"{cfg.name} computes in {cfg.dtype}: pass them "
+                        f"through cast_params first")
+    segs = layout(cfg)
+    if state is None:
+        if cfg.shared_attn_every:
+            raise NotImplementedError(
+                f"{cfg.name}: a stateless forward runs its attention "
+                f"through flash_attention in the JAX package: not ported "
+                f"yet (flash_attention)")
+        # fresh zero state, as the JAX package's blocks make without one
+        state, keep = init_decode_state(cfg, b, s, device=tokens.device), False
+        cache_index = 0
+    else:
+        keep = True
+    positions = (cache_index
+                 + torch.arange(s, device=tokens.device)).expand(b, s)
+
+    h = emb[tokens]
+    for seg in segs:
+        seg_p = params["segments"][seg.name]
+        seg_st = state[seg.name]
+        for i in range(seg.count):
+            layer_p, layer_st = _layer(seg_p, i), _layer(seg_st, i)
+            if seg.kind == "rwkv":
+                h = _rwkv_block_apply(layer_p, cfg, h, layer_st)
+                continue
+            h = _attn_block_apply(params["shared_attn"], cfg, h, positions,
+                                  layer_st["attn"]["kv"], cache_index)
+            for j in range(seg.inner):
+                h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
+                                       _layer(layer_st["mamba"], j))
+
+    h = rmsnorm_apply(params["final_norm"], h)
+    head = (params["embed"]["embedding"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+    return h @ head, (state if keep else None)
+
+
+def make_serve_step(cfg: LMConfig):
+    """``serve_step(params, batch, state, cache_index) -> (logits, state)``:
+    a whole prompt (prefill, ``cache_index`` 0) or one token (decode)."""
+    def serve_step(params, batch, state, cache_index):
+        with torch.no_grad():
+            return forward(params, cfg, batch, state=state,
+                           cache_index=cache_index)
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+
+
+def _seg_state_shape(seg: Segment, cfg: LMConfig, batch: int, max_len: int):
+    dtype = compute_dtype(cfg)
+    if seg.kind == "rwkv":
+        nh = cfg.d_model // cfg.ssm_head_dim
+        return {"wkv": ((batch, nh, cfg.ssm_head_dim, cfg.ssm_head_dim),
+                        torch.float32),
+                "tm_x": ((batch, 1, cfg.d_model), dtype),
+                "cm_x": ((batch, 1, cfg.d_model), dtype)}
+    d_inner = 2 * cfg.d_model
+    nh = d_inner // cfg.ssm_head_dim
+    mamba = {"ssm": ((seg.inner, batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                     torch.float32),
+             "conv": ((seg.inner, batch, 3, d_inner + 2 * cfg.ssm_state),
+                      dtype)}
+    kv = ((batch, max_len, cfg.num_kv_heads, cfg.hd), dtype)
+    return {"mamba": mamba, "attn": {"kv": {"k": kv, "v": kv}}}
+
+
+def _map_shapes(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_shapes(fn, v) for k, v in tree.items()}
+    return fn(*tree)
+
+
+def decode_state_shapes(cfg: LMConfig, batch: int, max_len: int):
+    """{segment: tree of (shape, dtype)}, each shape led by the segment's
+    layer count: the JAX package's ``decode_state_shapes``."""
+    return {seg.name: _map_shapes(lambda s, d: ((seg.count,) + s, d),
+                                  _seg_state_shape(seg, cfg, batch, max_len))
+            for seg in layout(cfg)}
+
+
+def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,
+                      device="cpu"):
+    return _map_shapes(
+        lambda s, d: torch.zeros(s, dtype=d, device=device),
+        decode_state_shapes(cfg, batch, max_len))

@@ -1,12 +1,13 @@
-"""Functional MLP building blocks: ``*_init`` returns a nested dict of
-float32 tensors with the JAX package's names and layouts (``w`` is
+"""Functional building blocks (``repro.nn.basic``): ``*_init`` returns a
+nested dict of tensors with the JAX package's names and layouts (``w`` is
 (in, out)), ``*_apply`` consumes it.
 
-Initial values are drawn on the CPU from an explicit ``torch.Generator``
-and then moved to ``device``, so a seed gives the same parameters on every
-device. They are not the JAX package's values (threefry keys have no
-torch counterpart): parity tests carry parameters across with
-:mod:`repro_torch.convert` instead.
+Initial values are drawn in float32 on the generator's device from an
+explicit ``torch.Generator``, then moved to ``device`` (the MLPs: a CPU
+generator gives the same parameters on every device) or cast to ``dtype``
+(the LM blocks: a generator of the card draws on the card). They are not
+the JAX package's values (threefry keys have no torch counterpart):
+parity tests carry parameters across with :mod:`repro_torch.convert`.
 """
 from __future__ import annotations
 
@@ -14,16 +15,32 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def lecun_normal(generator: torch.Generator, shape, in_axis: int = -2,
-                 *, device="cpu") -> torch.Tensor:
+                 *, device=None, dtype=torch.float32) -> torch.Tensor:
     """``std * N(0,1)`` truncated at +-2 (before scaling), std =
-    1/sqrt(fan_in): the JAX package's ``lecun_normal``."""
+    1/sqrt(fan_in): the JAX package's ``lecun_normal``. Drawn on the
+    generator's device, then moved to ``device`` (if given) as ``dtype``."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(1.0 / math.sqrt(fan_in)).to(device)
+    return t.mul_(1.0 / math.sqrt(fan_in)).to(device=device, dtype=dtype)
+
+
+def normal_init(generator: torch.Generator, shape, std: float = 0.02, *,
+                dtype=torch.float32) -> torch.Tensor:
+    """``std * N(0,1)`` on the generator's device, as ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return t.normal_(0.0, 1.0, generator=generator).mul_(std).to(dtype)
+
+
+def cast(tree, dtype):
+    """Cast all floating leaves of a nested dict to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def linear_init(generator, in_features: int, out_features: int, *,
@@ -38,7 +55,9 @@ def linear_apply(p, x):
     return x @ p["w"] + p["b"]
 
 
-_ACTS = {"relu": torch.relu, "tanh": torch.tanh}
+# jax.nn.gelu's default is the tanh approximation
+_ACTS = {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+         "silu": F.silu, "tanh": torch.tanh}
 
 
 def mlp_init(generator, sizes: Sequence[int], *, device="cpu"):
@@ -59,3 +78,51 @@ def mlp_apply(p, x, *, activation: str = "relu",
         elif final_activation is not None:
             x = _ACTS[final_activation](x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the LM blocks' pieces
+# ---------------------------------------------------------------------------
+
+def glu_mlp_init(generator, d_model: int, d_ff: int, *, dtype=torch.float32):
+    """Gated MLP (SwiGLU/GeGLU): gate/up/down projections."""
+    def w(shape):
+        return {"w": lecun_normal(generator, shape, dtype=dtype)}
+    return {"w_gate": w((d_model, d_ff)), "w_up": w((d_model, d_ff)),
+            "w_down": w((d_ff, d_model))}
+
+
+def glu_mlp_apply(p, x, *, activation: str = "silu"):
+    g = _ACTS[activation](x @ p["w_gate"]["w"])
+    return (g * (x @ p["w_up"]["w"])) @ p["w_down"]["w"]
+
+
+def rmsnorm_init(dim: int, *, device="cpu", dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, *, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(dim: int, *, device="cpu", dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """In float32; the scale and bias as they are (a bf16 scale times a
+    float32 activation is float32), the result in ``x``'s type."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def embedding_init(generator, vocab: int, dim: int, std: float = 0.02, *,
+                   dtype=torch.float32):
+    return {"embedding": normal_init(generator, (vocab, dim), std=std,
+                                     dtype=dtype)}

@@ -39,7 +39,15 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.base", "repro_torch.pop.trainer",
                  "repro_torch.pop.strategy", "repro_torch.pop.backend",
                  "repro_torch.data.replay_buffer",
-                 "repro_torch.rollout.engine", "repro_torch.launch.train"):
+                 "repro_torch.rollout.engine", "repro_torch.launch.train",
+                 "repro_torch.kernels.wkv6", "repro_torch.kernels.ssd",
+                 "repro_torch.kernels.ops", "repro_torch.nn.rwkv6",
+                 "repro_torch.nn.mamba2", "repro_torch.nn.rotary",
+                 "repro_torch.nn.attention", "repro_torch.models.lm",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.rwkv6_1_6b",
+                 "repro_torch.configs.zamba2_7b",
+                 "repro_torch.configs.rwkv6_test"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

@@ -1,0 +1,274 @@
+"""The port's LM serving path against the JAX package's.
+
+Parameters are drawn by the JAX package and carried across
+(``convert.from_jax_params``, then ``lm.cast_params``), except for
+the serve step and ``generate``: there the port's ``init_params`` draws
+them and JAX is given the same values, since JAX's init of a whole model takes
+seconds on the CPU and ``test_init_params_tree_matches_jax`` holds the
+two inits to one tree. Tokens come from numpy. The serve step takes the
+whole prompt in one call on both sides,
+with JAX's ``use_kernels=True`` (its Pallas ``wkv6``/``ssd`` in
+interpret mode) and the port's plain versions on the CPU, at
+``ssm_chunk=16`` so that a 32-token prompt takes the kernel branch on
+both; then 4 decode steps (the literal scans on both). Logits and every
+decode-state leaf agree to rtol = atol = 1e-4 (float32; the chunked and
+scanned forms sum in other orders, through up to 8 layers). The blocks
+(RoPE, GQA in its cache form, the norms, the gated MLP) agree to 1e-5.
+The kernels on the card are held against these plain versions by
+``chip_smoke.py``, which also runs the reduced-depth full-width path on
+the card against the CPU.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.launch.serve import generate as jax_generate
+from repro.models import lm as jax_lm
+from repro.nn import attention as jax_attention
+from repro.nn import basic as jax_basic
+from repro.nn.rotary import apply_rope as jax_apply_rope
+from repro_torch.configs import get_config, list_configs
+from repro_torch.convert import from_jax_params
+from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.launch.serve import generate
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import lm
+from repro_torch.nn import attention, basic
+from repro_torch.nn.rotary import apply_rope
+from repro_torch.tree import flatten, leaves
+
+# one intra-op thread per process: the shapes here are small, and the
+# suite's parallel workers would otherwise oversubscribe the cores
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)
+PROMPT, DECODE, BATCH, MAX_LEN = 32, 4, 2, 40
+
+
+def _configs(arch, **kw):
+    """The JAX package's config and the port's, equally reduced."""
+    jc, tc = jax_get_config(arch), get_config(arch)
+    if arch != "rwkv6-test":
+        jc, tc = jc.smoke(), tc.smoke()
+    return jc.replace(**kw), tc.replace(**kw)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def _sorted_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_sorted_paths(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+# ------------------------------------------------------------------ blocks
+def test_rope_norms_and_glu_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
+    pos = (7 + np.arange(5)[None].repeat(2, 0)).astype(np.int32)
+    _close(apply_rope(torch.from_numpy(x), torch.from_numpy(pos).long(),
+                      theta=500.0),
+           jax_apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=500.0),
+           BLOCK_TOL)
+    h = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    scale = {"scale": rng.standard_normal(16).astype(np.float32)}
+    _close(basic.rmsnorm_apply(from_jax_params(scale), torch.from_numpy(h)),
+           jax_basic.rmsnorm_apply(scale, jnp.asarray(h)), BLOCK_TOL)
+    glu = jax_basic.glu_mlp_init(jax.random.PRNGKey(1), 16, 24)
+    _close(basic.glu_mlp_apply(from_jax_params(glu), torch.from_numpy(h)),
+           jax_basic.glu_mlp_apply(glu, jnp.asarray(h)), BLOCK_TOL)
+
+
+def test_gqa_cache_form_matches_jax():
+    """A 6-token prefill into an empty cache, then one decode token: the
+    outputs and the caches agree; the stateless form is refused."""
+    dims = dict(num_heads=4, num_kv_heads=2, head_dim=8)
+    jp = jax_attention.gqa_init(jax.random.PRNGKey(2), d_model=16, **dims)
+    tp = from_jax_params(jp)
+    rng = np.random.default_rng(3)
+    jcache = jax_attention.gqa_init_cache(2, 10, 2, 8, dtype=jnp.float32)
+    tcache = {k: torch.zeros((2, 10, 2, 8)) for k in ("k", "v")}
+    jax_gqa = jax.jit(functools.partial(jax_attention.gqa_apply, **dims))
+    for start, s in ((0, 6), (6, 1)):
+        x = rng.standard_normal((2, s, 16)).astype(np.float32)
+        pos = np.broadcast_to(start + np.arange(s), (2, s)).astype(np.int32)
+        jy, jcache = jax_gqa(jp, jnp.asarray(x), jnp.asarray(pos),
+                             cache=jcache, cache_index=start)
+        ty, tcache = attention.gqa_apply(
+            tp, torch.from_numpy(x), torch.from_numpy(pos).long(),
+            cache=tcache, cache_index=start, **dims)
+        _close(ty, jy, BLOCK_TOL)
+        for key in ("k", "v"):
+            _close(tcache[key], jcache[key], BLOCK_TOL)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        attention.gqa_apply(tp, torch.from_numpy(x),
+                            torch.from_numpy(pos).long(), **dims)
+
+
+# ------------------------------------------------------------------ params
+@pytest.mark.parametrize("arch", ["rwkv6-test", "zamba2-7b"])
+def test_init_params_tree_matches_jax(arch):
+    jc, tc = _configs(arch)
+    jp = _sorted_paths(jax.tree.map(np.asarray, jax.jit(
+        jax_lm.init_params, static_argnums=1)(jax.random.PRNGKey(0), jc)))
+    tp = _sorted_paths(lm.init_params(torch.Generator().manual_seed(0), tc))
+    assert list(tp) == list(jp)
+    for path, want in jp.items():
+        got = tp[path]
+        assert tuple(got.shape) == want.shape, path
+        assert str(got.dtype) == f"torch.{want.dtype}", path
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf in ("a_log", "dt_bias"):
+            # JAX's float32 linspace and XLA's log/expm1 round their own
+            # way: a few ulp
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        elif (leaf in ("mix_base", "decay_base", "mix_k", "mix_r", "d_skip",
+                       "scale", "bias") or path.endswith("conv/b")):
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=path)
+    bf16 = lm.init_params(torch.Generator().manual_seed(0),
+                          tc.replace(dtype="bfloat16"), dtype=torch.bfloat16)
+    assert bf16["final_norm"]["scale"].dtype == torch.float32
+    assert bf16["embed"]["embedding"].dtype == torch.bfloat16
+    cast = lm.cast_params(lm.init_params(torch.Generator().manual_seed(0), tc),
+                          tc.replace(dtype="bfloat16"))
+    assert cast["final_norm"]["scale"].dtype == torch.float32
+    assert {t.dtype for t in leaves(cast["segments"])} == {torch.bfloat16}
+
+
+@pytest.mark.parametrize("arch,batch,max_len", [("rwkv6-1.6b", 4, 545),
+                                                ("zamba2-7b", 4, 545)])
+def test_decode_state_shapes_match_jax_at_full_size(arch, batch, max_len):
+    """The served configs' decode states, shapes and dtypes, at the full
+    published size (nothing is allocated)."""
+    want = _sorted_paths(jax_lm.decode_state_shapes(
+        jax_get_config(arch), batch, max_len))
+    got = _sorted_paths(lm.decode_state_shapes(get_config(arch), batch,
+                                               max_len))
+    assert list(got) == list(want)
+    for path, (shape, dtype) in got.items():
+        assert shape == want[path][0], path
+        assert str(dtype) == f"torch.{np.dtype(want[path][1])}", path
+
+
+# ------------------------------------------------------------------ serve
+SERVE_CASES = [("rwkv6-test", {}), ("rwkv6-1.6b", {}), ("zamba2-7b", {}),
+               ("zamba2-7b", {"num_layers": 7})]   # 4 + a 3-layer tail
+
+
+@pytest.mark.parametrize("arch,extra", SERVE_CASES,
+                         ids=["rwkv6-test", "rwkv6-1.6b-smoke",
+                              "zamba2-7b-smoke", "zamba2-7b-smoke-tail"])
+def test_serve_step_prefill_and_decode_match_jax(arch, extra):
+    jc, tc = _configs(arch, ssm_chunk=16, **extra)
+    jc = jc.replace(use_kernels=True)
+    tp = lm.cast_params(lm.init_params(torch.Generator().manual_seed(0), tc),
+                        tc)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    tokens = np.random.default_rng(1).integers(
+        0, jc.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    jstep = jax.jit(jax_lm.make_serve_step(jc))
+    tstep = lm.make_serve_step(tc)
+    jstate = jax_lm.init_decode_state(jc, BATCH, MAX_LEN)
+    tstate = lm.init_decode_state(tc, BATCH, MAX_LEN)
+    counts = (wkv6.launches, ssd.launches)
+    for i in range(1 + DECODE):
+        index = 0 if i == 0 else PROMPT + i - 1
+        jl, jstate = jstep(jp, {"tokens": jnp.asarray(tokens)}, jstate,
+                           jnp.asarray(index, jnp.int32))
+        tl, tstate = tstep(tp, {"tokens": torch.from_numpy(tokens).long()},
+                           tstate, index)
+        _close(tl, jl, TOL)
+        jleaves, _ = jax.tree_util.tree_flatten(jstate)
+        tleaves, tdef = flatten(tstate)
+        assert len(tleaves) == len(jleaves)
+        for got, want in zip(tleaves, jleaves):
+            assert tuple(got.shape) == want.shape
+            _close(got.float(), want, TOL)
+        tokens = np.asarray(jl[:, -1]).argmax(-1)[:, None].astype(np.int32)
+    assert (wkv6.launches, ssd.launches) == counts   # no kernel on the CPU
+
+
+def test_generate_greedy_matches_jax():
+    """Greedy tokens equal JAX's ``generate``, which steps the prompt token
+    by token; JAX's own logits at the generated positions separate the
+    top two by more than the tolerance, so equality is meaningful."""
+    steps = 6
+    jc, tc = _configs("rwkv6-test")
+    tp = lm.init_params(torch.Generator().manual_seed(5), tc)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    prompt = np.random.default_rng(6).integers(
+        0, jc.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    want = np.asarray(jax_generate(jc, jp, jnp.asarray(prompt), steps=steps,
+                                   max_len=PROMPT + steps + 1, greedy=True))
+    got = generate(tc, tp, torch.from_numpy(prompt).long(), steps=steps,
+                   max_len=PROMPT + steps + 1, greedy=True)
+    assert got.shape == (BATCH, 1 + steps)
+    np.testing.assert_array_equal(got.numpy(), want)
+    seq = np.concatenate([prompt, want[:, 1:-1]], axis=1)
+    logits, _, _ = jax_lm.forward(jp, jc, {"tokens": jnp.asarray(seq)})
+    top2 = np.sort(np.asarray(logits[:, PROMPT - 1:]), axis=-1)[..., -2:]
+    gap = (top2[..., 1] - top2[..., 0]).min()
+    assert gap > 2 * (TOL["atol"] + TOL["rtol"] * np.abs(top2).max())
+
+
+def test_stateless_forward():
+    """RWKV6 runs without a decode state (a fresh zero state, as JAX's
+    blocks make) and matches JAX's forward; Zamba2's shared attention
+    would need flash_attention and is refused."""
+    jc, tc = _configs("rwkv6-test")
+    jp = jax_lm.init_params(jax.random.PRNGKey(7), jc)
+    tokens = np.random.default_rng(8).integers(0, jc.vocab_size, (2, 16))
+    want, _, _ = jax_lm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+    got, state = lm.forward(lm.cast_params(from_jax_params(jp), tc), tc,
+                            {"tokens": torch.from_numpy(tokens)})
+    assert state is None
+    _close(got, want, TOL)
+    _, zc = _configs("zamba2-7b")
+    zp = lm.init_params(torch.Generator().manual_seed(0), zc)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        lm.forward(zp, zc, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    with pytest.raises(TypeError, match="cast_params"):
+        lm.forward(zp, zc.replace(dtype="bfloat16"),
+                   {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                   state=lm.init_decode_state(zc, 1, 4), cache_index=0)
+
+
+# ------------------------------------------------------------------ CLI
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_cli_serves_lm_on_cpu(arch, capsys):
+    report = serve_main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", "32",
+                         "--tokens", "4"])
+    vocab = get_config(arch).smoke().vocab_size
+    assert report.tokens.shape == (2, 5)
+    assert 0 <= int(report.tokens.min()) and int(report.tokens.max()) < vocab
+    assert report.prefill_ms > 0 and report.decode_ms_per_token > 0
+    assert "ms per decode step" in capsys.readouterr().out
+
+
+def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_main(["--arch", "rwkv6-test"])
+    assert list_configs() == ["rwkv6-1.6b", "zamba2-7b", "rwkv6-test"]
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        serve_main(["--arch", "qwen2-0.5b", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+    with pytest.raises(SystemExit):           # --algo still needs a ckpt
+        serve_main(["--algo", "td3", "--device", "cpu"])
+    with pytest.raises(SystemExit):           # left out, not a no-op
+        serve_main(["--arch", "rwkv6-test", "--log-dir", "x",
+                    "--device", "cpu"])
