@@ -46,24 +46,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ``repro_torch.launch.serve.main``: the fittest member must
                 take slot 0, and the answers are checked against the plain
                 ensemble;
-  8. scans    — ``wkv6`` and ``ssd`` against their plain versions (head
+  8. LM kernels — ``wkv6`` and ``ssd`` against their plain versions (head
                 sizes 32 and 64, chunks 16/64/256 with S of one and eight
                 chunks, the model's strided layout, nonzero states, decays
                 as strong as the models give, the served prefill's exact
                 shape), then timed at that shape beside their bounds;
-  9. LM parity — ``rwkv6-1.6b`` (2 layers) and ``zamba2-7b`` (7: one
-                super-block with the shared attention and a 1-layer tail)
-                at full width in float32, weights drawn on the card and
-                copied to the CPU: a 256-token prefill's last logits and
-                every decode-state leaf, card (kernels) against CPU (plain
-                versions);
- 10. LM serve — both configs at full published size through
+                ``flash_attention`` against its plain version (head sizes
+                32/64/112/128/256, GQA groups 1/2/4/7, S of 1/64/128/200/
+                512, a ragged 200 included, causal and not, both layouts,
+                float32 and bf16), then timed
+                at the four dense and hybrid served shapes beside its
+                bound, its plain version and PyTorch's
+                ``scaled_dot_product_attention``;
+  9. LM parity — ``rwkv6-1.6b`` (2 layers), ``zamba2-7b`` (7: one
+                super-block with the shared attention and a 1-layer tail),
+                ``qwen2-0.5b``, ``qwen3-8b``, ``qwen2-1.5b`` and
+                ``gemma-7b`` (2 layers each; gemma's scaled embeddings,
+                GeGLU and head size 256) at full
+                width in float32, weights drawn on the card and copied to
+                the CPU: a 256-token prefill's last logits and every
+                decode-state leaf, card (kernels) against CPU (plain
+                versions); and a stateless ``lm.forward`` of qwen2-0.5b's
+                2 layers, every logit;
+ 10. LM serve — ``qwen2-0.5b``, ``qwen3-8b``, ``rwkv6-1.6b`` and
+                ``zamba2-7b`` at full published size through
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
                 --prompt-len 512 --tokens 32``) with every launch count set
-                to 0 just before and read just after: exactly 24 ``wkv6``
-                launches for rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no
-                other kernel; prefill and decode times; one prefill and one
-                decode step profiled.
+                to 0 just before and read just after: exactly 24, 36, 0
+                and 14 ``flash_attention`` launches, 24 ``wkv6`` for
+                rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no other kernel;
+                prefill and decode times; one prefill and one decode step
+                profiled.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
@@ -101,17 +114,31 @@ PARAMS_AFTER_4_ATOL = 1e-4
 # wkv6 / ssd against their chunked plain versions: fp32 sums over the head
 # and the chunk in another order (tests/test_kernels.py's fp32 tolerance)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+# flash_attention against its plain version: float32 sums over D and the
+# keys in another order (tests/test_kernels.py's float32 tolerance); in
+# bf16 the kernel rounds unnormalised probabilities, the plain version
+# normalised ones, and both round the output (bf16 keeps 8 bits)
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# (B, H, Hkv, S, D) of one served prefill's attention, bf16, per config
+FLASH_SHAPES = {"qwen3-8b": (4, 32, 8, 512, 128),
+                "qwen2-0.5b": (4, 14, 2, 512, 64),
+                "zamba2-7b": (4, 32, 32, 512, 112),
+                "gemma-7b": (4, 16, 16, 512, 256)}
 # the LM path at full width, card (kernels, cuBLAS) against CPU (plain
-# versions): fp32 sums of up to 14,336 terms in other orders, through 2
+# versions): fp32 sums of up to 24,576 terms in other orders, through 2
 # and 7 layers
 PATH_TOL = dict(rtol=1e-3, atol=1e-3)
 PARITY_PROMPT = 256
+# the dense attention archs of the LM parity phase
+DENSE = ("qwen2-0.5b", "qwen3-8b", "qwen2-1.5b", "gemma-7b")
 # the LM serving runs: 4 prompts of 512 tokens, 32 new tokens each
 LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
-# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 SEED = 0
 POPULATION = 8
 ENSEMBLE = 4
@@ -1000,6 +1027,99 @@ def phase_scan_kernel(name):
     return worst, share, row
 
 
+def flash_bound(b, h, hkv, s, d, element_bytes=2):
+    """Least time (ms) and what bounds it for one causal flash_attention
+    launch: q, k, v read and o written once; the causal half of the two
+    products, 4 B H S^2/2 D operations, at the bf16 tensor-core rate."""
+    nbytes = element_bytes * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    ops = 4 * b * h * s * s // 2 * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _flash_inputs(gen, b, h, hkv, s, d, dtype, *, model_layout: bool):
+    """q, k, v in (B,H,S,D) / (B,Hkv,S,D); with ``model_layout`` they are
+    (B,S,H,D) tensors transposed, as the model hands them over."""
+    def one(heads):
+        shape = (b, s, heads, d) if model_layout else (b, heads, s, d)
+        t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return t.transpose(1, 2) if model_layout else t
+    return one(h), one(hkv), one(hkv)
+
+
+def phase_flash_kernel():
+    """flash_attention against its plain version on the card over head
+    sizes, GQA groups, lengths, masks, layouts and types; then timed at
+    the served shapes beside its bound, its plain version and PyTorch's
+    scaled_dot_product_attention. Returns (max abs err, its share of the
+    tolerance, {config: row})."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = share = 0.0
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[dtype]
+        for d in (32, 64, 112, 128, 256):
+            for group in (1, 2, 4, 7):
+                for s in (1, 64, 128, 200, 512):
+                    for causal in (True, False):
+                        for model_layout in (False, True):
+                            q, k, v = _flash_inputs(
+                                gen, 1, 2 * group, 2, s, d, dtype,
+                                model_layout=model_layout)
+                            got = flash_attention(q, k, v, causal=causal)
+                            want = flash_attention_plain(q, k, v,
+                                                         causal=causal)
+                            torch.cuda.synchronize()
+                            torch.testing.assert_close(
+                                got.float(), want.float(), **tol,
+                                msg=f"D={d} group={group} S={s} "
+                                    f"causal={causal} {dtype}")
+                            worst = max(worst, (got.float() - want.float())
+                                        .abs().max().item())
+                            share = max(share, tol_share(
+                                got.float(), want.float(), tol))
+                            cases += 1
+    log(f"flash_attention == plain on {cases} cases (D 32/64/112/128/256, "
+        f"group 1/2/4/7, S 1/64/128/200/512, causal and not, both layouts, "
+        f"float32 at 2e-4 and bf16 at 2e-2), max abs err {worst:.3g}, "
+        f"{share:.3g} of the tolerance")
+
+    rows = {}
+    for arch, (b, h, hkv, s, d) in FLASH_SHAPES.items():
+        q, k, v = _flash_inputs(gen, b, h, hkv, s, d, torch.bfloat16,
+                                model_layout=True)
+        got = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v)
+        lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        torch.testing.assert_close(lib.float(), want.float(), **tol)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        share = max(share, tol_share(got.float(), want.float(), tol))
+        bound, bound_by = flash_bound(b, h, hkv, s, d)
+        row = {"shape": (b, h, hkv, s, d), "dtype": "bfloat16",
+               "ms": graph_ms(lambda: flash_attention(q, k, v)),
+               "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v),
+                                    reps=5, iters=5),
+               "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                   enable_gqa=True)),
+               "bound_ms": bound, "bound_by": bound_by}
+        rows[arch] = row
+        log(f"flash_attention {arch} (B,H,Hkv,S,D)={row['shape']} bf16: "
+            f"kernel {row['ms'] * 1e3:.3f} us per launch, plain "
+            f"{row['plain_ms'] * 1e3:.3f} us, scaled_dot_product_attention "
+            f"{row['library_ms'] * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
+            f"({bound_by})")
+    return worst, share, rows
+
+
 def _lm_config(arch, **kw):
     from repro_torch.configs import get_config
     return get_config(arch).replace(**kw)
@@ -1008,35 +1128,47 @@ def _lm_config(arch, **kw):
 def phase_lm_parity():
     """The served path at full width and reduced depth, in float32:
     rwkv6-1.6b with 2 layers, zamba2-7b with 7 (a 6-layer super-block with
-    the shared attention, and a 1-layer tail). Weights drawn once on the
-    card and copied to the CPU; one 256-token prompt prefilled on both;
-    the last logits and every decode-state leaf must agree. Returns
-    {arch: (max abs err, share of the tolerance)}."""
+    the shared attention, and a 1-layer tail), qwen2-0.5b, qwen3-8b,
+    qwen2-1.5b and gemma-7b with 2 (the last two are served only at this
+    depth on the card). Weights drawn once on the card and copied to the CPU; one
+    256-token prompt prefilled on both; the last logits and every
+    decode-state leaf must agree; then qwen2-0.5b's stateless forward,
+    every logit. Returns {arch: (max abs err, share of the tolerance)}."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import lm
     from repro_torch.tree import leaves, tree_map
 
+    counters = {"wkv6": wkv6, "ssd": ssd, "flash_attention": flash_attention}
     out = {}
-    for arch, layers, kernel in (("rwkv6-1.6b", 2, wkv6),
-                                 ("zamba2-7b", 7, ssd)):
+    for arch, layers, want in (
+            ("rwkv6-1.6b", 2, {"wkv6": 2}),
+            ("zamba2-7b", 7, {"ssd": 7, "flash_attention": 2}),
+            ("qwen2-0.5b", 2, {"flash_attention": 2}),
+            ("qwen3-8b", 2, {"flash_attention": 2}),
+            ("qwen2-1.5b", 2, {"flash_attention": 2}),
+            ("gemma-7b", 2, {"flash_attention": 2})):
         cfg = _lm_config(arch, num_layers=layers, dtype="float32")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
         params = lm.init_params(gen, cfg)
         tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT),
                                generator=gen, device="cuda")
         step = lm.make_serve_step(cfg)
-        kernel.launches = 0
+        for c in counters.values():
+            c.launches = 0
         logits, state = step(params, {"tokens": tokens},
                              lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1,
                                                   device="cuda"), 0)
         torch.cuda.synchronize()
-        if kernel.launches != layers:
-            raise AssertionError(f"{arch} parity: {kernel.launches} "
-                                 f"{kernel.__name__} launches for {layers} "
-                                 f"layers")
+        counts = {k: c.launches for k, c in counters.items()}
+        expected = {k: want.get(k, 0) for k in counters}
+        if counts != expected:
+            raise AssertionError(f"{arch} parity: launches {counts}, want "
+                                 f"{expected} for {layers} layers")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
         cpu_logits, cpu_state = step(
-            tree_map(lambda t: t.cpu(), params), {"tokens": tokens.cpu()},
+            cpu_params, {"tokens": tokens.cpu()},
             lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1), 0)
         worst = share = 0.0
         pairs = [(logits[:, -1], cpu_logits[:, -1])] + list(
@@ -1051,9 +1183,32 @@ def phase_lm_parity():
         log(f"{arch} with {layers} layers at full width, fp32, a "
             f"{PARITY_PROMPT}-token prefill: card (kernels) == CPU (plain "
             f"versions) on the last logits and {len(pairs) - 1} state "
-            f"leaves, max abs err {worst:.3g}, {share:.3g} of the tolerance")
+            f"leaves, launches {counts}, max abs err {worst:.3g}, "
+            f"{share:.3g} of the tolerance")
         out[arch] = (worst, share)
-        del params, state, logits, cpu_state, cpu_logits
+        if arch == "qwen2-0.5b":
+            flash_attention.launches = 0
+            logits, none = lm.forward(params, cfg, {"tokens": tokens})
+            torch.cuda.synchronize()
+            if none is not None or flash_attention.launches != layers:
+                raise AssertionError(f"{arch} stateless forward: "
+                                     f"{flash_attention.launches} "
+                                     f"flash_attention launches for "
+                                     f"{layers} layers")
+            cpu_logits, _ = lm.forward(cpu_params, cfg,
+                                       {"tokens": tokens.cpu()})
+            got = logits.cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{arch} stateless: non-finite values")
+            torch.testing.assert_close(got, cpu_logits, **PATH_TOL)
+            err = (got - cpu_logits).abs().max().item()
+            err_share = tol_share(got, cpu_logits, PATH_TOL)
+            log(f"{arch} stateless forward, {layers} layers at full width, "
+                f"fp32, {PARITY_PROMPT} tokens: card == CPU on every logit, "
+                f"{layers} flash_attention launches, max abs err "
+                f"{err:.3g}, {err_share:.3g} of the tolerance")
+            out[arch] = (max(worst, err), max(share, err_share))
+        del params, cpu_params, state, logits, cpu_state, cpu_logits
     torch.cuda.empty_cache()
     return out
 
@@ -1082,12 +1237,15 @@ def _profile_step(step):
 
 
 def phase_lm_serve():
-    """Both configs at their full published size through the port's entry
+    """Each config at its full published size through the port's entry
     point, ``--batch 4 --prompt-len 512 --tokens 32``: the launch counts
-    set to 0 just before each run and read just after (24 wkv6 launches
-    for rwkv6-1.6b, 81 ssd for zamba2-7b, nothing else), the tokens'
-    shape and range; a second run for warm times; then one prefill and
-    one decode step profiled. Returns {arch: numbers}."""
+    set to 0 just before each run and read just after (one flash_attention
+    launch per attention layer or shared-block call of the prefill: 24 for
+    qwen2-0.5b, 36 for qwen3-8b, 14 for zamba2-7b; 24 wkv6 launches for
+    rwkv6-1.6b, 81 ssd for zamba2-7b, nothing else), the tokens' shape
+    and range; a second run for warm times; then one prefill and one
+    decode step profiled. Returns {arch: numbers}."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pop_adam import pop_adam
     from repro_torch.kernels.pop_matmul import pop_matmul
     from repro_torch.kernels.ssd import ssd
@@ -1095,16 +1253,20 @@ def phase_lm_serve():
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import lm
 
-    counters = {"wkv6": wkv6, "ssd": ssd, "pop_matmul": pop_matmul,
-                "pop_adam": pop_adam}
+    counters = {"flash_attention": flash_attention, "wkv6": wkv6, "ssd": ssd,
+                "pop_matmul": pop_matmul, "pop_adam": pop_adam}
     out = {}
     b, s, t = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["tokens"]
-    for arch, want in (("rwkv6-1.6b", {"wkv6": 24}), ("zamba2-7b",
-                                                     {"ssd": 81})):
+    for arch, want in (("qwen2-0.5b", {"flash_attention": 24}),
+                       ("qwen3-8b", {"flash_attention": 36}),
+                       ("rwkv6-1.6b", {"wkv6": 24}),
+                       ("zamba2-7b", {"ssd": 81, "flash_attention": 14})):
         cfg = _lm_config(arch)
         argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
                 "--tokens", str(t), "--seed", str(SEED)]
         torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold; the run's own peak is above it
+        before = torch.cuda.memory_allocated()
         for c in counters.values():
             c.launches = 0
         report = serve_main(argv)
@@ -1120,7 +1282,7 @@ def phase_lm_serve():
             raise AssertionError(f"serve {arch}: tokens {tuple(tokens.shape)}"
                                  f" in [{int(tokens.min())}, "
                                  f"{int(tokens.max())}]")
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - before
         warm = serve_main(argv)
         state_bytes = sum(
             int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
@@ -1129,7 +1291,8 @@ def phase_lm_serve():
         log(f"serve {arch} (batch {b}, prompt {s}, {t} tokens): launches "
             f"{counts}; {report.num_params} parameters, "
             f"{report.weight_bytes} weight bytes, {state_bytes} decode-state "
-            f"bytes, peak {peak} bytes allocated")
+            f"bytes, peak {peak} bytes allocated above the {before} held "
+            f"before the run")
         log(f"serve {arch}: prefill {report.prefill_ms:.2f} ms cold, "
             f"{warm.prefill_ms:.2f} ms warm; {report.decode_ms_per_token:.3f}"
             f" / {warm.decode_ms_per_token:.3f} ms per decode step (cold / "
@@ -1157,6 +1320,7 @@ def phase_lm_serve():
         out[arch] = {"launches": counts, "num_params": report.num_params,
                      "weight_bytes": report.weight_bytes,
                      "state_bytes": state_bytes, "peak_bytes": peak,
+                     "allocated_before_bytes": before,
                      "prefill_ms_cold": report.prefill_ms,
                      "prefill_ms": warm.prefill_ms,
                      "decode_ms_per_token_cold": report.decode_ms_per_token,
@@ -1206,7 +1370,8 @@ def main() -> int:
 
     def nvcc():
         t0 = time.perf_counter()
-        built["reports"] = build.build(["pop_matmul", "wkv6", "ssd"])
+        built["reports"] = build.build(["pop_matmul", "wkv6", "ssd",
+                                        "flash_attention"])
         built["seconds"] = time.perf_counter() - t0
 
     thread = threading.Thread(target=nvcc)
@@ -1246,9 +1411,11 @@ def main() -> int:
         trained_serve_err = phase_train_serve(ckpt_dir,
                                               train["saved_fitness"])
 
-    # 8. wkv6 and ssd vs plain, timing; 9. the LM path, card vs CPU;
-    # 10. LM serving through the port's entry point at full size
+    # 8. wkv6, ssd and flash_attention vs plain, timing; 9. the LM path,
+    # card vs CPU; 10. LM serving through the port's entry point at full
+    # size
     scans = {k: phase_scan_kernel(k) for k in ("wkv6", "ssd")}
+    flash_err, flash_share, flash_rows = phase_flash_kernel()
     lm_parity = phase_lm_parity()
     lm_serve = phase_lm_serve()
 
@@ -1342,6 +1509,32 @@ def main() -> int:
             "library_call": "none: no PyTorch call computes this function",
             "per_prefill_ms": row["ms"] * per_prefill,
         })
+    head = flash_rows["qwen3-8b"]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "launches": lm_serve["qwen3-8b"]["launches"]["flash_attention"],
+        "launches_by_arch": {arch: r["launches"]["flash_attention"]
+                             for arch, r in lm_serve.items()},
+        "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]),
+        "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
+                     "1e-3 (the path, card vs CPU)",
+        "max_err_over_tolerance": max([flash_share]
+                                      + [lm_parity[a][1] for a in DENSE]),
+        "work": "one causal launch at the qwen3-8b prefill's shape "
+                f"(B,H,Hkv,S,D)={head['shape']} bf16, 36 per served "
+                "prefill; device times, CUDA graph replay, L2-warm",
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True, enable_gqa=True)",
+        "per_launch": flash_rows,
+    })
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "
             f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms per batch")

@@ -2,10 +2,15 @@
 JAX package's ``repro.configs.base`` (the port imports nothing of it).
 
 ``LMConfig`` keeps the fields that the port's LM serving path reads, for
-the families it runs (RWKV6 and Zamba2); ``replace`` and ``smoke`` give
-the JAX package's values for them. The fields of the attention, MoE, MLA
-and frontend paths, and those of LM training (``remat``), come with the
-slices that port them; the SSM scans always compute in float32.
+the families it runs (dense attention, RWKV6 and Zamba2); ``replace`` and
+``smoke`` give the JAX package's values for them. The fields of the MoE,
+MLA and frontend paths, and those of LM training (``remat``), come with
+the slices that port them; the SSM scans always compute in float32.
+There is no ``use_flash``/``use_kernels`` switch: the device decides
+(the kernels on the card, their plain versions on the CPU).
+Where the JAX package scales gemma's embeddings by testing the config's
+``family`` and name, the port has the field ``scale_embeddings``, set by
+the gemma config; it has no ``family``.
 
 Of ``PopulationConfig``'s fields, those of the strategies not ported yet
 (CEM's, DvD's) come with it; ``donate`` has no counterpart in the eager
@@ -28,10 +33,13 @@ class LMConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None  # defaults to d_model // num_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
     activation: str = "silu"       # silu -> SwiGLU, gelu -> GeGLU
+    scale_embeddings: bool = False  # embeddings times sqrt(d_model) (gemma)
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    block_type: str = "rwkv6"      # rwkv6 | mamba2
+    block_type: str = "attention"  # attention | rwkv6 | mamba2
     ssm_state: int = 0
     ssm_head_dim: int = 64
     shared_attn_every: int = 0     # zamba2: shared attn block period
@@ -57,11 +65,12 @@ class LMConfig:
             vocab_size=512,
             head_dim=32 if self.head_dim else None,
             dtype="float32",
-            ssm_head_dim=32,
-            ssm_state=16 if self.block_type == "mamba2" else 0,
         )
         if self.shared_attn_every:
             kw["shared_attn_every"] = 4
+        if self.block_type in ("rwkv6", "mamba2"):
+            kw["ssm_head_dim"] = 32
+            kw["ssm_state"] = 16 if self.block_type == "mamba2" else 0
         return self.replace(**kw)
 
 

@@ -1,20 +1,39 @@
-"""Dispatch of the model layer's recurrent scans (``repro.kernels.ops``).
+"""Dispatch of the model layer's hot operations (``repro.kernels.ops``).
 
-The JAX package routes a prefill (S > 1, S a multiple of the chunk) to
-its Pallas kernel on a TPU and keeps the literal scan for a decode step.
-The port does the same, with the device deciding: on that branch a CUDA
-tensor launches the hand-written kernel and a CPU tensor runs the
-kernel's plain version; every other call takes the literal scan of
-``repro_torch.nn``. There is no switch to turn the kernels off, and no
-fallback from a kernel to anything else.
+The JAX package routes a prefill of the recurrent scans (S > 1, S a
+multiple of the chunk) to its Pallas kernel on a TPU and keeps the
+literal scan for a decode step. The port does the same, with the device
+deciding: on a kernel branch a CUDA tensor launches the hand-written
+kernel and a CPU tensor runs the kernel's plain version; every other call
+takes the plain code of ``repro_torch.nn``. Full-sequence causal
+attention always takes the flash kernel: the JAX package sends an S that
+its 128-row blocks do not tile to ``sdpa_auto``, but the CUDA kernel
+masks a ragged last tile and takes any S. There is no switch to turn the
+kernels off, and no fallback from a kernel to anything else.
 
-Both take the model's (B,S,H,·) layout and hand the kernels transposed
+All take the model's (B,S,H,·) layout and hand the kernels transposed
 views of it, which they read as they are.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.wkv6 import wkv6
+
+
+def attention(q, k, v, positions, kv_positions, *, causal=True, scale=None):
+    """The ``attn_fn`` of :func:`repro_torch.nn.attention.gqa_apply`:
+    attention over the sequence's own keys through the flash kernel, q
+    (B,S,H,D) and k/v (B,S,Hkv,D) handed over as (B,H,S,D) views. The
+    positions are those of ``sdpa``'s signature; the kernel's causal mask
+    is by index, which is the same for a sequence at positions 0..S-1.
+    Returns (B,S,H*D), as ``sdpa`` does (the JAX package's
+    ``attention_fn`` returns (B,S,H,D) there, which its ``gqa_apply``
+    cannot project; no CPU test of the JAX package reaches it)."""
+    b, s, h, d = q.shape
+    tr = lambda t: t.transpose(1, 2)
+    y = flash_attention(tr(q), tr(k), tr(v), causal=causal, scale=scale)
+    return tr(y).reshape(b, s, h * d)
 
 
 def wkv6_apply(r, k, v, lw, u, state, *, chunk: int = 64):

@@ -6,13 +6,17 @@ config with random weights (drawn on the device from ``--seed``), a batch of
 random prompts prefilled in ONE call of the serve step, then one decode
 call per new token, sampling from the logits:
 
-    python -m repro_torch.launch.serve --arch rwkv6-1.6b --batch 4 \\
+    python -m repro_torch.launch.serve --arch qwen3-8b --batch 4 \\
         --prompt-len 512 --tokens 32
 
-On the card every RWKV6 layer's prefill is one launch of the CUDA
-``wkv6`` kernel and every Mamba2 layer's one launch of ``ssd``; decode
-steps take the literal scans. Of the JAX package's archs the port runs
-``rwkv6-1.6b``, ``zamba2-7b`` and ``rwkv6-test``; the others are refused.
+On the card every attention layer's prefill is one launch of the CUDA
+``flash_attention`` kernel (at any prompt length), every RWKV6 layer's
+one launch of ``wkv6`` and every
+Mamba2 layer's one launch of ``ssd``; decode steps attend over the KV
+cache and take the literal scans. Of the JAX package's archs the port
+runs the dense ``qwen2-0.5b``, ``qwen2-1.5b``, ``qwen3-8b`` and
+``gemma-7b``, ``rwkv6-1.6b``, ``zamba2-7b`` and ``rwkv6-test``; the MoE,
+MLA and frontend archs are refused.
 
 ``--algo <name>`` loads a checkpoint a trained population left behind,
 promotes a fitness + diversity serving set
@@ -210,7 +214,8 @@ def _serve_rl(args) -> ServeReport:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="LM config id: rwkv6-1.6b, zamba2-7b or rwkv6-test")
+                    help="LM config id: qwen2-0.5b, qwen2-1.5b, qwen3-8b, "
+                    "gemma-7b, rwkv6-1.6b, zamba2-7b or rwkv6-test")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
                     "as an ensemble")

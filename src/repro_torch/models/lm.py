@@ -1,5 +1,6 @@
-"""Decoder LM (``repro.models.lm``), the recurrent families: RWKV6 and the
-Zamba2 hybrid (Mamba2 with a shared attention block).
+"""Decoder LM (``repro.models.lm``): the dense attention transformers
+(qwen2, qwen3, gemma), RWKV6 and the Zamba2 hybrid (Mamba2 with a shared
+attention block).
 
 The model is organised, as in the JAX package, as *segments* of
 homogeneous blocks whose parameters are stacked along a leading layer
@@ -21,16 +22,18 @@ Differences from the JAX package, none of them in the numbers:
     keeps its float32 scale, as JAX reads it uncast;
   * a step updates the decode state in place and returns it (the states
     are the largest tensors of a served batch after the weights);
-  * the kernels run wherever the tensors are on the card (prefill: the
-    CUDA ``wkv6`` and ``ssd``; decode: the literal scans), and their plain
-    versions on the CPU.
+  * the kernels run wherever the tensors are on the card (a stateless
+    forward or a prefill: the CUDA ``flash_attention``, ``wkv6`` and
+    ``ssd``; decode: attention over the cache and the literal scans), and
+    their plain versions on the CPU. The JAX package's serve step takes
+    the prompt's attention over the whole cache; the port's prefill
+    (``cache_index`` 0) takes it over the prompt's own keys through the
+    flash kernel, the same function (:mod:`repro_torch.nn.attention`).
 
-Not ported: the attention layouts (dense, MoE, MLA), whose stateless
-forward reaches flash attention on a TPU (:func:`layout` refuses them),
-a Mamba2 stack without the shared attention (no config has one), the
-frontends, training (``lm_loss``, the train steps), and ``input_specs``.
-A stateless ``forward`` of Zamba2 raises too: its shared attention must
-not run plain attention where the JAX package runs the flash kernel.
+Not ported: the MoE and MLA layouts and the frontends (their configs are
+refused by the registry), a Mamba2 stack without the shared attention (no
+config has one), training (``lm_loss``, the train steps), and
+``input_specs``.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.kernels.ops import attention
 from repro_torch.nn.attention import gqa_apply, gqa_init
 from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
                                   glu_mlp_init, layernorm_apply,
@@ -58,16 +62,19 @@ from repro_torch.tree import tree_map
 @dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str            # rwkv | mamba
+    kind: str            # attn | rwkv | mamba
     count: int           # layers (or super-blocks) stacked
     inner: int = 1       # mamba layers per super-block
 
 
 def layout(cfg: LMConfig) -> list[Segment]:
-    """RWKV6: one segment of layers. Zamba2: super-blocks of
-    ``shared_attn_every`` Mamba2 layers, each led by the shared attention
-    block, then a tail super-block of the remaining layers (81 = 13 x 6 +
-    3). Every Mamba2 segment carries the shared attention."""
+    """Dense attention: one segment of layers. RWKV6: one segment of layers.
+    Zamba2: super-blocks of ``shared_attn_every`` Mamba2 layers, each led
+    by the shared attention block, then a tail super-block of the
+    remaining layers (81 = 13 x 6 + 3). Every Mamba2 segment carries the
+    shared attention."""
+    if cfg.block_type == "attention":
+        return [Segment("dense", "attn", cfg.num_layers)]
     if cfg.block_type == "rwkv6":
         return [Segment("rwkv", "rwkv", cfg.num_layers)]
     if cfg.block_type == "mamba2" and cfg.shared_attn_every:
@@ -78,9 +85,8 @@ def layout(cfg: LMConfig) -> list[Segment]:
             segs.append(Segment("mamba_tail", "mamba", 1, inner=rem))
         return segs
     raise NotImplementedError(
-        f"{cfg.name}: only the RWKV6 and Zamba2 (Mamba2 with a shared "
-        f"attention block) layouts are ported; attention layouts wait for "
-        f"flash_attention (ROADMAP.md §1, item 15)")
+        f"{cfg.name}: a Mamba2 stack without the shared attention block is "
+        f"not ported (no config has one)")
 
 
 def compute_dtype(cfg: LMConfig) -> torch.dtype:
@@ -99,17 +105,20 @@ def _attn_block_init(generator, cfg: LMConfig, dtype):
             "attn": gqa_init(generator, d_model=cfg.d_model,
                              num_heads=cfg.num_heads,
                              num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
                              dtype=dtype),
             "mlp": glu_mlp_init(generator, cfg.d_model, cfg.d_ff,
                                 dtype=dtype)}
 
 
 def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index):
+    """``cache`` None: the stateless form; else this layer's KV cache,
+    written in place."""
     y = rmsnorm_apply(p["attn_norm"], h)
     y, _ = gqa_apply(p["attn"], y, positions, num_heads=cfg.num_heads,
                      num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
                      rope_theta=cfg.rope_theta, cache=cache,
-                     cache_index=cache_index)
+                     cache_index=cache_index, attn_fn=attention)
     h = h + y
     y = glu_mlp_apply(p["mlp"], rmsnorm_apply(p["mlp_norm"], h),
                       activation=cfg.activation)
@@ -192,7 +201,10 @@ def init_params(generator: torch.Generator, cfg: LMConfig, *,
                                 dtype=dtype),
         "segments": {}}
     for seg in layout(cfg):
-        if seg.kind == "rwkv":
+        if seg.kind == "attn":
+            params["segments"][seg.name] = _stacked_init(
+                seg.count, lambda: _attn_block_init(generator, cfg, dtype))
+        elif seg.kind == "rwkv":
             params["segments"][seg.name] = _stacked_init(
                 seg.count, lambda: _rwkv_block_init(generator, cfg, dtype))
         else:
@@ -231,8 +243,9 @@ def _layer(tree, i):
 def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
     """batch: {"tokens": (B,S) integers}; params from :func:`cast_params`.
     With a decode state, the S tokens continue the sequence at
-    ``cache_index`` and the state is updated in place. Returns (logits
-    (B,S,V), state)."""
+    ``cache_index`` and the state is updated in place. Without one
+    (stateless) the recurrent blocks start from zero states and attention
+    takes its cache-less form. Returns (logits (B,S,V), state or None)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     emb = params["embed"]["embedding"]
@@ -240,23 +253,19 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
         raise TypeError(f"forward: parameters in {emb.dtype}, config "
                         f"{cfg.name} computes in {cfg.dtype}: pass them "
                         f"through cast_params first")
-    segs = layout(cfg)
-    if state is None:
-        if cfg.shared_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: a stateless forward runs its attention "
-                f"through flash_attention in the JAX package: not ported "
-                f"yet (flash_attention)")
-        # fresh zero state, as the JAX package's blocks make without one
-        state, keep = init_decode_state(cfg, b, s, device=tokens.device), False
-        cache_index = 0
-    else:
-        keep = True
+    keep = state is not None
+    if not keep:
+        # fresh zero recurrent states, as the JAX package's blocks make
+        # without one; max_len 0: no KV cache, attention is cache-less
+        state, cache_index = init_decode_state(
+            cfg, b, 0, device=tokens.device), 0
     positions = (cache_index
                  + torch.arange(s, device=tokens.device)).expand(b, s)
 
     h = emb[tokens]
-    for seg in segs:
+    if cfg.scale_embeddings:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    for seg in layout(cfg):
         seg_p = params["segments"][seg.name]
         seg_st = state[seg.name]
         for i in range(seg.count):
@@ -264,8 +273,14 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
             if seg.kind == "rwkv":
                 h = _rwkv_block_apply(layer_p, cfg, h, layer_st)
                 continue
+            if seg.kind == "attn":
+                h = _attn_block_apply(layer_p, cfg, h, positions,
+                                      layer_st["kv"] if keep else None,
+                                      cache_index)
+                continue
             h = _attn_block_apply(params["shared_attn"], cfg, h, positions,
-                                  layer_st["attn"]["kv"], cache_index)
+                                  layer_st["attn"]["kv"] if keep else None,
+                                  cache_index)
             for j in range(seg.inner):
                 h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
                                        _layer(layer_st["mamba"], j))
@@ -293,6 +308,9 @@ def make_serve_step(cfg: LMConfig):
 
 def _seg_state_shape(seg: Segment, cfg: LMConfig, batch: int, max_len: int):
     dtype = compute_dtype(cfg)
+    kv = ((batch, max_len, cfg.num_kv_heads, cfg.hd), dtype)
+    if seg.kind == "attn":
+        return {"kv": {"k": kv, "v": kv}}
     if seg.kind == "rwkv":
         nh = cfg.d_model // cfg.ssm_head_dim
         return {"wkv": ((batch, nh, cfg.ssm_head_dim, cfg.ssm_head_dim),
@@ -305,7 +323,6 @@ def _seg_state_shape(seg: Segment, cfg: LMConfig, batch: int, max_len: int):
                      torch.float32),
              "conv": ((seg.inner, batch, 3, d_inner + 2 * cfg.ssm_state),
                       dtype)}
-    kv = ((batch, max_len, cfg.num_kv_heads, cfg.hd), dtype)
     return {"mamba": mamba, "attn": {"kv": {"k": kv, "v": kv}}}
 
 

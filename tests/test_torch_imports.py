@@ -47,7 +47,12 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.registry",
                  "repro_torch.configs.rwkv6_1_6b",
                  "repro_torch.configs.zamba2_7b",
-                 "repro_torch.configs.rwkv6_test"):
+                 "repro_torch.configs.rwkv6_test",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.configs.qwen2_0_5b",
+                 "repro_torch.configs.qwen2_1_5b",
+                 "repro_torch.configs.qwen3_8b",
+                 "repro_torch.configs.gemma_7b"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

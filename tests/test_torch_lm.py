@@ -1,4 +1,5 @@
-"""The port's LM serving path against the JAX package's.
+"""The port's LM serving path against the JAX package's: the dense
+attention configs (qwen2, qwen3, gemma), RWKV6 and Zamba2.
 
 Parameters are drawn by the JAX package and carried across
 (``convert.from_jax_params``, then ``lm.cast_params``), except for
@@ -10,10 +11,15 @@ whole prompt in one call on both sides,
 with JAX's ``use_kernels=True`` (its Pallas ``wkv6``/``ssd`` in
 interpret mode) and the port's plain versions on the CPU, at
 ``ssm_chunk=16`` so that a 32-token prompt takes the kernel branch on
-both; then 4 decode steps (the literal scans on both). Logits and every
-decode-state leaf agree to rtol = atol = 1e-4 (float32; the chunked and
-scanned forms sum in other orders, through up to 8 layers). The blocks
-(RoPE, GQA in its cache form, the norms, the gated MLP) agree to 1e-5.
+both; then 4 decode steps (the literal scans on both). The port's
+prefill attends through the flash kernel's plain version over the
+prompt's own keys, JAX's through ``sdpa`` over the whole cache (the same
+function). Logits and every decode-state leaf agree to rtol = atol =
+1e-4 (float32; the chunked and scanned forms sum in other orders,
+through up to 8 layers); so does the stateless forward, where the port's
+attention takes the flash kernel's branch and JAX's (on the CPU)
+``sdpa_auto``. The blocks (RoPE, GQA in both forms with q/k/v biases and
+q/k norms, the norms, the gated MLP) agree to 1e-5.
 The kernels on the card are held against these plain versions by
 ``chip_smoke.py``, which also runs the reduced-depth full-width path on
 the card against the CPU.
@@ -34,6 +40,8 @@ from repro.nn import basic as jax_basic
 from repro.nn.rotary import apply_rope as jax_apply_rope
 from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import from_jax_params
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ops import attention as ops_attention
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.launch.serve import generate
@@ -93,7 +101,7 @@ def test_rope_norms_and_glu_match_jax():
 
 def test_gqa_cache_form_matches_jax():
     """A 6-token prefill into an empty cache, then one decode token: the
-    outputs and the caches agree; the stateless form is refused."""
+    outputs and the caches agree; so does the stateless form."""
     dims = dict(num_heads=4, num_kv_heads=2, head_dim=8)
     jp = jax_attention.gqa_init(jax.random.PRNGKey(2), d_model=16, **dims)
     tp = from_jax_params(jp)
@@ -112,15 +120,110 @@ def test_gqa_cache_form_matches_jax():
         _close(ty, jy, BLOCK_TOL)
         for key in ("k", "v"):
             _close(tcache[key], jcache[key], BLOCK_TOL)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        attention.gqa_apply(tp, torch.from_numpy(x),
-                            torch.from_numpy(pos).long(), **dims)
+    x = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6), (2, 6)).astype(np.int32)
+    jy, _ = jax_gqa(jp, jnp.asarray(x), jnp.asarray(pos))
+    ty, none = attention.gqa_apply(tp, torch.from_numpy(x),
+                                   torch.from_numpy(pos).long(), **dims)
+    assert none is None
+    _close(ty, jy, BLOCK_TOL)
+
+
+def _gqa_params(qkv_bias, qk_norm, seed):
+    """JAX's GQA tree with the options on, its zero biases and unit norm
+    scales replaced by random values so that they are exercised."""
+    jp = jax_attention.gqa_init(jax.random.PRNGKey(seed), d_model=16,
+                                num_heads=4, num_kv_heads=2, head_dim=8,
+                                qkv_bias=qkv_bias, qk_norm=qk_norm)
+    rng = np.random.default_rng(seed)
+    jp = jax.tree.map(np.asarray, jp)
+    for name in ("wq", "wk", "wv"):
+        if "b" in jp[name]:
+            jp[name]["b"] = rng.standard_normal(
+                jp[name]["b"].shape).astype(np.float32)
+    for name in ("q_norm", "k_norm"):
+        if name in jp:
+            jp[name]["scale"] = (1 + 0.5 * rng.standard_normal(8)).astype(
+                np.float32)
+    return jp
+
+
+@pytest.mark.parametrize("qkv_bias,qk_norm", [(True, False), (False, True),
+                                              (True, True)])
+def test_gqa_options_match_jax(qkv_bias, qk_norm):
+    """q/k/v biases (qwen2) and q/k RMS norms over the head (qwen3), in
+    JAX's order (bias, norm, RoPE), in the stateless form (the port's
+    through the flash kernel's branch) and the cache form (a 6-token
+    prefill, then a decode token)."""
+    dims = dict(num_heads=4, num_kv_heads=2, head_dim=8, rope_theta=1e6)
+    jp = _gqa_params(qkv_bias, qk_norm, seed=11)
+    tp = from_jax_params(jp)
+    assert ("b" in tp["wq"]) == qkv_bias and ("q_norm" in tp) == qk_norm
+    rng = np.random.default_rng(12)
+    jax_gqa = jax.jit(functools.partial(jax_attention.gqa_apply, **dims))
+    x = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6), (2, 6)).astype(np.int32)
+    jy, _ = jax_gqa(jp, jnp.asarray(x), jnp.asarray(pos))
+    ty, _ = attention.gqa_apply(tp, torch.from_numpy(x),
+                                torch.from_numpy(pos).long(),
+                                attn_fn=ops_attention, **dims)
+    _close(ty, jy, BLOCK_TOL)
+    jcache = jax_attention.gqa_init_cache(2, 10, 2, 8, dtype=jnp.float32)
+    tcache = {k: torch.zeros((2, 10, 2, 8)) for k in ("k", "v")}
+    for start, s in ((0, 6), (6, 1)):
+        x = rng.standard_normal((2, s, 16)).astype(np.float32)
+        pos = np.broadcast_to(start + np.arange(s), (2, s)).astype(np.int32)
+        jy, jcache = jax_gqa(jp, jnp.asarray(x), jnp.asarray(pos),
+                             cache=jcache, cache_index=start)
+        ty, tcache = attention.gqa_apply(
+            tp, torch.from_numpy(x), torch.from_numpy(pos).long(),
+            cache=tcache, cache_index=start, attn_fn=ops_attention, **dims)
+        _close(ty, jy, BLOCK_TOL)
+        for key in ("k", "v"):
+            _close(tcache[key], jcache[key], BLOCK_TOL)
+
+
+def test_gqa_prefill_is_the_stateless_attention_plus_the_cache_write():
+    """At ``cache_index`` 0 the cache form attends through ``attn_fn`` over
+    the prompt's own keys: the stateless form's output exactly, the new k
+    and v written into the cache, the rest of it untouched; and the same
+    output as attending over the whole cache (the plain form) to 1e-5."""
+    dims = dict(num_heads=4, num_kv_heads=2, head_dim=8)
+    tp = from_jax_params(_gqa_params(True, True, seed=13))
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 16)).astype(np.float32))
+    pos = torch.arange(6).expand(2, 6)
+    fill = torch.from_numpy(rng.standard_normal((2, 10, 2, 8)).astype(
+        np.float32))
+    stateless, _ = attention.gqa_apply(tp, x, pos, attn_fn=ops_attention,
+                                       **dims)
+    cache = {k: fill.clone() for k in ("k", "v")}
+    prefill, cache = attention.gqa_apply(tp, x, pos, cache=cache,
+                                         cache_index=0,
+                                         attn_fn=ops_attention, **dims)
+    torch.testing.assert_close(prefill, stateless, rtol=0, atol=0)
+    k = (x @ tp["wk"]["w"] + tp["wk"]["b"]).reshape(2, 6, 2, 8)
+    k = apply_rope(basic.rmsnorm_apply(tp["k_norm"], k), pos)
+    v = (x @ tp["wv"]["w"] + tp["wv"]["b"]).reshape(2, 6, 2, 8)
+    torch.testing.assert_close(cache["k"][:, :6], k, rtol=0, atol=0)
+    torch.testing.assert_close(cache["v"][:, :6], v, rtol=0, atol=0)
+    for key in ("k", "v"):
+        torch.testing.assert_close(cache[key][:, 6:], fill[:, 6:], rtol=0,
+                                   atol=0)
+    over_cache, _ = attention.gqa_apply(
+        tp, x, pos, cache={k: fill.clone() for k in ("k", "v")},
+        cache_index=0, **dims)
+    torch.testing.assert_close(prefill, over_cache, **BLOCK_TOL)
 
 
 # ------------------------------------------------------------------ params
-@pytest.mark.parametrize("arch", ["rwkv6-test", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-test", "zamba2-7b", "qwen2-0.5b",
+                                  "qwen2-1.5b", "qwen3-8b", "gemma-7b"])
 def test_init_params_tree_matches_jax(arch):
     jc, tc = _configs(arch)
+    # the port's field for the JAX package's embedding-scale rule
+    assert tc.scale_embeddings == (jc.family == "dense"
+                                   and jc.name.startswith("gemma"))
     jp = _sorted_paths(jax.tree.map(np.asarray, jax.jit(
         jax_lm.init_params, static_argnums=1)(jax.random.PRNGKey(0), jc)))
     tp = _sorted_paths(lm.init_params(torch.Generator().manual_seed(0), tc))
@@ -135,7 +238,8 @@ def test_init_params_tree_matches_jax(arch):
             # way: a few ulp
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
         elif (leaf in ("mix_base", "decay_base", "mix_k", "mix_r", "d_skip",
-                       "scale", "bias") or path.endswith("conv/b")):
+                       "scale", "bias") or path.endswith(("conv/b", "wq/b",
+                                                          "wk/b", "wv/b"))):
             np.testing.assert_array_equal(got.numpy(), want, err_msg=path)
     bf16 = lm.init_params(torch.Generator().manual_seed(0),
                           tc.replace(dtype="bfloat16"), dtype=torch.bfloat16)
@@ -148,7 +252,10 @@ def test_init_params_tree_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch,batch,max_len", [("rwkv6-1.6b", 4, 545),
-                                                ("zamba2-7b", 4, 545)])
+                                                ("zamba2-7b", 4, 545),
+                                                ("qwen2-0.5b", 4, 545),
+                                                ("qwen3-8b", 4, 545),
+                                                ("gemma-7b", 2, 100)])
 def test_decode_state_shapes_match_jax_at_full_size(arch, batch, max_len):
     """The served configs' decode states, shapes and dtypes, at the full
     published size (nothing is allocated)."""
@@ -164,12 +271,15 @@ def test_decode_state_shapes_match_jax_at_full_size(arch, batch, max_len):
 
 # ------------------------------------------------------------------ serve
 SERVE_CASES = [("rwkv6-test", {}), ("rwkv6-1.6b", {}), ("zamba2-7b", {}),
-               ("zamba2-7b", {"num_layers": 7})]   # 4 + a 3-layer tail
+               ("zamba2-7b", {"num_layers": 7}),   # 4 + a 3-layer tail
+               ("qwen2-0.5b", {}), ("qwen3-8b", {}), ("gemma-7b", {})]
 
 
 @pytest.mark.parametrize("arch,extra", SERVE_CASES,
                          ids=["rwkv6-test", "rwkv6-1.6b-smoke",
-                              "zamba2-7b-smoke", "zamba2-7b-smoke-tail"])
+                              "zamba2-7b-smoke", "zamba2-7b-smoke-tail",
+                              "qwen2-0.5b-smoke", "qwen3-8b-smoke",
+                              "gemma-7b-smoke"])
 def test_serve_step_prefill_and_decode_match_jax(arch, extra):
     jc, tc = _configs(arch, ssm_chunk=16, **extra)
     jc = jc.replace(use_kernels=True)
@@ -182,7 +292,7 @@ def test_serve_step_prefill_and_decode_match_jax(arch, extra):
     tstep = lm.make_serve_step(tc)
     jstate = jax_lm.init_decode_state(jc, BATCH, MAX_LEN)
     tstate = lm.init_decode_state(tc, BATCH, MAX_LEN)
-    counts = (wkv6.launches, ssd.launches)
+    counts = (wkv6.launches, ssd.launches, flash_attention.launches)
     for i in range(1 + DECODE):
         index = 0 if i == 0 else PROMPT + i - 1
         jl, jstate = jstep(jp, {"tokens": jnp.asarray(tokens)}, jstate,
@@ -197,16 +307,31 @@ def test_serve_step_prefill_and_decode_match_jax(arch, extra):
             assert tuple(got.shape) == want.shape
             _close(got.float(), want, TOL)
         tokens = np.asarray(jl[:, -1]).argmax(-1)[:, None].astype(np.int32)
-    assert (wkv6.launches, ssd.launches) == counts   # no kernel on the CPU
+    # no kernel on the CPU
+    assert (wkv6.launches, ssd.launches, flash_attention.launches) == counts
 
 
 def test_generate_greedy_matches_jax():
     """Greedy tokens equal JAX's ``generate``, which steps the prompt token
     by token; JAX's own logits at the generated positions separate the
     top two by more than the tolerance, so equality is meaningful."""
+    _greedy_matches_jax("rwkv6-test", seed=5)
+
+
+def test_generate_greedy_matches_jax_dense():
+    """As above for qwen2-0.5b (smoke): the port prefills the prompt in
+    one call through the flash kernel's branch, JAX steps it token by
+    token through its cache. Its tied head (embeddings of std 0.02) gives
+    flat logits: at this seed JAX's top two stay more than twice the
+    tolerance apart at every generated position (at seeds 5, 6 and 11 the
+    tokens agree too, but some gap is under that bound)."""
+    _greedy_matches_jax("qwen2-0.5b", seed=7)
+
+
+def _greedy_matches_jax(arch, seed):
     steps = 6
-    jc, tc = _configs("rwkv6-test")
-    tp = lm.init_params(torch.Generator().manual_seed(5), tc)
+    jc, tc = _configs(arch)
+    tp = lm.init_params(torch.Generator().manual_seed(seed), tc)
     jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
     prompt = np.random.default_rng(6).integers(
         0, jc.vocab_size, (BATCH, PROMPT)).astype(np.int32)
@@ -225,8 +350,8 @@ def test_generate_greedy_matches_jax():
 
 def test_stateless_forward():
     """RWKV6 runs without a decode state (a fresh zero state, as JAX's
-    blocks make) and matches JAX's forward; Zamba2's shared attention
-    would need flash_attention and is refused."""
+    blocks make) and matches JAX's forward; so does Zamba2, its shared
+    attention through the flash kernel's branch."""
     jc, tc = _configs("rwkv6-test")
     jp = jax_lm.init_params(jax.random.PRNGKey(7), jc)
     tokens = np.random.default_rng(8).integers(0, jc.vocab_size, (2, 16))
@@ -235,18 +360,44 @@ def test_stateless_forward():
                             {"tokens": torch.from_numpy(tokens)})
     assert state is None
     _close(got, want, TOL)
-    _, zc = _configs("zamba2-7b")
+    zj, zc = _configs("zamba2-7b")
     zp = lm.init_params(torch.Generator().manual_seed(0), zc)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        lm.forward(zp, zc, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    tokens = np.random.default_rng(9).integers(0, zc.vocab_size, (2, 16))
+    want, _, _ = jax_lm.forward(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                             zp), zj,
+                                {"tokens": jnp.asarray(tokens)})
+    got, state = lm.forward(zp, zc, {"tokens": torch.from_numpy(tokens)})
+    assert state is None
+    _close(got, want, TOL)
     with pytest.raises(TypeError, match="cast_params"):
         lm.forward(zp, zc.replace(dtype="bfloat16"),
                    {"tokens": torch.zeros((1, 4), dtype=torch.long)},
                    state=lm.init_decode_state(zc, 1, 4), cache_index=0)
 
 
+@pytest.mark.parametrize("arch,s", [("qwen2-0.5b", 16), ("qwen3-8b", 256),
+                                    ("gemma-7b", 16), ("qwen2-1.5b", 200)])
+def test_stateless_forward_matches_jax(arch, s):
+    """The dense configs' stateless forward against JAX's ``forward`` (on
+    the CPU its attention takes ``sdpa_auto``; the port's the flash
+    kernel's branch at every S, the ragged 200 included), at 1e-4; on the
+    CPU no kernel launches. ``test_stateless_forward`` holds RWKV6 and
+    Zamba2."""
+    jc, tc = _configs(arch)
+    tp = lm.cast_params(lm.init_params(torch.Generator().manual_seed(3), tc),
+                        tc)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    tokens = np.random.default_rng(4).integers(0, jc.vocab_size, (1, s))
+    want, _, _ = jax_lm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+    before = flash_attention.launches
+    got, _ = lm.forward(tp, tc, {"tokens": torch.from_numpy(tokens)})
+    assert flash_attention.launches == before
+    _close(got, want, TOL)
+
+
 # ------------------------------------------------------------------ CLI
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b", "qwen2-0.5b",
+                                  "qwen3-8b"])
 def test_cli_serves_lm_on_cpu(arch, capsys):
     report = serve_main(["--arch", arch, "--smoke", "--device", "cpu",
                          "--batch", "2", "--prompt-len", "32",
@@ -262,9 +413,18 @@ def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_main(["--arch", "rwkv6-test"])
-    assert list_configs() == ["rwkv6-1.6b", "zamba2-7b", "rwkv6-test"]
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        serve_main(["--arch", "qwen2-0.5b", "--device", "cpu"])
+    assert list_configs() == ["rwkv6-1.6b", "zamba2-7b", "rwkv6-test",
+                              "qwen2-0.5b", "qwen2-1.5b", "qwen3-8b",
+                              "gemma-7b"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_main(["--arch", "qwen3-8b"])
+    for arch, part in (("qwen3-moe-30b-a3b", "mixture-of-experts"),
+                       ("deepseek-v2-lite-16b", "latent attention"),
+                       ("musicgen-medium", "audio-frame frontend"),
+                       ("pixtral-12b", "vision-patch frontend")):
+        with pytest.raises(NotImplementedError, match=part):
+            serve_main(["--arch", arch, "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     with pytest.raises(SystemExit):           # --algo still needs a ckpt

@@ -296,8 +296,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        serve_main(["--arch", "qwen2_0_5b", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        serve_main(["--arch", "qwen3_moe_30b_a3b", "--ckpt-dir",
+                    str(tmp_path)])
     with pytest.raises(SystemExit):
         serve_main(["--algo", "td3", "--arch", "x",
                     "--ckpt-dir", str(tmp_path)])
