@@ -11,26 +11,34 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build    — every kernel of the port from this checkout's sources:
                 ``nvcc`` for the CUDA sources (one process per source, all
                 started together) while Triton compiles ``pop_adam`` with
-                one warm launch;
+                one warm launch; each kernel's registers and spills from
+                ptxas, and the HMMA (tensor-core) instructions of each bf16
+                ``flash_attention`` instantiation from its SASS (none
+                fails the run);
   3. kernels  — each kernel against its plain PyTorch version on the card
                 (``pop_matmul`` forward over the serving and training
-                shapes and more, its backward at the training shapes,
-                ``pop_adam`` over ragged sizes, per-member lr and step),
-                then timed at the paths' shapes beside its bound, its plain
-                version and the PyTorch library call that computes the
-                same function;
+                shapes and the edges of both its routes' tiles, its
+                backward at the training shapes, ``pop_adam`` over ragged
+                sizes, per-member lr and step), then timed at the paths'
+                shapes beside its bound, its plain version, the PyTorch
+                library call that computes the same function, and the M=1
+                heads also on the tiled route that the narrow one stands in
+                for;
   4. update   — one full-width TD3 population update chained 4 times with
                 every kernel, and again with every plain version, from the
                 same state, batches and noise: step-1 gradients and the
-                parameters after 4 steps must agree, and the backwards of
-                the first step, by shape and gradients asked, must be the
-                12 that phase 3 times per update step;
+                parameters after 4 steps must agree, the backwards of the
+                first step, by shape and gradients asked, must be the 12
+                that phase 3 times per update step, and each step's 24
+                ``pop_matmul`` launches must take the routes the wrapper's
+                rule gives, which must be 16 tiled and 8 narrow;
   5. serve    — a seeded population of 8 full-width TD3 actors is written
                 in the checkpoint layout and served through the port's CLI
                 entry point (``repro_torch.launch.serve.main``, ``--fused-
                 linear --batch 256``) in the mean and best modes, with the
                 kernel launch counts set to 0 just before each run and read
-                just after; answers are checked against the plain ensemble
+                just after (3 ``pop_matmul`` launches a batch: 2 tiled, 1
+                narrow); answers are checked against the plain ensemble
                 on the same serving set and requests, then a newer
                 checkpoint must promote and demote members as the
                 selection rule says;
@@ -52,11 +60,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 as strong as the models give, the served prefill's exact
                 shape), then timed at that shape beside their bounds;
                 ``flash_attention`` against its plain version (head sizes
-                32/64/112/128/256, GQA groups 1/2/4/7, S of 1/64/128/200/
-                512, a ragged 200 included, causal and not, both layouts,
-                float32 and bf16), then timed
-                at the four dense and hybrid served shapes beside its
-                bound, its plain version and PyTorch's
+                32/64/112/128/256, GQA groups 1/2/4/7, S of 1/63/64/65/128/
+                129/200/512, the bf16 route's tile edges and a ragged 200
+                included, causal and not, both layouts, float32 and bf16),
+                then timed at the four dense and hybrid served shapes
+                beside its bound, its plain version and PyTorch's
                 ``scaled_dot_product_attention``;
   9. LM parity — ``rwkv6-1.6b`` (2 layers), ``zamba2-7b`` (7: one
                 super-block with the shared attention and a 1-layer tail),
@@ -73,7 +81,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
                 --prompt-len 512 --tokens 32``) with every launch count set
                 to 0 just before and read just after: exactly 24, 36, 0
-                and 14 ``flash_attention`` launches, 24 ``wkv6`` for
+                and 14 ``flash_attention`` launches, all on the bf16
+                tensor-core route, 24 ``wkv6`` for
                 rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no other kernel;
                 prefill and decode times; one prefill and one decode step
                 profiled.
@@ -87,6 +96,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,6 +149,9 @@ LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# the port's slice that last redesigned the flash_attention and
+# pop_matmul kernels (PERF.md keeps their times before it)
+REDESIGNED_IN = "slice 5"
 SEED = 0
 POPULATION = 8
 ENSEMBLE = 4
@@ -154,6 +167,10 @@ EVAL_ENVS, EVAL_STEPS = 4, 200     # the engine's evaluator: envs, steps
 # 24 forward launches of one update step each takes
 ACTOR_LAYERS = ((3, 256, "relu"), (256, 256, "relu"), (256, 1, "tanh"))
 CRITIC_LAYERS = ((4, 256, "relu"), (256, 256, "relu"), (256, 1, "none"))
+# pop_matmul launches of each route in one served batch (the actor's
+# 256-wide layers tiled, its M=1 head narrow) and in one update step
+SERVED_BATCH_ROUTES = {"tiled": 2, "narrow": 1}
+UPDATE_STEP_ROUTES = {"tiled": 16, "narrow": 8}
 
 
 def log(msg: str):
@@ -166,6 +183,89 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts(*wrappers):
+    """Set each kernel wrapper's launch count, and its count by route where
+    it keeps one, to 0."""
+    for fn in wrappers:
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
+
+
+def pop_matmul_routes(n, bsz, layers):
+    """Launches of each pop_matmul route for ``layers`` of (K, M, count),
+    by the wrapper's own rule."""
+    from repro_torch.kernels.pop_matmul import ROUTES, _route
+
+    out = dict.fromkeys(ROUTES, 0)
+    for k, m, count in layers:
+        out[_route(n, bsz, k, m)] += count
+    return out
+
+
+def scaled(routes, factor):
+    return {k: v * factor for k, v in routes.items()}
+
+
+def added(*routes):
+    return {k: sum(r[k] for r in routes) for k in routes[0]}
+
+
+def ptxas_figures(report):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` lines of one nvcc build."""
+    out, entry, props, spills = {}, None, None, {}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, props = m.group(1), None
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry and props in (None, entry):
+            spills[entry] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)),) + spills.get(entry, (0, 0))
+    return out
+
+
+def kernel_labels(mangled):
+    """{mangled kernel name: short name}, e.g. flash_mma_bf16<128>: the
+    toolkit's cu++filt without parameters, scope and casts."""
+    from repro_torch.kernels import build
+
+    names = sorted(set(mangled))
+    filt = Path(build._nvcc()).parent / "cu++filt"
+    out = subprocess.run([str(filt), "-p", *names], capture_output=True,
+                         stdin=subprocess.DEVNULL, text=True, check=True,
+                         timeout=60).stdout.split("\n")
+    if len(out) < len(names):
+        raise RuntimeError(f"cu++filt gave {out} for {names}")
+    return {m: re.sub(r"^.*::|\((?:int|bool)\)", "", d.strip())
+            for m, d in zip(names, out)}
+
+
+def sass_hmma_counts(library):
+    """{kernel: count of HMMA (tensor-core) instructions} in a built
+    library's SASS, read with the toolkit's cuobjdump."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        counts[chunk.split("\n", 1)[0].strip()] = chunk.count("HMMA")
+    return counts
 
 
 # ------------------------------------------------------------------ timing
@@ -257,14 +357,20 @@ def phase_kernels():
     """pop_matmul against its plain version, then timed at the path's
     shapes. Returns (max_abs_err, its share of the tolerance, per-layer
     timing rows)."""
-    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+    from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
+                                                pop_matmul_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = share = 0.0
     cases = 0
+    reset_counts(pop_matmul)
+    # the paths' (K, M) and the edges of both routes' tiles: B of 31 and
+    # 33 across the 32-row tile, M of 15 and 16 on both sides of the
+    # route rule, ragged K and M
     for n in (1, 4, 8):
-        for bsz in (1, 4, 256, 1000):
-            for k, m in ((3, 256), (256, 256), (256, 1)):
+        for bsz in (1, 4, 31, 33, 256, 1000):
+            for k, m in ((3, 256), (256, 256), (256, 1), (255, 1), (256, 15),
+                         (256, 16), (33, 17)):
                 w = torch.randn((n, k, m), generator=gen,
                                 device="cuda") / k ** 0.5
                 b = torch.randn((n, m), generator=gen, device="cuda")
@@ -279,7 +385,14 @@ def phase_kernels():
                         worst = max(worst, (y - ref).abs().max().item())
                         share = max(share, tol_share(y, ref, TOL))
                         cases += 1
-    log(f"pop_matmul == plain on {cases} cases, max abs err {worst:.3g}")
+    by_route = dict(pop_matmul.launches_by_route)
+    if min(by_route.values()) == 0 or sum(by_route.values()) != cases:
+        raise AssertionError(f"pop_matmul cases by route {by_route}, "
+                             f"{cases} cases")
+    log(f"pop_matmul == plain on {cases} cases (N 1/4/8, B 1/4/31/33/256/"
+        f"1000, (K,M) (3,256) (256,256) (256,1) (255,1) (256,15) (256,16) "
+        f"(33,17), x broadcast or not, 3 activations; by route "
+        f"{by_route}), max abs err {worst:.3g}")
 
     # the serving path's three launches: E=4 members, B=256 requests,
     # layer 0 reads the requests broadcast over members (stride 0)
@@ -311,6 +424,8 @@ def phase_kernels():
                                            broadcast=broadcast)
         row = {"layer": name, "n": n, "b": BATCH, "k": k, "m": m,
                "act": act, "x_broadcast": broadcast,
+               "route": _route(n, BATCH, k, m),
+               **tiled_alternative(_launch, x, w, b, act, plain()),
                "ms": graph_ms(kernel),
                "plain_ms": graph_ms(plain),
                "library_ms": graph_ms(library),
@@ -318,14 +433,37 @@ def phase_kernels():
                "plain_eager_ms": eager_ms(plain),
                "bound_ms": bound, "bound_by": bound_by}
         rows.append(row)
-        log(f"pop_matmul {name} (N={n},B={BATCH},K={k},M={m},{act}): "
+        log(f"pop_matmul {name} (N={n},B={BATCH},K={k},M={m},{act}, "
+            f"{row['route']}): "
             f"kernel {row['ms'] * 1e3:.3f} us/launch on the device "
             f"({row['eager_ms'] * 1e3:.3f} us eager with launch overhead), "
             f"plain {row['plain_ms'] * 1e3:.3f} us "
             f"({row['plain_eager_ms'] * 1e3:.3f} us eager), baddbmm "
             f"{row['library_ms'] * 1e3:.3f} us, bound "
-            f"{bound * 1e3:.3f} us ({bound_by})")
+            f"{bound * 1e3:.3f} us ({bound_by}){tiled_text(row)}")
     return worst, share, rows
+
+
+def tiled_alternative(launch, x, w, b, act, want):
+    """For a layer on the narrow route, the tiled route's time on the
+    same inputs (its answer checked against the plain one, ``want``,
+    first): what the narrow route saves, measured beside it. Empty for a
+    layer on the tiled route."""
+    from repro_torch.kernels.pop_matmul import _route
+
+    if _route(*x.shape, w.shape[2]) == "tiled":
+        return {}
+    y = launch(x, w, b, act, route="tiled")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, **TOL)
+    return {"tiled_route_ms": graph_ms(
+        lambda: launch(x, w, b, act, route="tiled"))}
+
+
+def tiled_text(row):
+    return ("" if "tiled_route_ms" not in row else
+            f"; on the tiled route instead "
+            f"{row['tiled_route_ms'] * 1e3:.3f} us")
 
 
 def _shape_rows(layers, count, net):
@@ -348,13 +486,42 @@ TRAIN_SHAPES = (_shape_rows(ACTOR_LAYERS, 2, "actor")       # actor, target
                 + _shape_rows(CRITIC_LAYERS, 6, "critic"))  # 3 x twin heads
 
 
+def served_batch_routes():
+    """pop_matmul launches of each route in one served batch: the actor's
+    3 layers over E members and B requests (also one acting or evaluation
+    step of training, whose shapes take the same routes), by the wrapper's
+    rule, which must give SERVED_BATCH_ROUTES."""
+    return expect_routes(
+        pop_matmul_routes(ENSEMBLE, BATCH,
+                          [(k, m, 1) for k, m, _ in ACTOR_LAYERS]),
+        SERVED_BATCH_ROUTES, "a served batch")
+
+
+def update_step_routes():
+    """pop_matmul launches of each route in one population update step:
+    the 24 forwards of TRAIN_SHAPES, by the wrapper's rule, which must
+    give UPDATE_STEP_ROUTES."""
+    return expect_routes(
+        pop_matmul_routes(POPULATION, TRAIN["batch"],
+                          [(k, m, c) for _, k, m, _, c, _ in TRAIN_SHAPES]),
+        UPDATE_STEP_ROUTES, "an update step")
+
+
+def expect_routes(derived, want, what):
+    if derived != want:
+        raise AssertionError(f"pop_matmul's route rule gives {derived} for "
+                             f"{what}, want {want}")
+    return derived
+
+
 def phase_pop_matmul_training():
     """pop_matmul under autograd at the training path's shapes: dx, dw, db
     through the kernel route (``PopMatmul``) against the plain route,
     relu and tanh; then the forward and the backward's batched matmuls
     timed per shape. Returns (max grad err, forward max err, the worst
     share of its tolerance of either, rows)."""
-    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+    from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
+                                                pop_matmul_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     n, bsz = POPULATION, TRAIN["batch"]
@@ -413,6 +580,9 @@ def phase_pop_matmul_training():
                           "ms": graph_ms(lambda: backward(grads)),
                           "bound_ms": back_bound, "bound_by": back_by})
         row = {"net": net, "n": n, "b": bsz, "k": k, "m": m, "act": act,
+               "route": _route(n, bsz, k, m),
+               **tiled_alternative(_launch, x, w, b, act, pop_matmul_plain(
+                   x, w, b, activation=act)),
                "launches_per_update_step": count,
                "ms": graph_ms(lambda: pop_matmul(x, w, b, activation=act)),
                "plain_ms": graph_ms(
@@ -430,11 +600,13 @@ def phase_pop_matmul_training():
             f"d{'/d'.join(r['grads'])} x{r['per_update_step']} "
             f"{r['ms'] * 1e3:.3f} us (bound {r['bound_ms'] * 1e3:.3f} us, "
             f"{r['bound_by']})" for r in backs)
-        log(f"pop_matmul {net} (N={n},B={bsz},K={k},M={m},{act}) x{count} "
-            f"per update step: kernel {row['ms'] * 1e3:.3f} us, plain "
+        log(f"pop_matmul {net} (N={n},B={bsz},K={k},M={m},{act}, "
+            f"{row['route']}) x{count} per update step: kernel "
+            f"{row['ms'] * 1e3:.3f} us, plain "
             f"{row['plain_ms'] * 1e3:.3f} us, baddbmm "
             f"{row['library_ms'] * 1e3:.3f} us, bound "
-            f"{bound * 1e3:.3f} us ({bound_by}); backward bmm {back_txt}")
+            f"{bound * 1e3:.3f} us ({bound_by}){tiled_text(row)}; backward "
+            f"bmm {back_txt}")
     return worst_grad, worst_fwd, share, rows
 
 
@@ -584,7 +756,7 @@ def phase_update_parity():
                                        ("plain", False, False)):
         update = td3.make_population_update(fused_linear=fused_linear,
                                             fused=fused)
-        pop_matmul.launches = pop_adam.launches = 0
+        reset_counts(pop_matmul, pop_adam)
         (s1, _), backs = backwards_of(
             lambda: update(state, first, hypers, noise=noise[0]))
         if fused_linear and backs != want_backs:
@@ -599,6 +771,12 @@ def phase_update_parity():
             raise AssertionError(f"update ({route}): launches "
                                  f"(pop_matmul, pop_adam) = {counts}, want "
                                  f"{want}")
+        by_route = dict(pop_matmul.launches_by_route)
+        want_routes = scaled(update_step_routes(),
+                             k_steps if fused is None else 0)
+        if by_route != want_routes:
+            raise AssertionError(f"update ({route}): pop_matmul launches by "
+                                 f"route {by_route}, want {want_routes}")
         grads = [m / 0.1 for m in leaves(s1.critic_opt.mu)
                  + leaves(s1.actor_opt.mu)]
         out[route] = (grads, leaves((s4.actor, s4.critic, s4.target_actor,
@@ -616,7 +794,8 @@ def phase_update_parity():
     log(f"update parity, kernels vs plain (N={n}, B={bsz}, full width): "
         f"step-1 gradients max abs err {grad_err:.3g} (rtol 1e-4, atol "
         f"1e-6), parameters after {k_steps} steps max abs err "
-        f"{param_err:.3g} (atol {PARAMS_AFTER_4_ATOL})")
+        f"{param_err:.3g} (atol {PARAMS_AFTER_4_ATOL}); pop_matmul "
+        f"launches by route per update step {update_step_routes()}")
     return grad_err, param_err
 
 
@@ -673,15 +852,18 @@ def phase_serve():
                     "--mode", mode, "--fused-linear",
                     "--batch", str(BATCH), "--requests", str(REQUESTS),
                     "--diversity-weight", weight, "--seed", str(SEED)]
-            pop_matmul.launches = 0
+            reset_counts(pop_matmul)
             report = serve_main(argv)
             launches = pop_matmul.launches
+            by_route = dict(pop_matmul.launches_by_route)
             torch.cuda.synchronize()
             batches = REQUESTS + 2          # warm-up + first batch + timed
-            if launches != 3 * batches:
+            want_routes = scaled(served_batch_routes(), batches)
+            if launches != 3 * batches or by_route != want_routes:
                 raise AssertionError(
                     f"serve {mode}: pop_matmul launched {launches} times "
-                    f"for {batches} served batches (want 3 per batch)")
+                    f"for {batches} served batches (want 3 per batch), by "
+                    f"route {by_route} (want {want_routes})")
             server, watcher = report.server, report.watcher
             members = server.set.members.tolist()
             if members[0] != int(np.argmax(fitness)):
@@ -692,11 +874,14 @@ def phase_serve():
             results[mode] = {"req_per_s": report.req_per_s,
                              "p50_ms": report.p50_ms,
                              "p99_ms": report.p99_ms,
-                             "launches": launches, "members": members}
+                             "launches": launches,
+                             "launches_by_route": by_route,
+                             "members": members}
             log(f"serve {mode}: {report.requests} requests, "
                 f"{report.req_per_s:.1f} req/s, p50 {report.p50_ms:.4f} ms "
                 f"p99 {report.p99_ms:.4f} ms per batch of {BATCH}, "
-                f"{launches} pop_matmul launches, members {members}")
+                f"{launches} pop_matmul launches {by_route}, members "
+                f"{members}")
 
         # promotion: with diversity weight 0 the rule is the top-k by
         # fitness; a newer checkpoint with another order must move exactly
@@ -719,9 +904,9 @@ def phase_serve():
                                  f"the rule: promote {sorted(new - old)}, "
                                  f"demote {sorted(old - new)}")
         obs = np.asarray(rng.standard_normal((BATCH, 3)), np.float32)
-        pop_matmul.launches = 0
+        reset_counts(pop_matmul)
         worst = max(worst, check_answers(server, obs, server.serve(obs)))
-        if pop_matmul.launches != 3:
+        if pop_matmul.launches_by_route != served_batch_routes():
             raise AssertionError("promoted set did not serve through "
                                  "pop_matmul")
         log(f"promotion at step 10: +{event['promoted']} "
@@ -782,13 +967,14 @@ def phase_train(ckpt_dir):
             "--updates-per-iter", str(t["updates_per_iter"]),
             "--batch", str(t["batch"]), "--fused-adam", "--fused-linear",
             "--ckpt-dir", ckpt_dir, "--seed", str(SEED)]
-    pop_matmul.launches = pop_adam.launches = 0
+    reset_counts(pop_matmul, pop_adam)
     t0 = time.perf_counter()
     report = train_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pop_matmul": pop_matmul.launches,
                 "pop_adam": pop_adam.launches}
+    by_route = dict(pop_matmul.launches_by_route)
 
     iters, k = t["steps"], t["updates_per_iter"]
     per_iter = t["collect_steps"] * t["num_envs"]
@@ -797,10 +983,16 @@ def phase_train(ckpt_dir):
     want = {"pop_adam": 2 * k * updating,
             "pop_matmul": (24 * k * updating + 3 * t["collect_steps"] * iters
                            + 3 * EVAL_STEPS * evals)}
-    if launches != want:
+    want_routes = added(
+        scaled(update_step_routes(), k * updating),
+        scaled(served_batch_routes(),
+               t["collect_steps"] * iters + EVAL_STEPS * evals))
+    if launches != want or by_route != want_routes:
         raise AssertionError(f"train: launches {launches}, want {want} (24 "
                              f"pop_matmul + 2 pop_adam per update step, 3 "
-                             f"pop_matmul per acting and evaluation step)")
+                             f"pop_matmul per acting and evaluation step); "
+                             f"pop_matmul by route {by_route}, want "
+                             f"{want_routes}")
     trainer = report.trainer
     if report.metrics is None or not all(
             torch.isfinite(v).all() for v in report.metrics.values()):
@@ -825,7 +1017,8 @@ def phase_train(ckpt_dir):
                              f"values")
     log(f"train: {iters} iterations in {wall:.2f}s through the entry point "
         f"({wall * 1e3 / iters:.1f} ms per iteration, evaluations "
-        f"included); launches {launches}; {len(report.evolutions)} evolves "
+        f"included); launches {launches}, pop_matmul by route {by_route}; "
+        f"{len(report.evolutions)} evolves "
         f"{report.evolutions}; best fitness {report.best_fitness:+.2f}; "
         f"checkpoint step {latest}")
 
@@ -856,7 +1049,8 @@ def phase_train(ckpt_dir):
         f"{'not measured' if share is None else f'{share:.4f}'} "
         f"({'not measured' if share is None else f'{share_unprofiled:.4f}'}"
         f" of the {iter_ms:.2f} ms unprofiled iteration)")
-    return {"launches": launches, "seconds": wall,
+    return {"launches": launches, "pop_matmul_launches_by_route": by_route,
+            "seconds": wall,
             "iter_ms": iter_ms, "update_call_ms": update_ms,
             "member_update_step_ms": member_step_ms, "eval_ms": eval_ms,
             "device_busy_share": share, "device_busy_ms": busy_ms,
@@ -879,13 +1073,15 @@ def phase_train_serve(ckpt_dir, fitness):
             "--ensemble", str(ENSEMBLE), "--mode", "mean", "--fused-linear",
             "--batch", str(BATCH), "--requests", str(requests),
             "--seed", str(SEED)]
-    pop_matmul.launches = 0
+    reset_counts(pop_matmul)
     report = serve_main(argv)
     torch.cuda.synchronize()
-    if pop_matmul.launches != 3 * (requests + 2):
-        raise AssertionError(f"train -> serve: {pop_matmul.launches} "
-                             f"pop_matmul launches for {requests + 2} "
-                             f"batches (want 3 per batch)")
+    want_routes = scaled(served_batch_routes(), requests + 2)
+    if pop_matmul.launches_by_route != want_routes:
+        raise AssertionError(f"train -> serve: pop_matmul launches by route "
+                             f"{pop_matmul.launches_by_route} for "
+                             f"{requests + 2} batches (want "
+                             f"{want_routes})")
     members = report.server.set.members.tolist()
     if members[0] != int(np.argmax(fitness)):
         raise AssertionError(f"train -> serve: the fittest member "
@@ -1062,11 +1258,14 @@ def phase_flash_kernel():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     worst = share = 0.0
     cases = 0
+    reset_counts(flash_attention)
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
         for d in (32, 64, 112, 128, 256):
             for group in (1, 2, 4, 7):
-                for s in (1, 64, 128, 200, 512):
+                # 63, 65 and 129 straddle the bf16 route's 64-row and
+                # 64-key tiles (32-key at D=256), 200 leaves a ragged tile
+                for s in (1, 63, 64, 65, 128, 129, 200, 512):
                     for causal in (True, False):
                         for model_layout in (False, True):
                             q, k, v = _flash_inputs(
@@ -1085,10 +1284,14 @@ def phase_flash_kernel():
                             share = max(share, tol_share(
                                 got.float(), want.float(), tol))
                             cases += 1
+    by_route = dict(flash_attention.launches_by_route)
+    if by_route != {"bf16_mma": cases // 2, "f32_fma": cases // 2}:
+        raise AssertionError(f"flash_attention cases by route {by_route}, "
+                             f"{cases} cases")
     log(f"flash_attention == plain on {cases} cases (D 32/64/112/128/256, "
-        f"group 1/2/4/7, S 1/64/128/200/512, causal and not, both layouts, "
-        f"float32 at 2e-4 and bf16 at 2e-2), max abs err {worst:.3g}, "
-        f"{share:.3g} of the tolerance")
+        f"group 1/2/4/7, S 1/63/64/65/128/129/200/512, causal and not, both "
+        f"layouts, float32 at 2e-4 and bf16 at 2e-2; by route {by_route}), "
+        f"max abs err {worst:.3g}, {share:.3g} of the tolerance")
 
     rows = {}
     for arch, (b, h, hkv, s, d) in FLASH_SHAPES.items():
@@ -1105,6 +1308,7 @@ def phase_flash_kernel():
         share = max(share, tol_share(got.float(), want.float(), tol))
         bound, bound_by = flash_bound(b, h, hkv, s, d)
         row = {"shape": (b, h, hkv, s, d), "dtype": "bfloat16",
+               "route": "bf16_mma",
                "ms": graph_ms(lambda: flash_attention(q, k, v)),
                "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v),
                                     reps=5, iters=5),
@@ -1155,17 +1359,21 @@ def phase_lm_parity():
         tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT),
                                generator=gen, device="cuda")
         step = lm.make_serve_step(cfg)
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(*counters.values())
         logits, state = step(params, {"tokens": tokens},
                              lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1,
                                                   device="cuda"), 0)
         torch.cuda.synchronize()
         counts = {k: c.launches for k, c in counters.items()}
         expected = {k: want.get(k, 0) for k in counters}
-        if counts != expected:
-            raise AssertionError(f"{arch} parity: launches {counts}, want "
-                                 f"{expected} for {layers} layers")
+        # float32: every attention launch on the CUDA-core route
+        flash_routes = dict(flash_attention.launches_by_route)
+        if counts != expected or flash_routes["f32_fma"] != counts[
+                "flash_attention"]:
+            raise AssertionError(f"{arch} parity: launches {counts} "
+                                 f"(flash_attention by route "
+                                 f"{flash_routes}), want {expected} for "
+                                 f"{layers} layers")
         cpu_params = tree_map(lambda t: t.cpu(), params)
         cpu_logits, cpu_state = step(
             cpu_params, {"tokens": tokens.cpu()},
@@ -1187,7 +1395,7 @@ def phase_lm_parity():
             f"{share:.3g} of the tolerance")
         out[arch] = (worst, share)
         if arch == "qwen2-0.5b":
-            flash_attention.launches = 0
+            reset_counts(flash_attention)
             logits, none = lm.forward(params, cfg, {"tokens": tokens})
             torch.cuda.synchronize()
             if none is not None or flash_attention.launches != layers:
@@ -1267,15 +1475,18 @@ def phase_lm_serve():
         torch.cuda.reset_peak_memory_stats()
         # what earlier phases still hold; the run's own peak is above it
         before = torch.cuda.memory_allocated()
-        for c in counters.values():
-            c.launches = 0
+        reset_counts(*counters.values())
         report = serve_main(argv)
         torch.cuda.synchronize()
         counts = {k: c.launches for k, c in counters.items()}
         expected = {k: want.get(k, 0) for k in counters}
-        if counts != expected:
-            raise AssertionError(f"serve {arch}: launches {counts}, want "
-                                 f"{expected}")
+        # the served prefill's attention is bf16: all on the tensor cores
+        flash_routes = dict(flash_attention.launches_by_route)
+        want_routes = {"bf16_mma": expected["flash_attention"], "f32_fma": 0}
+        if counts != expected or flash_routes != want_routes:
+            raise AssertionError(f"serve {arch}: launches {counts}, "
+                                 f"flash_attention by route {flash_routes}; "
+                                 f"want {expected}, {want_routes}")
         tokens = report.tokens
         if tuple(tokens.shape) != (b, 1 + t) or not (
                 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
@@ -1289,7 +1500,8 @@ def phase_lm_serve():
             for shape, dt in _shape_leaves(
                 lm.decode_state_shapes(cfg, b, s + t + 1)))
         log(f"serve {arch} (batch {b}, prompt {s}, {t} tokens): launches "
-            f"{counts}; {report.num_params} parameters, "
+            f"{counts}, flash_attention by route {flash_routes}; "
+            f"{report.num_params} parameters, "
             f"{report.weight_bytes} weight bytes, {state_bytes} decode-state "
             f"bytes, peak {peak} bytes allocated above the {before} held "
             f"before the run")
@@ -1317,7 +1529,9 @@ def phase_lm_serve():
             log(f"serve {arch} {phase}: device busy {busy:.3f} ms of "
                 f"{wall:.3f} ms profiled ({busy / wall:.4f}); top kernels "
                 + ", ".join(f"{n} {ms:.3f} ms" for n, ms in top[:4]))
-        out[arch] = {"launches": counts, "num_params": report.num_params,
+        out[arch] = {"launches": counts,
+                     "flash_attention_by_route": flash_routes,
+                     "num_params": report.num_params,
                      "weight_bytes": report.weight_bytes,
                      "state_bytes": state_bytes, "peak_bytes": peak,
                      "allocated_before_bytes": before,
@@ -1388,10 +1602,30 @@ def main() -> int:
     log(f"built {sorted(built['reports']) or 'nothing (up to date)'} with "
         f"nvcc in {built['seconds']:.2f}s; pop_adam compiled by Triton and "
         f"launched once in {triton_s:.2f}s (in parallel)")
-    for src, text in built["reports"].items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"{src}: {line.strip()}")
+    figures = {src: ptxas_figures(text)
+               for src, text in built["reports"].items()}
+    # the bf16 flash route must run on the tensor cores: HMMA in the SASS
+    # of each of its instantiations
+    hmma = {k: c for k, c in sass_hmma_counts(
+        build.library_path("flash_attention")).items()
+        if "flash_mma_bf16" in k}
+    label = kernel_labels([k for f in figures.values() for k in f]
+                          + list(hmma))
+    ptxas = {}
+    for src, kernels in figures.items():
+        for kernel, (regs, st, ld) in kernels.items():
+            ptxas[label[kernel]] = {"registers": regs,
+                                    "spill_store_bytes": st,
+                                    "spill_load_bytes": ld}
+            log(f"{src}: {label[kernel]} {regs} registers, spill stores "
+                f"{st} bytes, spill loads {ld} bytes")
+    hmma = {label[k]: c for k, c in hmma.items()}
+    from repro_torch.kernels.flash_attention import DIMS
+    if len(hmma) != len(DIMS) or min(hmma.values()) == 0:
+        raise AssertionError(f"flash_attention's bf16 instantiations must "
+                             f"each hold HMMA instructions, found {hmma}")
+    log("flash_attention bf16 route, HMMA instructions in the SASS: "
+        + ", ".join(f"{k} {c}" for k, c in sorted(hmma.items())))
 
     # 3. kernels vs plain, timing
     kernel_err, kernel_share, rows = phase_kernels()
@@ -1429,7 +1663,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pop_matmul.cu",
         "replaces": "src/repro/kernels/pop_matmul.py:83",
+        "redesigned_in": REDESIGNED_IN,
         "launches": train["launches"]["pop_matmul"],
+        "launches_by_route": train["pop_matmul_launches_by_route"],
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
                            trained_serve_err),
         "tolerance": "rtol=atol=1e-5",
@@ -1454,10 +1690,14 @@ def main() -> int:
         "backward_bound_ms": sum(r["backward_bound_ms_per_step"]
                                  for r in train_rows),
         "per_launch_training": train_rows,
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("pop_matmul")},
         "serve": {"launches": serve["mean"]["launches"],
+                  "launches_by_route": serve["mean"]["launches_by_route"],
                   "work": f"the {len(rows)} launches of one served batch "
                           f"(E={ENSEMBLE}, B={BATCH})",
-                  "ms": per_batch("ms"), "plain_ms": per_batch("plain_ms"),
+                  "ms": per_batch("ms"),
+                  "plain_ms": per_batch("plain_ms"),
                   "bound_ms": per_batch("bound_ms"),
                   "library_ms": per_batch("library_ms"),
                   "eager_ms": per_batch("eager_ms"),
@@ -1515,9 +1755,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
+        "redesigned_in": REDESIGNED_IN,
         "launches": lm_serve["qwen3-8b"]["launches"]["flash_attention"],
         "launches_by_arch": {arch: r["launches"]["flash_attention"]
                              for arch, r in lm_serve.items()},
+        "launches_by_route": lm_serve["qwen3-8b"][
+            "flash_attention_by_route"],
         "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]),
         "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
                      "1e-3 (the path, card vs CPU)",
@@ -1534,6 +1777,8 @@ def main() -> int:
         "library_call": "torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True, enable_gqa=True)",
         "per_launch": flash_rows,
+        "bf16_hmma": hmma,
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("flash")},
     })
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "

@@ -8,8 +8,13 @@ is given.
 :func:`flash_attention` is the wrapper every caller uses. A tensor on the
 CPU goes to :func:`flash_attention_plain`; a CUDA tensor goes to the
 hand-written kernel in ``csrc/flash_attention.cu`` or raises: there is no
-fallback. ``flash_attention.launches`` counts kernel launches (the plain
-version does not count).
+fallback. The kernel has two routes, by type: ``bf16_mma`` (the served
+one: both products as bf16 ``mma.sync`` on the tensor cores, K and V
+streamed through a two-stage ``cp.async`` ring in shared memory) and
+``f32_fma`` (float32 FMAs on the CUDA cores, the reference-precision form
+that only the float32 parity checks run). ``flash_attention.launches``
+counts kernel launches and ``flash_attention.launches_by_route`` splits
+them by route (the plain version counts in neither).
 
 :func:`flash_attention_plain` is the JAX package's oracle
 ``ref.flash_attention_ref`` in PyTorch: float32 logits, masked to -1e30
@@ -38,6 +43,7 @@ import torch
 
 DIMS = (32, 64, 112, 128, 256)   # the head sizes the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = {torch.bfloat16: "bf16_mma", torch.float32: "f32_fma"}
 MASK = -1e30                     # the oracle's mask value
 
 
@@ -129,6 +135,7 @@ def _launch(q, k, v, causal, scale):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{rc} ({err(rc).decode()})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[ROUTES[q.dtype]] += 1
     return out
 
 
@@ -146,3 +153,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES.values(), 0)

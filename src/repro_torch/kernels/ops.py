@@ -8,8 +8,11 @@ kernel and a CPU tensor runs the kernel's plain version; every other call
 takes the plain code of ``repro_torch.nn``. Full-sequence causal
 attention always takes the flash kernel: the JAX package sends an S that
 its 128-row blocks do not tile to ``sdpa_auto``, but the CUDA kernel
-masks a ragged last tile and takes any S. There is no switch to turn the
-kernels off, and no fallback from a kernel to anything else.
+masks a ragged last tile and takes any S. The kernel's route follows the
+model's type: a served (bf16) prefill runs both products on the tensor
+cores (``bf16_mma``), a float32 model on the CUDA cores (``f32_fma``).
+There is no switch to turn the kernels off, and no fallback from a
+kernel to anything else.
 
 All take the model's (B,S,H,·) layout and hand the kernels transposed
 views of it, which they read as they are.
@@ -23,8 +26,9 @@ from repro_torch.kernels.wkv6 import wkv6
 
 def attention(q, k, v, positions, kv_positions, *, causal=True, scale=None):
     """The ``attn_fn`` of :func:`repro_torch.nn.attention.gqa_apply`:
-    attention over the sequence's own keys through the flash kernel, q
-    (B,S,H,D) and k/v (B,S,Hkv,D) handed over as (B,H,S,D) views. The
+    attention over the sequence's own keys through the flash kernel (its
+    tensor-core route for the served bf16 models), q (B,S,H,D) and k/v
+    (B,S,Hkv,D) handed over as (B,H,S,D) views. The
     positions are those of ``sdpa``'s signature; the kernel's causal mask
     is by index, which is the same for a sequence at positions 0..S-1.
     Returns (B,S,H*D), as ``sdpa`` does (the JAX package's

@@ -9,8 +9,13 @@ none / relu / tanh.
 goes to :func:`pop_matmul_plain` (einsum + bias + act); a CUDA tensor goes
 to the hand-written kernel in ``csrc/pop_matmul.cu`` or raises — there is
 no fallback. The kernel masks ragged edges, so it takes every shape, and
-fuses the bias and activation into its epilogue. ``pop_matmul.launches``
-counts kernel launches (the plain version does not count).
+fuses the bias and activation into its epilogue. It has two routes, which
+:func:`_route` picks from M: ``tiled`` (M >= 16: 32x64 output tiles, K
+double-buffered by ``cp.async``) and ``narrow`` (M < 16, the actor's and
+critic's M=1 heads: one warp per batch row, K split over the lanes and
+reduced by shuffles). ``pop_matmul.launches`` counts kernel launches and
+``pop_matmul.launches_by_route`` splits them by route (the plain version
+counts in neither).
 
 x may be broadcast over members (``obs[None].expand(N, B, K)``, member
 stride 0): the kernel is given the member stride and reads the one (B,K)
@@ -36,7 +41,9 @@ import torch
 
 ACTIVATIONS = ("none", "relu", "tanh")
 _ACT_CODE = {"none": 0, "relu": 1, "tanh": 2}
-_MAX_GRID = 65535   # CUDA's limit on grid.y (B tiles of 64) and grid.z (N)
+_MAX_GRID = 65535   # CUDA's limit on grid.y (B tiles of 32) and grid.z (N)
+ROUTES = ("tiled", "narrow")
+NARROW_BELOW = 16   # M under this takes the narrow route
 
 
 def pop_matmul_plain(x, w, b=None, *, activation: str = "none"):
@@ -87,13 +94,20 @@ def _member_stride(x) -> int:
                      f"(B,K) block broadcast over members")
 
 
+def _route(n: int, b: int, k: int, m: int) -> str:
+    """The kernel route for an (N,B,K) x (N,K,M) call: ``narrow`` for
+    M < 16, where a 64-column tile would leave most of its columns idle,
+    ``tiled`` otherwise. N, B, K and a broadcast x do not change it."""
+    return "narrow" if m < NARROW_BELOW else "tiled"
+
+
 @functools.cache
 def _kernel():
     from repro_torch.kernels import build
     lib = build.load("pop_matmul")
     fn = lib.pop_matmul_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.pop_matmul_error_string
     err.argtypes = [ctypes.c_int]
@@ -101,27 +115,35 @@ def _kernel():
     return fn, err
 
 
-def _launch(x, w, b, activation):
+def _launch(x, w, b, activation, route=None):
+    """One kernel launch on ``route``, by default the one :func:`_route`
+    picks (the tiled route takes every M; the narrow one M < 16)."""
     n, bsz, k = x.shape
     m = w.shape[2]
     if not (w.is_contiguous() and (b is None or b.is_contiguous())):
         raise ValueError("pop_matmul: w and b must be contiguous")
-    if n > _MAX_GRID or -(-bsz // 64) > _MAX_GRID:
+    if n > _MAX_GRID or -(-bsz // 32) > _MAX_GRID:
         raise ValueError(f"pop_matmul: N={n} or B={bsz} exceeds the grid")
     stride = _member_stride(x)
     y = torch.empty((n, bsz, m), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    route = route or _route(n, bsz, k, m)
+    if route == "narrow" and m >= NARROW_BELOW:
+        raise ValueError(f"pop_matmul: the narrow route takes M < "
+                         f"{NARROW_BELOW}, got {m}")
     fn, err = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w.data_ptr(),
                 None if b is None else b.data_ptr(), y.data_ptr(),
-                n, bsz, k, m, stride, _ACT_CODE[activation], stream)
+                n, bsz, k, m, stride, _ACT_CODE[activation],
+                ROUTES.index(route), stream)
     if rc != 0:
         raise RuntimeError(f"pop_matmul kernel launch failed: CUDA error "
                            f"{rc} ({err(rc).decode()})")
     pop_matmul.launches += 1
+    pop_matmul.launches_by_route[route] += 1
     return y
 
 
@@ -177,3 +199,4 @@ def pop_matmul(x, w, b=None, *, activation: str = "none"):
 
 
 pop_matmul.launches = 0
+pop_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

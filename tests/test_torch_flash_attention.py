@@ -8,7 +8,11 @@ held against the Pallas kernel in interpret mode and the oracle
 2e-4, bf16 at the JAX suite's atol 0.15, rtol 0.1 (the Pallas kernel
 rounds unnormalised probabilities to bf16, the oracle normalised ones).
 Inputs come from numpy and are rounded to bf16 the same way on both
-sides. ``ops.attention`` takes the kernel's branch at every S (the plain
+sides. The CUDA kernel's bf16 route tiles 64 query rows and 64 keys (32
+at D=256), so S of 63, 65 and 129 at D 112 and 256 with group 7 are held
+too: against the oracle, and against the Pallas kernel where its blocks
+tile S (63 and 65; it asserts that min(128, S) divides S, which 129
+fails). ``ops.attention`` takes the kernel's branch at every S (the plain
 version here, bitwise), a ragged S that the JAX package's dispatch sends
 to ``sdpa_auto`` included (1e-5 against it). The CUDA kernel itself is
 held against the plain version on the card by ``chip_smoke.py``.
@@ -37,6 +41,9 @@ TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
 SHAPES = [(1, 4, 4, 128, 32), (2, 8, 2, 256, 64), (1, 6, 1, 512, 64),
           (1, 1, 1, 128, 16), (1, 14, 2, 128, 64), (2, 4, 4, 64, 112),
           (1, 2, 1, 128, 256)]
+# the edges of the bf16 CUDA route's tiles, at zamba2-7b's and gemma-7b's
+# head sizes and GQA group 7
+EDGE_SHAPES = [(1, 7, 1, s, d) for d in (112, 256) for s in (63, 65, 129)]
 
 
 def _inputs(b, h, hkv, s, d, seed=0, layout="bhsd"):
@@ -66,11 +73,32 @@ def test_flash_attention_plain_matches_pallas_and_oracle(b, h, hkv, s, d,
                                                          dtype):
     (q, k, v), jargs = _to(_inputs(b, h, hkv, s, d, seed=s + d), dtype)
     before = flash_attention.launches
+    routes = dict(flash_attention.launches_by_route)
     out = flash_attention(q, k, v)
     assert flash_attention.launches == before    # the CPU runs no kernel
+    assert flash_attention.launches_by_route == routes
     assert out.shape == (b, h, s, d) and out.dtype == q.dtype
     _close(out, jax_ops.flash_attention(*jargs, interpret=True), TOL[dtype])
     _close(out, ref.flash_attention_ref(*jargs), TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_at_tile_edges(b, h, hkv, s, d, dtype):
+    """S one short of, one past and one past two of the bf16 route's
+    64-row tiles, causal, at D 112 and 256 with group 7: the oracle, and
+    the Pallas kernel where its blocks tile S. No launch is counted on
+    either route."""
+    (q, k, v), jargs = _to(_inputs(b, h, hkv, s, d, seed=s * d), dtype)
+    routes = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches_by_route == routes
+    assert all(n == 0 for n in routes.values())
+    assert out.shape == (b, h, s, d) and out.dtype == q.dtype
+    _close(out, ref.flash_attention_ref(*jargs), TOL[dtype])
+    if s % min(128, s) == 0:
+        _close(out, jax_ops.flash_attention(*jargs, interpret=True),
+               TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -21,7 +21,8 @@ import torch
 from repro.kernels import ops, ref
 from repro.rl import networks as jax_nets
 from repro_torch.kernels import build
-from repro_torch.kernels.pop_matmul import (PopMatmul, _member_stride,
+from repro_torch.kernels.pop_matmul import (PopMatmul, _launch,
+                                            _member_stride, _route,
                                             pop_matmul, pop_matmul_plain)
 
 # one intra-op thread per process: the shapes here are small, and the
@@ -47,9 +48,11 @@ def _inputs(n, b, k, m, seed=0):
 def test_pop_matmul_matches_jax(n, b, k, m, act):
     x, w, bias = _inputs(n, b, k, m)
     before = pop_matmul.launches
+    routes = dict(pop_matmul.launches_by_route)
     got = pop_matmul(torch.from_numpy(x), torch.from_numpy(w),
                      torch.from_numpy(bias), activation=act).numpy()
     assert pop_matmul.launches == before      # the CPU runs no kernel
+    assert pop_matmul.launches_by_route == routes
     pallas = np.asarray(ops.pop_matmul(x, w, bias, activation=act,
                                        interpret=True))
     oracle = np.asarray(ref.pop_matmul_ref(x, w, bias, activation=act))
@@ -84,6 +87,38 @@ def test_no_bias():
     np.testing.assert_allclose(
         got, np.asarray(ref.pop_matmul_ref(x, w, None, activation="relu")),
         **TOL)
+
+
+# (N, B, K, M, route): the served batch's three layers (E=4, B=256), the
+# update step's (N=8, the critic's K=4), the rule's edge (M of 15 and 16)
+# with B across the tiled route's 32-row tile, ragged K and M, and M=0
+ROUTE_CASES = [(4, 256, 3, 256, "tiled"), (4, 256, 256, 256, "tiled"),
+               (4, 256, 256, 1, "narrow"), (8, 256, 3, 256, "tiled"),
+               (8, 256, 4, 256, "tiled"), (8, 256, 256, 256, "tiled"),
+               (8, 256, 256, 1, "narrow"), (4, 33, 256, 15, "narrow"),
+               (4, 31, 256, 16, "tiled"), (1, 1, 33, 17, "tiled"),
+               (4, 256, 255, 1, "narrow"), (4, 256, 256, 0, "narrow")]
+
+
+@pytest.mark.parametrize("n,b,k,m,want", ROUTE_CASES)
+def test_route_rule(n, b, k, m, want):
+    """The kernel's route at each shape, for a contiguous x and for
+    requests broadcast over members alike, M=0 included; at each, the
+    wrapper on the CPU gives the JAX package's oracle answer and counts no
+    launch on either route."""
+    x, w, bias = _inputs(n, b, k, m)
+    oracle = np.asarray(ref.pop_matmul_ref(x, w, bias, activation="relu"))
+    x, w, bias = (torch.from_numpy(a) for a in (x, w, bias))
+    broadcast = x[0].unsqueeze(0).expand(n, b, k)
+    assert _route(n, b, k, m) == want
+    assert _route(*broadcast.shape, m) == want
+    routes = dict(pop_matmul.launches_by_route)
+    y = pop_matmul(x, w, bias, activation="relu")
+    assert y.shape == (n, b, m)
+    np.testing.assert_allclose(y.numpy(), oracle, **TOL)
+    pop_matmul(broadcast, w, bias, activation="relu")
+    assert pop_matmul.launches_by_route == routes
+    assert all(c == 0 for c in routes.values())
 
 
 def test_member_stride_for_the_kernel():
@@ -209,3 +244,13 @@ def test_pop_matmul_backward_computes_only_what_is_asked():
         assert pop_matmul(x, wg, bg).grad_fn is None
     assert pop_matmul(x, w, bias).grad_fn is None
     assert want.grad_fn is not None
+
+
+def test_narrow_route_refuses_wide_m():
+    """A launch asked for the narrow route at M >= 16 is refused before
+    any kernel is built or launched."""
+    x, w, bias = (torch.from_numpy(a) for a in _inputs(2, 4, 8, 16))
+    before = pop_matmul.launches
+    with pytest.raises(ValueError, match="narrow route takes M < 16"):
+        _launch(x, w, bias, "relu", route="narrow")
+    assert pop_matmul.launches == before
