@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 started together) while Triton compiles ``pop_adam`` with
                 one warm launch; each kernel's registers and spills from
                 ptxas, and the HMMA (tensor-core) instructions of each bf16
-                ``flash_attention`` instantiation from its SASS (none
-                fails the run);
+                ``flash_attention`` instantiation and of each ``ssd`` one
+                from its SASS (none fails the run, and so does a spill in
+                ``ssd``);
   3. kernels  — each kernel against its plain PyTorch version on the card
                 (``pop_matmul`` forward over the serving and training
                 shapes and the edges of both its routes' tiles, its
@@ -56,9 +57,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ensemble;
   8. LM kernels — ``wkv6`` and ``ssd`` against their plain versions (head
                 sizes 32 and 64, chunks 16/64/256 with S of one and eight
-                chunks, the model's strided layout, nonzero states, decays
-                as strong as the models give, the served prefill's exact
-                shape), then timed at that shape beside their bounds;
+                chunks, for ``ssd`` also S = 200 at chunk 8 and its state
+                sizes N = 16 and 32, the model's strided layout, nonzero
+                states, decays as strong as the models give, the served
+                prefill's exact shape), then timed at that shape beside
+                their bounds;
                 ``flash_attention`` against its plain version (head sizes
                 32/64/112/128/256, GQA groups 1/2/4/7, S of 1/63/64/65/128/
                 129/200/512, the bf16 route's tile edges and a ragged 200
@@ -74,8 +77,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 width in float32, weights drawn on the card and copied to
                 the CPU: a 256-token prefill's last logits and every
                 decode-state leaf, card (kernels) against CPU (plain
-                versions); and a stateless ``lm.forward`` of qwen2-0.5b's
-                2 layers, every logit;
+                versions); a stateless ``lm.forward`` of qwen2-0.5b's
+                2 layers, every logit; then a backward through
+                ``lm.forward`` of zamba2-7b, rwkv6-1.6b and qwen2-0.5b at
+                ``.smoke()`` width with every parameter requiring grad: no
+                kernel launches and every gradient equals the CPU's; and
+                each of ``flash_attention``, ``wkv6`` and ``ssd`` raises on
+                a CUDA tensor that requires grad;
  10. LM serve — ``qwen2-0.5b``, ``qwen3-8b``, ``rwkv6-1.6b`` and
                 ``zamba2-7b`` at full published size through
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
@@ -148,10 +156,19 @@ LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
 # FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
-# the port's slice that last redesigned the flash_attention and
-# pop_matmul kernels (PERF.md keeps their times before it)
-REDESIGNED_IN = "slice 5"
+# the port's slice that last redesigned each kernel (PERF.md keeps their
+# times before it)
+REDESIGNED_IN = {"pop_matmul": "slice 5", "flash_attention": "slice 5",
+                 "ssd": "slice 6"}
+# the backward check of the LM parity phase: gradients of mean(logits * w)
+# through lm.forward at .smoke() width, card (plain nn forms, cuBLAS)
+# against CPU: fp32 sums in other orders through up to 8 layers and back;
+# per leaf rtol 1e-4 and an atol of 5e-5 times the leaf's largest
+# gradient (tests/test_torch_autograd.py's tolerance against jax.grad)
+BACKWARD_RTOL, BACKWARD_ATOL_OF_MAX = 1e-4, 5e-5
+BACKWARD_SEQ = 32
 SEED = 0
 POPULATION = 8
 ENSEMBLE = 4
@@ -1115,15 +1132,16 @@ def wkv6_bound(b, h, s, d):
 
 def ssd_bound(b, h, s, p, n):
     """Least time (ms) and what bounds it for one ssd launch: x read and y
-    written once, dt, a, b, c, the initial and the final state; the
-    literal recurrence's 5 fp32 operations per token and state element
-    (a multiply and two multiply-adds), dt * x per token and row, and one
-    exponential per token and head."""
+    written once, dt, a, b, c, the initial and the final state, at the
+    memory's rate; and the products that every form of the scan does, per
+    token and head the state's rank-1 update (dt x b^T) and the readout
+    (S c), 2 P N operations each. They run on the tensor cores, where
+    float32 accuracy takes three TF32 passes."""
     nbytes = 4 * (2 * b * h * s * p + b * h * s + h + 2 * b * s * n
                   + 2 * b * h * p * n)
-    ops = 5 * b * h * s * p * n + b * h * s * p + b * h * s
+    ops = 3 * 4 * b * h * s * p * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops / PEAK_TF32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1170,7 +1188,9 @@ def _ssd_inputs(gen, b, h, s, p, n, *, model_layout: bool):
 def phase_scan_kernel(name):
     """wkv6 or ssd against its plain version on the card: head size 32 and
     64 (N=64 for ssd), chunk 16, 64 and 256 with S = chunk and 8 chunks,
-    both layouts, nonzero states, strong decays; then the served path's
+    both layouts, nonzero states, strong decays (for ssd also S = 200 at
+    chunk 8, which its 32-token tiles leave ragged, and its other state
+    sizes N = 16 and 32 at S 16, 128 and 200); then the served path's
     exact shape, checked and timed beside its bound and the plain
     version. Returns (max abs err, its share of the tolerance, row)."""
     if name == "wkv6":
@@ -1183,8 +1203,8 @@ def phase_scan_kernel(name):
     else:
         from repro_torch.kernels.ssd import ssd as kernel
         from repro_torch.kernels.ssd import ssd_plain as plain
-        inputs = lambda gen, b, h, s, d, ml: _ssd_inputs(
-            gen, b, h, s, d, 64, model_layout=ml)
+        inputs = lambda gen, b, h, s, d, ml, n=64: _ssd_inputs(
+            gen, b, h, s, d, n, model_layout=ml)
         path, chunk_path = (4, 112, 512, 64), 256
         bound, bound_by = ssd_bound(*path, 64)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1207,11 +1227,21 @@ def phase_scan_kernel(name):
             for s in (chunk, 8 * chunk):
                 for model_layout in (False, True):
                     check(inputs(gen, 2, 3, s, d, model_layout), chunk)
+        if name == "ssd":
+            for model_layout in (False, True):
+                check(inputs(gen, 2, 3, 200, d, model_layout), 8)
+                for n in (16, 32):
+                    for s, chunk in ((16, 16), (128, 16), (200, 8)):
+                        check(inputs(gen, 2, 3, s, d, model_layout, n),
+                              chunk)
     args = inputs(gen, *path, True)
     check(args, chunk_path)
+    ragged = (", S 200 at chunk 8; N 16/32 at S 16, 128 and 200"
+              if name == "ssd" else "")
     log(f"{name} == plain on {cases} cases (head size 32/64, chunk "
-        f"16/64/256, S = chunk and 8 chunks, both layouts, the path's "
-        f"{path}), max abs err {worst:.3g}, {share:.3g} of the tolerance")
+        f"16/64/256, S = chunk and 8 chunks{ragged}, both layouts, the "
+        f"path's {path}), max abs err {worst:.3g}, {share:.3g} of the "
+        f"tolerance")
     row = {"shape": path, "chunk": chunk_path,
            "ms": graph_ms(lambda: kernel(*args, chunk=chunk_path)),
            "plain_ms": graph_ms(lambda: plain(*args, chunk=chunk_path),
@@ -1418,6 +1448,99 @@ def phase_lm_parity():
             out[arch] = (max(worst, err), max(share, err_share))
         del params, cpu_params, state, logits, cpu_state, cpu_logits
     torch.cuda.empty_cache()
+    out["backward"] = lm_backward_check()
+    return out
+
+
+def lm_backward_check():
+    """A backward through ``lm.forward`` on the card: zamba2-7b, rwkv6-1.6b
+    and qwen2-0.5b at .smoke() width (ssm_chunk 16, 32 tokens, so the
+    scans take their chunked form) with every parameter requiring grad.
+    No kernel may launch (``kernels.ops`` sends a differentiated forward
+    to ``nn``); every parameter's gradient of mean(logits * w) must equal
+    the CPU's; and each kernel wrapper, handed a CUDA tensor that
+    requires grad, must raise. Returns {arch: (max abs err, share of the
+    tolerance)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+
+    counters = {"wkv6": wkv6, "ssd": ssd, "flash_attention": flash_attention}
+    out = {}
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "qwen2-0.5b"):
+        cfg = get_config(arch).smoke().replace(ssm_chunk=16)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        params = lm.init_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (2, BACKWARD_SEQ),
+                               generator=gen, device="cuda")
+        w = torch.randn((2, BACKWARD_SEQ, cfg.vocab_size), generator=gen,
+                        device="cuda") / (2 * BACKWARD_SEQ * cfg.vocab_size)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+
+        def grads(tree, toks, wts):
+            flat = leaves(tree)
+            for t in flat:
+                t.requires_grad_(True)
+            logits, _ = lm.forward(tree, cfg, {"tokens": toks})
+            (logits * wts).sum().backward()
+            return [t.grad if t.grad is not None else torch.zeros_like(t)
+                    for t in flat]
+
+        reset_counts(*counters.values())
+        got = grads(params, tokens, w)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        if any(counts.values()):
+            raise AssertionError(f"{arch} backward: kernels launched under "
+                                 f"autograd: {counts}")
+        want = grads(cpu_params, tokens.cpu(), w.cpu())
+        worst = share = 0.0
+        for g_card, g_cpu in zip(got, want):
+            g_card = g_card.cpu()
+            if not torch.isfinite(g_card).all():
+                raise AssertionError(f"{arch} backward: non-finite gradient")
+            tol = dict(rtol=BACKWARD_RTOL, atol=BACKWARD_ATOL_OF_MAX
+                       * g_cpu.abs().max().item())
+            torch.testing.assert_close(g_card, g_cpu, **tol)
+            worst = max(worst, (g_card - g_cpu).abs().max().item())
+            if tol["atol"] > 0:
+                share = max(share, tol_share(g_card, g_cpu, tol))
+        log(f"{arch} backward at .smoke() width, {BACKWARD_SEQ} tokens: no "
+            f"kernel launched, card == CPU on all {len(got)} parameter "
+            f"gradients, max abs err {worst:.3g}, {share:.3g} of the "
+            f"tolerance")
+        out[arch] = (worst, share)
+        del params, cpu_params, got, want
+
+    # each wrapper refuses a CUDA tensor that requires grad
+    t = lambda *shape: torch.randn(shape, device="cuda", requires_grad=True)
+    calls = {
+        "flash_attention": lambda: flash_attention(
+            t(1, 2, 16, 32), t(1, 2, 16, 32), t(1, 2, 16, 32)),
+        "wkv6": lambda: wkv6(t(1, 1, 16, 32), t(1, 1, 16, 32),
+                             t(1, 1, 16, 32), -t(1, 1, 16, 32).exp(),
+                             t(1, 32), t(1, 1, 32, 32), chunk=16),
+        "ssd": lambda: ssd(t(1, 1, 16, 32), t(1, 1, 16).exp(), -t(1).exp(),
+                           t(1, 16, 16), t(1, 16, 16), t(1, 1, 32, 16),
+                           chunk=16)}
+    reset_counts(*counters.values())
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{name} took a CUDA tensor that requires "
+                                 f"grad")
+    if any(c.launches for c in counters.values()):
+        raise AssertionError("a wrapper launched on a tensor requiring grad")
+    log("flash_attention, wkv6 and ssd each refuse a CUDA tensor that "
+        "requires grad (ValueError: no backward)")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1604,13 +1727,14 @@ def main() -> int:
         f"launched once in {triton_s:.2f}s (in parallel)")
     figures = {src: ptxas_figures(text)
                for src, text in built["reports"].items()}
-    # the bf16 flash route must run on the tensor cores: HMMA in the SASS
-    # of each of its instantiations
+    # the bf16 flash route and ssd must run on the tensor cores: HMMA in
+    # the SASS of each of their instantiations
     hmma = {k: c for k, c in sass_hmma_counts(
         build.library_path("flash_attention")).items()
         if "flash_mma_bf16" in k}
+    ssd_hmma = sass_hmma_counts(build.library_path("ssd"))
     label = kernel_labels([k for f in figures.values() for k in f]
-                          + list(hmma))
+                          + list(hmma) + list(ssd_hmma))
     ptxas = {}
     for src, kernels in figures.items():
         for kernel, (regs, st, ld) in kernels.items():
@@ -1626,6 +1750,18 @@ def main() -> int:
                              f"each hold HMMA instructions, found {hmma}")
     log("flash_attention bf16 route, HMMA instructions in the SASS: "
         + ", ".join(f"{k} {c}" for k, c in sorted(hmma.items())))
+    ssd_hmma = {label[k]: c for k, c in ssd_hmma.items()}
+    from repro_torch.kernels.ssd import HEAD_DIMS, STATE_DIMS
+    ssd_spills = {k: v for k, v in ptxas.items()
+                  if k.startswith("ssd") and (v["spill_store_bytes"]
+                                              or v["spill_load_bytes"])}
+    if (len(ssd_hmma) != len(HEAD_DIMS) * len(STATE_DIMS)
+            or min(ssd_hmma.values()) == 0 or ssd_spills):
+        raise AssertionError(f"ssd's instantiations must each hold HMMA "
+                             f"instructions and spill nothing, found HMMA "
+                             f"{ssd_hmma}, spills {ssd_spills}")
+    log("ssd, HMMA instructions in the SASS: "
+        + ", ".join(f"{k} {c}" for k, c in sorted(ssd_hmma.items())))
 
     # 3. kernels vs plain, timing
     kernel_err, kernel_share, rows = phase_kernels()
@@ -1663,7 +1799,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pop_matmul.cu",
         "replaces": "src/repro/kernels/pop_matmul.py:83",
-        "redesigned_in": REDESIGNED_IN,
+        "redesigned_in": REDESIGNED_IN["pop_matmul"],
         "launches": train["launches"]["pop_matmul"],
         "launches_by_route": train["pop_matmul_launches_by_route"],
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
@@ -1726,6 +1862,12 @@ def main() -> int:
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
         err, share, row = scans[name]
+        redesign = ({"redesigned_in": REDESIGNED_IN[name]}
+                    if name in REDESIGNED_IN else {})
+        if name == "ssd":
+            redesign.update(ptxas={k: v for k, v in ptxas.items()
+                                   if k.startswith("ssd")},
+                            hmma=ssd_hmma)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1748,6 +1890,7 @@ def main() -> int:
             "library_ms": None,
             "library_call": "none: no PyTorch call computes this function",
             "per_prefill_ms": row["ms"] * per_prefill,
+            **redesign,
         })
     head = flash_rows["qwen3-8b"]
     kernels.append({
@@ -1755,7 +1898,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
-        "redesigned_in": REDESIGNED_IN,
+        "redesigned_in": REDESIGNED_IN["flash_attention"],
         "launches": lm_serve["qwen3-8b"]["launches"]["flash_attention"],
         "launches_by_arch": {arch: r["launches"]["flash_attention"]
                              for arch, r in lm_serve.items()},

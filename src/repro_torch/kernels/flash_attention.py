@@ -41,6 +41,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 DIMS = (32, 64, 112, 128, 256)   # the head sizes the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = {torch.bfloat16: "bf16_mma", torch.float32: "f32_fma"}
@@ -142,13 +144,15 @@ def _launch(q, k, v, causal, scale):
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """Attention of q over k and v: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors, an error for anything else. Any S >= 1
-    (the kernel masks a ragged last tile)."""
+    plain version for CPU tensors, an error for anything else (a CUDA
+    tensor that requires grad under grad mode included). Any S >= 1 (the
+    kernel masks a ragged last tile)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, scale)
 
 

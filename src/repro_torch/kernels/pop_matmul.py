@@ -39,6 +39,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import differentiated
+
 ACTIVATIONS = ("none", "relu", "tanh")
 _ACT_CODE = {"none": 0, "relu": 1, "tanh": 2}
 _MAX_GRID = 65535   # CUDA's limit on grid.y (B tiles of 32) and grid.z (N)
@@ -193,7 +195,7 @@ def pop_matmul(x, w, b=None, *, activation: str = "none"):
     call is recorded through :class:`PopMatmul`."""
     _check(x, w, b, activation)
     tensors = (x, w) if b is None else (x, w, b)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if differentiated(*tensors):
         return PopMatmul.apply(x, w, b, activation)
     return _forward(x, w, b, activation)
 

@@ -8,8 +8,11 @@ y (B,H,S,P), final state (B,H,P,N). Per head::
 
 :func:`ssd` is the wrapper every caller uses. A tensor on the CPU goes to
 :func:`ssd_plain`; a CUDA tensor goes to the hand-written kernel in
-``csrc/ssd.cu`` or raises: there is no fallback. ``ssd.launches`` counts
-kernel launches (the plain version does not count).
+``csrc/ssd.cu`` or raises: there is no fallback. The kernel has no
+backward, so a CUDA tensor that requires grad under grad mode raises too
+(``kernels.ops`` sends a differentiated forward to ``nn``'s chunked form).
+``ssd.launches`` counts kernel launches (the plain version does not
+count).
 
 :func:`ssd_plain` is the chunked float32 form of the JAX package's
 ``repro.nn.mamba2.ssd_chunked`` in this layout: per chunk, the
@@ -23,10 +26,13 @@ where the JAX package takes differences of prefix sums: at chunk 256 and
 ``a`` down to -16 those differences cancel to errors of 1e-4 and more in
 the exponent, which the literal recurrence does not have.
 
-The kernel walks the literal recurrence (the same function, see its
-source). The two agree to rtol = atol = 2e-4 in float32 (``chip_smoke.py``
-holds them to it on the card): sums over N and over the chunk are taken
-in another order.
+The kernel computes the same chunked form on the tensor cores, in tiles
+of 32 tokens whatever ``chunk`` is, two heads a block sharing b, c and
+C B^T, each product in three TF32 passes (3xTF32), which keeps float32
+accuracy; its decay exponents are sums that never cancel either (see its
+source). The two agree to rtol = atol = 2e-4 in float32
+(``chip_smoke.py`` holds them to it on the card): sums over N and over
+the chunk are taken in another order.
 
 x, b and c may be strided views (the model hands over slices of one
 projection); the kernel takes them as they are when their last axis is
@@ -40,6 +46,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import refuse_grad
 
 HEAD_DIMS = (32, 64)        # P the kernel is built for
 STATE_DIMS = (16, 32, 64)   # N the kernel is built for
@@ -140,6 +148,8 @@ def _launch(x, dt, a, b, c, state):
                          f"not the kernel's (unit stride along the last "
                          f"axis, others multiples of 4, 16-byte aligned)")
     a, state = a.contiguous(), state.contiguous()
+    if state.data_ptr() % 16:   # the kernel copies it in 16-byte pieces
+        state = state.clone()
     y = torch.empty((bsz, h, s, p), dtype=torch.float32, device=x.device)
     sout = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 8)(*x.stride()[:3], *dt.stride(),
@@ -168,6 +178,7 @@ def ssd(x, dt, a, b, c, state, *, chunk: int = 128):
         return ssd_plain(x, dt, a, b, c, state, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
+    refuse_grad("ssd", x, dt, a, b, c, state)
     return _launch(x, dt, a, b, c, state)
 
 

@@ -43,6 +43,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_grad
+
 DIMS = (32, 64)   # the head sizes the kernel is built for
 
 
@@ -149,7 +151,8 @@ def _launch(r, k, v, lw, u, state):
 
 def wkv6(r, k, v, lw, u, state, *, chunk: int = 64):
     """(y, final state): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors, an error for anything else. ``chunk`` is the
+    version for CPU tensors, an error for anything else (a CUDA tensor
+    that requires grad under grad mode included). ``chunk`` is the
     TPU kernel's (and the plain version's) block length along S; S must
     be a multiple of it, on every device, as on the TPU."""
     _check(r, k, v, lw, u, state, chunk)
@@ -157,6 +160,7 @@ def wkv6(r, k, v, lw, u, state, *, chunk: int = 64):
         return wkv6_plain(r, k, v, lw, u, state, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
+    refuse_grad("wkv6", r, k, v, lw, u, state)
     return _launch(r, k, v, lw, u, state)
 
 

@@ -139,8 +139,10 @@ def _assign(dst, src):
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
-def _rwkv_block_apply(p, cfg: LMConfig, h, state):
-    """state {"wkv", "tm_x", "cm_x"}: this layer's views, updated in place."""
+def _rwkv_block_apply(p, cfg: LMConfig, h, state, write: bool):
+    """state {"wkv", "tm_x", "cm_x"}: this layer's views, updated in place
+    when ``write`` (the stateless forward discards them, and writing would
+    change tensors autograd saved)."""
     x = layernorm_apply(p["ln1"], h)
     y, wkv, tm_x = time_mix_apply(p["time_mix"], x,
                                   state["tm_x"].to(h.dtype), state["wkv"],
@@ -150,7 +152,8 @@ def _rwkv_block_apply(p, cfg: LMConfig, h, state):
     x = layernorm_apply(p["ln2"], h)
     y, cm_x = channel_mix_apply(p["channel_mix"], x,
                                 state["cm_x"].to(h.dtype))
-    _assign(state, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x})
+    if write:
+        _assign(state, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x})
     return h + y
 
 
@@ -163,13 +166,15 @@ def _mamba_layer_init(generator, cfg: LMConfig, dtype):
                                        dtype=dtype)}
 
 
-def _mamba_layer_apply(p, cfg: LMConfig, h, state):
-    """state {"ssm", "conv"}: this layer's views, updated in place."""
+def _mamba_layer_apply(p, cfg: LMConfig, h, state, write: bool):
+    """state {"ssm", "conv"}: this layer's views, updated in place when
+    ``write`` (as for :func:`_rwkv_block_apply`)."""
     y, new_state = mamba2_block_apply(
         p["mamba"], rmsnorm_apply(p["norm"], h), state,
         d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
         chunk=cfg.ssm_chunk)
-    _assign(state, new_state)
+    if write:
+        _assign(state, new_state)
     return h + y
 
 
@@ -271,7 +276,7 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
         for i in range(seg.count):
             layer_p, layer_st = _layer(seg_p, i), _layer(seg_st, i)
             if seg.kind == "rwkv":
-                h = _rwkv_block_apply(layer_p, cfg, h, layer_st)
+                h = _rwkv_block_apply(layer_p, cfg, h, layer_st, keep)
                 continue
             if seg.kind == "attn":
                 h = _attn_block_apply(layer_p, cfg, h, positions,
@@ -283,7 +288,7 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
                                   cache_index)
             for j in range(seg.inner):
                 h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
-                                       _layer(layer_st["mamba"], j))
+                                       _layer(layer_st["mamba"], j), keep)
 
     h = rmsnorm_apply(params["final_norm"], h)
     head = (params["embed"]["embedding"].T if cfg.tie_embeddings
