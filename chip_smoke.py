@@ -13,9 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 started together) while Triton compiles ``pop_adam`` with
                 one warm launch; each kernel's registers and spills from
                 ptxas, and the HMMA (tensor-core) instructions of each bf16
-                ``flash_attention`` instantiation and of each ``ssd`` one
-                from its SASS (none fails the run, and so does a spill in
-                ``ssd``);
+                ``flash_attention`` instantiation and of each ``ssd`` and
+                ``wkv6`` one from its SASS (none fails the run, and so does
+                a spill in ``ssd`` or ``wkv6``);
   3. kernels  — each kernel against its plain PyTorch version on the card
                 (``pop_matmul`` forward over the serving and training
                 shapes and the edges of both its routes' tiles, its
@@ -57,11 +57,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ensemble;
   8. LM kernels — ``wkv6`` and ``ssd`` against their plain versions (head
                 sizes 32 and 64, chunks 16/64/256 with S of one and eight
-                chunks, for ``ssd`` also S = 200 at chunk 8 and its state
-                sizes N = 16 and 32, the model's strided layout, nonzero
-                states, decays as strong as the models give, the served
-                prefill's exact shape), then timed at that shape beside
-                their bounds;
+                chunks, S = 200 at chunk 8, which their 32-token tiles
+                leave ragged, for ``wkv6`` also S = 8 and 24 and mild
+                decays at S = 512, for ``ssd`` its state sizes N = 16 and
+                32, the model's strided layout, nonzero states, decays as
+                strong as the models give, the served prefill's exact
+                shape), then timed at that shape beside their bounds;
                 ``flash_attention`` against its plain version (head sizes
                 32/64/112/128/256, GQA groups 1/2/4/7, S of 1/63/64/65/128/
                 129/200/512, the bf16 route's tile edges and a ragged 200
@@ -161,7 +162,7 @@ PEAK_BF16_FLOPS = 989e12
 # the port's slice that last redesigned each kernel (PERF.md keeps their
 # times before it)
 REDESIGNED_IN = {"pop_matmul": "slice 5", "flash_attention": "slice 5",
-                 "ssd": "slice 6"}
+                 "ssd": "slice 6", "wkv6": "slice 7"}
 # the backward check of the LM parity phase: gradients of mean(logits * w)
 # through lm.forward at .smoke() width, card (plain nn forms, cuBLAS)
 # against CPU: fp32 sums in other orders through up to 8 layers and back;
@@ -1117,15 +1118,15 @@ def phase_train_serve(ckpt_dir, fitness):
 # ------------------------------------------------------------ LM serving
 def wkv6_bound(b, h, s, d):
     """Least time (ms) and what bounds it for one wkv6 launch: r, k, v, lw
-    read and y written once, u, the initial and the final state; the
-    literal recurrence's 5 fp32 operations per token and state element
-    (k v, the decayed update, r S into y), and per token and row one
-    exponential, the bonus scalar sum_k r u k (3) and its rank-1 term
-    into y (2). The chunked form does more (see kernels/wkv6.py)."""
+    read and y written once, u, the initial and the final state, at the
+    memory's rate; and the products that every form of the scan does, per
+    token and head the state's readout (r S) and update (k v^T, the
+    decay), 2 D^2 operations each. They run on the tensor cores, where
+    float32 accuracy takes three TF32 passes."""
     nbytes = 4 * (5 * b * h * s * d + h * d + 2 * b * h * d * d)
-    ops = 5 * b * h * s * d * d + 6 * b * h * s * d
+    ops = 3 * 4 * b * h * s * d * d
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops / PEAK_TF32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1146,15 +1147,18 @@ def ssd_bound(b, h, s, p, n):
                                  else "operations")
 
 
-def _wkv6_inputs(gen, b, h, s, d, *, model_layout: bool):
+def _wkv6_inputs(gen, b, h, s, d, *, model_layout: bool, mild=False):
     """r, k, v, lw, u, state with lw = -exp(U(-3, 3)) (decays down to
-    exp(-e^3) per step, as strong as the model's) and a nonzero state;
-    with ``model_layout`` r/k/v/lw are (B,S,H,D) tensors transposed, as
-    the model hands them over."""
+    exp(-e^3) per step, as strong as the model's; with ``mild``
+    -exp(U(-6, -3)), under which the state carried over a tile does not
+    fade) and a nonzero state; with ``model_layout`` r/k/v/lw are
+    (B,S,H,D) tensors transposed, as the model hands them over."""
     shape = (b, s, h, d) if model_layout else (b, h, s, d)
     r, k, v = (torch.randn(shape, generator=gen, device="cuda")
                for _ in range(3))
-    lw = -torch.exp(torch.rand(shape, generator=gen, device="cuda") * 6 - 3)
+    lo, span = (-6.0, 3.0) if mild else (-3.0, 6.0)
+    lw = -torch.exp(torch.rand(shape, generator=gen, device="cuda") * span
+                    + lo)
     if model_layout:
         r, k, v, lw = (t.transpose(1, 2) for t in (r, k, v, lw))
     u = 0.3 * torch.randn((h, d), generator=gen, device="cuda")
@@ -1188,16 +1192,17 @@ def _ssd_inputs(gen, b, h, s, p, n, *, model_layout: bool):
 def phase_scan_kernel(name):
     """wkv6 or ssd against its plain version on the card: head size 32 and
     64 (N=64 for ssd), chunk 16, 64 and 256 with S = chunk and 8 chunks,
-    both layouts, nonzero states, strong decays (for ssd also S = 200 at
-    chunk 8, which its 32-token tiles leave ragged, and its other state
+    both layouts, nonzero states, strong decays; S = 200 at chunk 8, which
+    the kernels' 32-token tiles leave ragged (for wkv6 also S = 8 and 24,
+    one ragged tile, and mild decays at S = 512; for ssd its other state
     sizes N = 16 and 32 at S 16, 128 and 200); then the served path's
     exact shape, checked and timed beside its bound and the plain
     version. Returns (max abs err, its share of the tolerance, row)."""
     if name == "wkv6":
         from repro_torch.kernels.wkv6 import wkv6 as kernel
         from repro_torch.kernels.wkv6 import wkv6_plain as plain
-        inputs = lambda gen, b, h, s, d, ml: _wkv6_inputs(
-            gen, b, h, s, d, model_layout=ml)
+        inputs = lambda gen, b, h, s, d, ml, mild=False: _wkv6_inputs(
+            gen, b, h, s, d, model_layout=ml, mild=mild)
         path, chunk_path = (4, 32, 512, 64), 64
         bound, bound_by = wkv6_bound(*path)
     else:
@@ -1227,6 +1232,11 @@ def phase_scan_kernel(name):
             for s in (chunk, 8 * chunk):
                 for model_layout in (False, True):
                     check(inputs(gen, 2, 3, s, d, model_layout), chunk)
+        if name == "wkv6":
+            for model_layout in (False, True):
+                for s in (8, 24, 200):
+                    check(inputs(gen, 2, 3, s, d, model_layout), 8)
+                check(inputs(gen, 2, 3, 512, d, model_layout, True), 64)
         if name == "ssd":
             for model_layout in (False, True):
                 check(inputs(gen, 2, 3, 200, d, model_layout), 8)
@@ -1237,7 +1247,8 @@ def phase_scan_kernel(name):
     args = inputs(gen, *path, True)
     check(args, chunk_path)
     ragged = (", S 200 at chunk 8; N 16/32 at S 16, 128 and 200"
-              if name == "ssd" else "")
+              if name == "ssd" else
+              ", S 8/24/200 at chunk 8; mild decays at S 512")
     log(f"{name} == plain on {cases} cases (head size 32/64, chunk "
         f"16/64/256, S = chunk and 8 chunks{ragged}, both layouts, the "
         f"path's {path}), max abs err {worst:.3g}, {share:.3g} of the "
@@ -1733,8 +1744,9 @@ def main() -> int:
         build.library_path("flash_attention")).items()
         if "flash_mma_bf16" in k}
     ssd_hmma = sass_hmma_counts(build.library_path("ssd"))
+    wkv6_hmma = sass_hmma_counts(build.library_path("wkv6"))
     label = kernel_labels([k for f in figures.values() for k in f]
-                          + list(hmma) + list(ssd_hmma))
+                          + list(hmma) + list(ssd_hmma) + list(wkv6_hmma))
     ptxas = {}
     for src, kernels in figures.items():
         for kernel, (regs, st, ld) in kernels.items():
@@ -1750,18 +1762,23 @@ def main() -> int:
                              f"each hold HMMA instructions, found {hmma}")
     log("flash_attention bf16 route, HMMA instructions in the SASS: "
         + ", ".join(f"{k} {c}" for k, c in sorted(hmma.items())))
-    ssd_hmma = {label[k]: c for k, c in ssd_hmma.items()}
     from repro_torch.kernels.ssd import HEAD_DIMS, STATE_DIMS
-    ssd_spills = {k: v for k, v in ptxas.items()
-                  if k.startswith("ssd") and (v["spill_store_bytes"]
-                                              or v["spill_load_bytes"])}
-    if (len(ssd_hmma) != len(HEAD_DIMS) * len(STATE_DIMS)
-            or min(ssd_hmma.values()) == 0 or ssd_spills):
-        raise AssertionError(f"ssd's instantiations must each hold HMMA "
-                             f"instructions and spill nothing, found HMMA "
-                             f"{ssd_hmma}, spills {ssd_spills}")
-    log("ssd, HMMA instructions in the SASS: "
-        + ", ".join(f"{k} {c}" for k, c in sorted(ssd_hmma.items())))
+    from repro_torch.kernels.wkv6 import DIMS as WKV6_DIMS
+    # the chunked scans must run on the tensor cores and spill nothing
+    scan_hmma = {}
+    for name, counts, built in (
+            ("ssd", ssd_hmma, len(HEAD_DIMS) * len(STATE_DIMS)),
+            ("wkv6", wkv6_hmma, len(WKV6_DIMS))):
+        counts = scan_hmma[name] = {label[k]: c for k, c in counts.items()}
+        spills = {k: v for k, v in ptxas.items()
+                  if k.startswith(name) and (v["spill_store_bytes"]
+                                             or v["spill_load_bytes"])}
+        if len(counts) != built or min(counts.values()) == 0 or spills:
+            raise AssertionError(f"{name}'s instantiations must each hold "
+                                 f"HMMA instructions and spill nothing, "
+                                 f"found HMMA {counts}, spills {spills}")
+        log(f"{name}, HMMA instructions in the SASS: "
+            + ", ".join(f"{k} {c}" for k, c in sorted(counts.items())))
 
     # 3. kernels vs plain, timing
     kernel_err, kernel_share, rows = phase_kernels()
@@ -1862,18 +1879,13 @@ def main() -> int:
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
         err, share, row = scans[name]
-        redesign = ({"redesigned_in": REDESIGNED_IN[name]}
-                    if name in REDESIGNED_IN else {})
-        if name == "ssd":
-            redesign.update(ptxas={k: v for k, v in ptxas.items()
-                                   if k.startswith("ssd")},
-                            hmma=ssd_hmma)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": ("src/repro/kernels/wkv6.py:74" if name == "wkv6"
                          else "src/repro/kernels/ssd.py:71"),
+            "redesigned_in": REDESIGNED_IN[name],
             "launches": lm_serve[arch]["launches"][name],
             "max_abs_err": max(err, lm_parity[arch][0]),
             "tolerance": "rtol=atol=2e-4 (kernel vs plain); 1e-3 (the "
@@ -1890,7 +1902,8 @@ def main() -> int:
             "library_ms": None,
             "library_call": "none: no PyTorch call computes this function",
             "per_prefill_ms": row["ms"] * per_prefill,
-            **redesign,
+            "ptxas": {k: v for k, v in ptxas.items() if k.startswith(name)},
+            "hmma": scan_hmma[name],
         })
     head = flash_rows["qwen3-8b"]
     kernels.append({

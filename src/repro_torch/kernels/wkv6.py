@@ -24,11 +24,14 @@ differences of prefix sums: at chunk 64 and decays down to -e^3 those
 differences cancel to errors of 1e-4 and more in the exponent, which
 the literal recurrence does not have.
 
-The kernel walks the literal recurrence (the same function, see its
-source). The two agree to rtol = atol = 2e-4 in float32 (``chip_smoke.py``
-holds them to it on the card): sums over D and over the chunk are taken
-in another order, and the chunked form's ``exp(a) exp(b)`` is the
-recurrence's ``exp(a + b)``.
+The kernel computes the same chunked form in tiles of 32 tokens,
+whatever ``chunk`` is, cut into sub-tiles of 8: its products on the
+tensor cores in three TF32 passes, which keep float32 accuracy; every
+decay an exponential of a one-signed sum of lw, or a product of such
+factors, none above 1 (see its source). The two
+agree to rtol = atol = 2e-4 in float32 (``chip_smoke.py`` holds them to
+it on the card): sums over D and over the chunk are taken in another
+order, and one form's ``exp(a) exp(b)`` is the other's ``exp(a + b)``.
 
 r, k, v and lw may be strided views (the model hands over its (B,S,H,D)
 tensors transposed); the kernel takes them as they are when their last

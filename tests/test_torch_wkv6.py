@@ -9,7 +9,10 @@ initial states and decays as strong as the model gives (lw down to
 -e^3). The scans, the chunked form and the blocks (time-mix and
 channel-mix, prefill and decode) are held against the JAX package's at
 rtol = atol = 1e-5. The CUDA kernel itself is held against the plain
-version on the card by ``chip_smoke.py``.
+version on the card by ``chip_smoke.py``; its tile algebra (32-token
+tiles, running-product decays, the per-channel column scale of the state)
+is modelled in torch here and held against the literal scan and the plain
+version at the kernel tolerance.
 """
 import functools
 
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref
@@ -39,16 +43,19 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # served chunk: a quarter of the kernel tolerance, which the JAX package's
 # form (differences of prefix sums) exceeds on these inputs
 FLOAT64_TOL = dict(rtol=5e-5, atol=5e-5)
+# csrc/wkv6.cu's tile, 32 tokens whatever the caller's chunk, in
+# sub-tiles of 8
+KERNEL_TILE, KERNEL_SUB = 32, 8
 
 
-def _inputs(b, h, s, d, seed=0, layout="bhsd"):
+def _inputs(b, h, s, d, seed=0, layout="bhsd", log_decay=(-3.0, 3.0)):
     """r, k, v, lw, u, state; lw = -exp(U(-3, 3)), so decays reach
-    exp(-e^3) per step."""
+    exp(-e^3) per step (``log_decay`` sets the range)."""
     rng = np.random.default_rng(seed)
     shape = (b, h, s, d) if layout == "bhsd" else (b, s, h, d)
     r, k, v = (rng.standard_normal(shape).astype(np.float32)
                for _ in range(3))
-    lw = -np.exp(rng.uniform(-3.0, 3.0, shape)).astype(np.float32)
+    lw = -np.exp(rng.uniform(*log_decay, shape)).astype(np.float32)
     u = (0.3 * rng.standard_normal((h, d))).astype(np.float32)
     state = rng.standard_normal((b, h, d, d)).astype(np.float32)
     return r, k, v, lw, u, state
@@ -91,6 +98,103 @@ def test_wkv6_plain_holds_to_float64_at_long_chunks():
                                 state.double())
     torch.testing.assert_close(y.double(), tr(y64), **FLOAT64_TOL)
     torch.testing.assert_close(st.double(), st64, **FLOAT64_TOL)
+
+
+def _kernel_tile_model(r, k, v, lw, u, state):
+    """``csrc/wkv6.cu``'s algebra in torch, (B,H,S,D) -> (y, final state):
+    tiles of 32 tokens whatever the chunk, rows past S zero-filled, cut in
+    sub-tiles of 8. Every exponent is a one-signed sum, in the kernel's
+    order: from a sub-tile's edge to t (r~, k~), or of the sub-tiles'
+    totals, before or after a sub-tile (r_in = r~ exp(before), k_out =
+    k~ exp(after)) or between two (W_b). A below the diagonal's sub-tiles is
+    (r~[t] prod_{S<b<T} W_b) . k~[s]; on them a running product of w, the
+    bonus on the diagonal. y is computed transposed, from the state held
+    transposed (S^T, v by k) and decayed by a column scale, one factor per
+    k channel."""
+    b, h, s, d = r.shape
+    n, m = KERNEL_TILE, KERNEL_SUB
+    tiles = -(-s // n)
+    pad = (0, 0, 0, tiles * n - s)
+    r, k, v, lw = (F.pad(t, pad) for t in (r, k, v, lw))
+    st_t = state.transpose(-1, -2)
+    ys = []
+    for i in range(tiles):
+        rc, kc, vc, lc = (t[:, :, i * n:(i + 1) * n] for t in (r, k, v, lw))
+        rt, kt, r_in, k_out = (torch.empty_like(rc) for _ in range(4))
+        totals = []
+        for sub in range(n // m):            # walks from the edges
+            t0 = m * sub
+            p = torch.zeros_like(lc[:, :, 0])    # from the start to t
+            for t in range(t0, t0 + m):
+                rt[:, :, t] = rc[:, :, t] * torch.exp(p)
+                p = p + lc[:, :, t]
+            a = torch.zeros_like(p)              # after s to the end
+            for t in reversed(range(t0, t0 + m)):
+                kt[:, :, t] = kc[:, :, t] * torch.exp(a)
+                a = a + lc[:, :, t]
+            totals.append(p)
+        for sub in range(n // m):            # sums of whole sub-tiles
+            before = after = torch.zeros_like(p)
+            for q in range(sub):
+                before = before + totals[q]
+            for q in reversed(range(sub + 1, n // m)):
+                after = after + totals[q]
+            blk = slice(m * sub, m * sub + m)
+            r_in[:, :, blk] = rt[:, :, blk] * torch.exp(before)[:, :, None]
+            k_out[:, :, blk] = kt[:, :, blk] * torch.exp(after)[:, :, None]
+            if sub == 0:
+                etot = torch.exp(totals[0] + after)
+        mid = {(0, 2): torch.exp(totals[1]),
+               (0, 3): torch.exp(totals[1] + totals[2]),
+               (1, 3): torch.exp(totals[2])}
+        w = torch.exp(lc)
+        a = torch.zeros((b, h, n, n))
+        for sub in range(n // m):           # the diagonal sub-tiles
+            blk = slice(m * sub, m * sub + m)
+            kd = torch.zeros_like(kc[:, :, blk])   # 0 until t reaches s
+            for t in range(m * sub, m * sub + m):
+                a[:, :, t, blk] = torch.einsum("bhi,bhsi->bhs", rc[:, :, t],
+                                               kd)
+                kd = kd * w[:, :, t, None]
+                kd[:, :, t - m * sub] = kc[:, :, t]
+            for big in range(sub + 1, n // m):     # below them
+                rows = rt[:, :, m * big:m * big + m]
+                if (sub, big) in mid:
+                    rows = rows * mid[sub, big][:, :, None]
+                a[:, :, m * big:m * big + m, blk] = (
+                    rows @ kt[:, :, blk].transpose(-1, -2))
+        a = a + torch.diag_embed((rc * u[None, :, None] * kc).sum(-1))
+        vt = vc.transpose(-1, -2)
+        ys.append(st_t @ r_in.transpose(-1, -2) + vt @ a.transpose(-1, -2))
+        st_t = st_t * etot[:, :, None, :] + vt @ k_out
+    return (torch.cat(ys, dim=-1).transpose(-1, -2)[:, :, :s],
+            st_t.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("log_decay", [(-3.0, 3.0), (-6.0, -3.0)],
+                         ids=["strong", "mild"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [8, 24, 200, 512])
+def test_wkv6_kernel_tile_algebra(s, d, log_decay):
+    """The kernel's tile algebra against the JAX package's literal scan and
+    the plain version, at the kernel tolerance: one tile or several, the
+    last one ragged (S = 8, 24, 200) or whole (512), a nonzero state, and
+    decays down to -e^3 a token, or mild ones (-e^-6 to -e^-3), under
+    which the state carried between tiles does not fade."""
+    args = _inputs(1, 2, s, d, seed=s + d, layout="bshd",
+                   log_decay=log_decay)
+    r, k, v, lw = (torch.from_numpy(a).transpose(1, 2) for a in args[:4])
+    u, state = (torch.from_numpy(a) for a in args[4:])
+    y, st = _kernel_tile_model(r, k, v, lw, u, state)
+    assert y.shape == (1, 2, s, d) and st.shape == (1, 2, d, d)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    jy, jst = jax_rwkv6.wkv6_scan(*(jnp.asarray(a) for a in args))
+    _close(y.transpose(1, 2), jy, KERNEL_TOL)
+    _close(st, jst, KERNEL_TOL)
+    py, pst = wkv6_plain(r, k, v, lw, u, state, chunk=64 if s % 64 == 0
+                         else 8)
+    torch.testing.assert_close(y, py, **KERNEL_TOL)
+    torch.testing.assert_close(st, pst, **KERNEL_TOL)
 
 
 def test_wkv6_scan_and_chunked_match_jax():
