@@ -94,10 +94,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                 tensor-core route, 24 ``wkv6`` for
                 rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no other kernel;
                 prefill and decode times; one prefill and one decode step
-                profiled.
+                profiled;
+ 11. pop_adam at the LM's size — (4, 494,032,768), qwen2-0.5b's
+                population, and (4, 2^28 + 1), one past the old grid's
+                limit, with a per-member decay and clip scale: kernel ==
+                plain (on the card, over column chunks), in place == out
+                of place bit for bit; timed beside its bound, the plain
+                version and ``torch._fused_adamw_``;
+ 12. LM update — qwen2-0.5b at full width with 2 layers in float32, two
+                vectorized population updates on the card (one pop_adam
+                launch each) against the same on the CPU: losses, Adam's
+                first moment after each step (the gradients), and the
+                parameters after each step;
+ 13. LM train — qwen2-0.5b at full published size (24 layers, remat, bf16
+                over float32 masters), 4 members of 4 x 512 tokens, 4
+                steps with PBT every 2, through ``PopTrainer(LMAgent)``
+                with the launch counts set to 0 just before and read just
+                after (one pop_adam launch a step, no other kernel):
+                losses, lineage, tokens/s per member of each backend, the
+                device's busy share and the peak of allocated memory
+                (under 70 GB);
+ 14. LM CLI — ``repro_torch.launch.train.main --arch qwen2-0.5b --smoke``
+                with each backend: launch counts, evolutions, and the
+                checkpoint read back bit for bit;
+ 15. Fig. 2 — TD3 at the repo's width, batch 256, 32 chained steps a
+                call, N = 1, 8, 32: ms per member-update-step of the
+                sequential and the vectorized backend, and each one's
+                ratio of a call's time at N = 32 to N = 1.
 
-The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON line with every kernel's numbers, and ``{"ok": true, "device": ...}``.
+The last lines are a ``{"fig2": ...}`` and a ``{"lm_train": ...}`` line,
+the card's ``nvidia-smi`` name and power limit, one JSON line with every
+kernel's numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -130,6 +157,11 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # Adam's normalised step can turn a 1e-6 gradient difference into up to lr
 STEP1_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 PARAMS_AFTER_4_ATOL = 1e-4
+# the LM update's step p - p' is held at STEP1_GRAD_TOL where the gradient
+# that took it is above the gradients' atol in both steps; the check must
+# reject a learning rate this much off (its share past 1)
+LM_STEP_GRAD_FLOOR = STEP1_GRAD_TOL["atol"]
+LM_WRONG_LR = 1.01
 # wkv6 / ssd against their chunked plain versions: fp32 sums over the head
 # and the chunk in another order (tests/test_kernels.py's fp32 tolerance)
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -159,6 +191,26 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+# slice 8: LM population training at full width (qwen2-0.5b,
+# arXiv:2407.10671: 494,032,768 parameters a member), its update card ==
+# CPU at 2 layers, the LM CLI at .smoke() width, and the paper's Fig. 2
+# unit (TD3, the repo's width)
+LM_PARAMS = 494_032_768
+LM_TRAIN = dict(arch="qwen2-0.5b", population=4, batch=4, seq_len=512,
+                steps=4, pbt_interval=2)
+LM_PEAK_LIMIT = 70e9          # bytes allocated at most in the LM train phase
+LM_UPDATE = dict(arch="qwen2-0.5b", population=2, batch=2, seq_len=64,
+                 steps=2)
+LM_CLI = ["--arch", "qwen2-0.5b", "--smoke", "--population", "2", "--steps",
+          "4", "--pbt-interval", "2", "--batch", "2", "--seq-len", "64"]
+# pop_adam at the LM's flat size, and at one past the old grid's limit of
+# 65,535 blocks of 4096 on its second axis
+POP_ADAM_LM = ((4, LM_PARAMS), (4, 2 ** 28 + 1))
+FIG2 = dict(sizes=(1, 8, 32), batch=256, num_steps=32)
+# the train CLI's LM hyper space (src/repro/launch/train.py:241-251)
+LM_HYPER_SPACE = dict(log_uniform=(("lr_scale", 0.1, 10.0),
+                                   ("weight_decay", 1e-3, 0.3)),
+                      uniform=(("warmup_frac", 0.01, 0.25),))
 # the port's slice that last redesigned each kernel (PERF.md keeps their
 # times before it)
 REDESIGNED_IN = {"pop_matmul": "slice 5", "flash_attention": "slice 5",
@@ -630,11 +682,12 @@ def phase_pop_matmul_training():
 
 def pop_adam_bound(n, p):
     """Least time (ms) of one pop_adam launch: p, g, mu, nu read and p, mu,
-    nu written once (fp32), lr and step read; 14 fp32 operations per
-    parameter."""
-    nbytes = 28 * n * p + 8 * n
+    nu written once (fp32), lr, step, decay and scale read; 17 fp32
+    operations per parameter (the scale, the moments, the bias-corrected
+    step and the decay)."""
+    nbytes = 28 * n * p + 16 * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 14 * n * p / PEAK_FP32_FLOPS * 1e3
+    t_ops = 17 * n * p / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1679,6 +1732,560 @@ def phase_lm_serve():
     return out
 
 
+# ------------------------------------------- LM training and Fig. 2
+def _lm_hypers(n, device):
+    """Per-member LM hypers of the update parity phase: two learning-rate
+    scales and decays, the warmup as the CLI's (one step of lr 0)."""
+    return {"lr_scale": torch.tensor([1.0, 0.5] * (n // 2), device=device),
+            "weight_decay": torch.tensor([0.1, 0.03] * (n // 2),
+                                         device=device),
+            "warmup_frac": torch.full((n,), 0.25, device=device)}
+
+
+def _leaf_paths(tree, prefix=""):
+    """The '/'-joined key path of each leaf, in flatten order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def _lm_state_on(state, device):
+    """An LM population copied to ``device``, in flat buffers of its own."""
+    from repro_torch.pop import LMState
+    from repro_torch.tree import flat_copy, tree_map
+
+    flat = lambda tree: flat_copy(tree_map(lambda x: x.to(device), tree))[1]
+    return LMState(params=flat(state.params),
+                   opt_state=state.opt_state._replace(
+                       step=state.opt_state.step.to(device),
+                       mu=flat(state.opt_state.mu),
+                       nu=flat(state.opt_state.nu)),
+                   step=state.step.to(device))
+
+
+def phase_pop_adam_lm():
+    """pop_adam at the LM population's flat size, qwen2-0.5b's 494,032,768
+    parameters a member for 4 members (120,614 blocks on the grid's first
+    axis, past the 65,535 its second allows), and at 2^28 + 1, just past
+    the old grid's limit, with a per-member decay and clip scale: the
+    kernel against its plain version, which runs on the card over column
+    chunks (it is elementwise; whole, its temporaries would not fit beside
+    the inputs and outputs); the in-place form against the out-of-place
+    one, bit for bit; then timed beside its bound, the plain version (the
+    chunks' sum) and ``torch._fused_adamw_``. Every launch reads and
+    writes 55.3 GB at the LM's size, far past the 50 MB L2: cold by
+    construction. Returns (max abs err, share of tolerance, rows)."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = share = 0.0
+    rows = []
+    chunk = 1 << 25
+    for n, p in POP_ADAM_LM:
+        params, grads, mu = (torch.randn((n, p), generator=gen,
+                                         device="cuda") for _ in range(3))
+        nu = torch.rand((n, p), generator=gen, device="cuda")
+        lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
+        step = torch.tensor([(1, 2, 1000)[i % 3] for i in range(n)],
+                            dtype=torch.int32, device="cuda")
+        extra = dict(wd=torch.linspace(0.0, 0.3, n, device="cuda"),
+                     scale=torch.linspace(1.0, 0.25, n, device="cuda"))
+        args = (params, grads, mu, nu, lr, step)
+        reset_counts(pop_adam)
+        got = pop_adam(*args, **extra)
+        if pop_adam.launches != 1:
+            raise AssertionError(f"pop_adam (N={n}, P={p}): "
+                                 f"{pop_adam.launches} launches, want 1")
+
+        def plain_chunks(check):
+            for c in range(0, p, chunk):
+                cols = slice(c, min(p, c + chunk))
+                want = pop_adam_plain(*(t[:, cols] for t in args[:4]), lr,
+                                      step, **extra)
+                if check:
+                    check(cols, want)
+
+        def check(cols, want):
+            # the parameters through the step each took, p - p': p' = p -
+            # step cancels where a step is as large as p, and a few ulp of
+            # such a step are past atol; the step itself is what is held
+            nonlocal worst, share
+            p0 = params[:, cols]
+            for name, g, r in zip(("step", "mu", "nu"), got, want):
+                g = g[:, cols]
+                if name == "step":
+                    g, r = p0 - g, p0 - r
+                torch.testing.assert_close(
+                    g, r, **ADAM_TOL,
+                    msg=lambda m: f"{name} N={n} P={p} columns {cols}: {m}")
+                worst = max(worst, (g - r).abs().max().item())
+                share = max(share, tol_share(g, r, ADAM_TOL))
+
+        plain_chunks(check)
+        # written in place: the same bits in the inputs
+        out = pop_adam(*args, **extra, inplace=True)
+        if not (out[0] is params and out[1] is mu and out[2] is nu):
+            raise AssertionError("pop_adam(inplace=True) did not return "
+                                 "its inputs")
+        for name, a, b in zip(("params", "mu", "nu"), out, got):
+            if not torch.equal(a, b):
+                raise AssertionError(f"pop_adam in place != out of place "
+                                     f"({name}, N={n}, P={p})")
+        del got, out
+        torch.cuda.synchronize()
+
+        # timed on the same buffers, in place (values stay finite)
+        def timed(fn, reps=5):
+            fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+
+        rows_of = lambda t: [t[i] for i in range(n)]
+        steps_f = [torch.tensor(1.0, device="cuda") for _ in range(n)]
+
+        def library():
+            # AdamW over the members' rows, ONE lr and decay for all (it
+            # takes no per-member lr, decay or clip)
+            torch._fused_adamw_(rows_of(params), rows_of(grads),
+                                rows_of(mu), rows_of(nu), [], steps_f,
+                                amsgrad=False, lr=3e-4, beta1=0.9,
+                                beta2=0.999, weight_decay=0.1, eps=1e-8,
+                                maximize=False, grad_scale=None,
+                                found_inf=None)
+
+        bound, bound_by = pop_adam_bound(n, p)
+        row = {"n": n, "p": p,
+               "ms": timed(lambda: pop_adam(*args, **extra, inplace=True)),
+               "plain_ms": timed(lambda: plain_chunks(None), reps=2),
+               "library_ms": timed(library),
+               "bound_ms": bound, "bound_by": bound_by,
+               "cache": "cold (55.3 GB a launch at the LM's size, 30.1 GB "
+                        "at the ragged one, past the 50 MB L2)"}
+        row["ms_over_bound"] = row["ms"] / bound
+        rows.append(row)
+        log(f"pop_adam (N={n}, P={p}, decay and clip scale): step and "
+            f"moments == plain (rtol 1e-5, atol 1e-6), in place == out of "
+            f"place bit for "
+            f"bit; kernel {row['ms']:.3f} ms, bound {bound:.3f} ms "
+            f"({bound_by}; {row['ms_over_bound']:.2f}x), plain "
+            f"{row['plain_ms']:.3f} ms (in column chunks), "
+            f"_fused_adamw_ (one lr and decay) {row['library_ms']:.3f} ms")
+        del params, grads, mu, nu, args
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    log(f"pop_adam at the LM's sizes: max abs err {worst:.3g}, {share:.3g} "
+        f"of the tolerance")
+    return worst, share, rows
+
+
+def phase_lm_update_parity():
+    """qwen2-0.5b at full width with 2 layers, in float32, 2 members of 2
+    sequences of 64 tokens: 2 vectorized population updates on the card
+    (one pop_adam launch each, nothing else launched) against the same
+    updates on the CPU (pop_adam's plain version), from one population
+    copied across. Held: the losses (rtol 1e-4); the gradients Adam took
+    (from its first moment: mu = (1 - b1) g after the first step, mu' =
+    b1 mu + (1 - b1) g' after the second) at rtol 1e-4, atol 1e-6; the
+    parameters after the first step, whose learning rate is 0 under
+    warmup, bit for bit; the step p - p' of the second at rtol 1e-4, atol
+    1e-6, on every element whose reference gradient is above the
+    gradients' atol (1e-6) in both steps. Adam's step is normalised, so
+    it turns a gradient's relative error into the same share of lr: a
+    gradient the check above lets differ by its own size takes a step
+    its rounding decides, and is held only through that gradient. Then
+    the same step check against the CPU's step scaled by 1.01, as a run
+    with a learning rate 1% off would take it, must fail. Returns the
+    errors and shares."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.pop import LMAgent, make_update
+    from repro_torch.tree import leaves
+
+    u = LM_UPDATE
+    if u["steps"] != 2:
+        raise AssertionError("the LM update parity reads the gradients of "
+                             "exactly two steps from Adam's moments")
+    cfg = _lm_config(u["arch"], num_layers=2, dtype="float32")
+    tcfg = TrainConfig(total_steps=u["steps"],
+                       warmup_steps=max(u["steps"] // 20, 1))
+    n = u["population"]
+    card_agent = LMAgent(cfg, tcfg, device="cuda")
+    card = card_agent.population_init(torch.Generator().manual_seed(SEED), n)
+    host = _lm_state_on(card, "cpu")
+    card_update = make_update(card_agent, "vectorized")
+    host_update = make_update(LMAgent(cfg, tcfg, device="cpu"),
+                              "vectorized")
+    stream = host_batches(cfg.vocab_size, n * u["batch"], u["seq_len"],
+                          seed=SEED)
+    counters = (pop_adam, flash_attention, wkv6, ssd)
+    reset_counts(*counters)
+    paths = _leaf_paths(card.params)
+
+    def worst_of(what, rows, limit=1.0):
+        """(max abs err, max share) of (share, err, leaf) rows; raises,
+        naming the worst leaves, when a share is above ``limit``."""
+        rows = sorted(rows, reverse=True)
+        if rows[0][0] > limit:
+            raise AssertionError(f"LM update: {what} beyond "
+                                 f"{STEP1_GRAD_TOL}; worst leaves (share, "
+                                 f"max abs err, leaf): {rows[:5]}")
+        return max(r[1] for r in rows), rows[0][0]
+
+    mus, before = [], None
+    for k in range(u["steps"]):
+        tokens = torch.from_numpy(next(stream)).reshape(n, u["batch"],
+                                                        u["seq_len"])
+        if k == 1:
+            before = [p.clone() for p in leaves(host.params)]
+        card, mc = card_update(card, {"tokens": tokens.cuda()},
+                               _lm_hypers(n, "cuda"))
+        host, mh = host_update(host, {"tokens": tokens},
+                               _lm_hypers(n, "cpu"))
+        torch.testing.assert_close(mc["loss"].cpu(), mh["loss"], rtol=1e-4,
+                                   atol=0.0, msg=f"LM update: loss, step "
+                                                 f"{k + 1}")
+        mus.append(([m.cpu() for m in leaves(card.opt_state.mu)],
+                    [m.clone() for m in leaves(host.opt_state.mu)]))
+        if k == 0 and not all(torch.equal(a.cpu(), b) for a, b in zip(
+                leaves(card.params), leaves(host.params))):
+            raise AssertionError("LM update: the parameters moved apart in "
+                                 "the first step, whose learning rate is 0")
+    torch.cuda.synchronize()
+    counts = [c.launches for c in counters]
+    if counts != [u["steps"], 0, 0, 0]:
+        raise AssertionError(f"LM update: launches (pop_adam, flash, wkv6, "
+                             f"ssd) = {counts}, want {[u['steps'], 0, 0, 0]}")
+    (card1, host1), (card2, host2) = mus
+    grad_rows, step_rows, wrong_rows = [], [], []
+    held = total = 0
+    for path, p0, pc, ph, c1, h1, c2, h2 in zip(
+            paths, before, leaves(card.params), leaves(host.params), card1,
+            host1, card2, host2):
+        # the gradients (clipped) each step took, card and CPU
+        gc = (c1 / 0.1, (c2 - 0.9 * c1) / 0.1)
+        gh = (h1 / 0.1, (h2 - 0.9 * h1) / 0.1)
+        for a, b in zip(gc, gh):
+            grad_rows.append((tol_share(a, b, STEP1_GRAD_TOL),
+                              (a - b).abs().max().item(), path))
+        keep = ((gh[0].abs() > LM_STEP_GRAD_FLOOR)
+                & (gh[1].abs() > LM_STEP_GRAD_FLOOR))
+        held += int(keep.sum())
+        total += keep.numel()
+        if not keep.any():
+            continue
+        sc = (p0 - pc.cpu())[keep]
+        sh = (p0 - ph)[keep]
+        step_rows.append((tol_share(sc, sh, STEP1_GRAD_TOL),
+                          (sc - sh).abs().max().item(), path))
+        wrong_rows.append((tol_share(sc, sh * LM_WRONG_LR, STEP1_GRAD_TOL),
+                           0.0, path))
+    grad_err, grad_share = worst_of("gradients of steps 1 and 2", grad_rows)
+    step_err, step_share = worst_of("the step p - p' of step 2", step_rows)
+    wrong_share = max(r[0] for r in wrong_rows)
+    if wrong_share <= 1:
+        raise AssertionError(f"LM update: the step check passes a learning "
+                             f"rate {LM_WRONG_LR}x the CPU's (share "
+                             f"{wrong_share:.3g}): it cannot see the "
+                             f"optimizer's arithmetic")
+    log(f"LM update parity, card (pop_adam kernel) vs CPU (plain), "
+        f"{u['arch']} full width 2 layers fp32, N={n}: the gradients of "
+        f"steps 1 and 2 max abs err {grad_err:.3g} ({grad_share:.3g} of "
+        f"rtol 1e-4, atol 1e-6); parameters after step 1 (lr 0) bit for "
+        f"bit; the step p - p' of step 2 max abs err {step_err:.3g} "
+        f"({step_share:.3g} of rtol 1e-4, atol 1e-6) on the {held:,} of "
+        f"{total:,} elements whose gradients exceed {LM_STEP_GRAD_FLOOR} in "
+        f"both steps; against a learning rate {LM_WRONG_LR}x the CPU's "
+        f"{wrong_share:.3g} of it; {u['steps']} pop_adam launches, no "
+        f"other")
+    return {"grad_max_abs_err": grad_err, "grad_share": grad_share,
+            "step_max_abs_err": step_err, "step_share": step_share,
+            "step_elements_held": held, "elements": total,
+            "step_share_at_lr_x1.01": wrong_share}
+
+
+def phase_lm_train():
+    """qwen2-0.5b at full published width and depth (24 layers, remat on,
+    bf16 compute over float32 masters), a population of 4, 4 sequences of
+    512 tokens a member and step, 4 steps with PBT every 2, through
+    ``PopTrainer(LMAgent(...))`` as the CLI builds it (no checkpoint: one
+    would write about 24 GB). The launch counts set to 0 just before the
+    run and read just after: one pop_adam launch a step, no other kernel.
+    Losses finite and falling from step 1 to step 4 for at least 3 of the
+    4 members; an evolve at steps 2 and 4. Then one step of each backend
+    timed (tokens/s per member), the vectorized one profiled, and the
+    peak of allocated memory held under 70 GB. Returns the numbers."""
+    from repro_torch.configs import (HyperSpace, PopulationConfig,
+                                     TrainConfig)
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.pop import LMAgent, PopTrainer, make_update
+    from repro_torch.tree import flat_buffer
+
+    t = LM_TRAIN
+    cfg = _lm_config(t["arch"])
+    if not (cfg.remat and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"{cfg.name}: want remat and bf16, got "
+                             f"{cfg.remat}, {cfg.dtype}")
+    tcfg = TrainConfig(total_steps=t["steps"],
+                       warmup_steps=max(t["steps"] // 20, 1), seed=SEED)
+    n, steps = t["population"], t["steps"]
+    pcfg = PopulationConfig(size=n, pbt_interval=t["pbt_interval"],
+                            hyper_space=HyperSpace(**LM_HYPER_SPACE))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = PopTrainer(LMAgent(cfg, tcfg, device="cuda"), pcfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p = flat_buffer(trainer.state.params).shape[1]
+    if p != LM_PARAMS:
+        raise AssertionError(f"{cfg.name}: {p} parameters a member, want "
+                             f"{LM_PARAMS}")
+    stream = host_batches(cfg.vocab_size, n * t["batch"], t["seq_len"],
+                          seed=SEED)
+    batches = [torch.from_numpy(next(stream)).reshape(
+        n, t["batch"], t["seq_len"]) for _ in range(steps + 1)]
+    losses, lineages = [], []
+
+    def on_step(step, metrics, lineage):
+        losses.append(metrics["loss"].tolist())
+        lineages.append(None if lineage is None else lineage.tolist())
+
+    counters = {"pop_adam": pop_adam, "flash_attention": flash_attention,
+                "wkv6": wkv6, "ssd": ssd, "pop_matmul": pop_matmul}
+    reset_counts(*counters.values())
+    t0 = time.perf_counter()
+    trainer.run(steps, lambda step: {"tokens": batches[step].cuda()},
+                on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0) | {"pop_adam": steps}
+    if launches != want:
+        raise AssertionError(f"LM train: launches {launches}, want {want}")
+    if not all(np.isfinite(row).all() for row in losses):
+        raise AssertionError(f"LM train: non-finite losses {losses}")
+    falling = sum(losses[-1][i] < losses[0][i] for i in range(n))
+    if falling < n - 1:
+        raise AssertionError(f"LM train: losses fell from step 1 to step "
+                             f"{steps} for {falling} of {n} members: "
+                             f"{losses}")
+    evolved = [i + 1 for i, lin in enumerate(lineages) if lin is not None]
+    want_evolved = list(range(t["pbt_interval"], steps + 1,
+                              t["pbt_interval"]))
+    if evolved != want_evolved:
+        raise AssertionError(f"LM train: evolved at steps {evolved}, want "
+                             f"{want_evolved}")
+    log(f"LM train {cfg.name} ({p:,} parameters a member, N={n}, "
+        f"{t['batch']}x{t['seq_len']} tokens a member and step): losses by "
+        f"step {[[round(x, 4) for x in row] for row in losses]}, falling "
+        f"for {falling} of {n}; lineage at steps {evolved}: "
+        f"{[lin for lin in lineages if lin is not None]}; launches "
+        f"{launches}; population built in {init_s:.2f} s, {steps} steps "
+        f"in {run_s:.2f} s")
+
+    # one step of each backend on the trained population, timed
+    batch = {"tokens": batches[steps].cuda()}
+    tokens = t["batch"] * t["seq_len"]
+    sequential = make_update(trainer.agent, "sequential")
+
+    def vec_step():
+        trainer.state, _ = trainer.update(trainer.state, batch,
+                                          trainer.hypers, trainer.generator)
+
+    def seq_step():
+        trainer.state, _ = sequential(trainer.state, batch, trainer.hypers,
+                                      trainer.generator)
+
+    reset_counts(pop_adam)
+    vec_ms = _sync_ms(vec_step, reps=2)
+    if pop_adam.launches != 3:
+        raise AssertionError(f"LM train: {pop_adam.launches} pop_adam "
+                             f"launches in 3 vectorized steps")
+    reset_counts(pop_adam)
+    seq_ms = _sync_ms(seq_step, reps=2)
+    if pop_adam.launches != 0:
+        raise AssertionError(f"LM train: the sequential arm launched "
+                             f"pop_adam {pop_adam.launches} times")
+    share, busy_ms, busy_wall_ms = device_busy_share(vec_step)
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= LM_PEAK_LIMIT:
+        raise AssertionError(f"LM train: peak allocated {peak:,} bytes, "
+                             f"limit {LM_PEAK_LIMIT:,.0f}")
+    out = {"arch": cfg.name, "parameters_per_member": p, "population": n,
+           "tokens_per_member_step": tokens, "steps": steps,
+           "losses": losses, "falling": falling,
+           "lineages": lineages, "launches": launches,
+           "population_init_s": init_s, "run_s": run_s,
+           "vectorized_step_ms": vec_ms, "sequential_step_ms": seq_ms,
+           "tokens_per_s_per_member": {
+               "vectorized": tokens / (vec_ms / 1e3),
+               "sequential": tokens / (seq_ms / 1e3)},
+           "device_busy_share": share, "device_busy_ms": busy_ms,
+           "busy_wall_ms": busy_wall_ms,
+           "allocated_before_bytes": before,
+           "max_memory_allocated_bytes": peak}
+    log(f"LM train: a step takes {vec_ms:.1f} ms vectorized (one pop_adam "
+        f"launch), {seq_ms:.1f} ms sequential (stock AdamW, no kernel): "
+        f"{out['tokens_per_s_per_member']['vectorized']:.0f} and "
+        f"{out['tokens_per_s_per_member']['sequential']:.0f} tokens/s per "
+        f"member; device busy {busy_ms:.1f} ms of a {busy_wall_ms:.1f} ms "
+        f"profiled vectorized step (share "
+        f"{'not measured' if share is None else f'{share:.4f}'}); peak "
+        f"allocated {peak:,} bytes (before the phase {before:,})")
+    del trainer, sequential
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_cli():
+    """``python -m repro_torch.launch.train --arch qwen2-0.5b --smoke
+    --population 2 --steps 4 --pbt-interval 2 --batch 2 --seq-len 64
+    --ckpt-dir <fresh>`` on the card with each backend, through
+    ``main``: 4 pop_adam launches (vectorized) or none (sequential), an
+    evolve at steps 2 and 4, the checkpoint at step 3, whose parameters
+    read back bit for bit. Returns {backend: final loss}."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.tree import leaves
+
+    out = {}
+    for backend in ("vectorized", "sequential"):
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = str(Path(d) / "ck")
+            reset_counts(pop_adam)
+            report = train_main(LM_CLI + ["--ckpt-dir", ckpt, "--backend",
+                                          backend])
+            torch.cuda.synchronize()
+            want = 4 if backend == "vectorized" else 0
+            if pop_adam.launches != want:
+                raise AssertionError(f"LM CLI ({backend}): "
+                                     f"{pop_adam.launches} pop_adam "
+                                     f"launches, want {want}")
+            if [s for s, _ in report.evolutions] != [2, 4]:
+                raise AssertionError(f"LM CLI ({backend}): evolutions "
+                                     f"{report.evolutions}")
+            mgr = CheckpointManager(ckpt)
+            params = report.trainer.state.params
+            saved = mgr.restore_aux("actors", params)
+            if mgr.latest() != 3 or not all(
+                    np.array_equal(a, b.cpu().numpy())
+                    for a, b in zip(leaves(saved), leaves(params))):
+                raise AssertionError(f"LM CLI ({backend}): the checkpoint "
+                                     f"does not read back bit for bit")
+            if not np.isfinite(report.final_loss):
+                raise AssertionError(f"LM CLI ({backend}): final loss "
+                                     f"{report.final_loss}")
+            out[backend] = report.final_loss
+        log(f"LM CLI ({backend}): final loss {report.final_loss:.4f}, "
+            f"evolutions {report.evolutions}, {pop_adam.launches} pop_adam "
+            f"launches, checkpoint step 3 read back bit for bit")
+    return out
+
+
+def phase_fig2():
+    """The paper's Fig. 2 unit on the card: TD3 at the repo's width
+    (``HIDDEN=(256,256)``), batches of 256, 32 chained update steps a
+    call, for N in 1, 8 and 32: ms per member-update-step of the
+    sequential arm (each member's step on plain dense layers and the stock
+    Adam, in a Python loop; no kernel) and the vectorized one (every
+    member at once, 24 pop_matmul and 2 pop_adam launches a step), each
+    one call timed with CUDA events after a warm-up call of one step.
+    Returns the
+    numbers, with each arm's ratio of a call's time at N=32 to N=1."""
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.pop import make_update
+    from repro_torch.rl import get_algo, make_agent
+    from repro_torch.tree import tree_map
+
+    k, bsz = FIG2["num_steps"], FIG2["batch"]
+    agent = make_agent("td3", make("pendulum").spec, device="cuda")
+    rows = {"sequential": {}, "vectorized": {}}
+    for n in FIG2["sizes"]:
+        state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        hypers = sample_hypers(gen, get_algo("td3").hyper_space, n)
+        shape = (k, n, bsz)
+        batches = {"obs": torch.randn(shape + (3,), generator=gen,
+                                      device="cuda"),
+                   "action": torch.rand(shape + (1,), generator=gen,
+                                        device="cuda") * 2 - 1,
+                   "reward": torch.randn(shape, generator=gen,
+                                         device="cuda"),
+                   "next_obs": torch.randn(shape + (3,), generator=gen,
+                                           device="cuda"),
+                   "done": (torch.rand(shape, generator=gen, device="cuda")
+                            < 0.05).float()}
+        for backend in rows:
+            update = make_update(agent, backend, num_steps=k)
+            st = tree_map(torch.clone, state)
+            # warm-up: one step through the same code (kernels built,
+            # memory cached), then the timed call of k steps
+            make_update(agent, backend)(
+                st, {key: v[0] for key, v in batches.items()}, hypers, gen)
+            torch.cuda.synchronize()
+            reset_counts(pop_matmul, pop_adam)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st, metrics = update(st, batches, hypers, gen)
+            end.record()
+            end.synchronize()
+            call_ms = start.elapsed_time(end)
+            launches = (pop_matmul.launches, pop_adam.launches)
+            want = (24 * k, 2 * k) if backend == "vectorized" else (0, 0)
+            if launches != want:
+                raise AssertionError(f"fig2 ({backend}, N={n}): launches "
+                                     f"(pop_matmul, pop_adam) {launches}, "
+                                     f"want {want}")
+            if not all(torch.isfinite(v).all() for v in metrics.values()):
+                raise AssertionError(f"fig2 ({backend}, N={n}): non-finite "
+                                     f"losses")
+            rows[backend][n] = {"call_ms": call_ms,
+                                "ms_per_member_update_step":
+                                    call_ms / (k * n)}
+            log(f"fig2 {backend} N={n}: {call_ms:.2f} ms a call of {k} "
+                f"steps, {call_ms / (k * n) * 1e3:.2f} us per "
+                f"member-update-step")
+            del st
+    lo, hi = min(FIG2["sizes"]), max(FIG2["sizes"])
+    out = {"batch": bsz, "num_steps": k, "hidden": [256, 256],
+           "ms_per_member_update_step": {
+               b: {n: r["ms_per_member_update_step"] for n, r in by.items()}
+               for b, by in rows.items()},
+           "call_ms": {b: {n: r["call_ms"] for n, r in by.items()}
+                       for b, by in rows.items()},
+           f"call_ratio_n{hi}_over_n{lo}": {
+               b: by[hi]["call_ms"] / by[lo]["call_ms"]
+               for b, by in rows.items()}}
+    log(f"fig2: a call's time at N={hi} over N={lo}: vectorized "
+        f"{out[f'call_ratio_n{hi}_over_n{lo}']['vectorized']:.2f}x, "
+        f"sequential {out[f'call_ratio_n{hi}_over_n{lo}']['sequential']:.2f}"
+        f"x")
+    return out
+
+
 def _shape_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _shape_leaves(v)]
@@ -1806,6 +2413,17 @@ def main() -> int:
     lm_parity = phase_lm_parity()
     lm_serve = phase_lm_serve()
 
+    # 11. pop_adam at the LM's size; 12. the LM update, card vs CPU; 13.
+    # LM population training at full width; 14. the LM CLI, both
+    # backends; 15. the paper's Fig. 2 unit
+    torch.cuda.empty_cache()
+    adam_lm_err, adam_lm_share, adam_lm_rows = phase_pop_adam_lm()
+    lm_update = phase_lm_update_parity()
+    lm_train = phase_lm_train()
+    lm_train["update_parity"] = lm_update
+    lm_train["cli_final_loss"] = phase_lm_cli()
+    fig2 = phase_fig2()
+
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
@@ -1861,10 +2479,14 @@ def main() -> int:
         "route": "triton",
         "source": "src/repro_torch/kernels/pop_adam.py",
         "replaces": "src/repro/kernels/pop_adam.py:53",
-        "launches": train["launches"]["pop_adam"],
-        "max_abs_err": adam_err,
+        # each main path, driven with the counts set to 0 just before
+        "launches": train["launches"]["pop_adam"]
+        + lm_train["launches"]["pop_adam"],
+        "launches_by_path": {"td3_train": train["launches"]["pop_adam"],
+                             "lm_train": lm_train["launches"]["pop_adam"]},
+        "max_abs_err": max(adam_err, adam_lm_err),
         "tolerance": "rtol=1e-5, atol=1e-6",
-        "max_err_over_tolerance": adam_share,
+        "max_err_over_tolerance": max(adam_share, adam_lm_share),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -1875,6 +2497,18 @@ def main() -> int:
         "library_call": "torch._fused_adam_ with one lr shared by every "
                         "member",
         "per_launch": adam_rows,
+        "lm": {"work": "one launch of the LM population's step (N=4, "
+                       "qwen2-0.5b's P), with a decay and a clip scale "
+                       "per member, and one at a ragged P past the old "
+                       "grid; device times of eager launches, cold",
+               "ms": adam_lm_rows[0]["ms"],
+               "plain_ms": adam_lm_rows[0]["plain_ms"],
+               "bound_ms": adam_lm_rows[0]["bound_ms"],
+               "bound_by": adam_lm_rows[0]["bound_by"],
+               "library_ms": adam_lm_rows[0]["library_ms"],
+               "library_call": "torch._fused_adamw_ over the members' rows "
+                               "with one lr and decay shared by all",
+               "per_launch": adam_lm_rows},
     }]
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
@@ -1951,6 +2585,8 @@ def main() -> int:
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "evolutions"}}))
     print(json.dumps({"lm_serve": lm_serve}))
+    print(json.dumps({"fig2": fig2}))
+    print(json.dumps({"lm_train": lm_train}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""``LMConfig``, ``HyperSpace`` and ``PopulationConfig``, copied from the
-JAX package's ``repro.configs.base`` (the port imports nothing of it).
+"""``LMConfig``, ``HyperSpace``, ``PopulationConfig`` and ``TrainConfig``,
+copied from the JAX package's ``repro.configs.base`` (the port imports
+nothing of it).
 
-``LMConfig`` keeps the fields that the port's LM serving path reads, for
-the families it runs (dense attention, RWKV6 and Zamba2); ``replace`` and
-``smoke`` give the JAX package's values for them. The fields of the MoE,
-MLA and frontend paths, and those of LM training (``remat``), come with
-the slices that port them; the SSM scans always compute in float32.
+``LMConfig`` keeps the fields that the port's LM serving and training
+paths read, for the families it runs (dense attention, RWKV6 and Zamba2);
+``replace`` and ``smoke`` give the JAX package's values for them. The
+fields of the MoE, MLA and frontend paths come with the slices that port
+them; the SSM scans always compute in float32.
 There is no ``use_flash``/``use_kernels`` switch: the device decides
 (the kernels on the card, their plain versions on the CPU).
 Where the JAX package scales gemma's embeddings by testing the config's
 ``family`` and name, the port has the field ``scale_embeddings``, set by
 the gemma config; it has no ``family``.
+
+``TrainConfig`` has no ``grad_compression``: data-parallel gradient
+compression (``optim/compress.py``) is not ported.
 
 Of ``PopulationConfig``'s fields, those of the strategies not ported yet
 (CEM's, DvD's) come with it; ``donate`` has no counterpart in the eager
@@ -45,6 +49,8 @@ class LMConfig:
     shared_attn_every: int = 0     # zamba2: shared attn block period
     dtype: str = "bfloat16"
     ssm_chunk: int = 128           # SSD/WKV chunk length
+    remat: bool = True             # recompute each layer in the backward
+    logits_chunk: int = 0          # >0: chunk the loss over the seq axis
 
     @property
     def hd(self) -> int:
@@ -65,6 +71,7 @@ class LMConfig:
             vocab_size=512,
             head_dim=32 if self.head_dim else None,
             dtype="float32",
+            remat=False,
         )
         if self.shared_attn_every:
             kw["shared_attn_every"] = 4
@@ -105,3 +112,20 @@ class PopulationConfig:
     perturb_scale: float = 1.2
     hyper_space: HyperSpace = field(default_factory=HyperSpace)
     fitness_window: int = 10             # last-k fitness rows
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """LM training: the optimizer's settings and the warmup-cosine
+    schedule (``models.lm.make_train_step``)."""
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    max_grad_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    seed: int = 0
+    population: PopulationConfig = field(default_factory=PopulationConfig)
+    grad_accum: int = 1                  # microbatches per optimizer step
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

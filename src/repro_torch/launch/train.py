@@ -1,4 +1,18 @@
-"""Training entry point (``repro.launch.train``), the RL branch.
+"""Training entry point (``repro.launch.train``): two workloads behind one
+CLI and one ``PopTrainer``.
+
+``--arch <id>`` trains a population of a language model on the synthetic
+token stream (``repro_torch.data.lm_pipeline``): each step every member
+takes ``--batch`` sequences of ``--seq-len`` tokens, PBT perturbs
+``lr_scale``, ``weight_decay`` and ``warmup_frac`` and evolves every
+``--pbt-interval`` steps on the members' losses. ``--backend vectorized``
+updates the whole population with one ``pop_adam`` launch a step on the
+card; ``--backend sequential`` steps one member at a time with the stock
+AdamW and launches no kernel. ``--smoke`` takes the config's reduced
+same-family form. The MoE, MLA and frontend configs are refused by name.
+
+    python -m repro_torch.launch.train --arch qwen2-0.5b --population 4 \\
+        --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR
 
 ``--algo <name>`` trains a population of the registered algorithm on an
 env through ``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
@@ -15,11 +29,12 @@ taken so that the JAX CLI's command lines run, and change nothing.
         --num-envs 8 --collect-steps 32 --updates-per-iter 32 --batch 256 \\
         --fused-adam --fused-linear --ckpt-dir DIR
 
-The checkpoint it writes is served by ``repro_torch.launch.serve``. Runs
-on the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
-versions). Flags of the JAX training CLI whose subsystems are not ported are
-refused, not accepted as no-ops; so is a ``--ckpt-dir`` that already
-holds a checkpoint (there is no resume yet to continue it).
+The RL checkpoint is served by ``repro_torch.launch.serve``. Both run on
+the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
+versions). Pass exactly one of ``--arch`` and ``--algo``. Flags of the
+JAX training CLI whose subsystems are not ported are refused, not
+accepted as no-ops; so is a ``--ckpt-dir`` that already holds a
+checkpoint (there is no resume yet to continue it).
 """
 from __future__ import annotations
 
@@ -31,7 +46,6 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 # flag -> why it is refused
 _REFUSED = {
-    "arch": "LM training comes with the LM slice",
     "policy_lag": "the overlapped acting engine is not ported yet",
     "chunk_steps": "chunked collection is not ported yet",
     "fused_epoch": "fused train-evolve epochs are not ported yet",
@@ -54,22 +68,88 @@ class TrainReport:
     trainer: object
     evolutions: list = field(default_factory=list)  # [(iter, lineage)]
     metrics: dict | None = None                     # last update's metrics
+    final_loss: float | None = None                 # LM: the members' mean
+
+
+def _refuse_used_ckpt_dir(ckpt_dir):
+    from repro_torch.checkpoint import CheckpointManager
+    latest = CheckpointManager(ckpt_dir).latest()
+    if latest is not None:
+        raise FileExistsError(
+            f"--ckpt-dir {ckpt_dir} already holds a checkpoint (step "
+            f"{latest}); resume is not ported yet, so pass an empty "
+            f"directory rather than overwrite it")
+
+
+def _run_lm(args) -> TrainReport:
+    import torch
+
+    from repro_torch.configs import (HyperSpace, PopulationConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.pop import LMAgent, PopTrainer
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    _refuse_used_ckpt_dir(args.ckpt_dir)
+    tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
+                       warmup_steps=max(args.steps // 20, 1), seed=args.seed)
+    n = args.population
+    print(f"[train] arch={cfg.name} pop={n} strategy={args.strategy} "
+          f"backend={args.backend} device={device}")
+    pcfg = PopulationConfig(
+        size=n, strategy=args.strategy, backend=args.backend,
+        pbt_interval=args.pbt_interval,
+        hyper_space=HyperSpace(
+            log_uniform=(("lr_scale", 0.1, 10.0),
+                         ("weight_decay", 1e-3, 0.3)),
+            uniform=(("warmup_frac", 0.01, 0.25),)))
+    trainer = PopTrainer(LMAgent(cfg, tcfg, device=device), pcfg,
+                         seed=args.seed, checkpoint_dir=args.ckpt_dir)
+    stream = host_batches(cfg.vocab_size, args.batch * n, args.seq_len,
+                          seed=args.seed)
+
+    def next_batch(step):
+        tokens = torch.from_numpy(next(stream)).to(device)
+        return {"tokens": tokens.reshape(n, args.batch, args.seq_len)}
+
+    t0 = time.time()
+    report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
+                         trainer=trainer)
+
+    def on_step(step, metrics, lineage):
+        report.metrics = metrics
+        if lineage is not None:
+            report.evolutions.append((step + 1, lineage.tolist()))
+            print(f"[train] evolve at step {step + 1}: "
+                  f"lineage={lineage.tolist()} strategy="
+                  f"{type(trainer.strategy).__name__}")
+        if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
+            report.final_loss = float(metrics["loss"].mean())
+            print(f"[train] step {step + 1}: loss by member "
+                  f"{[round(x, 4) for x in metrics['loss'].tolist()]}")
+            trainer.save({"loss": report.final_loss})
+
+    trainer.run(args.steps, next_batch, on_step=on_step)
+    report.seconds = time.time() - t0
+    if report.metrics is not None:
+        report.best_fitness = float(
+            trainer.agent.fitness_from_metrics(report.metrics).max())
+    print(f"[train] done in {report.seconds:.1f}s, final loss "
+          f"{report.final_loss:.4f}")
+    return report
 
 
 def _run_rl(args) -> TrainReport:
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import PopulationConfig
     from repro_torch.envs import make
     from repro_torch.pop import PopTrainer
     from repro_torch.rl import get_algo, make_agent
 
     device = resolve_device(args.device)
-    latest = CheckpointManager(args.ckpt_dir).latest()
-    if latest is not None:
-        raise FileExistsError(
-            f"--ckpt-dir {args.ckpt_dir} already holds a checkpoint (step "
-            f"{latest}); resume is not ported yet, so pass an empty "
-            f"directory rather than overwrite it")
+    _refuse_used_ckpt_dir(args.ckpt_dir)
     algo = get_algo(args.algo)
     env = make(args.env)
     agent = make_agent(args.algo, env.spec, device=device)
@@ -117,6 +197,9 @@ def _run_rl(args) -> TrainReport:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="LM config from the repro_torch.configs registry "
+                    "(e.g. qwen2-0.5b, rwkv6-test)")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm from the repro_torch.rl.ALGOS "
                     "registry (td3)")
@@ -125,16 +208,27 @@ def main(argv=None):
     ap.add_argument("--population", type=int, default=1)
     ap.add_argument("--strategy", default="pbt", choices=["pbt", "none"])
     ap.add_argument("--backend", default="vectorized",
-                    help="update backend (vectorized; the others are not "
-                    "ported yet)")
+                    choices=["vectorized", "sequential", "sharded",
+                             "islands"],
+                    help="update backend: vectorized (the population at "
+                    "once) or sequential (member by member); sharded and "
+                    "islands are not ported yet")
     ap.add_argument("--num-envs", type=int, default=8)
     ap.add_argument("--collect-steps", type=int, default=32)
     ap.add_argument("--updates-per-iter", type=int, default=32,
                     help="chained off-policy updates per iteration")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="RL: transitions per member-update; LM: sequences "
+                    "per member and step")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM: tokens per sequence")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the reduced same-family config (CPU-sized)")
+    ap.add_argument("--lr", type=float, default=3e-4,
+                    help="LM: the base learning rate")
     ap.add_argument("--eval-every", type=int, default=2)
     ap.add_argument("--steps", type=int, default=200,
-                    help="train iterations")
+                    help="train iterations (RL) or steps (LM)")
     ap.add_argument("--pbt-interval", type=int, default=50)
     ap.add_argument("--fused-adam", action="store_true",
                     help="taken for the JAX CLI's command lines: every Adam "
@@ -159,8 +253,10 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not supported by the port: "
                 f"{why}")
-    if args.algo is None:
-        ap.error("pass --algo (RL training; --arch is not ported yet)")
+    if (args.arch is None) == (args.algo is None):
+        ap.error("pass exactly one of --arch (LM) or --algo (RL)")
+    if args.arch is not None:
+        return _run_lm(args)
     return _run_rl(args)
 
 

@@ -11,7 +11,10 @@ is stacked the same way.
 Public API:
     init_params(generator, cfg, dtype=torch.float32)
     cast_params(params, cfg)
-    forward(params, cfg, batch, state=None, cache_index=None)
+    forward(params, cfg, batch, state=None, cache_index=None, *,
+            train=False, return_hidden=False)
+    lm_loss(params, cfg, batch)
+    make_train_step(cfg, tcfg) / make_population_update(cfg, tcfg)
     make_serve_step(cfg)
     decode_state_shapes(cfg, batch, max_len) / init_decode_state(...)
 
@@ -30,10 +33,22 @@ Differences from the JAX package, none of them in the numbers:
     (``cache_index`` 0) takes it over the prompt's own keys through the
     flash kernel, the same function (:mod:`repro_torch.nn.attention`).
 
+Training. ``lm_loss`` casts float32 master parameters to ``cfg.dtype``
+inside the differentiated function, as the JAX package's forward does,
+and with ``cfg.remat`` recomputes each layer (each Zamba2 super-block) in
+the backward through ``torch.utils.checkpoint`` (non-reentrant), where
+JAX checkpoints its scan body. A differentiated forward never launches a
+kernel (:mod:`repro_torch.kernels.ops`). The JAX package computes the
+members' gradients under ``vmap``; the port loops over the members:
+``torch.func``'s transforms refuse the saved-tensor hooks that a
+non-reentrant checkpoint is made of, and a full-width population needs
+the checkpoint. The population update then steps every member at once
+with ONE ``population_adam`` call over flat ``(N, P)`` buffers (the
+``pop_adam`` kernel on the card, written in place).
+
 Not ported: the MoE and MLA layouts and the frontends (their configs are
 refused by the registry), a Mamba2 stack without the shared attention (no
-config has one), training (``lm_loss``, the train steps), and
-``input_specs``.
+config has one), MoE's auxiliary loss, and ``input_specs``.
 """
 from __future__ import annotations
 
@@ -41,8 +56,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, TrainConfig
 from repro_torch.kernels.ops import attention
 from repro_torch.nn.attention import gqa_apply, gqa_init
 from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
@@ -52,7 +68,11 @@ from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
 from repro_torch.nn.mamba2 import mamba2_block_apply, mamba2_block_init
 from repro_torch.nn.rwkv6 import (channel_mix_apply, rwkv6_block_init,
                                   time_mix_apply)
-from repro_torch.tree import tree_map
+from repro_torch.optim.optimizers import (adam, apply_updates,
+                                          dynamic_warmup_cosine,
+                                          warmup_cosine)
+from repro_torch.optim.pop_adam import population_adam
+from repro_torch.tree import flat_empty, flatten, stack, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
 # layout
@@ -245,12 +265,16 @@ def _layer(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
-def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
+def forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
+            train: bool = False, return_hidden: bool = False):
     """batch: {"tokens": (B,S) integers}; params from :func:`cast_params`.
     With a decode state, the S tokens continue the sequence at
     ``cache_index`` and the state is updated in place. Without one
     (stateless) the recurrent blocks start from zero states and attention
-    takes its cache-less form. Returns (logits (B,S,V), state or None)."""
+    takes its cache-less form. ``train`` with ``cfg.remat`` recomputes each
+    layer of the stateless form in the backward. Returns (logits (B,S,V),
+    or the final-normed hidden (B,S,D) with ``return_hidden``; state or
+    None)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     emb = params["embed"]["embedding"]
@@ -266,6 +290,26 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
             cfg, b, 0, device=tokens.device), 0
     positions = (cache_index
                  + torch.arange(s, device=tokens.device)).expand(b, s)
+    remat = train and cfg.remat and not keep and torch.is_grad_enabled()
+
+    def layer_fn(seg, layer_p, layer_st):
+        if seg.kind == "rwkv":
+            return lambda h: _rwkv_block_apply(layer_p, cfg, h, layer_st,
+                                               keep)
+        if seg.kind == "attn":
+            return lambda h: _attn_block_apply(
+                layer_p, cfg, h, positions, layer_st["kv"] if keep else None,
+                cache_index)
+
+        def super_block(h):
+            h = _attn_block_apply(params["shared_attn"], cfg, h, positions,
+                                  layer_st["attn"]["kv"] if keep else None,
+                                  cache_index)
+            for j in range(seg.inner):
+                h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
+                                       _layer(layer_st["mamba"], j), keep)
+            return h
+        return super_block
 
     h = emb[tokens]
     if cfg.scale_embeddings:
@@ -274,26 +318,182 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None):
         seg_p = params["segments"][seg.name]
         seg_st = state[seg.name]
         for i in range(seg.count):
-            layer_p, layer_st = _layer(seg_p, i), _layer(seg_st, i)
-            if seg.kind == "rwkv":
-                h = _rwkv_block_apply(layer_p, cfg, h, layer_st, keep)
-                continue
-            if seg.kind == "attn":
-                h = _attn_block_apply(layer_p, cfg, h, positions,
-                                      layer_st["kv"] if keep else None,
-                                      cache_index)
-                continue
-            h = _attn_block_apply(params["shared_attn"], cfg, h, positions,
-                                  layer_st["attn"]["kv"] if keep else None,
-                                  cache_index)
-            for j in range(seg.inner):
-                h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
-                                       _layer(layer_st["mamba"], j), keep)
+            fn = layer_fn(seg, _layer(seg_p, i), _layer(seg_st, i))
+            h = checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
 
     h = rmsnorm_apply(params["final_norm"], h)
-    head = (params["embed"]["embedding"].T if cfg.tie_embeddings
+    if return_hidden:
+        return h, (state if keep else None)
+    return h @ _head_weight(params, cfg), (state if keep else None)
+
+
+def _head_weight(params, cfg: LMConfig):
+    return (params["embed"]["embedding"].T if cfg.tie_embeddings
             else params["lm_head"]["w"])
-    return h @ head, (state if keep else None)
+
+
+# ---------------------------------------------------------------------------
+# loss / train step
+# ---------------------------------------------------------------------------
+
+
+def _token_ce(logits, labels, mask):
+    """(summed cross-entropy of the masked tokens, their count), in
+    float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (logz - gold) * mask
+    return ce.sum(), mask.sum()
+
+
+def lm_loss(params, cfg: LMConfig, batch):
+    """Next-token cross-entropy of float32 master ``params`` (cast to
+    ``cfg.dtype`` here, so the gradient reaches the masters) -> (loss,
+    {"ce", "aux"}). The last position has no label. With
+    ``cfg.logits_chunk`` dividing S the logits are made a chunk of the
+    sequence at a time."""
+    cparams = cast_params(params, cfg)
+    hidden, _ = forward(cparams, cfg, batch, train=True, return_hidden=True)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    w = _head_weight(cparams, cfg)
+    chunk = cfg.logits_chunk
+    if chunk and hidden.shape[1] % chunk == 0:
+        ce = n = torch.zeros((), device=hidden.device)
+        for c in range(0, hidden.shape[1], chunk):
+            ce_c, n_c = _token_ce(hidden[:, c:c + chunk] @ w,
+                                  labels[:, c:c + chunk],
+                                  mask[:, c:c + chunk])
+            ce, n = ce + ce_c, n + n_c
+    else:
+        ce, n = _token_ce(hidden @ w, labels, mask)
+    loss = ce / torch.clamp(n, min=1.0)
+    return loss, {"ce": loss.detach(),
+                  "aux": torch.zeros((), device=hidden.device)}
+
+
+def _make_grads_fn(cfg: LMConfig, tcfg: TrainConfig):
+    """``grads_of(params, batch) -> (grads, loss, metrics)`` for one member,
+    shared by the stock train step and the population update. With
+    ``tcfg.grad_accum`` k > 1 the batch is split into k microbatches along
+    its first axis and the gradients are averaged in float32."""
+
+    def one(flat, treedef, batch):
+        inputs = [p.detach().requires_grad_(True) for p in flat]
+        with torch.enable_grad():
+            loss, metrics = lm_loss(unflatten(treedef, inputs), cfg, batch)
+            grads = torch.autograd.grad(loss, inputs)
+        return grads, loss.detach(), metrics
+
+    def grads_of(params, batch):
+        flat, treedef = flatten(params)
+        k = tcfg.grad_accum
+        if k <= 1:
+            grads, loss, metrics = one(flat, treedef, batch)
+            return unflatten(treedef, list(grads)), loss, metrics
+        acc, losses, rows = None, [], []
+        for j in range(k):
+            micro = tree_map(
+                lambda x: x.reshape((k, x.shape[0] // k) + x.shape[1:])[j],
+                batch)
+            grads, loss, metrics = one(flat, treedef, micro)
+            grads = [g.float() / k for g in grads]
+            acc = grads if acc is None else [a + g for a, g in
+                                             zip(acc, grads)]
+            losses.append(loss)
+            rows.append(metrics)
+        metrics = tree_map(lambda *xs: torch.stack(xs).mean(0), *rows)
+        return unflatten(treedef, acc), torch.stack(losses).mean(), metrics
+
+    return grads_of
+
+
+def _make_lr_fn(tcfg: TrainConfig):
+    """``lr_at(step, lr_scale, warmup_frac)``: the static warmup-cosine
+    schedule when ``warmup_frac`` is None, the dynamic one when it is a
+    per-member PBT hyper; elementwise, so it takes (N,) vectors."""
+    static = warmup_cosine(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+    dynamic = dynamic_warmup_cosine(tcfg.lr, tcfg.total_steps)
+
+    def lr_at(step, lr_scale=None, warmup_frac=None):
+        lr = static(step) if warmup_frac is None else dynamic(step,
+                                                              warmup_frac)
+        if lr_scale is not None:
+            lr = lr * lr_scale
+        return lr
+
+    return lr_at
+
+
+def make_train_step(cfg: LMConfig, tcfg: TrainConfig):
+    """One member's step with the stock AdamW (decay, clip and schedule from
+    ``tcfg``): ``(opt_init, train_step)``, ``train_step(params, opt_state,
+    batch, step, lr_scale=None, weight_decay=None, warmup_frac=None) ->
+    (params, opt_state, metrics)``. It launches no kernel."""
+    opt_init, opt_update = adam(tcfg.lr, weight_decay=tcfg.weight_decay,
+                                max_grad_norm=tcfg.max_grad_norm)
+    grads_of = _make_grads_fn(cfg, tcfg)
+    lr_at = _make_lr_fn(tcfg)
+
+    def train_step(params, opt_state, batch, step, lr_scale=None,
+                   weight_decay=None, warmup_frac=None):
+        grads, loss, metrics = grads_of(params, batch)
+        lr = lr_at(step, lr_scale, warmup_frac)
+        updates, opt_state = opt_update(grads, opt_state, params,
+                                        lr_override=lr,
+                                        wd_override=weight_decay)
+        params = apply_updates(params, updates)
+        return params, opt_state, dict(metrics, loss=loss, step=step)
+
+    return opt_init, train_step
+
+
+def make_population_update(cfg: LMConfig, tcfg: TrainConfig):
+    """The population-level LM update: each member's gradients (a loop over
+    the members, see the module's docstring) into one flat ``(N, P)``
+    buffer, then ONE ``population_adam`` step for the whole population
+    (one ``pop_adam`` launch on the card, its plain version on the CPU),
+    written in place: the population's parameters and moments must be in
+    flat buffers (``LMAgent.population_init``), or the step raises.
+
+    ``update(state, batch, hypers=None, generator=None, *, noise=None) ->
+    (state, metrics)``: batch leaves (N, B, ...), hypers a dict of (N,)
+    ``lr_scale`` / ``weight_decay`` / ``warmup_frac`` vectors (absent keys
+    take ``tcfg``'s values), metrics (N,) vectors. ``generator`` and
+    ``noise`` are taken for the backends' signature; the update draws
+    nothing."""
+    _, pop_apply = population_adam(tcfg.lr, weight_decay=tcfg.weight_decay,
+                                   max_grad_norm=tcfg.max_grad_norm,
+                                   flat=True)
+    grads_of = _make_grads_fn(cfg, tcfg)
+    lr_at = _make_lr_fn(tcfg)
+
+    def pop_update(state, batch, hypers=None, generator=None, *,
+                   noise=None):
+        from repro_torch.pop.agent import LMState  # pop.agent imports lm
+        h = hypers if hypers else {}
+        _, grads = flat_empty(state.params)
+        rows = []
+        for i in range(state.step.shape[0]):
+            g, loss, metrics = grads_of(tree_map(lambda x: x[i],
+                                                 state.params),
+                                        tree_map(lambda x: x[i], batch))
+            tree_map(lambda d, x: d[i].copy_(x), grads, g)
+            del g
+            rows.append(dict(metrics, loss=loss))
+        lr = lr_at(state.step, h.get("lr_scale"), h.get("warmup_frac"))
+        params, opt_state = pop_apply(state.params, grads, state.opt_state,
+                                      lr_override=lr,
+                                      wd_override=h.get("weight_decay"))
+        metrics = dict(stack(rows), step=state.step)
+        return LMState(params=params, opt_state=opt_state,
+                       step=state.step + 1), metrics
+
+    return pop_update
 
 
 def make_serve_step(cfg: LMConfig):

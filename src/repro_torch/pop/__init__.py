@@ -1,6 +1,6 @@
-"""``repro.pop`` of the port: the agent adapter, evolution strategies, the
-update backend and ``PopTrainer``."""
-from repro_torch.pop.agent import ModuleAgent  # noqa: F401
+"""``repro.pop`` of the port: the agent adapters, evolution strategies,
+the update backends and ``PopTrainer``."""
+from repro_torch.pop.agent import LMAgent, LMState, ModuleAgent  # noqa: F401
 from repro_torch.pop.backend import make_update  # noqa: F401
 from repro_torch.pop.strategy import (  # noqa: F401
     PBT, EvolutionStrategy, NoEvolution, make_strategy,

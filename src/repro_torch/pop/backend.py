@@ -1,19 +1,25 @@
 """How the population update executes, as a config value
-(``repro.pop.backend``).
+(``repro.pop.backend``):
 
-Only ``vectorized`` is ported: the module's population-level update
-(``make_population_update``), chained ``num_steps`` times per call. There
-is no ``jit(vmap(update))`` in PyTorch, so the vectorized update is always
-the population-level one, through the ``pop_matmul`` and ``pop_adam``
-kernels on the card. ``sequential``, ``sharded`` and ``islands`` raise
-"not ported yet".
+  * ``vectorized`` — the agent's population-level update
+    (``fused_update``): every member at once, through the ``pop_matmul``
+    and ``pop_adam`` kernels on the card (TD3), or one ``pop_adam`` launch
+    for the whole population (the LM). There is no ``jit(vmap(update))``
+    in PyTorch, so the vectorized update is always the population-level
+    one.
+  * ``sequential`` — the paper's Sequential baseline: the agent's
+    per-member ``update`` (plain layers, the stock Adam, no kernel) looped
+    over the members (:func:`repro_torch.core.vectorize.sequential_update`).
+
+``num_steps`` chains the update per call. ``sharded`` and ``islands``
+raise "not ported yet".
 """
 from __future__ import annotations
 
-from repro_torch.core.vectorize import chain_steps
+from repro_torch.core.vectorize import chain_steps, sequential_update
 
-BACKENDS = ("vectorized",)
-_NOT_PORTED = ("sequential", "sharded", "islands")
+BACKENDS = ("vectorized", "sequential")
+_NOT_PORTED = ("sharded", "islands")
 
 
 def make_update(agent, backend: str = "vectorized", *, num_steps: int = 1):
@@ -24,7 +30,9 @@ def make_update(agent, backend: str = "vectorized", *, num_steps: int = 1):
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ported: "
             f"{list(BACKENDS)})")
-    if backend not in BACKENDS:
+    if backend == "sequential":
+        return sequential_update(agent.update, num_steps)
+    if backend != "vectorized":
         raise ValueError(f"unknown backend {backend!r}; registered: "
                          f"{sorted(BACKENDS + _NOT_PORTED)}")
     fn = agent.fused_update()

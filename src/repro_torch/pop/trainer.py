@@ -3,7 +3,8 @@
 
 Composes an agent, an ``EvolutionStrategy`` and the update backend from
 one ``PopulationConfig``; population size 1 is ``NoEvolution`` over a
-1-member stack::
+1-member stack. An RL agent trains through the acting engine, with its
+fitness from evaluation episodes::
 
     agent = ModuleAgent(td3, obs_dim, act_dim, device="cuda")
     pcfg = PopulationConfig(size=8, strategy="pbt", num_steps=32,
@@ -14,9 +15,18 @@ one ``PopulationConfig``; population size 1 is ``NoEvolution`` over a
     trainer.run_env_loop(20, eval_every=2)
     trainer.save()
 
-Randomness: parameters are drawn on the CPU from a generator seeded with
-``seed`` (as :mod:`repro_torch.nn.basic` does, so a seed gives the same
-parameters on every device); every later draw (hypers, env resets,
+An LM agent trains on token batches, with its fitness from the update's
+own metrics (``agent.fitness_from_metrics``: -loss)::
+
+    agent = LMAgent(get_config("qwen2-0.5b"), TrainConfig(), device="cuda")
+    trainer = PopTrainer(agent, PopulationConfig(size=4, pbt_interval=2,
+                                                 hyper_space=space))
+    trainer.run(steps, lambda step: {"tokens": tokens_of(step)})
+
+Randomness: parameters are drawn from a CPU generator seeded with
+``seed`` (RL agents draw on it, as :mod:`repro_torch.nn.basic` does, so a
+seed gives the same parameters on every device; ``LMAgent`` seeds a
+generator of its own device from it); every later draw (hypers, env resets,
 exploration, replay indices, target-policy noise, PBT) comes from ONE
 generator on the agent's device, so on the card no draw crosses from the
 host.
@@ -72,18 +82,23 @@ class PopTrainer:
     # ------------------------------------------------------------------ run
     def step(self, batch, fitness=None):
         """One update call (``pcfg.num_steps`` chained member-steps), then,
-        on cadence, one evolve. Returns ``(metrics, lineage)``; lineage is
-        None unless evolution ran."""
+        on cadence, one evolve. Fitness is ``fitness`` when given, else the
+        agent's from the update's metrics (None for an RL agent). Returns
+        ``(metrics, lineage)``; lineage is None unless evolution ran."""
         self.state, metrics = self.update(self.state, batch, self.hypers,
                                           self.generator)
         self.step_count += 1
-        if fitness is not None:
-            self.report_fitness(fitness)
+        fit = (fitness if fitness is not None
+               else self.agent.fitness_from_metrics(metrics))
+        if fit is not None:
+            self.report_fitness(fit)
         return metrics, self._maybe_evolve()
 
     def run(self, steps: int, batch_fn, *, on_step=None):
         """Drive update calls up to trainer step ``steps``;
-        ``batch_fn(step) -> batch``, ``on_step(step, metrics, lineage)``."""
+        ``batch_fn(step) -> batch``, ``on_step(step, metrics, lineage)``.
+        Fitness comes from the agent's metrics; loops with another fitness
+        call ``step(batch, fitness=...)`` themselves."""
         metrics = None
         for step in range(self.step_count, steps):
             metrics, lineage = self.step(batch_fn(step))

@@ -9,6 +9,12 @@ member.
 
 The state holds no PRNG key (the JAX package's ``key`` leaf): updates draw
 their target-smoothing noise from a ``torch.Generator`` given per call.
+
+Two updates, as in the JAX package: :func:`update`, one member's step on
+plain dense layers and the stock :func:`repro_torch.optim.adam` (the
+``sequential`` backend loops it over the members and launches no
+kernel), and :func:`make_population_update`, every member at once through
+the ``pop_matmul`` and ``pop_adam`` kernels (the ``vectorized`` backend).
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.optim.optimizers import adam
+from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
 from repro_torch.tree import flatten, tree_map, unflatten
 
@@ -27,7 +33,7 @@ DEFAULT_HYPERS = {
 NOISE_CLIP = 0.5
 TAU = 0.005
 
-_opt_init, _ = adam(3e-4)
+_opt_init, _opt_update = adam(3e-4)
 
 
 class TD3State(NamedTuple):
@@ -89,6 +95,28 @@ def pop_policy(actors, obs, generator=None, exploration_noise=0.1):
     return a
 
 
+def critic_loss_fn(critic, target_actor, target_critic, batch, eps, hypers):
+    """One member's twin-Q loss; ``eps`` is the standard normal draw (B, act)
+    of the target-policy smoothing."""
+    with torch.no_grad():
+        noise = torch.clamp(hypers["noise"] * eps, -NOISE_CLIP, NOISE_CLIP)
+        next_a = torch.clamp(
+            nets.actor_apply(target_actor, batch["next_obs"]) + noise,
+            -1.0, 1.0)
+        tq1, tq2 = nets.critic_apply(target_critic, batch["next_obs"],
+                                     next_a)
+        target = batch["reward"] + hypers["discount"] * \
+            (1 - batch["done"]) * torch.minimum(tq1, tq2)
+    q1, q2 = nets.critic_apply(critic, batch["obs"], batch["action"])
+    return ((q1 - target) ** 2).mean() + ((q2 - target) ** 2).mean()
+
+
+def actor_loss_fn(actor, critic, batch):
+    a = nets.actor_apply(actor, batch["obs"])
+    q1, _ = nets.critic_apply(critic, batch["obs"], a)
+    return -q1.mean()
+
+
 def _soft_update(target, online, tau=TAU):
     return tree_map(lambda t, o: (1 - tau) * t + tau * o, target, online)
 
@@ -102,6 +130,54 @@ def _grad_tree(loss, tree):
 
 def _with_grad(tree):
     return tree_map(lambda p: p.detach().requires_grad_(True), tree)
+
+
+def update(state: TD3State, batch, hypers=None, generator=None, *,
+           noise=None):
+    """One member's TD3 step (critic always; actor at frequency
+    ``policy_freq``): batch leaves (B, ...), hypers a dict of scalars (or
+    None), ``noise`` an injected (B, act) standard normal draw (drawn from
+    ``generator`` otherwise). Returns ``(state, {"critic_loss",
+    "actor_loss"})``."""
+    h = dict(DEFAULT_HYPERS)
+    if hypers:
+        h.update(hypers)
+    if noise is None:
+        noise = torch.randn(batch["action"].shape, generator=generator,
+                            device=generator.device)
+
+    critic_in = _with_grad(state.critic)
+    closs = critic_loss_fn(critic_in, state.target_actor,
+                           state.target_critic, batch, noise, h)
+    cgrads = _grad_tree(closs, critic_in)
+    cupd, critic_opt = _opt_update(cgrads, state.critic_opt,
+                                   lr_override=h["critic_lr"])
+    critic = apply_updates(state.critic, cupd)
+
+    f = torch.as_tensor(h["policy_freq"], dtype=torch.float32)
+    step_f = state.step.to(torch.float32)
+    do_actor = torch.floor((step_f + 1) * f) > torch.floor(step_f * f)
+
+    actor_in = _with_grad(state.actor)
+    aloss = actor_loss_fn(actor_in, critic, batch)
+    agrads = _grad_tree(aloss, actor_in)
+    aupd, actor_opt_new = _opt_update(agrads, state.actor_opt,
+                                      lr_override=h["actor_lr"])
+    actor_new = apply_updates(state.actor, aupd)
+
+    sel = lambda new, old: tree_map(lambda a, b: torch.where(do_actor, a, b),
+                                    new, old)
+    actor = sel(actor_new, state.actor)
+    actor_opt = sel(actor_opt_new, state.actor_opt)
+    target_actor = sel(_soft_update(state.target_actor, actor),
+                       state.target_actor)
+    target_critic = _soft_update(state.target_critic, critic)
+    new_state = TD3State(actor=actor, critic=critic,
+                         target_actor=target_actor,
+                         target_critic=target_critic, actor_opt=actor_opt,
+                         critic_opt=critic_opt, step=state.step + 1)
+    return new_state, {"critic_loss": closs.detach(),
+                       "actor_loss": aloss.detach()}
 
 
 def make_population_update(*, fused_linear: bool = False, fused=None):

@@ -6,8 +6,17 @@ order, ``None`` an empty subtree. The checkpoint layout numbers its
 ``leaf_<i>`` arrays in that order, so checkpoints written by either package
 read back in the other. (``torch.utils._pytree`` keeps dict insertion
 order, which would silently permute the leaves.)
+
+A member-stacked tree may live in ONE flat ``(N, P)`` buffer: its leaves,
+in flatten order, are views of consecutive column ranges of the buffer
+(:func:`flat_views`, :func:`flat_empty`, :func:`flat_copy`).
+:func:`flat_buffer` returns that buffer from the leaves (the base torch
+records for a view), so an optimizer asked to can update the whole
+population in place while every caller keeps the tree.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +85,53 @@ def tree_map(fn, tree, *rest):
 def stack(trees):
     """List of per-member trees -> one tree with a leading member axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def flat_views(buffer, like):
+    """The tree of ``like``'s structure and leaf shapes (each ``(N, ...)``)
+    whose leaves are views of consecutive column ranges of ``buffer``, an
+    ``(N, P)`` tensor, in flatten order."""
+    shapes, treedef = flatten(like)
+    outs, off = [], 0
+    for leaf in shapes:
+        size = math.prod(leaf.shape[1:])
+        outs.append(buffer[:, off:off + size].view(leaf.shape))
+        off += size
+    if off != buffer.shape[1]:
+        raise ValueError(f"flat_views: the leaves hold {off} columns, the "
+                         f"buffer {buffer.shape[1]}")
+    return unflatten(treedef, outs)
+
+
+def flat_empty(like, *, dtype=torch.float32):
+    """A new, uninitialised ``(N, P)`` buffer for the member-stacked tree
+    ``like`` (on its device), and the tree of its views."""
+    flat = leaves(like)
+    n = flat[0].shape[0]
+    p = sum(math.prod(l.shape[1:]) for l in flat)
+    buffer = torch.empty((n, p), dtype=dtype, device=flat[0].device)
+    return buffer, flat_views(buffer, like)
+
+
+def flat_copy(tree, *, dtype=torch.float32):
+    """``tree`` copied into a new ``(N, P)`` buffer: (buffer, views)."""
+    buffer, views = flat_empty(tree, dtype=dtype)
+    tree_map(lambda d, s: d.copy_(s), views, tree)
+    return buffer, views
+
+
+def flat_buffer(tree):
+    """The ``(N, P)`` buffer whose views ``tree``'s leaves are, as
+    :func:`flat_views` lays them out; raises ``ValueError`` when they are
+    not."""
+    flat = leaves(tree)
+    base = flat[0]._base
+    if base is None or base.ndim != 2:
+        raise ValueError("flat_buffer: the leaves are not views of an "
+                         "(N, P) buffer")
+    for leaf, want in zip(flat, leaves(flat_views(base, tree))):
+        if (leaf.data_ptr() != want.data_ptr()
+                or leaf.stride() != want.stride()):
+            raise ValueError("flat_buffer: the leaves are not laid out as "
+                             "flat_views lays them")
+    return base

@@ -38,6 +38,7 @@ from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import lm
 from repro_torch.nn import attention, mamba2, rwkv6
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 torch.set_num_threads(1)
 

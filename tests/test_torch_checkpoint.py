@@ -28,6 +28,7 @@ from repro_torch.envs import make
 from repro_torch.rl import make_agent
 from repro_torch.serve import load_actor_stack
 from repro_torch.tree import flatten, stack, tree_map, unflatten
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

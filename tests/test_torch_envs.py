@@ -14,6 +14,7 @@ import torch
 from repro.envs.core import _pendulum_obs as jax_obs
 from repro.envs.core import _pendulum_step as jax_step
 from repro_torch.envs import make
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (_launch, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.nn.attention import sdpa
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

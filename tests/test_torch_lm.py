@@ -50,6 +50,7 @@ from repro_torch.models import lm
 from repro_torch.nn import attention, basic
 from repro_torch.nn.rotary import apply_rope
 from repro_torch.tree import flatten, leaves
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

@@ -19,6 +19,7 @@ from repro_torch.convert import from_jax_params, to_numpy
 from repro_torch.nn.basic import lecun_normal, mlp_apply, mlp_init
 from repro_torch.rl import networks as nets
 from repro_torch.rl import td3
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

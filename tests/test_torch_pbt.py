@@ -29,6 +29,7 @@ from repro_torch.core.hyperparams import perturb_hypers, sample_hypers
 from repro_torch.core.pbt import exploit_count, pbt_step
 from repro_torch.pop.strategy import PBT, NoEvolution, make_strategy
 from repro_torch.rl import get_algo
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

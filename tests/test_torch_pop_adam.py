@@ -26,6 +26,7 @@ from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
 from repro_torch.optim import (AdamState, adam, apply_updates,
                                population_adam)
 from repro_torch.tree import leaves
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

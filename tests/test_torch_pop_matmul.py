@@ -24,6 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.pop_matmul import (PopMatmul, _launch,
                                             _member_stride, _route,
                                             pop_matmul, pop_matmul_plain)
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

@@ -44,6 +44,7 @@ from repro_torch.rl import td3
 from repro_torch.rollout import (Collector, Evaluator, RolloutEngine,
                                  VecEnv, VecEnvState, episode_stats,
                                  exploration_policy, reset_stats)
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

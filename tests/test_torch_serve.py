@@ -36,6 +36,7 @@ from repro_torch.serve import (BatchServer, ContinuousEvaluator,
                                PolicyForward, make_serving_set,
                                probe_observations, select_members)
 from repro_torch.telemetry import LatencyWindow
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

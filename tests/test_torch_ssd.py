@@ -26,6 +26,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.nn import mamba2
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

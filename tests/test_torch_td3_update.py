@@ -30,6 +30,7 @@ from repro_torch.optim import AdamState
 from repro_torch.rl import networks as nets
 from repro_torch.rl import td3
 from repro_torch.tree import leaves
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores

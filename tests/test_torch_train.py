@@ -6,8 +6,8 @@ checkpoint it writes is read back bitwise by the JAX package's
 ``repro.serve.load_actor_stack``; the train CLI runs with ``--device cpu``
 and the port's serve CLI serves what it wrote. The CLI refuses to run
 without CUDA unless ``--device cpu`` is given, refuses every flag whose
-subsystem is not ported, and refuses a ``--ckpt-dir`` that already holds a
-checkpoint.
+subsystem is not ported, ``--arch`` beside ``--algo``, the backends not
+ported, and a ``--ckpt-dir`` that already holds a checkpoint.
 """
 import jax
 import numpy as np
@@ -28,6 +28,7 @@ from repro_torch.pop import PopTrainer
 from repro_torch.rl import get_algo, make_agent
 from repro_torch.serve import load_actor_stack
 from repro_torch.tree import leaves
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores
@@ -150,18 +151,47 @@ def test_train_cli_refuses_without_cuda(tmp_path):
         train_main(SMALL + ["--ckpt-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag", sorted(_REFUSED))
-def test_train_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not supported by the "
-                                                  "port"):
+# each refused flag of the JAX training CLI and the error the port gives;
+# ``arch`` is --arch passed beside --algo, which the CLI refuses as the
+# JAX one does
+_REFUSED_CASES = (
+    ("arch", SystemExit, "pass exactly one of --arch"),
+    ("chunk_steps", NotImplementedError, "not supported by the port"),
+    ("compile_cache", NotImplementedError, "not supported by the port"),
+    ("devices", NotImplementedError, "not supported by the port"),
+    ("epochs", NotImplementedError, "not supported by the port"),
+    ("fused_epoch", NotImplementedError, "not supported by the port"),
+    ("log_dir", NotImplementedError, "not supported by the port"),
+    ("model_axis", NotImplementedError, "not supported by the port"),
+    ("policy_lag", NotImplementedError, "not supported by the port"),
+    ("profile", NotImplementedError, "not supported by the port"),
+    ("resize", NotImplementedError, "not supported by the port"),
+    ("resume", NotImplementedError, "not supported by the port"),
+)
+
+
+def test_refused_cases_cover_every_refused_flag():
+    assert sorted(f for f, _, _ in _REFUSED_CASES if f != "arch") == \
+        sorted(_REFUSED)
+
+
+@pytest.mark.parametrize("flag, error, match", _REFUSED_CASES,
+                         ids=[flag for flag, _, _ in _REFUSED_CASES])
+def test_train_cli_refuses_unported_flags(tmp_path, capsys, flag, error,
+                                          match):
+    with pytest.raises(error) as raised:
         train_main(SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu",
                             "--" + flag.replace("_", "-"), "1"])
+    said = str(raised.value) if error is not SystemExit \
+        else capsys.readouterr().err
+    assert match in said
 
 
 def test_train_cli_refuses_unported_choices(tmp_path):
     base = SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_main(base + ["--backend", "sequential"])
+    for backend in ("sharded", "islands"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            train_main(base + ["--backend", backend])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_main(["--algo", "sac"] + base[2:])
     with pytest.raises(SystemExit):

@@ -32,6 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.nn import rwkv6
 from repro_torch.nn.basic import layernorm_apply
+from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
 # one intra-op thread per process: the shapes here are small, and the
 # suite's parallel workers would otherwise oversubscribe the cores
