@@ -120,11 +120,40 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. Fig. 2 — TD3 at the repo's width, batch 256, 32 chained steps a
                 call, N = 1, 8, 32: ms per member-update-step of the
                 sequential and the vectorized backend, and each one's
-                ratio of a call's time at N = 32 to N = 1.
+                ratio of a call's time at N = 32 to N = 1;
+ 16. shared update — the shared-critic update (§4.2) at full width (N=8,
+                B=256, obs 17, act 6, half the members training, a
+                constant DvD coefficient, probe 20) chained 4 times with
+                every kernel and again with every plain version: step-1
+                gradients, the parameters after 4 steps, members 4-7 bit
+                for bit at their start, 6 backwards in step 1, and 9
+                ``pop_matmul`` launches (6 tiled, 3 narrow) and 1
+                ``pop_adam`` a step;
+ 17. shared kernels — ``pop_matmul`` at the DvD probe's shapes (x (20, 17)
+                broadcast over 8 members) and the update's actor layers,
+                and ``pop_adam`` at N=8 with the actor's P, each against
+                its plain version, timed beside its bound, the plain
+                version and the library call;
+ 18. CEM-RL — ``repro_torch.examples.cemrl.run`` on pendulum (N=10, 3
+                iterations) with the launch counts set to 0 just before
+                and read just after: the counts the code gives, lineage
+                all -1 at every evolve, CEM's noise decaying by 0.999 an
+                evolve, the mean of its variance, finite fitness and
+                losses; ms per iteration and the busy share of one more;
+ 19. DvD — ``repro_torch.examples.dvd.run`` on reacher (N=5, 8
+                iterations of 32 updates: past update step 200, where the
+                diversity coefficient turns on), counted the same way; the
+                probe's logdet at each iteration;
+ 20. Fig. 4 — the shared-critic update at ``benchmarks/shared_critic.py``'s
+                grid (obs 17, act 6, B=256, N=2, 4, 8, 16): ms per update
+                of the vectorized and the sequential form, the median of 7
+                synchronised calls each with their min and max, their
+                ratio, and the busy share of one vectorized call at N=16.
 
-The last lines are a ``{"fig2": ...}`` and a ``{"lm_train": ...}`` line,
-the card's ``nvidia-smi`` name and power limit, one JSON line with every
-kernel's numbers, and ``{"ok": true, "device": ...}``.
+The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
+``{"shared": ...}`` and ``{"fig4": ...}`` lines, the card's
+``nvidia-smi`` name and power limit, one JSON line with every kernel's
+numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -241,6 +270,22 @@ CRITIC_LAYERS = ((4, 256, "relu"), (256, 256, "relu"), (256, 1, "none"))
 # 256-wide layers tiled, its M=1 head narrow) and in one update step
 SERVED_BATCH_ROUTES = {"tiled": 2, "narrow": 1}
 UPDATE_STEP_ROUTES = {"tiled": 16, "narrow": 8}
+# slice 9: the shared-critic update (§4.2) at the width of the paper's
+# Fig. 4 benchmark (benchmarks/shared_critic.py: obs 17, act 6, B=256),
+# half the members training and a constant DvD coefficient on a probe of
+# 20 states; its policies' layers, and the pop_matmul launches of each
+# route one step makes with the DvD term (without it, 2/3 of them)
+SHARED = dict(obs=17, act=6, population=8, batch=256, train_frac=0.5,
+              dvd_coef=0.5, probe=20, steps=4)
+SHARED_ACTOR_LAYERS = ((17, 256, "relu"), (256, 256, "relu"),
+                       (256, 6, "tanh"))
+SHARED_STEP_ROUTES = {"tiled": 6, "narrow": 3}
+FIG4 = dict(sizes=(2, 4, 8, 16), batch=256, reps=7)
+# the examples' runs: CEM-RL's defaults (N=10) for 3 iterations; DvD's
+# (N=5, 32 updates an iteration, dvd_period 400) for 8, which passes
+# update step 200, where the diversity coefficient turns on
+CEMRL_RUN = dict(population=10, iters=3)
+DVD_RUN = dict(population=5, iters=8)
 
 
 def log(msg: str):
@@ -2286,6 +2331,420 @@ def phase_fig2():
     return out
 
 
+# --------------------------------------- the shared critic, CEM-RL, DvD
+def shared_step_routes(n, bsz):
+    """pop_matmul launches of each route in one shared-critic update step
+    with the DvD term (``core/shared.py``): the policies' 3 layers for the
+    target policies' next actions, 3 in the actor loss and 3 for the probe
+    embedding, by the wrapper's rule, which must give SHARED_STEP_ROUTES
+    (N, B and the probe's size do not move a route)."""
+    layers = [(k, m, 3) for k, m, _ in SHARED_ACTOR_LAYERS]
+    return expect_routes(pop_matmul_routes(n, bsz, layers),
+                         SHARED_STEP_ROUTES, "a shared step")
+
+
+def _shared_batches(gen, k, n, bsz):
+    shape = (k, n, bsz)
+    obs, act = SHARED["obs"], SHARED["act"]
+    return {"obs": torch.randn(shape + (obs,), generator=gen, device="cuda"),
+            "action": torch.rand(shape + (act,), generator=gen,
+                                 device="cuda") * 2 - 1,
+            "reward": torch.randn(shape, generator=gen, device="cuda"),
+            "next_obs": torch.randn(shape + (obs,), generator=gen,
+                                    device="cuda"),
+            "done": (torch.rand(shape, generator=gen, device="cuda")
+                     < 0.05).float()}
+
+
+def phase_shared_update_parity():
+    """The shared-critic update (§4.2) at full width: N=8, B=256, obs 17,
+    act 6, half the members training, a constant DvD coefficient, chained
+    4 times with every kernel and again with every plain version from one
+    state, batch stack and noise. Step-1 gradients (Adam's first moments
+    / 0.1) and the parameters after 4 steps must agree, members 4-7 must
+    be bit-identical to their start, the first step must run the 6
+    backwards the code asks for, and every step 9 pop_matmul launches (6
+    tiled, 3 narrow) and 1 pop_adam. Returns the numbers."""
+    from repro_torch.core import shared
+    from repro_torch.core.vectorize import chain_steps
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.tree import leaves
+
+    k_steps, n, bsz = SHARED["steps"], SHARED["population"], SHARED["batch"]
+    state = shared.init(torch.Generator().manual_seed(SEED), SHARED["obs"],
+                        SHARED["act"], n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batches = _shared_batches(gen, k_steps, n, bsz)
+    noise = torch.randn((k_steps, n, bsz, SHARED["act"]), generator=gen,
+                        device="cuda")
+    first = {k: v[0] for k, v in batches.items()}
+    rest = {k: v[1:] for k, v in batches.items()}
+    coef = SHARED["dvd_coef"]
+    k_train = max(1, round(n * SHARED["train_frac"]))
+    # the backwards of one step: the actor loss's 3 layers and the probe
+    # embedding's 3, whose first layer reads obs (no dx)
+    want_backs = collections.Counter()
+    for i, (k, m, _) in enumerate(SHARED_ACTOR_LAYERS):
+        want_backs[(k, m, "wb" if i == 0 else "xwb")] += 2
+    out = {}
+    for route, fused in (("kernels", None), ("plain", False)):
+        update = shared.make_shared_critic_update(
+            dvd_coef_fn=lambda step: coef, probe_size=SHARED["probe"],
+            train_frac=SHARED["train_frac"], fused=fused)
+        reset_counts(pop_matmul, pop_adam)
+        (s1, m1), backs = backwards_of(
+            lambda: update(state, first, None, noise=noise[0]))
+        torch.cuda.synchronize()
+        step1 = (pop_matmul.launches, pop_adam.launches)
+        if fused is None and (backs != want_backs or step1 != (9, 1)):
+            raise AssertionError(f"shared update: step 1 backwards "
+                                 f"{dict(backs)} (want {dict(want_backs)}),"
+                                 f" launches (pop_matmul, pop_adam) {step1}"
+                                 f" (want (9, 1))")
+        s4, m4 = chain_steps(update, k_steps - 1)(s1, rest, None,
+                                                  noise=noise[1:])
+        torch.cuda.synchronize()
+        counts = (pop_matmul.launches, pop_adam.launches)
+        want = (9 * k_steps, k_steps) if fused is None else (0, 0)
+        by_route = dict(pop_matmul.launches_by_route)
+        want_routes = scaled(shared_step_routes(n, bsz),
+                             k_steps if fused is None else 0)
+        if counts != want or by_route != want_routes:
+            raise AssertionError(f"shared update ({route}): launches "
+                                 f"{counts}, want {want}; by route "
+                                 f"{by_route}, want {want_routes}")
+        for f in ("policies", "policy_opt", "target_policies"):
+            for got, was in zip(leaves(getattr(s4, f)),
+                                leaves(getattr(state, f))):
+                if not torch.equal(got[k_train:], was[k_train:]):
+                    raise AssertionError(f"shared update ({route}): members "
+                                         f"{k_train}-{n - 1} moved in {f}")
+        for name, v in list(m1.items()) + list(m4.items()):
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"shared update: non-finite {name}")
+        grads = [m / 0.1 for m in leaves(s1.critic_opt.mu)
+                 + leaves(s1.policy_opt.mu)]
+        out[route] = (grads, leaves((s4.policies, s4.critic,
+                                     s4.target_policies, s4.target_critic)))
+    grad_err = param_err = share = 0.0
+    for g, r in zip(*(out[k][0] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(g, r, **STEP1_GRAD_TOL)
+        grad_err = max(grad_err, (g - r).abs().max().item())
+        share = max(share, tol_share(g, r, STEP1_GRAD_TOL))
+    for a, b in zip(*(out[k][1] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=PARAMS_AFTER_4_ATOL)
+        param_err = max(param_err, (a - b).abs().max().item())
+    log(f"shared update parity, kernels vs plain (N={n}, B={bsz}, obs "
+        f"{SHARED['obs']}, act {SHARED['act']}, {k_train} trainees, DvD "
+        f"coef {coef}, probe {SHARED['probe']}): step-1 gradients max abs "
+        f"err {grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6), "
+        f"parameters after {k_steps} steps {param_err:.3g} (atol "
+        f"{PARAMS_AFTER_4_ATOL}); members {k_train}-{n - 1} bit-identical; "
+        f"per step 9 pop_matmul launches "
+        f"{shared_step_routes(n, bsz)} and 1 pop_adam")
+    return {"grad_max_abs_err": grad_err, "grad_share": share,
+            "param_max_abs_err": param_err,
+            "pop_matmul_per_step": shared_step_routes(n, bsz),
+            "pop_adam_per_step": 1}
+
+
+def phase_shared_kernels():
+    """pop_matmul at the DvD probe's shapes (x (20, 17) broadcast over 8
+    members, then the hidden and head layers at B=20) and at the update's
+    actor layers (N=8, B=256, obs 17, act 6), against the plain version,
+    and pop_adam at N=8 with the actor's P: each timed beside its bound,
+    the plain version and the library call. Returns (max abs err, share of
+    the tolerance, pop_matmul rows, pop_adam row)."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+    from repro_torch.kernels.pop_matmul import (_route, pop_matmul,
+                                                pop_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n, acts = SHARED["population"], {"none": lambda t: t,
+                                     "relu": torch.relu,
+                                     "tanh": torch.tanh}
+    worst = share = 0.0
+    rows = []
+    for where, bsz, per_step in (("probe", SHARED["probe"], 1),
+                                 ("update", SHARED["batch"], 2)):
+        for i, (k, m, act) in enumerate(SHARED_ACTOR_LAYERS):
+            broadcast = where == "probe" and i == 0
+            w = torch.randn((n, k, m), generator=gen, device="cuda") / k ** .5
+            b = torch.randn((n, m), generator=gen, device="cuda")
+            x = (torch.randn((bsz, k), generator=gen, device="cuda")
+                 .unsqueeze(0).expand(n, bsz, k) if broadcast else
+                 torch.randn((n, bsz, k), generator=gen, device="cuda"))
+            y = pop_matmul(x, w, b, activation=act)
+            ref = pop_matmul_plain(x, w, b, activation=act)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, ref, **TOL)
+            worst = max(worst, (y - ref).abs().max().item())
+            share = max(share, tol_share(y, ref, TOL))
+            f = acts[act]
+            bound, bound_by = pop_matmul_bound(n, bsz, k, m,
+                                               broadcast=broadcast)
+            row = {"where": where, "n": n, "b": bsz, "k": k, "m": m,
+                   "act": act, "x_broadcast": broadcast,
+                   "route": _route(n, bsz, k, m),
+                   "launches_per_update_step": per_step,
+                   "ms": graph_ms(lambda: pop_matmul(x, w, b,
+                                                     activation=act)),
+                   "plain_ms": graph_ms(lambda: pop_matmul_plain(
+                       x, w, b, activation=act)),
+                   "library_ms": graph_ms(
+                       lambda: f(torch.baddbmm(b[:, None, :], x, w))),
+                   "bound_ms": bound, "bound_by": bound_by}
+            rows.append(row)
+            log(f"pop_matmul shared {where} (N={n},B={bsz},K={k},M={m},"
+                f"{act}{', x broadcast' if broadcast else ''}, "
+                f"{row['route']}): kernel {row['ms'] * 1e3:.3f} us, plain "
+                f"{row['plain_ms'] * 1e3:.3f} us, baddbmm "
+                f"{row['library_ms'] * 1e3:.3f} us, bound "
+                f"{bound * 1e3:.3f} us ({bound_by})")
+
+    p = sum(k * m + m for k, m, _ in SHARED_ACTOR_LAYERS)
+    params, grads, mu = (torch.randn((n, p), generator=gen, device="cuda")
+                         for _ in range(3))
+    nu = torch.rand((n, p), generator=gen, device="cuda")
+    lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
+    step = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+    args = (params, grads, mu, nu, lr, step)
+    for g, r in zip(pop_adam(*args), pop_adam_plain(*args)):
+        torch.testing.assert_close(g, r, **ADAM_TOL)
+    lib = [t.clone() for t in args[:4]]
+    lib_step = [torch.tensor(1.0, device="cuda")]
+
+    def library():
+        torch._fused_adam_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
+                           lib_step, amsgrad=False, lr=3e-4, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           maximize=False, grad_scale=None, found_inf=None)
+
+    bound, bound_by = pop_adam_bound(n, p)
+    adam_row = {"net": "shared actor", "n": n, "p": p,
+                "launches_per_update_step": 1,
+                "ms": graph_ms(lambda: pop_adam(*args)),
+                "plain_ms": graph_ms(lambda: pop_adam_plain(*args)),
+                "library_ms": graph_ms(library),
+                "bound_ms": bound, "bound_by": bound_by}
+    log(f"pop_adam shared actor (N={n}, P={p}/member): kernel "
+        f"{adam_row['ms'] * 1e3:.3f} us, plain "
+        f"{adam_row['plain_ms'] * 1e3:.3f} us, _fused_adam_ (shared lr) "
+        f"{adam_row['library_ms'] * 1e3:.3f} us, bound "
+        f"{bound * 1e3:.3f} us ({bound_by})")
+    return worst, share, rows, adam_row
+
+
+def _run_counted(fn):
+    """``fn()`` with the RL kernels' launch counts set to 0 just before and
+    read just after: (result, wall s, pop_matmul, by route, pop_adam)."""
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+
+    reset_counts(pop_matmul, pop_adam)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, pop_matmul.launches,
+            dict(pop_matmul.launches_by_route), pop_adam.launches)
+
+
+def _example_iteration_numbers(name, out):
+    """Iteration times and the device's busy share of one more iteration
+    (collect, updates, evaluation, evolve) of an example's trainer."""
+    trainer = out["trainer"]
+    secs = [r["seconds"] for r in out["iters"]]
+    share, busy_ms, wall_ms = device_busy_share(
+        lambda: trainer.run_env_loop(1, eval_every=1))
+    log(f"{name}: ms per iteration {[round(s * 1e3, 1) for s in secs]} "
+        f"(the kernels were built before the first); one more iteration "
+        f"profiled: device busy {busy_ms:.2f} ms of {wall_ms:.2f}"
+        f" ms, share {'not measured' if share is None else f'{share:.4f}'}")
+    return {"iter_ms": [s * 1e3 for s in secs],
+            "device_busy_share": share, "device_busy_ms": busy_ms,
+            "busy_wall_ms": wall_ms}
+
+
+def phase_cemrl():
+    """``repro_torch.examples.cemrl.run`` on pendulum (N=10, train_frac
+    0.5, 64 shared-critic updates an iteration) with the launch counts set
+    to 0 just before and read just after: the counts the code gives, every
+    evolve's lineage all -1, CEM's noise decaying by cem_noise_decay an
+    evolve, finite fitness and losses."""
+    from repro_torch.examples import cemrl
+    from repro_torch.envs import make
+
+    c = CEMRL_RUN
+    out, wall, mm, by_route, adam = _run_counted(
+        lambda: cemrl.run(population=c["population"], iters=c["iters"],
+                          seed=SEED, device="cuda"))
+    length = make("pendulum").spec.episode_length
+    # the example's settings: 100 acting steps of 2 envs an iteration (a
+    # batch of 128 from the first), 64 updates, one 200-step evaluation
+    acting = c["iters"] * (100 + length)
+    updates = c["iters"] * 64
+    want = (3 * acting + 6 * updates, updates)
+    want_routes = added(
+        scaled(pop_matmul_routes(c["population"], 2,
+                                 [(k, m, 1) for k, m, _ in ACTOR_LAYERS]),
+               acting),
+        scaled(pop_matmul_routes(c["population"], 128,
+                                 [(k, m, 2) for k, m, _ in ACTOR_LAYERS]),
+               updates))
+    if (mm, adam) != want or by_route != want_routes:
+        raise AssertionError(f"cemrl: launches (pop_matmul, pop_adam) "
+                             f"{(mm, adam)}, want {want}; by route "
+                             f"{by_route}, want {want_routes}")
+    noise0 = 0.01
+    for i, row in enumerate(out["iters"]):
+        if row["lineage"] != [-1] * c["population"]:
+            raise AssertionError(f"cemrl: evolve {i + 1} lineage "
+                                 f"{row['lineage']}")
+        want_noise = noise0 * 0.999 ** (i + 1)
+        if abs(row["cem_noise"] - want_noise) > 1e-6 * want_noise:
+            raise AssertionError(f"cemrl: CEM noise {row['cem_noise']} after"
+                                 f" evolve {i + 1}, want {want_noise}")
+        if not np.isfinite([row["mean_fitness"], row["critic_loss"],
+                            row["actor_loss"], row["sigma"]]).all():
+            raise AssertionError(f"cemrl: non-finite numbers in {row}")
+    log(f"cemrl: {c['iters']} iterations in {wall:.2f}s; launches "
+        f"pop_matmul {mm} {by_route}, pop_adam {adam}; mean fitness by "
+        f"iteration {[round(r['mean_fitness'], 2) for r in out['iters']]};"
+        f" mean var {[r['sigma'] for r in out['iters']]}; CEM noise "
+        f"{[r['cem_noise'] for r in out['iters']]}; lineage all -1")
+    return {"population": c["population"], "iters": c["iters"],
+            "seconds": wall,
+            "launches": {"pop_matmul": mm, "pop_adam": adam},
+            "pop_matmul_launches_by_route": by_route,
+            "mean_fitness": [r["mean_fitness"] for r in out["iters"]],
+            "mean_var": [r["sigma"] for r in out["iters"]],
+            "cem_noise": [r["cem_noise"] for r in out["iters"]],
+            **_example_iteration_numbers("cemrl", out)}
+
+
+def phase_dvd():
+    """``repro_torch.examples.dvd.run`` on reacher (N=5, 32 updates an
+    iteration, dvd_period 400) for 8 iterations, so the update step
+    passes 200 and the diversity term is on for the last two, with the
+    launch counts set to 0 just before and read just after; the probe's
+    logdet at each iteration."""
+    from repro_torch.envs import make
+    from repro_torch.examples import dvd
+
+    c = DVD_RUN
+    out, wall, mm, by_route, adam = _run_counted(
+        lambda: dvd.run(population=c["population"], iters=c["iters"],
+                        seed=SEED, device="cuda"))
+    trainer = out["trainer"]
+    steps = int(trainer.state.step)
+    if steps != 32 * c["iters"] or             float(trainer.agent.dvd_coef_fn(steps - 1)) == 0.0:
+        raise AssertionError(f"dvd: {steps} update steps, the coefficient "
+                             f"at the last {trainer.agent.dvd_coef_fn(steps - 1)}"
+                             f": the diversity term was never on")
+    spec = make("reacher").spec
+    layers = ((spec.obs_dim, 256, "relu"), (256, 256, "relu"),
+              (256, spec.act_dim, "tanh"))
+    # 100 acting steps and a 100-step evaluation an iteration, 32 updates
+    # of 9 launches (the DvD embedding included), the probe's embedding
+    acting = c["iters"] * (100 + spec.episode_length + 1)
+    updates = 32 * c["iters"]
+    want = (3 * acting + 9 * updates, updates)
+    want_routes = added(
+        scaled(pop_matmul_routes(c["population"], 2,
+                                 [(k, m, 1) for k, m, _ in layers]), acting),
+        scaled(pop_matmul_routes(c["population"], 128,
+                                 [(k, m, 3) for k, m, _ in layers]),
+               updates))
+    if (mm, adam) != want or by_route != want_routes:
+        raise AssertionError(f"dvd: launches (pop_matmul, pop_adam) "
+                             f"{(mm, adam)}, want {want}; by route "
+                             f"{by_route}, want {want_routes}")
+    logdet = [r["logdet"] for r in out["iters"]]
+    if not np.isfinite(logdet).all() or not all(
+            np.isfinite([r["best_fitness"], r["critic_loss"],
+                         r["actor_loss"]]).all() for r in out["iters"]):
+        raise AssertionError(f"dvd: non-finite numbers in {out['iters']}")
+    log(f"dvd: {c['iters']} iterations in {wall:.2f}s, {steps} update "
+        f"steps (the diversity term on from step 200); launches pop_matmul "
+        f"{mm} {by_route}, pop_adam {adam}; probe logdet by iteration "
+        f"{[round(x, 4) for x in logdet]}; best fitness "
+        f"{[round(r['best_fitness'], 2) for r in out['iters']]}")
+    return {"population": c["population"], "iters": c["iters"],
+            "seconds": wall, "update_steps": steps,
+            "launches": {"pop_matmul": mm, "pop_adam": adam},
+            "pop_matmul_launches_by_route": by_route, "logdet": logdet,
+            "best_fitness": [r["best_fitness"] for r in out["iters"]],
+            **_example_iteration_numbers("dvd", out)}
+
+
+def phase_fig4():
+    """The paper's Fig. 4 on the card: the shared-critic update at
+    ``benchmarks/shared_critic.py``'s grid (obs 17, act 6, B=256, N=2, 4,
+    8, 16, every member training, no DvD term), ms per update of the
+    vectorized form (6 pop_matmul launches and 1 pop_adam) and of the
+    sequential one (no kernel): the median of
+    FIG4["reps"] synchronised calls each, taken in turns, with their min
+    and max; and the device-busy share of one vectorized call at the
+    largest N."""
+    from repro_torch.core import shared
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+
+    vec = shared.make_shared_critic_update()
+    seq = shared.sequential_shared_critic_update()
+    rows = {}
+    for n in FIG4["sizes"]:
+        state = shared.init(torch.Generator().manual_seed(SEED),
+                            SHARED["obs"], SHARED["act"], n, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        batch = {k: v[0] for k, v in _shared_batches(
+            gen, 1, n, FIG4["batch"]).items()}
+        times = {"vectorized": [], "sequential": []}
+        for fn in (vec, seq):          # warm-up
+            fn(state, batch, None, gen)
+        torch.cuda.synchronize()
+        reset_counts(pop_matmul, pop_adam)
+        for _ in range(FIG4["reps"]):
+            for name, fn in (("vectorized", vec), ("sequential", seq)):
+                t0 = time.perf_counter()
+                _, metrics = fn(state, batch, None, gen)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                if not all(torch.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"fig4 ({name}, N={n}): non-finite"
+                                         f" losses")
+        launches = (pop_matmul.launches, pop_adam.launches)
+        if launches != (6 * FIG4["reps"], FIG4["reps"]):
+            raise AssertionError(f"fig4 N={n}: launches {launches}, want "
+                                 f"{(6 * FIG4['reps'], FIG4['reps'])} "
+                                 f"(only the vectorized form launches)")
+        row = {name: {"median_ms": float(np.median(t)), "min_ms": min(t),
+                      "max_ms": max(t)} for name, t in times.items()}
+        row["sequential_over_vectorized"] = (
+            row["sequential"]["median_ms"] / row["vectorized"]["median_ms"])
+        rows[n] = row
+        log(f"fig4 N={n}: vectorized {row['vectorized']['median_ms']:.3f} ms"
+            f" an update (min {row['vectorized']['min_ms']:.3f}, max "
+            f"{row['vectorized']['max_ms']:.3f}), sequential "
+            f"{row['sequential']['median_ms']:.3f} ms (min "
+            f"{row['sequential']['min_ms']:.3f}, max "
+            f"{row['sequential']['max_ms']:.3f}): "
+            f"{row['sequential_over_vectorized']:.2f}x")
+        if n == max(FIG4["sizes"]):
+            share, busy_ms, wall_ms = device_busy_share(
+                lambda: vec(state, batch, None, gen))
+            log(f"fig4 N={n}: one vectorized update profiled, device busy "
+                f"{busy_ms:.3f} ms of {wall_ms:.3f} ms, share "
+                f"{'not measured' if share is None else f'{share:.4f}'}")
+            busy = {"n": n, "device_busy_share": share,
+                    "device_busy_ms": busy_ms, "busy_wall_ms": wall_ms}
+    return {"obs": SHARED["obs"], "act": SHARED["act"],
+            "batch": FIG4["batch"], "hidden": [256, 256],
+            "reps": FIG4["reps"], "ms_per_update": rows,
+            "vectorized_busy": busy}
+
+
 def _shape_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _shape_leaves(v)]
@@ -2424,6 +2883,19 @@ def main() -> int:
     lm_train["cli_final_loss"] = phase_lm_cli()
     fig2 = phase_fig2()
 
+    # 16. the shared-critic update, kernels vs plain; 17. its kernel
+    # shapes; 18. CEM-RL and 19. DvD through the examples; 20. Fig. 4
+    torch.cuda.empty_cache()
+    shared = {"update_parity": phase_shared_update_parity()}
+    shared_err, shared_share, shared_mm_rows, shared_adam_row = \
+        phase_shared_kernels()
+    shared["cemrl"] = phase_cemrl()
+    shared["dvd"] = phase_dvd()
+    fig4 = phase_fig4()
+    by_path = lambda name: {"td3_train": train["launches"][name],
+                            "cemrl": shared["cemrl"]["launches"][name],
+                            "dvd": shared["dvd"]["launches"][name]}
+
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
@@ -2435,16 +2907,19 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/pop_matmul.cu",
         "replaces": "src/repro/kernels/pop_matmul.py:83",
         "redesigned_in": REDESIGNED_IN["pop_matmul"],
-        "launches": train["launches"]["pop_matmul"],
+        # each main path, driven with the counts set to 0 just before
+        "launches": sum(by_path("pop_matmul").values()),
+        "launches_by_path": by_path("pop_matmul"),
         "launches_by_route": train["pop_matmul_launches_by_route"],
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
-                           trained_serve_err),
+                           trained_serve_err, shared_err),
         "tolerance": "rtol=atol=1e-5",
         "grad_max_abs_err": grad_err,
         "grad_tolerance": "rtol=atol=1e-4",
         # max |kernel - plain| / (atol + rtol |plain|) over the forward and
         # gradient checks: at most 1 within tolerance
-        "max_err_over_tolerance": max(kernel_share, train_share),
+        "max_err_over_tolerance": max(kernel_share, train_share,
+                                      shared_share),
         "work": "the 24 forward launches of one TD3 update step (N=8, "
                 "B=256); times are device times (CUDA graph replay, "
                 "L2-warm)",
@@ -2474,15 +2949,28 @@ def main() -> int:
                   "eager_ms": per_batch("eager_ms"),
                   "plain_eager_ms": per_batch("plain_eager_ms"),
                   "per_launch": rows},
+        "shared": {"work": f"the 6 forward launches of one shared-critic "
+                           f"update step (N={SHARED['population']}, "
+                           f"B={SHARED['batch']}, obs {SHARED['obs']}, act "
+                           f"{SHARED['act']}) and the 3 of its DvD probe "
+                           f"embedding (x ({SHARED['probe']}, "
+                           f"{SHARED['obs']}) broadcast over the members)",
+                   "ms": per_step("ms", shared_mm_rows),
+                   "plain_ms": per_step("plain_ms", shared_mm_rows),
+                   "bound_ms": per_step("bound_ms", shared_mm_rows),
+                   "library_ms": per_step("library_ms", shared_mm_rows),
+                   "launches_by_route": shared["cemrl"][
+                       "pop_matmul_launches_by_route"],
+                   "per_launch": shared_mm_rows},
     }, {
         "name": "pop_adam",
         "route": "triton",
         "source": "src/repro_torch/kernels/pop_adam.py",
         "replaces": "src/repro/kernels/pop_adam.py:53",
         # each main path, driven with the counts set to 0 just before
-        "launches": train["launches"]["pop_adam"]
+        "launches": sum(by_path("pop_adam").values())
         + lm_train["launches"]["pop_adam"],
-        "launches_by_path": {"td3_train": train["launches"]["pop_adam"],
+        "launches_by_path": {**by_path("pop_adam"),
                              "lm_train": lm_train["launches"]["pop_adam"]},
         "max_abs_err": max(adam_err, adam_lm_err),
         "tolerance": "rtol=1e-5, atol=1e-6",
@@ -2509,6 +2997,10 @@ def main() -> int:
                "library_call": "torch._fused_adamw_ over the members' rows "
                                "with one lr and decay shared by all",
                "per_launch": adam_lm_rows},
+        "shared": {"work": "the 1 launch of one shared-critic update step "
+                           "(the policies' Adam, N=8, obs 17, act 6); "
+                           "device times, CUDA graph replay, L2-warm",
+                   **shared_adam_row},
     }]
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
@@ -2587,6 +3079,8 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm_serve}))
     print(json.dumps({"fig2": fig2}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"shared": shared}))
+    print(json.dumps({"fig4": fig4}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -98,9 +98,10 @@ class PopulationConfig:
     """The paper's technique as a config value.
 
     ``strategy`` picks the outer evolution loop (size 1 always degrades to
-    none); ``backend`` picks how the update executes. Of these the port
-    has ``pbt``/``none`` and ``vectorized``; the others raise "not ported
-    yet" where they are resolved.
+    none); ``backend`` picks how the update executes. The port has the
+    strategies ``pbt``, ``cem``, ``dvd`` and ``none`` and the backends
+    ``vectorized`` and ``sequential``; ``sharded`` and ``islands`` raise
+    "not ported yet" where they are resolved.
     """
     size: int = 1
     strategy: str = "pbt"
@@ -112,6 +113,13 @@ class PopulationConfig:
     perturb_scale: float = 1.2
     hyper_space: HyperSpace = field(default_factory=HyperSpace)
     fitness_window: int = 10             # last-k fitness rows
+    # CEM strategy (paper §5.2 / B.2)
+    elite_frac: float = 0.5
+    sigma_init: float = 1e-2
+    cem_noise_init: float = 1e-2
+    cem_noise_decay: float = 0.999
+    # DvD strategy (§B.2 coefficient schedule)
+    dvd_period: int = 20_000
 
 
 @dataclass(frozen=True)

@@ -89,6 +89,42 @@ def _pendulum_step(state, action):
 
 
 # ---------------------------------------------------------------------------
+# reacher (continuous point-mass reaching; the Humanoid stand-in for DvD)
+# ---------------------------------------------------------------------------
+
+
+def _reacher_obs(s):
+    return torch.cat([s["pos"], s["vel"], s["target"] - s["pos"]], -1)
+
+
+def _reacher_reset(generator, num: int, device="cpu"):
+    u = torch.rand((num, 2), generator=generator, device=generator.device)
+    zeros = torch.zeros((num, 2), dtype=torch.float32, device=device)
+    state = {
+        "pos": zeros, "vel": zeros.clone(),
+        "target": (-1.0 + 2.0 * u).to(device),
+        "t": torch.zeros((num,), dtype=torch.int32, device=device),
+    }
+    return state, _reacher_obs(state)
+
+
+def _reacher_step(state, action):
+    a = torch.clamp(action, -1.0, 1.0)
+    vel = 0.9 * state["vel"] + 0.1 * a
+    pos = torch.clamp(state["pos"] + 0.1 * vel, -2.0, 2.0)
+    dist = torch.linalg.vector_norm(pos - state["target"], dim=-1)
+    reward = -dist - 0.01 * torch.sum(a ** 2, -1)
+    new = dict(state, pos=pos, vel=vel, t=state["t"] + 1)
+    return (new, _reacher_obs(new), reward,
+            torch.zeros_like(dist, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+
+
+def _rows(mask, like):
+    """An (num,) mask shaped to select whole rows of ``like`` (num, ...)."""
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
 
 
 def _with_auto_reset(reset_fn, raw_step, episode_length: int):
@@ -99,7 +135,8 @@ def _with_auto_reset(reset_fn, raw_step, episode_length: int):
         truncated = ~terminated & (new["t"] >= episode_length)
         done = terminated | truncated
         fresh, _ = reset_fn(generator, done.shape[0], done.device)
-        state = {k: torch.where(done, fresh[k], new[k]) for k in new}
+        state = {k: torch.where(_rows(done, new[k]), fresh[k], new[k])
+                 for k in new}
         return state, obs, reward, done, truncated
     return step
 
@@ -107,8 +144,10 @@ def _with_auto_reset(reset_fn, raw_step, episode_length: int):
 _REGISTRY = {
     "pendulum": (EnvSpec("pendulum", 3, 1, False, 200, 1.0),
                  _pendulum_reset, _pendulum_step, _pendulum_obs),
+    "reacher": (EnvSpec("reacher", 6, 2, False, 100, 1.0),
+                _reacher_reset, _reacher_step, _reacher_obs),
 }
-_NOT_PORTED = ("reacher", "cartpole", "mountain_car", "acrobot", "hopper2d")
+_NOT_PORTED = ("cartpole", "mountain_car", "acrobot", "hopper2d")
 
 
 def make(name: str) -> Env:

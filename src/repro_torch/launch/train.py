@@ -18,7 +18,9 @@ same-family form. The MoE, MLA and frontend configs are refused by name.
 env through ``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
 insert into the population's replay buffers, sample, and
 ``--updates-per-iter`` chained population-level updates per iteration,
-with PBT every ``--pbt-interval`` iterations on the evaluator's fitness.
+with PBT every ``--pbt-interval`` iterations on the evaluator's fitness
+(or, with ``--strategy cem``, CEM refitting a gaussian over the actors'
+parameters and redrawing every member; lineage ``-1``).
 On the card every population-batched linear (forward and under autograd)
 is one ``pop_matmul`` launch and every Adam step one ``pop_adam`` launch
 for the whole population; ``--fused-adam`` and ``--fused-linear`` are
@@ -89,6 +91,10 @@ def _run_lm(args) -> TrainReport:
     from repro_torch.data.lm_pipeline import host_batches
     from repro_torch.pop import LMAgent, PopTrainer
 
+    if args.strategy == "cem":
+        raise NotImplementedError(
+            "--strategy cem over a language model's parameters is not "
+            "ported yet (ROADMAP.md item 15); it runs with --algo")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -206,7 +212,10 @@ def main(argv=None):
     ap.add_argument("--env", default="pendulum",
                     help="env name for the --algo workload")
     ap.add_argument("--population", type=int, default=1)
-    ap.add_argument("--strategy", default="pbt", choices=["pbt", "none"])
+    ap.add_argument("--strategy", default="pbt",
+                    choices=["pbt", "cem", "none"],
+                    help="evolution strategy; cem (over the actors' "
+                    "parameters) is taken by --algo only")
     ap.add_argument("--backend", default="vectorized",
                     choices=["vectorized", "sequential", "sharded",
                              "islands"],

@@ -5,12 +5,18 @@ update backends, the rollout engine and the serving layer consume.
     per-member ``update`` and a population-level ``fused_update``.
   * ``LMAgent``     — the language-model train step: state is (params,
     opt_state, step), fitness is -loss.
+  * ``SharedCriticAgent`` — the §4.2 family (CEM-RL, DvD): ONE critic
+    shared by the population, so the update is population-level
+    (``population_level = True``), and the backend picks between the
+    paper's averaged-loss update and the original CEM-RL ordering.
 
 ``update`` is one member's step (the ``sequential`` backend loops it over
 the members); ``fused_update`` is the population-level update (the
 ``vectorized`` backend). ``gather_members`` is PBT's exploit; the LM
 agent's writes member ``parents[i]``'s state into member i's slot of the
 population's own tensors, so the views of its flat buffers stay valid.
+``evolvable_params`` and ``with_evolvable_params`` are what a
+parameter-space strategy (CEM) reads and replaces: the policies.
 """
 from __future__ import annotations
 
@@ -22,8 +28,6 @@ from repro_torch.core.population import population_init
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.tree import flat_empty, tree_map
-
-
 
 
 class ModuleAgent:
@@ -84,6 +88,15 @@ class ModuleAgent:
 
     def actor_params(self, pop_state):
         return pop_state.actor
+
+    def evolvable_params(self, pop_state):
+        return self.actor_params(pop_state)
+
+    def with_evolvable_params(self, pop_state, new_params):
+        """The state with new actors, copied into the target actors too."""
+        return pop_state._replace(
+            actor=new_params,
+            target_actor=tree_map(torch.clone, new_params))
 
     def gather_members(self, pop_state, parents):
         """PBT exploit: member i adopts member ``parents[i]``'s state."""
@@ -177,3 +190,81 @@ class LMAgent:
         buffers; the copy made on the way is one leaf's)."""
         tree_map(lambda x: x.copy_(x[parents]), pop_state)
         return pop_state
+
+
+class SharedCriticAgent:
+    """Adapter for the §4.2 shared-critic update
+    (:mod:`repro_torch.core.shared`), the CEM-RL and DvD case studies.
+
+    The state is a ``SharedCriticState``: member-stacked policies and ONE
+    critic, so the update consumes the whole population at once
+    (``population_update``; there is no per-member ``update``).
+    ``dvd_coef_fn``, set here or by the ``DvD`` strategy, turns on the
+    determinant diversity term. Acting and evaluation use TD3's policy.
+    ``device`` is where the state lives: the CUDA device unless the
+    caller passes ``"cpu"``.
+    """
+
+    population_level = True
+    experience_kind = "replay"
+
+    def __init__(self, obs_dim: int, act_dim: int, *, dvd_coef_fn=None,
+                 probe_size: int = 20, train_frac: float = 1.0,
+                 device=DEFAULT_DEVICE):
+        from repro_torch.core import shared
+        from repro_torch.rl import td3
+        self._shared = shared
+        self.exploration_module = td3
+        self.obs_dim, self.act_dim = obs_dim, act_dim
+        self.dvd_coef_fn = dvd_coef_fn
+        self.probe_size = probe_size
+        self.train_frac = train_frac
+        self.device = resolve_device(device)
+
+    def population_init(self, generator, n: int):
+        return self._shared.init(generator, self.obs_dim, self.act_dim, n,
+                                 device=self.device)
+
+    def population_update(self, *, sequential: bool = False):
+        """The whole-population update: the paper's averaged critic loss
+        through the kernels, or the original CEM-RL ordering (the
+        baseline arm, no kernel)."""
+        if sequential:
+            return self._shared.sequential_shared_critic_update()
+        return self._shared.make_shared_critic_update(
+            dvd_coef_fn=self.dvd_coef_fn, probe_size=self.probe_size,
+            train_frac=self.train_frac)
+
+    def update(self, state, batch, hypers=None, generator=None, *,
+               noise=None):
+        raise TypeError("SharedCriticAgent is population_level; backends "
+                        "use population_update() instead of update()")
+
+    def fitness_from_metrics(self, metrics):
+        """None: fitness comes from the evaluator's episode returns."""
+        return None
+
+    def policy(self, actor_params, obs, generator=None):
+        return self.exploration_module.policy(actor_params, obs, generator)
+
+    def actor_params(self, pop_state):
+        return pop_state.policies
+
+    def evolvable_params(self, pop_state):
+        return pop_state.policies
+
+    def with_evolvable_params(self, pop_state, new_params):
+        """The state with new policies, copied into the target policies
+        too; the critic and the Adam state stay."""
+        return pop_state._replace(
+            policies=new_params,
+            target_policies=tree_map(torch.clone, new_params))
+
+    def gather_members(self, pop_state, parents):
+        """PBT exploit over the per-member parts only: the shared critic
+        and the step have no member axis."""
+        take = lambda tree: tree_map(lambda x: x[parents], tree)
+        return pop_state._replace(
+            policies=take(pop_state.policies),
+            target_policies=take(pop_state.target_policies),
+            policy_opt=take(pop_state.policy_opt))

@@ -11,6 +11,11 @@
     per-member ``update`` (plain layers, the stock Adam, no kernel) looped
     over the members (:func:`repro_torch.core.vectorize.sequential_update`).
 
+For a ``population_level`` agent (the shared critic, §4.2) the same
+names pick the paper's averaged-loss update through the kernels
+(``vectorized``) or the original CEM-RL ordering (``sequential``), both
+from ``agent.population_update``.
+
 ``num_steps`` chains the update per call. ``sharded`` and ``islands``
 raise "not ported yet".
 """
@@ -30,10 +35,13 @@ def make_update(agent, backend: str = "vectorized", *, num_steps: int = 1):
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ported: "
             f"{list(BACKENDS)})")
-    if backend == "sequential":
-        return sequential_update(agent.update, num_steps)
-    if backend != "vectorized":
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; registered: "
                          f"{sorted(BACKENDS + _NOT_PORTED)}")
-    fn = agent.fused_update()
+    if getattr(agent, "population_level", False):
+        fn = agent.population_update(sequential=backend == "sequential")
+    elif backend == "sequential":
+        return sequential_update(agent.update, num_steps)
+    else:
+        fn = agent.fused_update()
     return fn if num_steps == 1 else chain_steps(fn, num_steps)

@@ -5,16 +5,26 @@
                                                       lineage)
 
 ``lineage`` is an (N,) integer tensor: ``lineage[i]`` is the member whose
-state member i now holds. ``NoEvolution`` makes population size 1 the
-degenerate case. PBT is ported; CEM and DvD raise "not ported yet".
+state member i now holds (``i`` for a survivor, ``-1`` for a member drawn
+afresh from a search distribution: never an index). ``NoEvolution``
+makes population size 1 the degenerate case.
+
+Strategies are objects of the training loop, built once per run and
+called every ``pbt_interval`` trainer steps, so CEM's gaussian lives on
+the instance (the JAX package threads it through ``jit``; the port runs
+eagerly).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import PopulationConfig
+from repro_torch.core.cem import (CEMState, cem_init, cem_sample, cem_update,
+                                  ravel_stacked)
+from repro_torch.core.dvd import dvd_coef_schedule
 from repro_torch.core.hyperparams import sample_hypers
 from repro_torch.core.pbt import pbt_step
+from repro_torch.tree import leaves, tree_map
 
 
 class EvolutionStrategy:
@@ -26,6 +36,10 @@ class EvolutionStrategy:
         """Per-member dynamic hyperparameters, or None."""
         return None
 
+    def configure_agent(self, agent):
+        """Hook run before the update is built (DvD installs its
+        diversity-coefficient schedule on a shared-critic agent)."""
+
     def bind(self, generator, agent, pop_state):
         """Hook run once at trainer init; may transform the population."""
         return pop_state
@@ -33,6 +47,9 @@ class EvolutionStrategy:
     def export_state(self):
         """Internal strategy state that checkpoints carry (None here)."""
         return None
+
+    def import_state(self, state):
+        """Restore what ``export_state`` produced (nothing here)."""
 
     def evolve(self, generator, pop_state, hypers, fitness):
         raise NotImplementedError
@@ -75,11 +92,76 @@ class PBT(EvolutionStrategy):
         return state, (None if hypers is None else new_hypers), parents
 
 
+class CEM(EvolutionStrategy):
+    """Diagonal-gaussian CEM over the agent's evolvable (policy) params.
+
+    ``bind`` centres the distribution on member 0 and redraws every
+    member from it; ``evolve`` refits on the elites and redraws every
+    member (lineage all -1: no member inherits a parent's state)."""
+
+    def __init__(self, pcfg: PopulationConfig):
+        self.pcfg = pcfg
+        self._agent = None
+        self.cem_state = None
+        self._unravel = None
+
+    def bind(self, generator, agent, pop_state):
+        self._agent = agent
+        params = agent.evolvable_params(pop_state)
+        self.cem_state, self._unravel = cem_init(
+            tree_map(lambda x: x[0], params),
+            sigma_init=self.pcfg.sigma_init,
+            noise_init=self.pcfg.cem_noise_init)
+        return self._redraw(generator, pop_state, leaves(params)[0].shape[0])
+
+    def _redraw(self, generator, pop_state, n: int):
+        new_params = self._unravel(cem_sample(generator, self.cem_state, n))
+        return self._agent.with_evolvable_params(pop_state, new_params)
+
+    def export_state(self):
+        return self.cem_state
+
+    def import_state(self, state):
+        self.cem_state = CEMState(*state)
+
+    def evolve(self, generator, pop_state, hypers, fitness):
+        n = fitness.shape[0]
+        flat = ravel_stacked(self._agent.evolvable_params(pop_state))
+        self.cem_state = cem_update(
+            self.cem_state, flat, fitness.to(flat.device),
+            elite_frac=self.pcfg.elite_frac,
+            noise_decay=self.pcfg.cem_noise_decay)
+        return (self._redraw(generator, pop_state, n), hypers,
+                torch.full((n,), -1, dtype=torch.int32,
+                           device=fitness.device))
+
+
+class DvD(EvolutionStrategy):
+    """Diversity via Determinants: the selection pressure is the -logdet
+    term inside the actor loss, so ``evolve`` is the identity;
+    ``configure_agent`` installs the §B.2 coefficient schedule on an agent
+    that takes one (the shared-critic family) and has none yet."""
+
+    def __init__(self, pcfg: PopulationConfig):
+        self.pcfg = pcfg
+
+    def configure_agent(self, agent):
+        if hasattr(agent, "dvd_coef_fn") and agent.dvd_coef_fn is None:
+            period = self.pcfg.dvd_period
+            agent.dvd_coef_fn = lambda step: dvd_coef_schedule(
+                step, period=period)
+
+    def evolve(self, generator, pop_state, hypers, fitness):
+        return pop_state, hypers, torch.arange(fitness.shape[0],
+                                               device=fitness.device)
+
+
 STRATEGIES: dict[str, type] = {
     "none": NoEvolution,
     "pbt": PBT,
+    "cem": CEM,
+    "dvd": DvD,
 }
-_NOT_PORTED = ("cem", "dvd")
 
 
 def make_strategy(pcfg: PopulationConfig) -> EvolutionStrategy:
@@ -87,10 +169,6 @@ def make_strategy(pcfg: PopulationConfig) -> EvolutionStrategy:
     if pcfg.size <= 1:
         return NoEvolution(pcfg)
     name = pcfg.strategy
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet (ported: "
-            f"{sorted(STRATEGIES)})")
     try:
         return STRATEGIES[name](pcfg)
     except KeyError:

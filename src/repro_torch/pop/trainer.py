@@ -63,6 +63,7 @@ class PopTrainer:
 
         self.state = agent.population_init(
             torch.Generator().manual_seed(seed), self.n)
+        self.strategy.configure_agent(agent)
         self.state = self.strategy.bind(self.generator, agent, self.state)
         self.hypers = self.strategy.init_hypers(self.generator, self.n)
         # ``pcfg.num_steps`` chained update steps per call, shared with the
@@ -190,6 +191,8 @@ class PopTrainer:
         return None
 
     def evolve(self):
+        """One evolve step. The lineage it returns is for reporting only:
+        CEM's -1 (a fresh draw) would index the last member."""
         self.last_fitness = self.fitness()
         self.state, self.hypers, lineage = self.strategy.evolve(
             self.generator, self.state, self.hypers, self.last_fitness)

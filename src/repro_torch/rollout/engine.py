@@ -88,6 +88,13 @@ class RolloutEngine:
         state, metrics = self.update(state, batches, hypers, generator)
         return state, metrics, episode_stats(self.vstate), True
 
+    def probe_obs(self, generator, size: int):
+        """``size`` observations sampled from member 0's replay buffer
+        (DvD's behaviour probes and similar diagnostics): (size, obs)."""
+        buf0 = tree_map(lambda x: x[:1], self.bufs)
+        return buffer_sample(buf0, generator, size,
+                             filled=self.filled())["obs"][0, 0]
+
     @property
     def env_steps_per_iteration(self) -> int:
         return self.collect_steps * self.num_envs * self.n

@@ -52,7 +52,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.qwen2_0_5b",
                  "repro_torch.configs.qwen2_1_5b",
                  "repro_torch.configs.qwen3_8b",
-                 "repro_torch.configs.gemma_7b"):
+                 "repro_torch.configs.gemma_7b",
+                 "repro_torch.core.cem", "repro_torch.core.shared",
+                 "repro_torch.examples.cemrl", "repro_torch.examples.dvd"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

@@ -27,7 +27,8 @@ from repro.rl.registry import get_algo as jax_get_algo
 from repro_torch.configs.base import HyperSpace, PopulationConfig
 from repro_torch.core.hyperparams import perturb_hypers, sample_hypers
 from repro_torch.core.pbt import exploit_count, pbt_step
-from repro_torch.pop.strategy import PBT, NoEvolution, make_strategy
+from repro_torch.pop.strategy import (CEM, PBT, DvD, NoEvolution,
+                                      make_strategy)
 from repro_torch.rl import get_algo
 from test_torch_jax_listeners import drop_leaked_jax_listeners  # noqa: F401
 
@@ -43,14 +44,13 @@ def test_hyper_space_is_the_jax_copy():
     assert SPACE.log_uniform == JSPACE.log_uniform
     assert SPACE.uniform == JSPACE.uniform
     assert SPACE.names == JSPACE.names
-    # the copy keeps JAX's field order and defaults, less the fields of
-    # what the port has not got: CEM's and DvD's, buffer donation, and the
-    # kernel switches (the port's update always runs the kernels)
+    # the copy keeps JAX's field order and defaults, CEM's and DvD's
+    # included, less the fields of what the port has not got: buffer
+    # donation and the kernel switches (the port's update always runs the
+    # kernels)
     fields = PopulationConfig.__dataclass_fields__
     jax_fields = JaxPopulationConfig.__dataclass_fields__
-    left_out = {"donate", "elite_frac", "sigma_init", "cem_noise_init",
-                "cem_noise_decay", "dvd_period", "fused_adam",
-                "fused_linear"}
+    left_out = {"donate", "fused_adam", "fused_linear"}
     assert list(fields) == [f for f in jax_fields if f not in left_out]
     assert left_out <= set(jax_fields)
     for name, f in fields.items():
@@ -162,7 +162,8 @@ def test_pbt_step_matches_jax(seed):
 
 def test_strategies_on_the_port():
     """PBT draws on the generator's device and evolves; NoEvolution is the
-    identity; size 1 is always NoEvolution; cem/dvd are not ported."""
+    identity; size 1 is always NoEvolution; cem and dvd resolve to CEM and
+    DvD."""
     n = 6
     pcfg = PopulationConfig(size=n, hyper_space=SPACE)
     strat = make_strategy(pcfg)
@@ -189,8 +190,8 @@ def test_strategies_on_the_port():
     same, h, lin = NoEvolution().evolve(gen, state, hypers, fitness)
     assert same is state and h is hypers and torch.equal(lin,
                                                          torch.arange(n))
-    for name in ("cem", "dvd"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_strategy(PopulationConfig(size=4, strategy=name))
+    for name, cls in (("cem", CEM), ("dvd", DvD)):
+        assert type(make_strategy(PopulationConfig(size=4,
+                                                   strategy=name))) is cls
     with pytest.raises(ValueError, match="unknown strategy"):
         make_strategy(PopulationConfig(size=4, strategy="bogus"))

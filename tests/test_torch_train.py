@@ -194,8 +194,9 @@ def test_train_cli_refuses_unported_choices(tmp_path):
             train_main(base + ["--backend", backend])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         train_main(["--algo", "sac"] + base[2:])
+    # dvd, which the JAX CLI does not offer either
     with pytest.raises(SystemExit):
-        train_main(base + ["--strategy", "cem"])
+        train_main(base + ["--strategy", "dvd"])
 
 
 def test_train_cli_refuses_a_used_ckpt_dir(tmp_path):
