@@ -148,12 +148,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 grid (obs 17, act 6, B=256, N=2, 4, 8, 16): ms per update
                 of the vectorized and the sequential form, the median of 7
                 synchronised calls each with their min and max, their
-                ratio, and the busy share of one vectorized call at N=16.
+                ratio, and the busy share of one vectorized call at N=16;
+ 21. SAC/DQN kernels — ``pop_matmul`` against its plain version at the
+                slice's new (K, M): first layers of K 2, 3, 4 and 6,
+                SAC's gaussian head and DQN's heads (M 2 and 3, the narrow
+                route), forward on both routes and under autograd;
+                ``pop_adam`` at SAC's three and DQN's one (N=8, P) and at
+                P=1; then each update step's shapes timed beside their
+                bounds, the plain versions and the library calls;
+ 22. SAC/DQN update — each population update at full width (N=8,
+                B=256: SAC on pendulum, DQN on cartpole) chained 4 times
+                with every kernel and again with every plain version:
+                step-1 gradients, the parameters after 4 steps, the first
+                step's backwards (SAC 15, DQN 3) and every step's launches
+                by route (SAC 24 ``pop_matmul``, 16 tiled and 8 narrow,
+                and 3 ``pop_adam``; DQN 6, 4 and 2, and 1); DQN's members
+                start near step 100, so the chain syncs some targets;
+ 23. SAC/DQN train -> serve — ``repro_torch.launch.train.main`` (SAC on
+                pendulum, DQN on cartpole, 8 members, PBT, ``--fused-adam
+                --fused-linear``) counted as the train phase, its ms per
+                iteration and busy share; then the checkpoint served
+                through ``repro_torch.launch.serve.main`` (SAC ``mean``,
+                DQN ``vote``), 3 ``pop_matmul`` launches a batch, answers
+                against the plain ensemble;
+ 24. torso — DQN's Atari torso (``F.conv2d``) on 32 frames of 84x84x4,
+                card against CPU on the same weights, and one per-member
+                DQN update with it, card against CPU;
+ 25. Fig. 2, SAC — the SAC arm beside phase 15's TD3 one (its dims, N =
+                1, 8, 32, both backends): the median of 3 calls with their
+                min and max (one call where 3 would pass 75 s).
 
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
-``{"shared": ...}`` and ``{"fig4": ...}`` lines, the card's
-``nvidia-smi`` name and power limit, one JSON line with every kernel's
-numbers, and ``{"ok": true, "device": ...}``.
+``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}`` and
+``{"fig2_sac": ...}`` lines, the card's ``nvidia-smi`` name and power
+limit, one JSON line with every kernel's numbers, and ``{"ok": true,
+"device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -172,6 +201,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -286,6 +316,43 @@ FIG4 = dict(sizes=(2, 4, 8, 16), batch=256, reps=7)
 # update step 200, where the diversity coefficient turns on
 CEMRL_RUN = dict(population=10, iters=3)
 DVD_RUN = dict(population=5, iters=8)
+# slice 10: SAC on pendulum (obs 3, act 1) and DQN on cartpole (obs 4, 2
+# actions) at the repo's width, N=8, B=256. SAC's actor (its head M =
+# 2 act: mean and log std) and DQN's Q-network; per update step SAC makes
+# TD3's 24 pop_matmul launches (16 tiled, 8 narrow) and 3 pop_adam
+# (critic, actor, log_alpha at P=1 a member), DQN 6 (4 tiled, 2 narrow)
+# and 1; a served batch is 3 launches (2 tiled, 1 narrow) for either
+SAC_ACTOR_LAYERS = ((3, 256, "relu"), (256, 256, "relu"), (256, 2, "none"))
+DQN_LAYERS = ((4, 256, "relu"), (256, 256, "relu"), (256, 2, "none"))
+SAC_DQN = {"sac": dict(env="pendulum", obs=3, act=1, mode="mean",
+                       step_routes={"tiled": 16, "narrow": 8}, adam=3),
+           "dqn": dict(env="cartpole", obs=4, act=2, mode="vote",
+                       step_routes={"tiled": 4, "narrow": 2}, adam=1)}
+# the (K, M) pairs of the slice's nets: first layers of K 2, 3, 4 and 6
+# (mountain_car's, pendulum's, cartpole's and acrobot's obs, and a
+# critic's obs and action), SAC's gaussian head (M = 2 act) and DQN's
+# heads (M = 2 and 3, the narrow route)
+SAC_DQN_KM = ((2, 256), (3, 256), (4, 256), (6, 256), (256, 2), (256, 3))
+# DQN's members start near its target sync (every 100 steps of a member's
+# own clock, read after the increment): a 4-step chain syncs the first
+# four at different steps and the rest never
+DQN_START_STEPS = (97, 98, 99, 96, 50, 0, 10, 20)
+# the training entry point for SAC and DQN: 8 members, 5 iterations of 32
+# updates, PBT every 2, an evaluation every iteration (so the last
+# checkpoint, after the evolve at 4, carries a fitness)
+SAC_DQN_TRAIN = dict(steps=5, pbt_interval=2, eval_every=1, num_envs=8,
+                     collect_steps=32, updates_per_iter=32, batch=256)
+# DQN's Atari torso, card (cuDNN's F.conv2d, TF32 off) against CPU: 32
+# frames of 84x84x4, 6 actions; fp32 sums of 256 to 3,136 terms in other
+# orders through three convolutions and two dense layers
+TORSO = dict(frames=32, actions=6)
+TORSO_TOL = dict(rtol=1e-4, atol=1e-5)
+# Fig. 2's SAC arm: the median of 3 calls a cell, unless the arm would
+# pass 75 s; its projection allows for the host's spread between calls
+# (a cell's slowest call 1.15x its median in PR 22's run 1)
+FIG2_REPS = 3
+FIG2_ARM_LIMIT_S = 75.0
+FIG2_HOST_SPREAD = 1.15
 
 
 def log(msg: str):
@@ -581,24 +648,32 @@ def tiled_text(row):
             f"{row['tiled_route_ms'] * 1e3:.3f} us")
 
 
-def _shape_rows(layers, count, net):
+def _shape_rows(layers, count, net, dx_heads=1):
     """(net, K, M, act, forwards per update step, backwards per update
-    step as ((gradients asked, count), ...)) for each layer. Of the 24
+    step as ((gradients asked, count), ...)) for each layer. Of TD3's 24
     forwards of a step the 9 target ones run under no_grad; the actor loss
     differentiates the actor, and the critic's Q1 head for dx alone (the
     critic's weights do not require grad there; its Q2 head records and
     is never differentiated); the critic loss both heads. A first layer's
-    input (obs, or obs and action) needs no dx: 12 backwards a step."""
+    input (obs, or obs and action) needs no dx: 12 backwards a step. A
+    critic's ``dx_heads`` is how many of its heads the actor loss
+    differentiates (TD3 1, SAC 2: its min(Q1, Q2)); any other net is
+    differentiated once a step."""
     rows = []
     for i, (k, m, act) in enumerate(layers):
         full = "wb" if i == 0 else "xwb"
-        back = ((full, 1),) if net == "actor" else ((full, 2), ("x", 1))
+        back = ((full, 2), ("x", dx_heads)) if net == "critic" else \
+            ((full, 1),)
         rows.append((net, k, m, act, count, back))
     return rows
 
 
 TRAIN_SHAPES = (_shape_rows(ACTOR_LAYERS, 2, "actor")       # actor, target
                 + _shape_rows(CRITIC_LAYERS, 6, "critic"))  # 3 x twin heads
+SAC_DQN["sac"]["shapes"] = (_shape_rows(SAC_ACTOR_LAYERS, 2, "actor")
+                            + _shape_rows(CRITIC_LAYERS, 6, "critic",
+                                          dx_heads=2))
+SAC_DQN["dqn"]["shapes"] = _shape_rows(DQN_LAYERS, 2, "q")
 
 
 def served_batch_routes():
@@ -635,14 +710,24 @@ def phase_pop_matmul_training():
     relu and tanh; then the forward and the backward's batched matmuls
     timed per shape. Returns (max grad err, forward max err, the worst
     share of its tolerance of either, rows)."""
-    from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
-                                                pop_matmul_plain)
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst_grad, worst_fwd, share, cases = grad_cases(
+        [(k, m) for _, k, m, _, _, _ in TRAIN_SHAPES], gen)
+    log(f"pop_matmul backward (dx, dw, db) kernel route == plain route on "
+        f"{cases} cases, max abs err {worst_grad:.3g}")
+    return worst_grad, worst_fwd, share, training_rows(TRAIN_SHAPES, gen)
+
+
+def grad_cases(kms, gen):
+    """dx, dw, db through the kernel route (``PopMatmul``) against the
+    plain route at N=8, B=256 for each (K, M), relu and tanh. Returns (max
+    grad err, forward max err, the worst share of its tolerance, cases)."""
+    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+
     n, bsz = POPULATION, TRAIN["batch"]
     worst_grad = worst_fwd = share = 0.0
     cases = 0
-    for _, k, m, _, _, _ in TRAIN_SHAPES:
+    for k, m in kms:
         for act in ("relu", "tanh"):
             x = torch.randn((n, bsz, k), generator=gen, device="cuda")
             w = torch.randn((n, k, m), generator=gen,
@@ -665,12 +750,20 @@ def phase_pop_matmul_training():
                 worst_grad = max(worst_grad, (g - r).abs().max().item())
                 share = max(share, tol_share(g, r, GRAD_TOL))
             cases += 1
-    log(f"pop_matmul backward (dx, dw, db) kernel route == plain route on "
-        f"{cases} cases, max abs err {worst_grad:.3g}")
+    return worst_grad, worst_fwd, share, cases
 
+
+def training_rows(shapes, gen, label=""):
+    """The forward and the backward's batched matmuls of each row of a
+    shape table (N=8, B=256), timed beside their bounds, the plain version
+    and ``baddbmm``+act."""
+    from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
+                                                pop_matmul_plain)
+
+    n, bsz = POPULATION, TRAIN["batch"]
     acts = {"none": lambda t: t, "relu": torch.relu, "tanh": torch.tanh}
     rows = []
-    for net, k, m, act, count, back in TRAIN_SHAPES:
+    for net, k, m, act, count, back in shapes:
         w = torch.randn((n, k, m), generator=gen, device="cuda") / k ** 0.5
         b = torch.randn((n, m), generator=gen, device="cuda")
         x = torch.randn((n, bsz, k), generator=gen, device="cuda")
@@ -715,14 +808,14 @@ def phase_pop_matmul_training():
             f"d{'/d'.join(r['grads'])} x{r['per_update_step']} "
             f"{r['ms'] * 1e3:.3f} us (bound {r['bound_ms'] * 1e3:.3f} us, "
             f"{r['bound_by']})" for r in backs)
-        log(f"pop_matmul {net} (N={n},B={bsz},K={k},M={m},{act}, "
+        log(f"pop_matmul {label}{net} (N={n},B={bsz},K={k},M={m},{act}, "
             f"{row['route']}) x{count} per update step: kernel "
             f"{row['ms'] * 1e3:.3f} us, plain "
             f"{row['plain_ms'] * 1e3:.3f} us, baddbmm "
             f"{row['library_ms'] * 1e3:.3f} us, bound "
             f"{bound * 1e3:.3f} us ({bound_by}){tiled_text(row)}; backward "
             f"bmm {back_txt}")
-    return worst_grad, worst_fwd, share, rows
+    return rows
 
 
 def pop_adam_bound(n, p):
@@ -737,70 +830,82 @@ def pop_adam_bound(n, p):
                                  else "operations")
 
 
+def _adam_inputs(gen, n, p):
+    """params, grads, mu, nu (N, P), a per-member lr and steps 1, 2 and
+    1000 in turn."""
+    params, grads, mu = (torch.randn((n, p), generator=gen, device="cuda")
+                         for _ in range(3))
+    nu = torch.rand((n, p), generator=gen, device="cuda")
+    lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
+    step = torch.tensor([(1, 2, 1000)[i % 3] for i in range(n)],
+                        dtype=torch.int32, device="cuda")
+    return params, grads, mu, nu, lr, step
+
+
+def adam_cases(gen, shapes):
+    """pop_adam against its plain version at each (N, P). Returns (max abs
+    err, its share of the tolerance)."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    worst = share = 0.0
+    for n, p in shapes:
+        args = _adam_inputs(gen, n, p)
+        got = pop_adam(*args)
+        want = pop_adam_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("params", "mu", "nu"), got, want):
+            torch.testing.assert_close(g, r, **ADAM_TOL,
+                                       msg=f"{name} N={n} P={p}")
+            worst = max(worst, (g - r).abs().max().item())
+            share = max(share, tol_share(g, r, ADAM_TOL))
+    return worst, share
+
+
+def adam_row(gen, net, n, p, per_step=1):
+    """One pop_adam launch at (N, P) timed beside its bound, the plain
+    version and ``torch._fused_adam_`` over the same flat tensors."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    args = _adam_inputs(gen, n, p)
+    lib = [t.clone() for t in args[:4]]
+    lib_step = [torch.tensor(1.0, device="cuda")]
+
+    def library():
+        # one fused Adam over the same flat tensors, with ONE lr shared
+        # by every member (it takes no per-member lr)
+        torch._fused_adam_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
+                           lib_step, amsgrad=False, lr=3e-4, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           maximize=False, grad_scale=None, found_inf=None)
+
+    bound, bound_by = pop_adam_bound(n, p)
+    row = {"net": net, "n": n, "p": p, "launches_per_update_step": per_step,
+           "ms": graph_ms(lambda: pop_adam(*args)),
+           "plain_ms": graph_ms(lambda: pop_adam_plain(*args)),
+           "library_ms": graph_ms(library),
+           "bound_ms": bound, "bound_by": bound_by,
+           "cache": "L2-warm (the same inputs every launch)"}
+    log(f"pop_adam {net} (N={n}, P={p}/member): kernel "
+        f"{row['ms'] * 1e3:.3f} us, plain {row['plain_ms'] * 1e3:.3f} "
+        f"us, _fused_adam_ (shared lr) {row['library_ms'] * 1e3:.3f} "
+        f"us, bound {bound * 1e3:.3f} us ({bound_by}), L2-warm")
+    return row
+
+
 def phase_pop_adam():
     """pop_adam against its plain version over ragged sizes with distinct
     per-member lr and step, then timed at the training path's two flat
     sizes (N=8: the actor's and the critic's parameters per member).
     Returns (max_abs_err, its share of the tolerance, rows)."""
-    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-
-    def inputs(n, p):
-        params, grads, mu = (torch.randn((n, p), generator=gen,
-                                         device="cuda") for _ in range(3))
-        nu = torch.rand((n, p), generator=gen, device="cuda")
-        lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
-        step = torch.tensor([(1, 2, 1000)[i % 3] for i in range(n)],
-                            dtype=torch.int32, device="cuda")
-        return params, grads, mu, nu, lr, step
-
-    worst = share = 0.0
-    cases = 0
-    for n in (1, 8):
-        for p in (1, 4095, 4096, 67073, 134658):
-            args = inputs(n, p)
-            got = pop_adam(*args)
-            want = pop_adam_plain(*args)
-            torch.cuda.synchronize()
-            for name, g, r in zip(("params", "mu", "nu"), got, want):
-                torch.testing.assert_close(g, r, **ADAM_TOL,
-                                           msg=f"{name} N={n} P={p}")
-                worst = max(worst, (g - r).abs().max().item())
-                share = max(share, tol_share(g, r, ADAM_TOL))
-            cases += 1
-    log(f"pop_adam == plain on {cases} cases (N in {{1,8}}, ragged P, lr "
-        f"per member, step in {{1,2,1000}}), max abs err {worst:.3g}, "
-        f"{share:.3g} of the tolerance")
-
-    rows = []
-    for net, p in (("actor", 67073), ("critic", 134658)):
-        n = POPULATION
-        args = inputs(n, p)
-        lib = [t.clone() for t in args[:4]]
-        lib_step = [torch.tensor(1.0, device="cuda")]
-
-        def library():
-            # one fused Adam over the same flat tensors, with ONE lr shared
-            # by every member (it takes no per-member lr)
-            torch._fused_adam_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
-                               lib_step, amsgrad=False, lr=3e-4, beta1=0.9,
-                               beta2=0.999, weight_decay=0.0, eps=1e-8,
-                               maximize=False, grad_scale=None,
-                               found_inf=None)
-
-        bound, bound_by = pop_adam_bound(n, p)
-        row = {"net": net, "n": n, "p": p, "launches_per_update_step": 1,
-               "ms": graph_ms(lambda: pop_adam(*args)),
-               "plain_ms": graph_ms(lambda: pop_adam_plain(*args)),
-               "library_ms": graph_ms(library),
-               "bound_ms": bound, "bound_by": bound_by,
-               "cache": "L2-warm (the same inputs every launch)"}
-        rows.append(row)
-        log(f"pop_adam {net} (N={n}, P={p}/member): kernel "
-            f"{row['ms'] * 1e3:.3f} us, plain {row['plain_ms'] * 1e3:.3f} "
-            f"us, _fused_adam_ (shared lr) {row['library_ms'] * 1e3:.3f} "
-            f"us, bound {bound * 1e3:.3f} us ({bound_by}), L2-warm")
+    shapes = [(n, p) for n in (1, 8)
+              for p in (1, 4095, 4096, 67073, 134658)]
+    worst, share = adam_cases(gen, shapes)
+    log(f"pop_adam == plain on {len(shapes)} cases (N in {{1,8}}, ragged "
+        f"P, lr per member, step in {{1,2,1000}}), max abs err "
+        f"{worst:.3g}, {share:.3g} of the tolerance")
+    rows = [adam_row(gen, net, POPULATION, p)
+            for net, p in (("actor", 67073), ("critic", 134658))]
     return worst, share, rows
 
 
@@ -827,6 +932,25 @@ def backwards_of(fn):
         pm.PopMatmul.backward = orig
 
 
+def rl_batches(gen, k, n, bsz, obs=3, act=1, discrete=False):
+    """``k`` steps of (N, B) replay batches on the card: pendulum's obs 3
+    and act 1 by default; ``discrete``: int32 actions in [0, act). Drawn
+    in the order of the dict (the order every RL phase drew in before
+    this helper served them all)."""
+    shape = (k, n, bsz)
+    out = {"obs": torch.randn(shape + (obs,), generator=gen, device="cuda")}
+    out["action"] = (
+        torch.randint(0, act, shape, generator=gen, device="cuda",
+                      dtype=torch.int32) if discrete else
+        torch.rand(shape + (act,), generator=gen, device="cuda") * 2 - 1)
+    out["reward"] = torch.randn(shape, generator=gen, device="cuda")
+    out["next_obs"] = torch.randn(shape + (obs,), generator=gen,
+                                  device="cuda")
+    out["done"] = (torch.rand(shape, generator=gen, device="cuda")
+                   < 0.05).float()
+    return out
+
+
 def phase_update_parity():
     """One full-width population update chained 4 times with every kernel
     and again with every plain version, from one state, batch stack and
@@ -849,17 +973,8 @@ def phase_update_parity():
     # the actor's gate opens at step 1 for half the members
     hypers["policy_freq"] = torch.tensor([1.0, 0.5] * (n // 2),
                                          device="cuda")
-    shape = (k_steps, n, bsz)
-    batches = {"obs": torch.randn(shape + (3,), generator=gen,
-                                  device="cuda"),
-               "action": torch.rand(shape + (1,), generator=gen,
-                                    device="cuda") * 2 - 1,
-               "reward": torch.randn(shape, generator=gen, device="cuda"),
-               "next_obs": torch.randn(shape + (3,), generator=gen,
-                                       device="cuda"),
-               "done": (torch.rand(shape, generator=gen, device="cuda")
-                        < 0.05).float()}
-    noise = torch.randn(shape + (1,), generator=gen, device="cuda")
+    batches = rl_batches(gen, k_steps, n, bsz)
+    noise = torch.randn((k_steps, n, bsz, 1), generator=gen, device="cuda")
     first = {k: v[0] for k, v in batches.items()}
     rest = {k: v[1:] for k, v in batches.items()}
 
@@ -932,20 +1047,22 @@ def write_population(ckpt_dir, step, fitness):
         aux={"actors": agent.actor_params(state)})
 
 
-def check_answers(server, obs, actions):
+def check_answers(server, obs, actions, head=None):
     """Finite actions in [-1, 1] that equal the plain ensemble on the same
-    serving set and requests. Returns the max abs difference."""
+    serving set and requests: TD3's actor, or ``head(params, x)``, the
+    members' actions on (E, B, obs) requests by plain layers. Returns the
+    max abs difference."""
     from repro_torch.rl.networks import pop_actor_apply
 
+    head = head or (lambda params, x: pop_actor_apply(params, x,
+                                                      fused=False))
     assert actions.shape == (len(obs), 1), actions.shape
     assert np.isfinite(actions).all(), "non-finite actions"
     assert np.abs(actions).max() <= 1.0, "actions outside [-1, 1]"
     params = server.set.params
     x = torch.from_numpy(obs).to("cuda")
     with torch.inference_mode():
-        per = pop_actor_apply(
-            params, x.unsqueeze(0).expand(server.set.size, *x.shape),
-            fused=False)
+        per = head(params, x.unsqueeze(0).expand(server.set.size, *x.shape))
         ref = per[server.set.best] if server.mode == "best" else per.mean(0)
     got = torch.from_numpy(actions).to("cuda")
     torch.testing.assert_close(got, ref, **TOL)
@@ -2271,17 +2388,7 @@ def phase_fig2():
         state = agent.population_init(torch.Generator().manual_seed(SEED), n)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
         hypers = sample_hypers(gen, get_algo("td3").hyper_space, n)
-        shape = (k, n, bsz)
-        batches = {"obs": torch.randn(shape + (3,), generator=gen,
-                                      device="cuda"),
-                   "action": torch.rand(shape + (1,), generator=gen,
-                                        device="cuda") * 2 - 1,
-                   "reward": torch.randn(shape, generator=gen,
-                                         device="cuda"),
-                   "next_obs": torch.randn(shape + (3,), generator=gen,
-                                           device="cuda"),
-                   "done": (torch.rand(shape, generator=gen, device="cuda")
-                            < 0.05).float()}
+        batches = rl_batches(gen, k, n, bsz)
         for backend in rows:
             update = make_update(agent, backend, num_steps=k)
             st = tree_map(torch.clone, state)
@@ -2343,19 +2450,6 @@ def shared_step_routes(n, bsz):
                          SHARED_STEP_ROUTES, "a shared step")
 
 
-def _shared_batches(gen, k, n, bsz):
-    shape = (k, n, bsz)
-    obs, act = SHARED["obs"], SHARED["act"]
-    return {"obs": torch.randn(shape + (obs,), generator=gen, device="cuda"),
-            "action": torch.rand(shape + (act,), generator=gen,
-                                 device="cuda") * 2 - 1,
-            "reward": torch.randn(shape, generator=gen, device="cuda"),
-            "next_obs": torch.randn(shape + (obs,), generator=gen,
-                                    device="cuda"),
-            "done": (torch.rand(shape, generator=gen, device="cuda")
-                     < 0.05).float()}
-
-
 def phase_shared_update_parity():
     """The shared-critic update (§4.2) at full width: N=8, B=256, obs 17,
     act 6, half the members training, a constant DvD coefficient, chained
@@ -2375,7 +2469,8 @@ def phase_shared_update_parity():
     state = shared.init(torch.Generator().manual_seed(SEED), SHARED["obs"],
                         SHARED["act"], n, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    batches = _shared_batches(gen, k_steps, n, bsz)
+    batches = rl_batches(gen, k_steps, n, bsz, SHARED["obs"],
+                         SHARED["act"])
     noise = torch.randn((k_steps, n, bsz, SHARED["act"]), generator=gen,
                         device="cuda")
     first = {k: v[0] for k, v in batches.items()}
@@ -2698,8 +2793,8 @@ def phase_fig4():
         state = shared.init(torch.Generator().manual_seed(SEED),
                             SHARED["obs"], SHARED["act"], n, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-        batch = {k: v[0] for k, v in _shared_batches(
-            gen, 1, n, FIG4["batch"]).items()}
+        batch = {k: v[0] for k, v in rl_batches(
+            gen, 1, n, FIG4["batch"], SHARED["obs"], SHARED["act"]).items()}
         times = {"vectorized": [], "sequential": []}
         for fn in (vec, seq):          # warm-up
             fn(state, batch, None, gen)
@@ -2743,6 +2838,546 @@ def phase_fig4():
             "batch": FIG4["batch"], "hidden": [256, 256],
             "reps": FIG4["reps"], "ms_per_update": rows,
             "vectorized_busy": busy}
+
+
+# ------------------------------------------------------- SAC and DQN
+def sac_dqn_step_routes(algo):
+    """pop_matmul launches of each route in one SAC or DQN population
+    update step, by the wrapper's rule over the algorithm's shape table,
+    which must give its ``step_routes``."""
+    cfg = SAC_DQN[algo]
+    return expect_routes(
+        pop_matmul_routes(POPULATION, TRAIN["batch"],
+                          [(k, m, c) for _, k, m, _, c, _ in cfg["shapes"]]),
+        cfg["step_routes"], f"a {algo} update step")
+
+
+def _member_params(algo):
+    """Parameters a member of each of the algorithm's Adam steps (SAC:
+    critic, actor, log_alpha; DQN: the Q-network)."""
+    p = lambda layers: sum(k * m + m for k, m, _ in layers)
+    if algo == "sac":
+        return {"critic": 2 * p(CRITIC_LAYERS), "actor": p(SAC_ACTOR_LAYERS),
+                "log_alpha": 1}
+    return {"q": p(DQN_LAYERS)}
+
+
+def phase_sac_dqn_kernels():
+    """pop_matmul (both routes, forward and under autograd) against its
+    plain version at every (K, M) of SAC_DQN_KM, and pop_adam at SAC's and
+    DQN's (N=8, P) and at P=1; then each algorithm's update-step shapes
+    timed beside their bounds, the plain versions and the library calls.
+    Returns the numbers."""
+    from repro_torch.kernels.pop_matmul import (_route, pop_matmul,
+                                                pop_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst = share = 0.0
+    cases = 0
+    want = dict.fromkeys(pop_matmul.launches_by_route, 0)
+    reset_counts(pop_matmul)
+    for n in (1, POPULATION):
+        for bsz in (1, 33, TRAIN["batch"]):
+            for k, m in SAC_DQN_KM:
+                want[_route(n, bsz, k, m)] += 6
+                w = torch.randn((n, k, m), generator=gen,
+                                device="cuda") / k ** 0.5
+                b = torch.randn((n, m), generator=gen, device="cuda")
+                xs = torch.randn((n, bsz, k), generator=gen, device="cuda")
+                one = torch.randn((bsz, k), generator=gen, device="cuda")
+                for x in (xs, one.unsqueeze(0).expand(n, bsz, k)):
+                    for act in ("none", "relu", "tanh"):
+                        y = pop_matmul(x, w, b, activation=act)
+                        ref = pop_matmul_plain(x, w, b, activation=act)
+                        torch.cuda.synchronize()
+                        torch.testing.assert_close(y, ref, **TOL)
+                        worst = max(worst, (y - ref).abs().max().item())
+                        share = max(share, tol_share(y, ref, TOL))
+                        cases += 1
+    by_route = dict(pop_matmul.launches_by_route)
+    if by_route != want or sum(want.values()) != cases:
+        raise AssertionError(f"sac/dqn pop_matmul cases by route {by_route}"
+                             f", want {want}")
+    grad_err, fwd_err, grad_share, grad_n = grad_cases(SAC_DQN_KM, gen)
+    log(f"pop_matmul == plain at the SAC/DQN shapes on {cases} forward "
+        f"cases ((K,M) {list(SAC_DQN_KM)}, N 1/8, B 1/33/256, x broadcast "
+        f"or not, 3 activations; by route {by_route}), max abs err "
+        f"{worst:.3g}; backward (dx, dw, db) on {grad_n} cases, max abs err "
+        f"{grad_err:.3g}")
+
+    sizes = {(POPULATION, p) for algo in SAC_DQN
+             for p in _member_params(algo).values()} | {(1, 1)}
+    adam_err, adam_share = adam_cases(gen, sorted(sizes))
+    log(f"pop_adam == plain at {sorted(sizes)}, max abs err "
+        f"{adam_err:.3g}, {adam_share:.3g} of the tolerance")
+
+    out = {"max_abs_err": max(worst, fwd_err),
+           "grad_max_abs_err": grad_err,
+           "adam_max_abs_err": adam_err,
+           "share": max(share, grad_share),
+           "adam_share": adam_share, "forward_cases": cases,
+           "backward_cases": grad_n, "by_route": by_route}
+    for algo in SAC_DQN:
+        rows = training_rows(SAC_DQN[algo]["shapes"], gen,
+                             label=f"{algo} ")
+        adam = [adam_row(gen, f"{algo} {net}", POPULATION, p)
+                for net, p in _member_params(algo).items()]
+        per_step = lambda key: sum(r[key] * r["launches_per_update_step"]
+                                   for r in rows)
+        out[algo] = {
+            "work": f"the {sum(r['launches_per_update_step'] for r in rows)}"
+                    f" pop_matmul forwards and {len(adam)} pop_adam launches "
+                    f"of one {algo} update step (N={POPULATION}, "
+                    f"B={TRAIN['batch']}, {SAC_DQN[algo]['env']}); device "
+                    f"times, CUDA graph replay, L2-warm",
+            "pop_matmul": {key: per_step(key) for key in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "pop_matmul_backward_ms": sum(r["backward_ms_per_step"]
+                                          for r in rows),
+            "pop_matmul_backward_bound_ms": sum(
+                r["backward_bound_ms_per_step"] for r in rows),
+            "pop_adam": {key: sum(r[key] for r in adam) for key in
+                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "per_launch": rows, "pop_adam_per_launch": adam}
+        log(f"{algo} update step on the card: pop_matmul forwards "
+            f"{out[algo]['pop_matmul']['ms'] * 1e3:.3f} us (bound "
+            f"{out[algo]['pop_matmul']['bound_ms'] * 1e3:.3f}), backward "
+            f"bmm {out[algo]['pop_matmul_backward_ms'] * 1e3:.3f} us, "
+            f"pop_adam {out[algo]['pop_adam']['ms'] * 1e3:.3f} us (bound "
+            f"{out[algo]['pop_adam']['bound_ms'] * 1e3:.3f})")
+    return out
+
+
+def phase_sac_dqn_update_parity(algo):
+    """One full-width SAC or DQN population update (N=8, B=256) chained 4
+    times with every kernel and again with every plain version, from one
+    state, batch stack, hypers and (SAC) noise: step-1 gradients (Adam's
+    first moments / 0.1) and the parameters after 4 steps must agree, the
+    first step must run the backwards of the shape table, and every step
+    the table's pop_matmul launches by route and the algorithm's pop_adam
+    launches. DQN's members start at DQN_START_STEPS: the chain syncs the
+    target networks of the first four at their steps 100 and no other."""
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.core.vectorize import chain_steps
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.rl import get_algo, make_agent
+    from repro_torch.tree import leaves
+
+    cfg = SAC_DQN[algo]
+    k_steps, n, bsz = 4, POPULATION, TRAIN["batch"]
+    agent = make_agent(algo, make(cfg["env"]).spec, device="cuda")
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+    if algo == "dqn":
+        state = state._replace(step=torch.tensor(
+            DQN_START_STEPS, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    hypers = sample_hypers(gen, get_algo(algo).hyper_space, n)
+    batches = rl_batches(gen, k_steps, n, bsz, cfg["obs"], cfg["act"],
+                         discrete=algo == "dqn")
+    noise = (torch.randn((k_steps, n, 2, bsz, cfg["act"]), generator=gen,
+                         device="cuda") if algo == "sac" else None)
+    first = {k: v[0] for k, v in batches.items()}
+    rest = {k: v[1:] for k, v in batches.items()}
+    at = lambda i: None if noise is None else noise[i]
+    want_backs = collections.Counter()
+    for _, k, m, _, _, back in cfg["shapes"]:
+        for grads, count in back:
+            want_backs[(k, m, grads)] += count
+    per_step = sum(r[4] for r in cfg["shapes"])
+    out = {}
+    for route, fused_linear, fused in (("kernels", True, None),
+                                       ("plain", False, False)):
+        update = agent.module.make_population_update(
+            fused_linear=fused_linear, fused=fused)
+        reset_counts(pop_matmul, pop_adam)
+        (s1, _), backs = backwards_of(
+            lambda: update(state, first, hypers, noise=at(0)))
+        if fused_linear and backs != want_backs:
+            raise AssertionError(f"{algo} update: backwards {dict(backs)}, "
+                                 f"the shape table says {dict(want_backs)}")
+        s4, metrics = chain_steps(update, k_steps - 1)(
+            s1, rest, hypers, noise=None if noise is None else noise[1:])
+        torch.cuda.synchronize()
+        counts = (pop_matmul.launches, pop_adam.launches)
+        want = ((per_step * k_steps, cfg["adam"] * k_steps)
+                if fused is None else (0, 0))
+        by_route = dict(pop_matmul.launches_by_route)
+        want_routes = scaled(sac_dqn_step_routes(algo),
+                             k_steps if fused is None else 0)
+        if counts != want or by_route != want_routes:
+            raise AssertionError(f"{algo} update ({route}): launches "
+                                 f"(pop_matmul, pop_adam) {counts}, want "
+                                 f"{want}; by route {by_route}, want "
+                                 f"{want_routes}")
+        for name, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{algo} update: non-finite {name}")
+        if algo == "sac":
+            opts = (s1.critic_opt, s1.actor_opt, s1.alpha_opt)
+            params = (s4.actor, s4.critic, s4.target_critic, s4.log_alpha)
+        else:
+            opts = (s1.opt,)
+            params = (s4.q, s4.target_q)
+            synced = [all(torch.equal(a[i], b[i]) for a, b in
+                          zip(leaves(s4.target_q), leaves(state.target_q)))
+                      for i in range(n)]
+            at_last = [all(torch.equal(a[i], b[i]) for a, b in
+                           zip(leaves(s4.target_q), leaves(s4.q)))
+                       for i in range(n)]
+            want_kept = [all((s + j) % 100 for j in range(1, k_steps + 1))
+                         for s in DQN_START_STEPS]
+            if synced != want_kept or at_last != [
+                    (s + k_steps) % 100 == 0 for s in DQN_START_STEPS]:
+                raise AssertionError(f"dqn update ({route}): targets kept "
+                                     f"{synced} (want {want_kept}), equal "
+                                     f"to q after the chain {at_last}")
+        grads = [m / 0.1 for o in opts for m in leaves(o.mu)]
+        out[route] = (grads, leaves(params))
+    grad_err = param_err = share = 0.0
+    for g, r in zip(*(out[k][0] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(g, r, **STEP1_GRAD_TOL)
+        grad_err = max(grad_err, (g - r).abs().max().item())
+        share = max(share, tol_share(g, r, STEP1_GRAD_TOL))
+    for a, b in zip(*(out[k][1] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=PARAMS_AFTER_4_ATOL)
+        param_err = max(param_err, (a - b).abs().max().item())
+    log(f"{algo} update parity, kernels vs plain (N={n}, B={bsz}, full "
+        f"width, {cfg['env']}): step-1 gradients max abs err "
+        f"{grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6), parameters "
+        f"after {k_steps} steps {param_err:.3g} (atol "
+        f"{PARAMS_AFTER_4_ATOL}); per step {per_step} pop_matmul launches "
+        f"{sac_dqn_step_routes(algo)} and {cfg['adam']} pop_adam"
+        + ("; target networks synced inside the chain for members 0-3 "
+           "only" if algo == "dqn" else ""))
+    return {"grad_max_abs_err": grad_err, "grad_share": share,
+            "param_max_abs_err": param_err,
+            "pop_matmul_per_step": sac_dqn_step_routes(algo),
+            "pop_adam_per_step": cfg["adam"]}
+
+
+def _plain_head(algo):
+    """The members' served answers by plain layers: SAC's tanh of the
+    gaussian's mean, DQN's Q-values."""
+    from repro_torch.rl import networks as nets
+
+    if algo == "sac":
+        return lambda params, x: torch.tanh(nets.pop_gaussian_actor_apply(
+            params, x, fused=False)[0])
+    return lambda params, x: nets.pop_q_net_apply(params, x, fused=False)
+
+
+def check_votes(server, obs, actions):
+    """A DQN ensemble's ``vote`` answers: valid actions that equal the
+    plurality of the members' greedy actions by plain layers, on every
+    request where each member's two best Q-values are further apart than
+    TOL allows the kernel to move them. Returns the number of requests
+    left unjudged (a near tie, where rounding may pick either action)."""
+    assert actions.shape == (len(obs),), actions.shape
+    n_act = server.spec.act_dim
+    assert set(np.unique(actions).tolist()) <= set(range(n_act)), actions
+    x = torch.from_numpy(obs).to("cuda")
+    with torch.inference_mode():
+        q = _plain_head("dqn")(server.set.params, x.unsqueeze(0).expand(
+            server.set.size, *x.shape))
+    top2 = q.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1])
+             > 2 * (TOL["atol"] + TOL["rtol"] * top2[..., 0].abs())).all(0)
+    votes = torch.nn.functional.one_hot(q.argmax(-1), n_act).sum(0)
+    want = votes.argmax(-1).cpu().numpy()
+    clear = clear.cpu().numpy()
+    if not (actions[clear] == want[clear]).all():
+        raise AssertionError("dqn vote answers differ from the plain "
+                             "ensemble's plurality")
+    return int((~clear).sum())
+
+
+def phase_sac_dqn_train_serve(algo, ckpt_dir):
+    """The training entry point for SAC (pendulum) or DQN (cartpole): 8
+    members, PBT, ``--fused-adam --fused-linear``, with the launch counts
+    set to 0 just before and read just after; counts, losses, fitness,
+    evolutions and the checkpoint are checked, then ms per iteration and
+    the busy share measured. Then the checkpoint is served through the
+    serving entry point (SAC ``mean``, DQN ``vote``), counted the same
+    way (3 pop_matmul launches a batch) and checked against the plain
+    ensemble. Returns the numbers."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+
+    cfg, t = SAC_DQN[algo], SAC_DQN_TRAIN
+    spec = make(cfg["env"]).spec
+    argv = ["--algo", algo, "--env", cfg["env"],
+            "--population", str(POPULATION), "--steps", str(t["steps"]),
+            "--pbt-interval", str(t["pbt_interval"]),
+            "--eval-every", str(t["eval_every"]),
+            "--num-envs", str(t["num_envs"]),
+            "--collect-steps", str(t["collect_steps"]),
+            "--updates-per-iter", str(t["updates_per_iter"]),
+            "--batch", str(t["batch"]), "--fused-adam", "--fused-linear",
+            "--ckpt-dir", ckpt_dir, "--seed", str(SEED)]
+    report, wall, mm, by_route, adam = _run_counted(lambda: train_main(argv))
+    iters, k = t["steps"], t["updates_per_iter"]
+    per_iter = t["collect_steps"] * t["num_envs"]
+    updating = sum((i + 1) * per_iter >= t["batch"] for i in range(iters))
+    evals = iters // t["eval_every"]
+    per_step = sum(r[4] for r in cfg["shapes"])
+    acting = t["collect_steps"] * iters + spec.episode_length * evals
+    want = {"pop_matmul": per_step * k * updating + 3 * acting,
+            "pop_adam": cfg["adam"] * k * updating}
+    want_routes = added(scaled(sac_dqn_step_routes(algo), k * updating),
+                        scaled(served_batch_routes(), acting))
+    launches = {"pop_matmul": mm, "pop_adam": adam}
+    if launches != want or by_route != want_routes:
+        raise AssertionError(f"{algo} train: launches {launches}, want "
+                             f"{want}; by route {by_route}, want "
+                             f"{want_routes}")
+    if report.metrics is None or not all(
+            torch.isfinite(v).all() for v in report.metrics.values()):
+        raise AssertionError(f"{algo} train: losses not finite: "
+                             f"{report.metrics}")
+    replace = max(1, round(POPULATION * 0.3))
+    moved = [sum(p != i for i, p in enumerate(lin))
+             for _, lin in report.evolutions]
+    if [it for it, _ in report.evolutions] != list(
+            range(t["pbt_interval"], iters + 1, t["pbt_interval"])) \
+            or replace not in moved:
+        raise AssertionError(f"{algo} train: evolutions "
+                             f"{report.evolutions}")
+    mgr = CheckpointManager(ckpt_dir)
+    fitness = mgr.peek_extra()["fitness"]
+    if mgr.latest() != iters - 1 or fitness is None or \
+            len(fitness) != POPULATION or not np.isfinite(fitness).all():
+        raise AssertionError(f"{algo} train: checkpoint {mgr.latest()}, "
+                             f"fitness {fitness}")
+    log(f"{algo} train: {iters} iterations in {wall:.2f}s through the entry "
+        f"point ({cfg['env']}, {POPULATION} members); launches {launches}, "
+        f"by route {by_route}; evolves {report.evolutions}; best fitness "
+        f"{report.best_fitness:+.2f}; metrics "
+        f"{ {k: round(float(v.mean()), 4) for k, v in report.metrics.items()} }")
+    trainer = report.trainer
+    iter_ms = _sync_ms(trainer.env_iteration)
+    share, busy_ms, busy_wall_ms = device_busy_share(trainer.env_iteration)
+    log(f"{algo} train: {iter_ms:.2f} ms per iteration (collect "
+        f"{t['collect_steps']} x {t['num_envs']} envs + {k} updates), one "
+        f"more profiled: device busy {busy_ms:.2f} ms of {busy_wall_ms:.2f}"
+        f" ms, share {'not measured' if share is None else f'{share:.4f}'}")
+
+    requests = 16
+    serve_argv = ["--algo", algo, "--env", cfg["env"], "--ckpt-dir",
+                  ckpt_dir, "--ensemble", str(ENSEMBLE), "--mode",
+                  cfg["mode"], "--fused-linear", "--batch", str(BATCH),
+                  "--requests", str(requests), "--seed", str(SEED)]
+    served, _, mm, by_route, _ = _run_counted(lambda: serve_main(serve_argv))
+    want_routes = scaled(served_batch_routes(), requests + 2)
+    if mm != 3 * (requests + 2) or by_route != want_routes:
+        raise AssertionError(f"{algo} serve: pop_matmul launches {mm} by "
+                             f"route {by_route}, want {want_routes}")
+    members = served.server.set.members.tolist()
+    if members[0] != int(np.argmax(fitness)):
+        raise AssertionError(f"{algo} serve: the fittest member is not in "
+                             f"slot 0: {members}")
+    worst = unjudged = 0
+    for obs, actions in served.batches:
+        if algo == "dqn":
+            unjudged += check_votes(served.server, obs, actions)
+        else:
+            worst = max(worst, check_answers(served.server, obs, actions,
+                                             head=_plain_head("sac")))
+    judged = requests * BATCH - unjudged
+    if judged < 0.99 * requests * BATCH:
+        raise AssertionError(f"dqn serve: {unjudged} near ties of "
+                             f"{requests * BATCH} requests")
+    log(f"{algo} serve ({cfg['mode']}): {served.requests} requests, "
+        f"{served.req_per_s:.1f} req/s, p50 {served.p50_ms:.4f} ms p99 "
+        f"{served.p99_ms:.4f} ms per batch of {BATCH}, {mm} pop_matmul "
+        f"launches {by_route}, members {members}; answers == plain "
+        f"ensemble" + (f" on {judged} of {requests * BATCH} requests "
+                       f"({unjudged} near ties left unjudged)"
+                       if algo == "dqn" else f", max abs err {worst:.3g}"))
+    return {"launches": launches, "pop_matmul_launches_by_route":
+            dict(by_route), "train_launches_by_route": want_routes,
+            "seconds": wall, "iter_ms": iter_ms,
+            "device_busy_share": share, "device_busy_ms": busy_ms,
+            "busy_wall_ms": busy_wall_ms,
+            "device_busy_share_unprofiled": (None if share is None
+                                             else busy_ms / iter_ms),
+            "best_fitness": report.best_fitness,
+            "evolutions": report.evolutions,
+            "serve": {"mode": cfg["mode"], "req_per_s": served.req_per_s,
+                      "p50_ms": served.p50_ms, "p99_ms": served.p99_ms,
+                      "launches": mm, "max_abs_err": worst,
+                      "unjudged_near_ties": unjudged}}
+
+
+def phase_torso():
+    """DQN's Atari torso card (cuDNN, TF32 off) against CPU on the same
+    weights: ``q_net_apply`` on TORSO["frames"] frames of 84x84x4, and one
+    per-member DQN update (``F.conv2d`` and the stock Adam): the loss,
+    Adam's moments (the gradients) and the parameters, the latter where
+    the gradient is clear of Adam's eps in both (a gradient within 1e-7
+    of 0 takes a step its rounding decides). Returns the numbers."""
+    from repro_torch.rl import dqn
+    from repro_torch.rl import networks as nets
+    from repro_torch.tree import leaves, tree_map
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    state = dqn.init(gen, 0, TORSO["actions"], conv_torso=True)
+    b, a = TORSO["frames"], TORSO["actions"]
+    shape = (b, 84, 84, 4)
+    batch = {"obs": torch.rand(shape, generator=gen),
+             "action": torch.randint(0, a, (b,), generator=gen,
+                                     dtype=torch.int32),
+             "reward": torch.randn((b,), generator=gen),
+             "next_obs": torch.rand(shape, generator=gen),
+             "done": (torch.rand((b,), generator=gen) < 0.1).float()}
+    cuda = lambda tree: tree_map(lambda x: x.to("cuda"), tree)
+    q_cpu = nets.q_net_apply(state.q, batch["obs"])
+    q_card = nets.q_net_apply(cuda(state.q), batch["obs"].to("cuda"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q_card.cpu(), q_cpu, **TORSO_TOL)
+    q_err = (q_card.cpu() - q_cpu).abs().max().item()
+    q_share = tol_share(q_card.cpu(), q_cpu, TORSO_TOL)
+
+    hypers = {"lr": 1e-4, "discount": 0.99}
+    new_cpu, m_cpu = dqn.update(state, batch, hypers)
+    new_card, m_card = dqn.update(cuda(state), cuda(batch), hypers)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
+                               **TORSO_TOL)
+    # the gradient from each moment: mu = 0.1 g and nu = 0.001 g^2 after
+    # Adam's first step
+    from_moment = {"mu": lambda m: m / 0.1,
+                   "nu": lambda v: torch.sqrt(v / 0.001)}
+    grad_err = param_err = 0.0
+    held = total = 0
+    for f, grad in from_moment.items():
+        for g, r in zip(leaves(getattr(new_card.opt, f)),
+                        leaves(getattr(new_cpu.opt, f))):
+            g, r = grad(g.cpu()), grad(r)
+            torch.testing.assert_close(g, r, **STEP1_GRAD_TOL, msg=f)
+            grad_err = max(grad_err, (g - r).abs().max().item())
+    for p, r, mu, mur in zip(leaves(new_card.q), leaves(new_cpu.q),
+                             leaves(new_card.opt.mu),
+                             leaves(new_cpu.opt.mu)):
+        mu = mu.cpu().abs()
+        mur = mur.abs()
+        keep = (torch.maximum(mu, mur) == 0) | \
+            (torch.minimum(mu, mur) > 0.1 * 1e-7)
+        torch.testing.assert_close(p.cpu()[keep], r[keep], rtol=1e-4,
+                                   atol=1e-6)
+        param_err = max(param_err, (p.cpu() - r)[keep].abs().max().item())
+        held += int(keep.sum())
+        total += keep.numel()
+    if held < 0.99 * total:
+        raise AssertionError(f"torso update: only {held} of {total} "
+                             f"parameters clear of Adam's eps")
+    q_dev = cuda(state.q)
+    frames = batch["obs"].to("cuda")
+    fwd_ms = graph_ms(lambda: nets.q_net_apply(q_dev, frames), reps=10,
+                      iters=5)
+    log(f"torso: q_net_apply on {b} frames of 84x84x4 card == CPU, max abs "
+        f"err {q_err:.3g} ({q_share:.3g} of rtol 1e-4, atol 1e-5), "
+        f"{fwd_ms * 1e3:.1f} us on the card; one member's update card == "
+        f"CPU: loss {float(m_card['loss']):.6f}, gradients max abs err "
+        f"{grad_err:.3g}, parameters {param_err:.3g} ({held} of {total} "
+        f"held, the rest within 1e-7 of a zero gradient)")
+    return {"q_max_abs_err": q_err, "q_share": q_share,
+            "grad_max_abs_err": grad_err, "param_max_abs_err": param_err,
+            "params_held": held, "params": total, "forward_ms": fwd_ms}
+
+
+def phase_fig2_sac():
+    """Fig. 2's SAC arm, beside the TD3 one (the same dims: pendulum, the
+    repo's width, B=256, 32 chained steps a call, N = 1, 8, 32): ms per
+    member-update-step of the sequential arm (no kernel) and the
+    vectorized one (24 pop_matmul and 3 pop_adam launches a step), the
+    median of FIG2_REPS synchronised calls each with their min and max,
+    after a warm-up call of one step. Where the arm would pass
+    FIG2_ARM_LIMIT_S with FIG2_REPS calls at the largest N (judged from
+    its time so far and its calls at the size before, times
+    FIG2_HOST_SPREAD), the sequential arm's cell there is one call, and
+    says so."""
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.pop import make_update
+    from repro_torch.rl import get_algo, make_agent
+    from repro_torch.tree import tree_map
+
+    k, bsz = FIG2["num_steps"], FIG2["batch"]
+    agent = make_agent("sac", make("pendulum").spec, device="cuda")
+    rows = {"sequential": {}, "vectorized": {}}
+    t_start = time.perf_counter()
+    for n in FIG2["sizes"]:
+        state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        hypers = sample_hypers(gen, get_algo("sac").hyper_space, n)
+        batches = rl_batches(gen, k, n, bsz)
+        for backend in rows:
+            update = make_update(agent, backend, num_steps=k)
+            st = tree_map(torch.clone, state)
+            make_update(agent, backend)(
+                st, {key: v[0] for key, v in batches.items()}, hypers, gen)
+            torch.cuda.synchronize()
+            reps = FIG2_REPS
+            if backend == "sequential" and n == max(FIG2["sizes"]):
+                # the arm's time so far and what the last size's calls
+                # would add: a sequential call costs about N member calls
+                # of the size before, a vectorized one what it cost there
+                last = max(rows[backend])
+                ahead = FIG2_HOST_SPREAD * FIG2_REPS * (
+                    rows[backend][last]["median_ms"] * n / last
+                    + rows["vectorized"][last]["median_ms"]) / 1e3
+                if time.perf_counter() - t_start + ahead > FIG2_ARM_LIMIT_S:
+                    reps = 1
+            times = []
+            reset_counts(pop_matmul, pop_adam)
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                st, metrics = update(st, batches, hypers, gen)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                if not all(torch.isfinite(v).all()
+                           for v in metrics.values()):
+                    raise AssertionError(f"fig2 sac ({backend}, N={n}): "
+                                         f"non-finite metrics")
+            launches = (pop_matmul.launches, pop_adam.launches)
+            want = ((24 * k * reps, 3 * k * reps) if backend == "vectorized"
+                    else (0, 0))
+            if launches != want:
+                raise AssertionError(f"fig2 sac ({backend}, N={n}): "
+                                     f"launches {launches}, want {want}")
+            med = float(np.median(times))
+            rows[backend][n] = {
+                "median_ms": med, "min_ms": min(times),
+                "max_ms": max(times), "calls": reps,
+                "ms_per_member_update_step": med / (k * n)}
+            log(f"fig2 sac {backend} N={n}: {med:.2f} ms a call of {k} "
+                f"steps (median of {reps}, min {min(times):.2f}, max "
+                f"{max(times):.2f}), {med / (k * n) * 1e3:.2f} us per "
+                f"member-update-step"
+                + ("" if reps == FIG2_REPS else
+                   f"; one call only: with {FIG2_REPS} the arm would pass "
+                   f"{FIG2_ARM_LIMIT_S:.0f} s"))
+            del st
+    lo, hi = min(FIG2["sizes"]), max(FIG2["sizes"])
+    ratio = {b: by[hi]["median_ms"] / by[lo]["median_ms"]
+             for b, by in rows.items()}
+    log(f"fig2 sac: a call's time at N={hi} over N={lo}: vectorized "
+        f"{ratio['vectorized']:.2f}x, sequential {ratio['sequential']:.2f}x"
+        f"; the arm took {time.perf_counter() - t_start:.1f} s")
+    return {"algo": "sac", "batch": bsz, "num_steps": k,
+            "hidden": [256, 256], "reps": FIG2_REPS, "calls": rows,
+            f"call_ratio_n{hi}_over_n{lo}": ratio}
 
 
 def _shape_leaves(tree):
@@ -2846,6 +3481,12 @@ def main() -> int:
         log(f"{name}, HMMA instructions in the SASS: "
             + ", ".join(f"{k} {c}" for k, c in sorted(counts.items())))
 
+    # the command's seconds at the end of each group of phases
+    seconds = {}
+    lap = lambda name: seconds.__setitem__(
+        name, round(time.perf_counter() - T_START, 1))
+    lap("1-2 card, build")
+
     # 3. kernels vs plain, timing
     kernel_err, kernel_share, rows = phase_kernels()
     grad_err, train_fwd_err, train_share, train_rows = \
@@ -2863,6 +3504,7 @@ def main() -> int:
         train = phase_train(ckpt_dir)
         trained_serve_err = phase_train_serve(ckpt_dir,
                                               train["saved_fitness"])
+    lap("3-7 TD3 kernels, update, serve, train")
 
     # 8. wkv6, ssd and flash_attention vs plain, timing; 9. the LM path,
     # card vs CPU; 10. LM serving through the port's entry point at full
@@ -2871,6 +3513,7 @@ def main() -> int:
     flash_err, flash_share, flash_rows = phase_flash_kernel()
     lm_parity = phase_lm_parity()
     lm_serve = phase_lm_serve()
+    lap("8-10 LM kernels, parity, serve")
 
     # 11. pop_adam at the LM's size; 12. the LM update, card vs CPU; 13.
     # LM population training at full width; 14. the LM CLI, both
@@ -2882,6 +3525,7 @@ def main() -> int:
     lm_train["update_parity"] = lm_update
     lm_train["cli_final_loss"] = phase_lm_cli()
     fig2 = phase_fig2()
+    lap("11-15 LM training, Fig. 2")
 
     # 16. the shared-critic update, kernels vs plain; 17. its kernel
     # shapes; 18. CEM-RL and 19. DvD through the examples; 20. Fig. 4
@@ -2892,9 +3536,34 @@ def main() -> int:
     shared["cemrl"] = phase_cemrl()
     shared["dvd"] = phase_dvd()
     fig4 = phase_fig4()
+    lap("16-20 shared critic, CEM-RL, DvD, Fig. 4")
+
+    # 21. SAC's and DQN's kernel shapes; 22. their updates, kernels vs
+    # plain; 23. each trained and served through the entry points; 24. the
+    # Atari torso, card vs CPU; 25. Fig. 2's SAC arm
+    torch.cuda.empty_cache()
+    sac_dqn = {"kernels": phase_sac_dqn_kernels()}
+    for algo in SAC_DQN:
+        sac_dqn[algo] = {"update_parity": phase_sac_dqn_update_parity(algo)}
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            sac_dqn[algo].update(phase_sac_dqn_train_serve(algo, ckpt_dir))
+    sac_dqn["torso"] = phase_torso()
+    fig2_sac = phase_fig2_sac()
+    lap("21-25 SAC, DQN, torso, Fig. 2 SAC")
+    log(f"seconds at the end of each group of phases: {seconds}")
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
-                            "dvd": shared["dvd"]["launches"][name]}
+                            "dvd": shared["dvd"]["launches"][name],
+                            **{f"{a}_train": sac_dqn[a]["launches"][name]
+                               for a in SAC_DQN}}
+    sac_dqn_entry = lambda kernel: {
+        a: {"work": sac_dqn["kernels"][a]["work"],
+            **sac_dqn["kernels"][a][kernel],
+            "launches_per_update_step": (
+                sac_dqn[a]["update_parity"]["pop_matmul_per_step"]
+                if kernel == "pop_matmul" else SAC_DQN[a]["adam"]),
+            "train_launches": sac_dqn[a]["launches"][kernel]}
+        for a in SAC_DQN}
 
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
@@ -2912,14 +3581,18 @@ def main() -> int:
         "launches_by_path": by_path("pop_matmul"),
         "launches_by_route": train["pop_matmul_launches_by_route"],
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
-                           trained_serve_err, shared_err),
+                           trained_serve_err, shared_err,
+                           sac_dqn["kernels"]["max_abs_err"],
+                           sac_dqn["sac"]["serve"]["max_abs_err"]),
         "tolerance": "rtol=atol=1e-5",
-        "grad_max_abs_err": grad_err,
+        "grad_max_abs_err": max(grad_err,
+                                sac_dqn["kernels"]["grad_max_abs_err"]),
         "grad_tolerance": "rtol=atol=1e-4",
         # max |kernel - plain| / (atol + rtol |plain|) over the forward and
         # gradient checks: at most 1 within tolerance
         "max_err_over_tolerance": max(kernel_share, train_share,
-                                      shared_share),
+                                      shared_share,
+                                      sac_dqn["kernels"]["share"]),
         "work": "the 24 forward launches of one TD3 update step (N=8, "
                 "B=256); times are device times (CUDA graph replay, "
                 "L2-warm)",
@@ -2962,6 +3635,7 @@ def main() -> int:
                    "launches_by_route": shared["cemrl"][
                        "pop_matmul_launches_by_route"],
                    "per_launch": shared_mm_rows},
+        "sac_dqn": sac_dqn_entry("pop_matmul"),
     }, {
         "name": "pop_adam",
         "route": "triton",
@@ -2972,9 +3646,11 @@ def main() -> int:
         + lm_train["launches"]["pop_adam"],
         "launches_by_path": {**by_path("pop_adam"),
                              "lm_train": lm_train["launches"]["pop_adam"]},
-        "max_abs_err": max(adam_err, adam_lm_err),
+        "max_abs_err": max(adam_err, adam_lm_err,
+                           sac_dqn["kernels"]["adam_max_abs_err"]),
         "tolerance": "rtol=1e-5, atol=1e-6",
-        "max_err_over_tolerance": max(adam_share, adam_lm_share),
+        "max_err_over_tolerance": max(adam_share, adam_lm_share,
+                                      sac_dqn["kernels"]["adam_share"]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -3001,6 +3677,7 @@ def main() -> int:
                            "(the policies' Adam, N=8, obs 17, act 6); "
                            "device times, CUDA graph replay, L2-warm",
                    **shared_adam_row},
+        "sac_dqn": sac_dqn_entry("pop_adam"),
     }]
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
@@ -3081,6 +3758,8 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"shared": shared}))
     print(json.dumps({"fig4": fig4}))
+    print(json.dumps({"sac_dqn": sac_dqn}))
+    print(json.dumps({"fig2_sac": fig2_sac, "phase_seconds": seconds}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

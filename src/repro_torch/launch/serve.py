@@ -29,6 +29,11 @@ layer.
 
     python -m repro_torch.launch.serve --algo td3 --env pendulum \\
         --ckpt-dir DIR --ensemble 4 --mode mean --fused-linear --batch 256
+    python -m repro_torch.launch.serve --algo dqn --env cartpole \\
+        --ckpt-dir DIR --ensemble 4 --mode vote --fused-linear --batch 256
+
+The ensemble heads are td3's tanh actor, sac's tanh of the gaussian's
+mean and dqn's greedy action; ``vote`` needs a discrete env.
 
 Runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).
@@ -218,7 +223,7 @@ def main(argv=None):
                     "gemma-7b, rwkv6-1.6b, zamba2-7b or rwkv6-test")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
-                    "as an ensemble")
+                    "as an ensemble (td3, sac, dqn)")
     ap.add_argument("--env", default="pendulum",
                     help="env of the trained checkpoint")
     ap.add_argument("--ckpt-dir", default=None,
@@ -228,7 +233,8 @@ def main(argv=None):
                     help="serving-set size (fitness + DvD selection)")
     ap.add_argument("--mode", default="mean",
                     choices=["mean", "vote", "best"],
-                    help="ensemble reduction")
+                    help="ensemble reduction: mean (continuous; plurality "
+                    "for a discrete env), vote (discrete), best")
     ap.add_argument("--requests", type=int, default=64,
                     help="request batches to serve in the demo loop")
     ap.add_argument("--poll-every", type=int, default=16,

@@ -14,8 +14,10 @@ same-family form. The MoE, MLA and frontend configs are refused by name.
     python -m repro_torch.launch.train --arch qwen2-0.5b --population 4 \\
         --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR
 
-``--algo <name>`` trains a population of the registered algorithm on an
-env through ``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
+``--algo <name>`` (td3, sac or dqn; ppo is refused) trains a population
+of the registered algorithm on an env (pendulum, reacher and mountain_car
+continuous, cartpole and acrobot discrete) through
+``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
 insert into the population's replay buffers, sample, and
 ``--updates-per-iter`` chained population-level updates per iteration,
 with PBT every ``--pbt-interval`` iterations on the evaluator's fitness
@@ -30,6 +32,8 @@ taken so that the JAX CLI's command lines run, and change nothing.
         --population 8 --steps 20 --pbt-interval 10 --eval-every 2 \\
         --num-envs 8 --collect-steps 32 --updates-per-iter 32 --batch 256 \\
         --fused-adam --fused-linear --ckpt-dir DIR
+    python -m repro_torch.launch.train --algo sac --env pendulum ...
+    python -m repro_torch.launch.train --algo dqn --env cartpole ...
 
 The RL checkpoint is served by ``repro_torch.launch.serve``. Both run on
 the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
@@ -208,9 +212,11 @@ def main(argv=None):
                     "(e.g. qwen2-0.5b, rwkv6-test)")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm from the repro_torch.rl.ALGOS "
-                    "registry (td3)")
+                    "registry (td3, sac, dqn)")
     ap.add_argument("--env", default="pendulum",
-                    help="env name for the --algo workload")
+                    help="env name for the --algo workload: pendulum, "
+                    "reacher, mountain_car (continuous: td3, sac), "
+                    "cartpole, acrobot (discrete: dqn)")
     ap.add_argument("--population", type=int, default=1)
     ap.add_argument("--strategy", default="pbt",
                     choices=["pbt", "cem", "none"],

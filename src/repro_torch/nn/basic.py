@@ -81,6 +81,51 @@ def mlp_apply(p, x, *, activation: str = "relu",
 
 
 # ---------------------------------------------------------------------------
+# conv stack (DQN's Atari torso)
+# ---------------------------------------------------------------------------
+
+def conv_init(generator, in_ch: int, out_ch: int, kernel: int, *,
+              device="cpu"):
+    """``std * N(0,1)`` truncated at +-2, std = 1/sqrt(in_ch * kernel^2),
+    and a zero bias. The weight is (out, in, kh, kw), torch's OIHW layout;
+    the JAX package's is HWIO, and :mod:`repro_torch.convert` permutes
+    between the two."""
+    w = torch.empty((out_ch, in_ch, kernel, kernel), dtype=torch.float32,
+                    device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    w.mul_(1.0 / math.sqrt(in_ch * kernel * kernel))
+    return {"w": w.to(device),
+            "b": torch.zeros((out_ch,), dtype=torch.float32, device=device)}
+
+
+def _conv_nchw(p, x, stride: int):
+    return F.conv2d(x, p["w"], p["b"], stride=stride)
+
+
+def conv_apply(p, x, stride: int):
+    """VALID convolution of an NHWC batch (the JAX package's layout), NHWC
+    out."""
+    return _conv_nchw(p, x.permute(0, 3, 1, 2), stride).permute(0, 2, 3, 1)
+
+
+def dqn_torso_init(generator, in_ch: int = 4, *, device="cpu"):
+    return {"conv_0": conv_init(generator, in_ch, 32, 8, device=device),
+            "conv_1": conv_init(generator, 32, 64, 4, device=device),
+            "conv_2": conv_init(generator, 64, 64, 3, device=device)}
+
+
+def dqn_torso_apply(p, x):
+    """(B, 84, 84, 4) NHWC frames -> (B, 3136) features, flattened in the
+    JAX package's (H, W, C) order. The frames are permuted to NCHW once,
+    and the features back to NHWC once before the flatten."""
+    x = x.permute(0, 3, 1, 2)
+    x = F.relu(_conv_nchw(p["conv_0"], x, 4))
+    x = F.relu(_conv_nchw(p["conv_1"], x, 2))
+    x = F.relu(_conv_nchw(p["conv_2"], x, 1))
+    return x.permute(0, 2, 3, 1).flatten(1)
+
+
+# ---------------------------------------------------------------------------
 # the LM blocks' pieces
 # ---------------------------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """The agent adapters (``repro.pop.agent``): what ``PopTrainer``, the
 update backends, the rollout engine and the serving layer consume.
 
-  * ``ModuleAgent`` — a functional RL module (td3): per-member state, a
-    per-member ``update`` and a population-level ``fused_update``.
+  * ``ModuleAgent`` — a functional RL module (td3, sac, dqn): per-member
+    state, a per-member ``update`` and a population-level
+    ``fused_update``.
   * ``LMAgent``     — the language-model train step: state is (params,
     opt_state, step), fitness is -loss.
   * ``SharedCriticAgent`` — the §4.2 family (CEM-RL, DvD): ONE critic
@@ -32,25 +33,28 @@ from repro_torch.tree import flat_empty, tree_map
 
 class ModuleAgent:
     """Adapter for a module exposing ``init(generator, obs_dim, act_dim,
-    device=...) -> state`` (a state with an ``actor`` field),
-    ``actor_init`` (one member's actor alone), ``policy``/``pop_policy``
-    and ``make_population_update``.
+    device=..., **init_kwargs) -> state``, ``actor_init`` (one member's
+    policy alone), ``policy``/``pop_policy`` and ``make_population_update``.
 
-    ``device`` is where the agent's parameters live: the CUDA device unless
-    the caller passes ``"cpu"``. The population-level update always goes
-    through the ``pop_matmul`` and ``pop_adam`` wrappers: the kernels on
-    CUDA tensors, their plain versions on CPU tensors.
+    The policy is the state's ``actor`` field, or its ``q`` field (DQN)
+    where it has none; ``init_kwargs`` (DQN's ``conv_torso``) go to
+    ``init`` and ``actor_init``. ``device`` is where the agent's parameters
+    live: the CUDA device unless the caller passes ``"cpu"``. The
+    population-level update always goes through the ``pop_matmul`` and
+    ``pop_adam`` wrappers: the kernels on CUDA tensors, their plain
+    versions on CPU tensors.
     """
 
     population_level = False     # the update is NOT the shared-critic kind
     experience_kind = "replay"   # transitions from a FIFO ring
 
     def __init__(self, module, obs_dim: int, act_dim: int, *,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, **init_kwargs):
         self.module = module
         self.exploration_module = module
         self.obs_dim, self.act_dim = obs_dim, act_dim
         self.device = resolve_device(device)
+        self.init_kwargs = init_kwargs
 
     @property
     def default_hypers(self) -> dict:
@@ -58,7 +62,7 @@ class ModuleAgent:
 
     def init(self, generator):
         return self.module.init(generator, self.obs_dim, self.act_dim,
-                                device=self.device)
+                                device=self.device, **self.init_kwargs)
 
     def population_init(self, generator, n: int):
         return population_init(self.init, generator, n)
@@ -66,7 +70,7 @@ class ModuleAgent:
     def actor_init(self, generator, *, device="cpu"):
         """One member's actor parameters, without the rest of the state."""
         return self.module.actor_init(generator, self.obs_dim, self.act_dim,
-                                      device=device)
+                                      device=device, **self.init_kwargs)
 
     def update(self, state, batch, hypers=None, generator=None, *,
                noise=None):
@@ -86,17 +90,25 @@ class ModuleAgent:
     def policy(self, actor_params, obs, generator=None):
         return self.module.policy(actor_params, obs, generator)
 
+    @staticmethod
+    def _field(state) -> str:
+        return "actor" if hasattr(state, "actor") else "q"
+
     def actor_params(self, pop_state):
-        return pop_state.actor
+        return getattr(pop_state, self._field(pop_state))
 
     def evolvable_params(self, pop_state):
         return self.actor_params(pop_state)
 
     def with_evolvable_params(self, pop_state, new_params):
-        """The state with new actors, copied into the target actors too."""
-        return pop_state._replace(
-            actor=new_params,
-            target_actor=tree_map(torch.clone, new_params))
+        """The state with new policies, copied into the target policies
+        too where the state has them (TD3's ``target_actor``, DQN's
+        ``target_q``; SAC has none)."""
+        field = self._field(pop_state)
+        repl = {field: new_params}
+        if hasattr(pop_state, "target_" + field):
+            repl["target_" + field] = tree_map(torch.clone, new_params)
+        return pop_state._replace(**repl)
 
     def gather_members(self, pop_state, parents):
         """PBT exploit: member i adopts member ``parents[i]``'s state."""

@@ -3,13 +3,14 @@
 
   * ``vectorized`` — the agent's population-level update
     (``fused_update``): every member at once, through the ``pop_matmul``
-    and ``pop_adam`` kernels on the card (TD3), or one ``pop_adam`` launch
-    for the whole population (the LM). There is no ``jit(vmap(update))``
+    and ``pop_adam`` kernels on the card (TD3, SAC, DQN), or one
+    ``pop_adam`` launch for the whole population (the LM). There is no
+    ``jit(vmap(update))``
     in PyTorch, so the vectorized update is always the population-level
     one.
   * ``sequential`` — the paper's Sequential baseline: the agent's
-    per-member ``update`` (plain layers, the stock Adam, no kernel) looped
-    over the members (:func:`repro_torch.core.vectorize.sequential_update`).
+    per-member ``update`` (plain layers, the stock Adam, no kernel; DQN's
+    Atari torso by ``F.conv2d``) looped over the members (:func:`repro_torch.core.vectorize.sequential_update`).
 
 For a ``population_level`` agent (the shared critic, §4.2) the same
 names pick the paper's averaged-loss update through the kernels

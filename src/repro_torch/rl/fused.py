@@ -3,7 +3,7 @@
 A population-level update takes the member-stacked state (leaves
 ``(N, ...)``), batches ``(N, B, ...)`` and hypers as ``(N,)`` vectors.
 This module broadcasts default hypers to per-member vectors and selects
-member-wise between two trees (TD3's delayed actor). The JAX package's
+member-wise between two trees (TD3's delayed actor, DQN's target sync). The JAX package's
 ``pop_split`` has no counterpart: the port's updates draw from a
 ``torch.Generator``.
 """

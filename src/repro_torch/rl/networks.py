@@ -1,7 +1,9 @@
-"""The TD3 actor and twin critic, and the population-batched applies
-(``repro.rl.networks``).
+"""The actors, critics and Q-networks of TD3, SAC and DQN, and the
+population-batched applies (``repro.rl.networks``).
 
-Standard size from Fujimoto et al.: a 256-256 MLP.
+Standard size from Haarnoja et al. / Fujimoto et al.: 256-256 MLPs. DQN's
+Q-network is that MLP, or the Atari torso of the paper's Fig. 2 DQN study
+(84x84x4 frames -> 3136 features, then a [3136, 512, A] head).
 
 The ``pop_*_apply`` family evaluates the same parametrization over
 member-stacked parameters (leaves ``(N, ...)``) and member-batched inputs
@@ -20,11 +22,14 @@ version through torch's own autograd.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.pop_matmul import (ACTIVATIONS, pop_matmul,
                                             pop_matmul_plain)
-from repro_torch.nn.basic import mlp_apply, mlp_init
+from repro_torch.nn.basic import (dqn_torso_apply, dqn_torso_init, mlp_apply,
+                                  mlp_init)
 
 HIDDEN = (256, 256)
 
@@ -36,6 +41,35 @@ def actor_init(generator, obs_dim: int, act_dim: int, hidden=HIDDEN, *,
 
 def actor_apply(params, obs):
     return torch.tanh(mlp_apply(params, obs))
+
+
+def gaussian_actor_init(generator, obs_dim: int, act_dim: int,
+                        hidden=HIDDEN, *, device="cpu"):
+    """SAC's actor: an MLP whose output is the mean and the log std."""
+    return mlp_init(generator, [obs_dim, *hidden, 2 * act_dim],
+                    device=device)
+
+
+def _mean_log_std(out):
+    mean, log_std = out.chunk(2, dim=-1)
+    return mean, torch.clamp(log_std, -20.0, 2.0)
+
+
+def gaussian_actor_apply(params, obs):
+    """-> (mean, log_std), log_std clipped to [-20, 2]."""
+    return _mean_log_std(mlp_apply(params, obs))
+
+
+def sample_squashed(eps, mean, log_std):
+    """Tanh-squashed gaussian sample and its log-prob (SAC), with the
+    standard normal draw ``eps`` (the shape of ``mean``) given: the JAX
+    package's ``sample_squashed`` and ``sac._squash``."""
+    std = torch.exp(log_std)
+    act = torch.tanh(mean + std * eps)
+    logp = torch.sum(
+        -0.5 * (eps ** 2 + 2 * log_std + math.log(2 * math.pi))
+        - torch.log(torch.clamp(1 - act ** 2, min=1e-6)), dim=-1)
+    return act, logp
 
 
 def critic_init(generator, obs_dim: int, act_dim: int, hidden=HIDDEN, *,
@@ -50,6 +84,22 @@ def critic_apply(params, obs, act):
     x = torch.cat([obs, act], dim=-1)
     return (mlp_apply(params["q1"], x)[..., 0],
             mlp_apply(params["q2"], x)[..., 0])
+
+
+def q_net_init(generator, obs_dim: int, num_actions: int, hidden=HIDDEN,
+               conv_torso: bool = False, *, device="cpu"):
+    if conv_torso:          # Atari: 84x84x4 frames
+        return {"torso": dqn_torso_init(generator, device=device),
+                "head": mlp_init(generator, [3136, 512, num_actions],
+                                 device=device)}
+    return {"head": mlp_init(generator, [obs_dim, *hidden, num_actions],
+                             device=device)}
+
+
+def q_net_apply(params, obs):
+    if "torso" in params:
+        obs = dqn_torso_apply(params["torso"], obs)
+    return mlp_apply(params["head"], obs)
 
 
 def pop_linear_apply(p, x, *, activation: str = "none", fused=None):
@@ -79,9 +129,25 @@ def pop_actor_apply(params, obs, *, fused=None):
     return pop_mlp_apply(params, obs, final_activation="tanh", fused=fused)
 
 
+def pop_gaussian_actor_apply(params, obs, *, fused=None):
+    """Population-level ``gaussian_actor_apply``: (N,B,obs) -> (mean,
+    log_std), each (N,B,act)."""
+    return _mean_log_std(pop_mlp_apply(params, obs, fused=fused))
+
+
 def pop_critic_apply(params, obs, act, *, fused=None):
     """Population-level ``critic_apply``: (N,B,obs), (N,B,act) -> the twin
     Q values, each (N,B)."""
     x = torch.cat([obs, act], dim=-1)
     return (pop_mlp_apply(params["q1"], x, fused=fused)[..., 0],
             pop_mlp_apply(params["q2"], x, fused=fused)[..., 0])
+
+
+def pop_q_net_apply(params, obs, *, fused=None):
+    """Population-level ``q_net_apply`` of the MLP Q-network: (N,B,obs) ->
+    (N,B,A). The Atari torso has no population-batched path, as in the JAX
+    package."""
+    if "torso" in params:
+        raise ValueError("pop_q_net_apply: the Atari conv torso has no "
+                         "population-batched path (MLP q-nets only)")
+    return pop_mlp_apply(params["head"], obs, fused=fused)

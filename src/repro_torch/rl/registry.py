@@ -3,9 +3,13 @@
 Each entry bundles an agent factory (env-spec aware, so action-space
 mismatches fail loudly), the action space it needs, the PBT hyper-space
 (paper §B.1 style ranges, copied from the JAX package) and the experience
-kind. Only TD3 is ported; the JAX package's other algorithms raise "not
-ported yet" rather than an unknown-name error, so a caller can tell the
-two apart."""
+kind. TD3, SAC and DQN are ported; PPO, the JAX package's on-policy
+algorithm, raises "not ported yet" rather than an unknown-name error, so a
+caller can tell the two apart.
+
+SAC's space is the JAX package's verbatim, ``alpha`` included, so that the
+hypers sampled from the same draws match; neither package's SAC update
+reads ``alpha`` (the temperature is learned: ``log_alpha``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,7 +17,7 @@ from typing import Callable
 
 from repro_torch.configs.base import HyperSpace
 
-_NOT_PORTED = ("sac", "dqn", "ppo")
+_NOT_PORTED = ("ppo",)
 
 
 @dataclass(frozen=True)
@@ -31,6 +35,18 @@ def _make_td3(spec, **kw):
     return ModuleAgent(td3, spec.obs_dim, spec.act_dim, **kw)
 
 
+def _make_sac(spec, **kw):
+    from repro_torch.pop import ModuleAgent
+    from repro_torch.rl import sac
+    return ModuleAgent(sac, spec.obs_dim, spec.act_dim, **kw)
+
+
+def _make_dqn(spec, **kw):
+    from repro_torch.pop import ModuleAgent
+    from repro_torch.rl import dqn
+    return ModuleAgent(dqn, spec.obs_dim, spec.act_dim, **kw)
+
+
 ALGOS = {
     "td3": AlgoSpec(
         "td3", _make_td3, "continuous",
@@ -39,6 +55,18 @@ ALGOS = {
                    uniform=(("policy_freq", 0.2, 1.0), ("noise", 0.0, 1.0),
                             ("explore_noise", 0.0, 1.0),
                             ("discount", 0.9, 1.0))),
+        "replay"),
+    "sac": AlgoSpec(
+        "sac", _make_sac, "continuous",
+        HyperSpace(log_uniform=(("actor_lr", 3e-5, 3e-3),
+                                ("critic_lr", 3e-5, 3e-3),
+                                ("alpha", 0.01, 1.0)),
+                   uniform=(("discount", 0.9, 1.0),)),
+        "replay"),
+    "dqn": AlgoSpec(
+        "dqn", _make_dqn, "discrete",
+        HyperSpace(log_uniform=(("lr", 1e-5, 1e-3),),
+                   uniform=(("epsilon", 0.01, 0.3), ("discount", 0.9, 1.0))),
         "replay"),
 }
 

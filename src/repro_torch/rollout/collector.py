@@ -1,13 +1,14 @@
 """``Collector`` — the population's acting step (``repro.rollout.
 collector``): each member drives its own ``num_envs`` environments with
-its own exploration noise, whose scale comes from that member's hypers.
+its own exploration, whose knob comes from that member's hypers.
 
-Per acting step the member-batched actor forward is ONE population-level
-call (``pop_policy`` -> ``pop_actor_apply``: one ``pop_matmul`` per
-layer), so the kernel runs on the card. Trajectories come back flattened
-to ``(N, num_steps * num_envs, ...)`` time-major per env, ready for the
-FIFO insert. The unflattened trajectory (the PPO kind's), chunked
-collection (``chunk_steps``, ``collect_into``) come with later slices.
+Per acting step the member-batched policy forward is ONE population-level
+call (the module's ``pop_policy``: one ``pop_matmul`` per layer), so the
+kernel runs on the card. Trajectories come back flattened to
+``(N, num_steps * num_envs, ...)`` time-major per env, ready for the FIFO
+insert; a discrete env's actions are integers ``(N, E)``. The unflattened
+trajectory (the PPO kind's) and chunked collection (``chunk_steps``,
+``collect_into``) come with later slices.
 
 The exploration policy contract is ``policy_fn(actors, obs, generator,
 hypers) -> actions`` over member-stacked actors and (N, E, obs)
@@ -25,7 +26,10 @@ def exploration_policy(module):
     """Exploration policy of a functional RL module, driven by per-member
     hypers. td3-style modules add gaussian ``exploration_noise`` whose
     scale is the member's ``explore_noise`` hyper, else its ``noise``
-    hyper, else the module's default ``noise``.
+    hyper, else the module's default ``noise``; dqn-style modules act
+    epsilon-greedily with the member's ``epsilon`` (an (N,) vector), else
+    the module's default; anything else (sac's stochastic policy) just
+    draws from the generator.
 
     ``explore_noise`` is deliberately its own hyper: td3's ``noise`` is
     the target-policy smoothing inside the critic update, and reusing it
@@ -37,6 +41,13 @@ def exploration_policy(module):
             scale = h.get("explore_noise", h.get("noise", defaults["noise"]))
             return module.pop_policy(actors, obs, generator,
                                      exploration_noise=scale)
+        return fn
+    if "epsilon" in defaults:
+        def fn(actors, obs, generator, hypers=None):
+            h = hypers if hypers else {}
+            return module.pop_policy(actors, obs, generator,
+                                     epsilon=h.get("epsilon",
+                                                   defaults["epsilon"]))
         return fn
     return lambda actors, obs, generator, hypers=None: module.pop_policy(
         actors, obs, generator)

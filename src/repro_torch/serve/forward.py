@@ -51,9 +51,11 @@ class PolicyForward:
     @classmethod
     def fused_for_agent(cls, agent) -> "PolicyForward":
         """Like :meth:`for_agent`, but the ensemble call runs every member
-        through ONE population-batched forward
-        (``repro_torch.rl.networks.pop_actor_apply``): each linear layer is
-        one ``pop_matmul`` for the whole ensemble. ``member`` is unchanged.
+        through ONE population-batched forward (``repro_torch.rl.networks
+        .pop_*_apply``): each linear layer is one ``pop_matmul`` for the
+        whole ensemble. ``member`` is unchanged. The heads are td3's tanh
+        actor, sac's tanh of the gaussian's mean and dqn's argmax of the
+        Q-values.
 
         The requests are broadcast over members as a stride-0 view
         (``expand``), which the kernel reads in place: no copy per member.
@@ -61,11 +63,19 @@ class PolicyForward:
         from repro_torch.rl import networks as nets
 
         name = getattr(agent.module, "__name__", "").rsplit(".", 1)[-1]
+        heads = {
+            "td3": nets.pop_actor_apply,
+            "sac": lambda actors, obs: torch.tanh(
+                nets.pop_gaussian_actor_apply(actors, obs)[0]),
+            "dqn": lambda actors, obs: torch.argmax(
+                nets.pop_q_net_apply(actors, obs), dim=-1),
+        }
         fwd = cls.for_agent(agent)
-        if name == "td3":
+        head = heads.get(name)
+        if head is not None:
             def members_fn(actors, obs):
                 m = leaves(actors)[0].shape[0]
-                obs_b = obs.unsqueeze(0).expand((m,) + tuple(obs.shape))
-                return nets.pop_actor_apply(actors, obs_b)
+                return head(actors,
+                            obs.unsqueeze(0).expand((m,) + tuple(obs.shape)))
             fwd._members_fn = members_fn
         return fwd

@@ -54,7 +54,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.qwen3_8b",
                  "repro_torch.configs.gemma_7b",
                  "repro_torch.core.cem", "repro_torch.core.shared",
-                 "repro_torch.examples.cemrl", "repro_torch.examples.dvd"):
+                 "repro_torch.examples.cemrl", "repro_torch.examples.dvd",
+                 "repro_torch.rl.sac", "repro_torch.rl.dqn",
+                 "repro_torch.rl.networks", "repro_torch.rl.registry",
+                 "repro_torch.nn.basic", "repro_torch.convert",
+                 "repro_torch.pop.agent", "repro_torch.rollout.collector",
+                 "repro_torch.rollout.evaluator", "repro_torch.rollout.vecenv",
+                 "repro_torch.serve.forward"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

@@ -310,6 +310,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         serve_main(["--algo", "td3", "--ckpt-dir", str(tmp_path),
                     "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_agent("sac", make("pendulum").spec, device="cpu")
+        make_agent("ppo", make("pendulum").spec, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_agent("a2c", make("pendulum").spec, device="cpu")

@@ -3,8 +3,10 @@
 ``PopTrainer`` + ``run_env_loop`` train a small TD3 population with PBT
 (updates start once every buffer can serve a batch, an evolve fires); the
 checkpoint it writes is read back bitwise by the JAX package's
-``repro.serve.load_actor_stack``; the train CLI runs with ``--device cpu``
-and the port's serve CLI serves what it wrote. The CLI refuses to run
+``repro.serve.load_actor_stack`` (TD3's, and DQN's Q-networks); the train
+CLI runs with ``--device cpu`` and the port's serve CLI serves what it
+wrote (``train_then_serve`` runs the same for SAC and DQN from their own
+test files). The CLI refuses to run
 without CUDA unless ``--device cpu`` is given, refuses every flag whose
 subsystem is not ported, ``--arch`` beside ``--algo``, the backends not
 ported, and a ``--ckpt-dir`` that already holds a checkpoint.
@@ -144,6 +146,62 @@ def test_train_cli_on_cpu_then_serve_cli(tmp_path, capsys):
         assert actions.shape == (16, 1) and np.isfinite(actions).all()
 
 
+def train_then_serve(tmp_path, capsys, algo, env, strategy, backend, mode):
+    """SMALL's run of ``algo`` on ``env`` through the train CLI (``--device
+    cpu``), then the checkpoint it wrote served through the serve CLI in
+    ``mode``. The SAC and DQN test files run it for their algorithms
+    under PBT and CEM, on both backends."""
+    ckpt = tmp_path / "ck"
+    argv = ["--algo", algo, "--env", env] + SMALL[4:] + [
+        "--strategy", strategy, "--backend", backend, "--ckpt-dir",
+        str(ckpt), "--device", "cpu"]
+    report = train_main(argv)
+    out = capsys.readouterr().out
+    assert f"[train] algo={algo} env={env} pop=3 strategy={strategy}" in out
+    assert [it for it, _ in report.evolutions] == [2, 4]
+    if strategy == "cem":           # every member drawn afresh
+        assert all(lin == [-1, -1, -1] for _, lin in report.evolutions)
+    assert np.isfinite(report.best_fitness)
+    assert all(torch.isfinite(v).all() for v in report.metrics.values())
+    assert CheckpointManager(ckpt).latest() == 3
+    served = serve_main(["--algo", algo, "--env", env, "--ckpt-dir",
+                         str(ckpt), "--ensemble", "3", "--mode", mode,
+                         "--fused-linear", "--batch", "16", "--requests",
+                         "3", "--device", "cpu"])
+    assert served.server.set.size == 3
+    for obs, actions in served.batches:
+        if algo == "dqn":           # the members' plurality action
+            assert actions.shape == (16,)
+            assert set(np.unique(actions)) <= {0, 1}
+        else:
+            assert actions.shape == (16, 1)
+            assert np.isfinite(actions).all() and np.abs(actions).max() <= 1
+
+
+def test_dqn_checkpoint_is_read_bitwise_by_jax(tmp_path):
+    """A DQN population's ``actors`` aux tree (its Q-networks) crosses to
+    the JAX package's layout bit for bit, as TD3's does."""
+    agent = make_agent("dqn", make("cartpole").spec, device="cpu")
+    pcfg = PopulationConfig(size=3, num_steps=2, pbt_interval=3,
+                            hyper_space=get_algo("dqn").hyper_space)
+    trainer = PopTrainer(agent, pcfg, seed=1, checkpoint_dir=tmp_path)
+    trainer.attach_rollout(make("cartpole"), num_envs=2, collect_steps=8,
+                           batch_size=16, buffer_capacity=256, eval_envs=2)
+    trainer.run_env_loop(2, eval_every=1)
+    trainer.save()
+    jagent = jax_make_agent("dqn", jax_make("cartpole").spec)
+    jactors, _ = jax_load_actor_stack(JaxCheckpointManager(tmp_path), jagent)
+    want = leaves(trainer.actors)
+    got = jax.tree.leaves(jactors)
+    assert len(got) == len(want) == 6
+    assert sorted(jactors) == ["head"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy())
+    actors, _ = load_actor_stack(CheckpointManager(tmp_path), agent)
+    for g, w in zip(leaves(actors), want):
+        assert torch.equal(g, w)
+
+
 def test_train_cli_refuses_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal needs its absence")
@@ -193,7 +251,7 @@ def test_train_cli_refuses_unported_choices(tmp_path):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_main(base + ["--backend", backend])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_main(["--algo", "sac"] + base[2:])
+        train_main(["--algo", "ppo"] + base[2:])
     # dvd, which the JAX CLI does not offer either
     with pytest.raises(SystemExit):
         train_main(base + ["--strategy", "dvd"])
