@@ -27,8 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 for;
   4. update   — one full-width TD3 population update chained 4 times with
                 every kernel, and again with every plain version, from the
-                same state, batches and noise: step-1 gradients and the
-                parameters after 4 steps must agree, the backwards of the
+                same state, batches and noise: step-1 gradients (the plain
+                route's step 1 on the kernel route's ReLU masks, as in
+                every update parity phase below, so that a pre-activation
+                within rounding of zero takes one derivative on both) and
+                the parameters after 4 steps must agree, the backwards of the
                 first step, by shape and gradients asked, must be the 12
                 that phase 3 times per update step, and each step's 24
                 ``pop_matmul`` launches must take the routes the wrapper's
@@ -176,19 +179,44 @@ Phases, in order; any failure raises and the script exits non-zero:
                 DQN update with it, card against CPU;
  25. Fig. 2, SAC — the SAC arm beside phase 15's TD3 one (its dims, N =
                 1, 8, 32, both backends): the median of 3 calls with their
-                min and max (one call where 3 would pass 75 s).
+                min and max (one call where 3 would pass 75 s);
+ 26. PPO kernels — ``pop_matmul`` against its plain version at the slice's
+                new (K, M): first layers of K 3 and 4, the value head
+                256->1 and cartpole's logits 256->2, each narrow shape on
+                both routes, B up to a rollout's 512, forward and under
+                autograd; ``pop_adam`` at PPO's two (N=8, P); then each
+                env's update-step shapes timed beside their bounds, the
+                plain versions and the library calls;
+ 27. PPO update — the population update at full width (N=8, B=256:
+                pendulum and cartpole) chained 4 times with every kernel
+                and again with every plain version: step-1 gradients, the
+                parameters after 4 steps, the first step's 6 backwards and
+                every step's 6 ``pop_matmul`` launches (4 tiled, 2 narrow)
+                and 1 ``pop_adam``;
+ 28. PPO GAE — one cartpole rollout at the train phase's size, holding
+                terminations and truncations: the value call and the
+                advantages and returns, card against CPU;
+ 29. PPO train -> serve — ``repro_torch.launch.train.main --algo ppo``
+                (pendulum, then cartpole; 8 members, PBT, ``--epochs 4``)
+                counted as the train phase, its ms per iteration and busy
+                share; then the checkpoint served through
+                ``repro_torch.launch.serve.main`` (pendulum ``mean``,
+                cartpole ``vote``), 3 ``pop_matmul`` launches a batch,
+                answers against the plain ensemble;
+ 30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 45 s.
 
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
-``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}`` and
-``{"fig2_sac": ...}`` lines, the card's ``nvidia-smi`` name and power
-limit, one JSON line with every kernel's numbers, and ``{"ok": true,
-"device": ...}``.
+``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
+``{"fig2_sac": ...}`` and ``{"ppo": ...}`` lines, the card's
+``nvidia-smi`` name and power limit, one JSON line with every kernel's
+numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import re
 import subprocess
@@ -351,8 +379,33 @@ TORSO_TOL = dict(rtol=1e-4, atol=1e-5)
 # pass 75 s; its projection allows for the host's spread between calls
 # (a cell's slowest call 1.15x its median in PR 22's run 1)
 FIG2_REPS = 3
-FIG2_ARM_LIMIT_S = 75.0
 FIG2_HOST_SPREAD = 1.15
+# slice 11: PPO on pendulum (obs 3, act 1) and cartpole (obs 4, 2
+# actions) at the repo's width, N=8, minibatches of 256. A step runs the
+# actor's 3 layers (a tanh mean, or the logits) and the value head's 3, all
+# differentiated: 6 pop_matmul launches (4 tiled, 2 narrow) and 1 pop_adam
+# over the member's whole {actor, critic[, log_std]} tree; an acting step
+# is the same 6 forwards, a GAE call and an evaluation or served batch 3
+PPO = {"pendulum": dict(obs=3, act=1, discrete=False, mode="mean"),
+       "cartpole": dict(obs=4, act=2, discrete=True, mode="vote")}
+PPO_STEP_ROUTES = {"tiled": 4, "narrow": 2}
+# the (K, M) pairs new to the slice: the first layers of obs 3 and 4, the
+# value head and cartpole's logits
+PPO_KM = ((3, 256), (4, 256), (256, 1), (256, 2))
+# the training entry point for PPO: 8 members, 5 iterations of a rollout
+# of 64 steps x 8 envs in minibatches of 256 for 4 epochs (8 chained
+# updates), PBT every 2, an evaluation every iteration
+PPO_TRAIN = dict(steps=5, pbt_interval=2, eval_every=1, num_envs=8,
+                 collect_steps=64, batch=256, epochs=4)
+# the GAE phase: card against CPU on the same rollout (the same float32
+# recursion); half the envs start 20 steps before cartpole's time limit,
+# so the rollout holds truncations beside its terminations
+GAE_TOL = dict(rtol=1e-5, atol=1e-6)
+# Fig. 2's arms beside the TD3 one: the seconds each may take with
+# FIG2_REPS calls a cell, and the pop_matmul and pop_adam launches of one
+# vectorized update step
+FIG2_ARMS = {"sac": dict(limit_s=75.0, launches=(24, 3)),
+             "ppo": dict(limit_s=45.0, launches=(6, 1))}
 
 
 def log(msg: str):
@@ -932,6 +985,60 @@ def backwards_of(fn):
         pm.PopMatmul.backward = orig
 
 
+@contextlib.contextmanager
+def kernel_relu_masks(masks, *, replay: bool):
+    """The step-1 gradient checks' common ReLU masks. Recording (``replay``
+    False): every ``pop_matmul`` call of the kernel route appends its ReLU
+    mask (y > 0) to ``masks``, in call order. Replaying: every plain-route
+    ReLU (``networks.pop_matmul_plain``) takes the next recorded mask in
+    place of its own, so a pre-activation within rounding of zero, where
+    the two routes' own masks may differ, gets the kernel route's
+    derivative; the replay must consume every mask. Yields a dict whose
+    ``"differ"`` counts the mask elements that the plain route's own masks
+    would have set otherwise (a device tensor), and ``"elements"``."""
+    from repro_torch.kernels import pop_matmul as pm
+    from repro_torch.rl import networks as nets
+
+    info = {"differ": 0, "elements": 0}
+    if not replay:
+        forward = pm._forward
+
+        def recording(x, w, b, activation):
+            y = forward(x, w, b, activation)
+            if activation == "relu":
+                masks.append(y > 0)
+            return y
+
+        pm._forward = recording
+        try:
+            yield info
+        finally:
+            pm._forward = forward
+        return
+    plain = nets.pop_matmul_plain
+
+    def replaying(x, w, b=None, *, activation="none"):
+        if activation != "relu":
+            return plain(x, w, b, activation=activation)
+        pre = plain(x, w, b, activation="none")
+        mask = masks.pop(0)
+        if mask.shape != pre.shape:
+            raise AssertionError(f"replayed ReLU mask {tuple(mask.shape)} "
+                                 f"for a layer of {tuple(pre.shape)}")
+        info["differ"] = info["differ"] + ((pre > 0) != mask).sum()
+        info["elements"] += mask.numel()
+        return torch.where(mask, pre, 0.0)
+
+    nets.pop_matmul_plain = replaying
+    try:
+        yield info
+    finally:
+        nets.pop_matmul_plain = plain
+    if masks:
+        raise AssertionError(f"{len(masks)} recorded ReLU masks were not "
+                             f"replayed: the routes' calls differ")
+
+
 def rl_batches(gen, k, n, bsz, obs=3, act=1, discrete=False):
     """``k`` steps of (N, B) replay batches on the card: pendulum's obs 3
     and act 1 by default; ``discrete``: int32 actions in [0, act). Drawn
@@ -982,14 +1089,15 @@ def phase_update_parity():
     for _, k, m, _, _, back in TRAIN_SHAPES:
         for grads, count in back:
             want_backs[(k, m, grads)] += count
-    out = {}
+    out, masks = {}, []
     for route, fused_linear, fused in (("kernels", True, None),
                                        ("plain", False, False)):
         update = td3.make_population_update(fused_linear=fused_linear,
                                             fused=fused)
         reset_counts(pop_matmul, pop_adam)
-        (s1, _), backs = backwards_of(
-            lambda: update(state, first, hypers, noise=noise[0]))
+        with kernel_relu_masks(masks, replay=not fused_linear) as masked:
+            (s1, _), backs = backwards_of(
+                lambda: update(state, first, hypers, noise=noise[0]))
         if fused_linear and backs != want_backs:
             raise AssertionError(f"update: backwards {dict(backs)}, the "
                                  f"timing table says {dict(want_backs)}")
@@ -1024,10 +1132,18 @@ def phase_update_parity():
             raise AssertionError(f"update: non-finite {name}")
     log(f"update parity, kernels vs plain (N={n}, B={bsz}, full width): "
         f"step-1 gradients max abs err {grad_err:.3g} (rtol 1e-4, atol "
-        f"1e-6), parameters after {k_steps} steps max abs err "
-        f"{param_err:.3g} (atol {PARAMS_AFTER_4_ATOL}); pop_matmul "
+        f"1e-6; {masks_text(masked)}), parameters after {k_steps} steps max"
+        f" abs err {param_err:.3g} (atol {PARAMS_AFTER_4_ATOL}); pop_matmul "
         f"launches by route per update step {update_step_routes()}")
     return grad_err, param_err
+
+
+def masks_text(masked):
+    """How many ReLU mask elements the plain route took from the kernel
+    route in place of its own, in a step-1 gradient check."""
+    return (f"the plain route on the kernel route's ReLU masks, "
+            f"{int(masked['differ'])} of {masked['elements']} elements "
+            f"differing from its own")
 
 
 def write_population(ckpt_dir, step, fitness):
@@ -2482,14 +2598,15 @@ def phase_shared_update_parity():
     want_backs = collections.Counter()
     for i, (k, m, _) in enumerate(SHARED_ACTOR_LAYERS):
         want_backs[(k, m, "wb" if i == 0 else "xwb")] += 2
-    out = {}
+    out, masks = {}, []
     for route, fused in (("kernels", None), ("plain", False)):
         update = shared.make_shared_critic_update(
             dvd_coef_fn=lambda step: coef, probe_size=SHARED["probe"],
             train_frac=SHARED["train_frac"], fused=fused)
         reset_counts(pop_matmul, pop_adam)
-        (s1, m1), backs = backwards_of(
-            lambda: update(state, first, None, noise=noise[0]))
+        with kernel_relu_masks(masks, replay=fused is False) as masked:
+            (s1, m1), backs = backwards_of(
+                lambda: update(state, first, None, noise=noise[0]))
         torch.cuda.synchronize()
         step1 = (pop_matmul.launches, pop_adam.launches)
         if fused is None and (backs != want_backs or step1 != (9, 1)):
@@ -2533,7 +2650,8 @@ def phase_shared_update_parity():
     log(f"shared update parity, kernels vs plain (N={n}, B={bsz}, obs "
         f"{SHARED['obs']}, act {SHARED['act']}, {k_train} trainees, DvD "
         f"coef {coef}, probe {SHARED['probe']}): step-1 gradients max abs "
-        f"err {grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6), "
+        f"err {grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6; "
+        f"{masks_text(masked)}), "
         f"parameters after {k_steps} steps {param_err:.3g} (atol "
         f"{PARAMS_AFTER_4_ATOL}); members {k_train}-{n - 1} bit-identical; "
         f"per step 9 pop_matmul launches "
@@ -2986,14 +3104,15 @@ def phase_sac_dqn_update_parity(algo):
         for grads, count in back:
             want_backs[(k, m, grads)] += count
     per_step = sum(r[4] for r in cfg["shapes"])
-    out = {}
+    out, masks = {}, []
     for route, fused_linear, fused in (("kernels", True, None),
                                        ("plain", False, False)):
         update = agent.module.make_population_update(
             fused_linear=fused_linear, fused=fused)
         reset_counts(pop_matmul, pop_adam)
-        (s1, _), backs = backwards_of(
-            lambda: update(state, first, hypers, noise=at(0)))
+        with kernel_relu_masks(masks, replay=not fused_linear) as masked:
+            (s1, _), backs = backwards_of(
+                lambda: update(state, first, hypers, noise=at(0)))
         if fused_linear and backs != want_backs:
             raise AssertionError(f"{algo} update: backwards {dict(backs)}, "
                                  f"the shape table says {dict(want_backs)}")
@@ -3045,7 +3164,8 @@ def phase_sac_dqn_update_parity(algo):
         param_err = max(param_err, (a - b).abs().max().item())
     log(f"{algo} update parity, kernels vs plain (N={n}, B={bsz}, full "
         f"width, {cfg['env']}): step-1 gradients max abs err "
-        f"{grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6), parameters "
+        f"{grad_err:.3g} ({share:.3g} of rtol 1e-4, atol 1e-6; "
+        f"{masks_text(masked)}), parameters "
         f"after {k_steps} steps {param_err:.3g} (atol "
         f"{PARAMS_AFTER_4_ATOL}); per step {per_step} pop_matmul launches "
         f"{sac_dqn_step_routes(algo)} and {cfg['adam']} pop_adam"
@@ -3068,19 +3188,21 @@ def _plain_head(algo):
     return lambda params, x: nets.pop_q_net_apply(params, x, fused=False)
 
 
-def check_votes(server, obs, actions):
-    """A DQN ensemble's ``vote`` answers: valid actions that equal the
-    plurality of the members' greedy actions by plain layers, on every
-    request where each member's two best Q-values are further apart than
-    TOL allows the kernel to move them. Returns the number of requests
-    left unjudged (a near tie, where rounding may pick either action)."""
+def check_votes(server, obs, actions, scores=None):
+    """A discrete ensemble's ``vote`` answers: valid actions that equal the
+    plurality of the members' greedy actions by plain layers (DQN's
+    Q-values, or ``scores(params, x)``: PPO's logits), on every request
+    where each member's two best scores are further apart than TOL allows
+    the kernel to move them. Returns the number of requests left unjudged
+    (a near tie, where rounding may pick either action)."""
     assert actions.shape == (len(obs),), actions.shape
     n_act = server.spec.act_dim
     assert set(np.unique(actions).tolist()) <= set(range(n_act)), actions
     x = torch.from_numpy(obs).to("cuda")
     with torch.inference_mode():
-        q = _plain_head("dqn")(server.set.params, x.unsqueeze(0).expand(
-            server.set.size, *x.shape))
+        q = (scores or _plain_head("dqn"))(
+            server.set.params, x.unsqueeze(0).expand(server.set.size,
+                                                     *x.shape))
     top2 = q.topk(2, dim=-1).values
     clear = ((top2[..., 0] - top2[..., 1])
              > 2 * (TOL["atol"] + TOL["rtol"] * top2[..., 0].abs())).all(0)
@@ -3088,7 +3210,7 @@ def check_votes(server, obs, actions):
     want = votes.argmax(-1).cpu().numpy()
     clear = clear.cpu().numpy()
     if not (actions[clear] == want[clear]).all():
-        raise AssertionError("dqn vote answers differ from the plain "
+        raise AssertionError("vote answers differ from the plain "
                              "ensemble's plurality")
     return int((~clear).sum())
 
@@ -3291,17 +3413,16 @@ def phase_torso():
             "params_held": held, "params": total, "forward_ms": fwd_ms}
 
 
-def phase_fig2_sac():
-    """Fig. 2's SAC arm, beside the TD3 one (the same dims: pendulum, the
-    repo's width, B=256, 32 chained steps a call, N = 1, 8, 32): ms per
-    member-update-step of the sequential arm (no kernel) and the
-    vectorized one (24 pop_matmul and 3 pop_adam launches a step), the
-    median of FIG2_REPS synchronised calls each with their min and max,
-    after a warm-up call of one step. Where the arm would pass
-    FIG2_ARM_LIMIT_S with FIG2_REPS calls at the largest N (judged from
-    its time so far and its calls at the size before, times
-    FIG2_HOST_SPREAD), the sequential arm's cell there is one call, and
-    says so."""
+def phase_fig2_arm(algo):
+    """One of Fig. 2's arms beside the TD3 one (the same dims: pendulum,
+    the repo's width, B=256, 32 chained steps a call, N = 1, 8, 32): ms
+    per member-update-step of the sequential arm (no kernel) and the
+    vectorized one (FIG2_ARMS' pop_matmul and pop_adam launches a step),
+    the median of FIG2_REPS synchronised calls each with their min and
+    max, after a warm-up call of one step. Where the arm would pass its
+    limit_s with FIG2_REPS calls at the largest N (judged from its time
+    so far and its calls at the size before, times FIG2_HOST_SPREAD), the
+    sequential arm's cell there is one call, and says so."""
     from repro_torch.core.hyperparams import sample_hypers
     from repro_torch.envs import make
     from repro_torch.kernels.pop_adam import pop_adam
@@ -3311,14 +3432,17 @@ def phase_fig2_sac():
     from repro_torch.tree import tree_map
 
     k, bsz = FIG2["num_steps"], FIG2["batch"]
-    agent = make_agent("sac", make("pendulum").spec, device="cuda")
+    limit_s = FIG2_ARMS[algo]["limit_s"]
+    per_step = FIG2_ARMS[algo]["launches"]
+    agent = make_agent(algo, make("pendulum").spec, device="cuda")
     rows = {"sequential": {}, "vectorized": {}}
     t_start = time.perf_counter()
     for n in FIG2["sizes"]:
         state = agent.population_init(torch.Generator().manual_seed(SEED), n)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-        hypers = sample_hypers(gen, get_algo("sac").hyper_space, n)
-        batches = rl_batches(gen, k, n, bsz)
+        hypers = sample_hypers(gen, get_algo(algo).hyper_space, n)
+        batches = (ppo_batches(gen, state, k, n, bsz) if algo == "ppo"
+                   else rl_batches(gen, k, n, bsz))
         for backend in rows:
             update = make_update(agent, backend, num_steps=k)
             st = tree_map(torch.clone, state)
@@ -3334,7 +3458,7 @@ def phase_fig2_sac():
                 ahead = FIG2_HOST_SPREAD * FIG2_REPS * (
                     rows[backend][last]["median_ms"] * n / last
                     + rows["vectorized"][last]["median_ms"]) / 1e3
-                if time.perf_counter() - t_start + ahead > FIG2_ARM_LIMIT_S:
+                if time.perf_counter() - t_start + ahead > limit_s:
                     reps = 1
             times = []
             reset_counts(pop_matmul, pop_adam)
@@ -3348,36 +3472,479 @@ def phase_fig2_sac():
                 times.append(start.elapsed_time(end))
                 if not all(torch.isfinite(v).all()
                            for v in metrics.values()):
-                    raise AssertionError(f"fig2 sac ({backend}, N={n}): "
-                                         f"non-finite metrics")
+                    raise AssertionError(f"fig2 {algo} ({backend}, N={n}):"
+                                         f" non-finite metrics")
             launches = (pop_matmul.launches, pop_adam.launches)
-            want = ((24 * k * reps, 3 * k * reps) if backend == "vectorized"
-                    else (0, 0))
+            want = ((per_step[0] * k * reps, per_step[1] * k * reps)
+                    if backend == "vectorized" else (0, 0))
             if launches != want:
-                raise AssertionError(f"fig2 sac ({backend}, N={n}): "
+                raise AssertionError(f"fig2 {algo} ({backend}, N={n}): "
                                      f"launches {launches}, want {want}")
             med = float(np.median(times))
             rows[backend][n] = {
                 "median_ms": med, "min_ms": min(times),
                 "max_ms": max(times), "calls": reps,
                 "ms_per_member_update_step": med / (k * n)}
-            log(f"fig2 sac {backend} N={n}: {med:.2f} ms a call of {k} "
+            log(f"fig2 {algo} {backend} N={n}: {med:.2f} ms a call of {k} "
                 f"steps (median of {reps}, min {min(times):.2f}, max "
                 f"{max(times):.2f}), {med / (k * n) * 1e3:.2f} us per "
                 f"member-update-step"
                 + ("" if reps == FIG2_REPS else
                    f"; one call only: with {FIG2_REPS} the arm would pass "
-                   f"{FIG2_ARM_LIMIT_S:.0f} s"))
+                   f"{limit_s:.0f} s"))
             del st
     lo, hi = min(FIG2["sizes"]), max(FIG2["sizes"])
     ratio = {b: by[hi]["median_ms"] / by[lo]["median_ms"]
              for b, by in rows.items()}
-    log(f"fig2 sac: a call's time at N={hi} over N={lo}: vectorized "
+    seconds = time.perf_counter() - t_start
+    log(f"fig2 {algo}: a call's time at N={hi} over N={lo}: vectorized "
         f"{ratio['vectorized']:.2f}x, sequential {ratio['sequential']:.2f}x"
-        f"; the arm took {time.perf_counter() - t_start:.1f} s")
-    return {"algo": "sac", "batch": bsz, "num_steps": k,
+        f"; the arm took {seconds:.1f} s")
+    return {"algo": algo, "batch": bsz, "num_steps": k,
             "hidden": [256, 256], "reps": FIG2_REPS, "calls": rows,
-            f"call_ratio_n{hi}_over_n{lo}": ratio}
+            f"call_ratio_n{hi}_over_n{lo}": ratio, "seconds": seconds}
+
+
+# ------------------------------------------------------------------ PPO
+def ppo_layers(env):
+    """(actor, value) layers of a PPO member on ``env``: (K, M, act) each;
+    the actor's head is a tanh mean (continuous) or the logits."""
+    cfg = PPO[env]
+    trunk = ((cfg["obs"], 256, "relu"), (256, 256, "relu"))
+    head = (256, cfg["act"], "none" if cfg["discrete"] else "tanh")
+    return trunk + (head,), trunk + ((256, 1, "none"),)
+
+
+def ppo_shapes(env):
+    """The shape table of one PPO update step: the actor's 3 forwards and
+    the value head's 3, each differentiated once (a first layer reads obs:
+    no dx)."""
+    actor, value = ppo_layers(env)
+    return _shape_rows(actor, 1, "actor") + _shape_rows(value, 1, "value")
+
+
+def ppo_routes(env, what):
+    """pop_matmul launches of each route, by the wrapper's rule: one update
+    or acting step (``"step"``: the actor's and the value head's layers,
+    which must give PPO_STEP_ROUTES), or one net's 3 layers (``"net"``: an
+    evaluation step, a served batch, a GAE value call; SERVED_BATCH_ROUTES).
+    """
+    actor, value = ppo_layers(env)
+    if what == "step":
+        return expect_routes(pop_matmul_routes(
+            POPULATION, PPO_TRAIN["batch"],
+            [(k, m, c) for _, k, m, _, c, _ in ppo_shapes(env)]),
+            PPO_STEP_ROUTES, f"a ppo {env} update step")
+    return expect_routes(pop_matmul_routes(
+        ENSEMBLE, BATCH, [(k, m, 1) for k, m, _ in actor]),
+        SERVED_BATCH_ROUTES, f"a ppo {env} actor forward")
+
+
+def ppo_params(env):
+    """Parameters a PPO member's one Adam step takes: actor, value head and
+    (continuous) log_std."""
+    p = lambda layers: sum(k * m + m for k, m, _ in layers)
+    actor, value = ppo_layers(env)
+    return p(actor) + p(value) + (0 if PPO[env]["discrete"]
+                                  else PPO[env]["act"])
+
+
+def ppo_batches(gen, state, k, n, bsz, obs=3, act=1, discrete=False):
+    """``k`` steps of (N, B) on-policy minibatches on the card (pendulum's
+    obs 3 and act 1 by default): the collected log-probs are the members'
+    own by plain layers plus N(0, 0.1^2), so some ratios clip and some do
+    not; values, advantages and returns standard normal."""
+    from repro_torch.rl import ppo
+
+    shape = (k, n, bsz)
+    out = {"obs": torch.randn(shape + (obs,), generator=gen, device="cuda")}
+    out["action"] = (
+        torch.randint(0, act, shape, generator=gen, device="cuda",
+                      dtype=torch.int32) if discrete else
+        torch.randn(shape + (act,), generator=gen, device="cuda"))
+    with torch.no_grad():
+        logp = torch.stack([ppo._pop_log_prob_entropy(
+            state.params, out["obs"][i], out["action"][i], fused=False)[0]
+            for i in range(k)])
+    out["log_prob"] = logp + 0.1 * torch.randn(shape, generator=gen,
+                                               device="cuda")
+    for key in ("value", "advantage", "return"):
+        out[key] = torch.randn(shape, generator=gen, device="cuda")
+    return out
+
+
+def phase_ppo_kernels():
+    """pop_matmul against its plain version at PPO_KM on both routes (every
+    narrow shape also launched on the tiled route), N 1 and 8, B 1, 33, a
+    minibatch and a rollout's 512 (the GAE value call), x broadcast or
+    not, 3 activations, and under autograd; pop_adam at PPO's two (N=8, P);
+    then each env's update-step shapes timed beside their bounds, the
+    plain versions and the library calls. Returns the numbers."""
+    from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
+                                                pop_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = share = 0.0
+    cases = 0
+    want = dict.fromkeys(pop_matmul.launches_by_route, 0)
+    reset_counts(pop_matmul)
+    rollout = PPO_TRAIN["collect_steps"] * PPO_TRAIN["num_envs"]
+    for n in (1, POPULATION):
+        for bsz in (1, 33, PPO_TRAIN["batch"], rollout):
+            for k, m in PPO_KM:
+                routes = {_route(n, bsz, k, m), "tiled"}
+                w = torch.randn((n, k, m), generator=gen,
+                                device="cuda") / k ** 0.5
+                b = torch.randn((n, m), generator=gen, device="cuda")
+                xs = torch.randn((n, bsz, k), generator=gen, device="cuda")
+                one = torch.randn((bsz, k), generator=gen, device="cuda")
+                for x in (xs, one.unsqueeze(0).expand(n, bsz, k)):
+                    for act in ("none", "relu", "tanh"):
+                        ref = pop_matmul_plain(x, w, b, activation=act)
+                        for route in sorted(routes):
+                            y = _launch(x, w, b, act, route=route)
+                            torch.cuda.synchronize()
+                            torch.testing.assert_close(y, ref, **TOL)
+                            worst = max(worst, (y - ref).abs().max().item())
+                            share = max(share, tol_share(y, ref, TOL))
+                            want[route] += 1
+                            cases += 1
+    by_route = dict(pop_matmul.launches_by_route)
+    if by_route != want or sum(want.values()) != cases:
+        raise AssertionError(f"ppo pop_matmul cases by route {by_route}, "
+                             f"want {want}")
+    grad_err, fwd_err, grad_share, grad_n = grad_cases(PPO_KM, gen)
+    log(f"pop_matmul == plain at the PPO shapes on {cases} forward cases "
+        f"((K,M) {list(PPO_KM)}, N 1/8, B 1/33/{PPO_TRAIN['batch']}/"
+        f"{rollout}, x broadcast or not, 3 activations, narrow shapes on "
+        f"both routes; by route {by_route}), max abs err {worst:.3g}; "
+        f"backward (dx, dw, db) on {grad_n} cases, max abs err "
+        f"{grad_err:.3g}")
+    sizes = sorted({(POPULATION, ppo_params(env)) for env in PPO})
+    adam_err, adam_share = adam_cases(gen, sizes)
+    log(f"pop_adam == plain at {sizes}, max abs err {adam_err:.3g}, "
+        f"{adam_share:.3g} of the tolerance")
+
+    out = {"max_abs_err": max(worst, fwd_err), "grad_max_abs_err": grad_err,
+           "adam_max_abs_err": adam_err, "share": max(share, grad_share),
+           "adam_share": adam_share, "forward_cases": cases,
+           "backward_cases": grad_n, "by_route": by_route}
+    for env in PPO:
+        rows = training_rows(ppo_shapes(env), gen, label=f"ppo {env} ")
+        adam = [adam_row(gen, f"ppo {env}", POPULATION, ppo_params(env))]
+        per_step = lambda key: sum(r[key] * r["launches_per_update_step"]
+                                   for r in rows)
+        out[env] = {
+            "work": f"the 6 pop_matmul forwards and the 1 pop_adam launch "
+                    f"of one ppo update step (N={POPULATION}, "
+                    f"B={PPO_TRAIN['batch']}, {env}); device times, CUDA "
+                    f"graph replay, L2-warm",
+            "pop_matmul": {key: per_step(key) for key in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "pop_matmul_backward_ms": sum(r["backward_ms_per_step"]
+                                          for r in rows),
+            "pop_matmul_backward_bound_ms": sum(
+                r["backward_bound_ms_per_step"] for r in rows),
+            "pop_adam": {key: adam[0][key] for key in
+                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "per_launch": rows, "pop_adam_per_launch": adam}
+        log(f"ppo {env} update step on the card: pop_matmul forwards "
+            f"{out[env]['pop_matmul']['ms'] * 1e3:.3f} us (bound "
+            f"{out[env]['pop_matmul']['bound_ms'] * 1e3:.3f}), backward "
+            f"bmm {out[env]['pop_matmul_backward_ms'] * 1e3:.3f} us, "
+            f"pop_adam {out[env]['pop_adam']['ms'] * 1e3:.3f} us (bound "
+            f"{out[env]['pop_adam']['bound_ms'] * 1e3:.3f})")
+    return out
+
+
+def phase_ppo_update_parity(env):
+    """One full-width PPO population update (N=8, B=256) chained 4 times
+    with every kernel and again with every plain version, from one state,
+    batch stack and hypers: step-1 gradients (Adam's first moments / 0.1,
+    the plain route on the kernel route's ReLU masks) and the parameters
+    after 4 steps must agree, the first step must run the shape table's 6
+    backwards, and every step 6 pop_matmul launches (4 tiled, 2 narrow)
+    and 1 pop_adam."""
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.core.vectorize import chain_steps
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.rl import get_algo, make_agent, ppo
+    from repro_torch.tree import leaves
+
+    cfg = PPO[env]
+    k_steps, n, bsz = 4, POPULATION, PPO_TRAIN["batch"]
+    agent = make_agent("ppo", make(env).spec, device="cuda")
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    hypers = sample_hypers(gen, get_algo("ppo").hyper_space, n)
+    batches = ppo_batches(gen, state, k_steps, n, bsz, cfg["obs"],
+                          cfg["act"], cfg["discrete"])
+    first = {k: v[0] for k, v in batches.items()}
+    rest = {k: v[1:] for k, v in batches.items()}
+    want_backs = collections.Counter()
+    for _, k, m, _, _, back in ppo_shapes(env):
+        for grads, count in back:
+            want_backs[(k, m, grads)] += count
+    out, masks = {}, []
+    for route, fused_linear, fused in (("kernels", True, None),
+                                       ("plain", False, False)):
+        update = ppo.make_population_update(fused_linear=fused_linear,
+                                            fused=fused)
+        reset_counts(pop_matmul, pop_adam)
+        with kernel_relu_masks(masks, replay=not fused_linear) as masked:
+            (s1, _), backs = backwards_of(
+                lambda: update(state, first, hypers))
+        if fused_linear and backs != want_backs:
+            raise AssertionError(f"ppo {env} update: backwards "
+                                 f"{dict(backs)}, the shape table says "
+                                 f"{dict(want_backs)}")
+        s4, metrics = chain_steps(update, k_steps - 1)(s1, rest, hypers)
+        torch.cuda.synchronize()
+        counts = (pop_matmul.launches, pop_adam.launches)
+        want = (6 * k_steps, k_steps) if fused is None else (0, 0)
+        by_route = dict(pop_matmul.launches_by_route)
+        want_routes = scaled(ppo_routes(env, "step"),
+                             k_steps if fused is None else 0)
+        if counts != want or by_route != want_routes:
+            raise AssertionError(f"ppo {env} update ({route}): launches "
+                                 f"(pop_matmul, pop_adam) {counts}, want "
+                                 f"{want}; by route {by_route}, want "
+                                 f"{want_routes}")
+        for name, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"ppo {env} update: non-finite {name}")
+        out[route] = ([m / 0.1 for m in leaves(s1.opt.mu)],
+                      leaves(s4.params))
+    grad_err = param_err = share = 0.0
+    for g, r in zip(*(out[k][0] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(g, r, **STEP1_GRAD_TOL)
+        grad_err = max(grad_err, (g - r).abs().max().item())
+        share = max(share, tol_share(g, r, STEP1_GRAD_TOL))
+    for a, b in zip(*(out[k][1] for k in ("kernels", "plain"))):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=PARAMS_AFTER_4_ATOL)
+        param_err = max(param_err, (a - b).abs().max().item())
+    log(f"ppo {env} update parity, kernels vs plain (N={n}, B={bsz}, full "
+        f"width): step-1 gradients max abs err {grad_err:.3g} "
+        f"({share:.3g} of rtol 1e-4, atol 1e-6; {masks_text(masked)}), "
+        f"parameters after {k_steps} steps {param_err:.3g} (atol "
+        f"{PARAMS_AFTER_4_ATOL}); per step 6 pop_matmul launches "
+        f"{ppo_routes(env, 'step')} and 1 pop_adam; backwards of step 1 "
+        f"{dict(want_backs)}")
+    return {"grad_max_abs_err": grad_err, "grad_share": share,
+            "param_max_abs_err": param_err,
+            "relu_mask_elements_differing": int(masked["differ"]),
+            "pop_matmul_per_step": ppo_routes(env, "step"),
+            "pop_adam_per_step": 1, "backwards_per_step": 6}
+
+
+def phase_ppo_gae():
+    """GAE on the card against the CPU on one rollout at the train phase's
+    size (cartpole, 8 members, 64 steps x 8 envs), collected with half the
+    envs 20 steps before the time limit, so it holds terminations and
+    truncations: the GAE value call (3 pop_matmul launches) against its
+    plain version on the CPU at TOL, then the advantages and returns from
+    the same values at GAE_TOL, each member with its own discount and
+    gae_lambda. Returns the numbers."""
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.core.hyperparams import sample_hypers
+    from repro_torch.data import compute_gae
+    from repro_torch.envs import make
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import get_algo, make_agent
+    from repro_torch.tree import tree_map
+
+    t = PPO_TRAIN
+    env = make("cartpole")
+    agent = make_agent("ppo", env.spec, device="cuda")
+    trainer = PopTrainer(agent, PopulationConfig(size=POPULATION,
+                                                 strategy="none"),
+                         seed=SEED)
+    engine = trainer.attach_rollout(
+        env, num_envs=t["num_envs"], collect_steps=t["collect_steps"],
+        batch_size=t["batch"], epochs=t["epochs"])
+    vs = engine.vstate
+    clock = vs.env_state["t"].clone()
+    clock[:, ::2] = env.spec.episode_length - 20
+    vs = vs._replace(env_state={**vs.env_state, "t": clock})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    hypers = sample_hypers(gen, get_algo("ppo").hyper_space, POPULATION)
+    _, traj = engine.collector.collect(trainer.actors, vs, gen,
+                                       t["collect_steps"], hypers,
+                                       flat=False)
+    bufs = engine.exp.add(engine.bufs, traj)
+    d = bufs.data
+    ends = {"terminations": int(d["done"].sum()),
+            "truncations": int(d["truncated"].sum())}
+    if min(ends.values()) == 0:
+        raise AssertionError(f"ppo gae: the rollout holds {ends}")
+    reset_counts(pop_matmul)
+    adv, ret = engine.advantages(bufs, trainer.actors, hypers)
+    torch.cuda.synchronize()
+    if pop_matmul.launches_by_route != ppo_routes("cartpole", "net"):
+        raise AssertionError(f"ppo gae: the value call launched "
+                             f"{pop_matmul.launches_by_route}")
+    n, steps, e = d["reward"].shape
+    next_obs = d["next_obs"].flatten(1, 2)
+    cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)
+    with torch.no_grad():
+        next_v = agent.pop_value(trainer.actors, next_obs)
+        next_v_cpu = agent.pop_value(cpu(trainer.actors), next_obs.cpu())
+    torch.testing.assert_close(next_v.cpu(), next_v_cpu, **TOL)
+    value_err = (next_v.cpu() - next_v_cpu).abs().max().item()
+    args = (d["reward"], d["value"], next_v.reshape(n, steps, e), d["done"],
+            torch.maximum(d["done"], d["truncated"]), hypers["discount"],
+            hypers["gae_lambda"])
+    card = compute_gae(*args)
+    host = compute_gae(*cpu(args))
+    if not all(torch.equal(a, b) for a, b in zip(card, (adv, ret))):
+        raise AssertionError("ppo gae: the engine's advantages differ from "
+                             "compute_gae on its own values")
+    errs = {}
+    for name, a, b in zip(("advantages", "returns"), card, host):
+        torch.testing.assert_close(a.cpu(), b, **GAE_TOL, msg=name)
+        errs[name] = ((a.cpu() - b).abs().max().item(),
+                      tol_share(a.cpu(), b, GAE_TOL))
+    log(f"ppo gae, card == CPU on one cartpole rollout ({n} members, "
+        f"{steps} steps x {e} envs, {ends}): the value call (3 pop_matmul "
+        f"launches) max abs err {value_err:.3g} (rtol=atol=1e-5); "
+        + ", ".join(f"{k} max abs err {v[0]:.3g} ({v[1]:.3g} of rtol 1e-5, "
+                    f"atol 1e-6)" for k, v in errs.items()))
+    return {"value_max_abs_err": value_err, **ends,
+            **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
+            **{f"{k}_share": v[1] for k, v in errs.items()}}
+
+
+def phase_ppo_train_serve(env, ckpt_dir):
+    """The training entry point for PPO on ``env``: 8 members, PBT,
+    ``--epochs 4``, with the launch counts set to 0 just before and read
+    just after (6 pop_matmul launches an acting step and an update step, 3
+    a GAE value call and an evaluation step, 1 pop_adam an update step);
+    losses, fitness, evolutions and the checkpoint are checked, then ms per
+    iteration and the busy share measured. Then the checkpoint is served
+    through the serving entry point (pendulum ``mean``, cartpole
+    ``vote``), counted the same way (3 pop_matmul launches a batch) and
+    checked against the plain ensemble. Returns the numbers."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.envs import make
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.rl import networks as nets
+
+    cfg, t = PPO[env], PPO_TRAIN
+    spec = make(env).spec
+    argv = ["--algo", "ppo", "--env", env,
+            "--population", str(POPULATION), "--steps", str(t["steps"]),
+            "--pbt-interval", str(t["pbt_interval"]),
+            "--eval-every", str(t["eval_every"]),
+            "--num-envs", str(t["num_envs"]),
+            "--collect-steps", str(t["collect_steps"]),
+            "--batch", str(t["batch"]), "--epochs", str(t["epochs"]),
+            "--fused-adam", "--fused-linear", "--ckpt-dir", ckpt_dir,
+            "--seed", str(SEED)]
+    report, wall, mm, by_route, adam = _run_counted(lambda: train_main(argv))
+    iters = t["steps"]
+    k = t["epochs"] * t["collect_steps"] * t["num_envs"] // t["batch"]
+    evals = iters // t["eval_every"]
+    acting = t["collect_steps"] * iters
+    single = iters + spec.episode_length * evals   # GAE and evaluation
+    want = {"pop_matmul": 6 * (acting + k * iters) + 3 * single,
+            "pop_adam": k * iters}
+    want_routes = added(scaled(ppo_routes(env, "step"), acting + k * iters),
+                        scaled(ppo_routes(env, "net"), single))
+    launches = {"pop_matmul": mm, "pop_adam": adam}
+    if launches != want or by_route != want_routes:
+        raise AssertionError(f"ppo {env} train: launches {launches}, want "
+                             f"{want}; by route {by_route}, want "
+                             f"{want_routes}")
+    if report.metrics is None or not all(
+            torch.isfinite(v).all() for v in report.metrics.values()):
+        raise AssertionError(f"ppo {env} train: losses not finite: "
+                             f"{report.metrics}")
+    if report.trainer.state.opt.step.tolist() != [k * iters] * POPULATION:
+        raise AssertionError(f"ppo {env} train: Adam steps "
+                             f"{report.trainer.state.opt.step.tolist()}")
+    replace = max(1, round(POPULATION * 0.3))
+    moved = [sum(p != i for i, p in enumerate(lin))
+             for _, lin in report.evolutions]
+    if [it for it, _ in report.evolutions] != list(
+            range(t["pbt_interval"], iters + 1, t["pbt_interval"])) \
+            or replace not in moved:
+        raise AssertionError(f"ppo {env} train: evolutions "
+                             f"{report.evolutions}")
+    mgr = CheckpointManager(ckpt_dir)
+    fitness = mgr.peek_extra()["fitness"]
+    if mgr.latest() != iters - 1 or fitness is None or \
+            len(fitness) != POPULATION or not np.isfinite(fitness).all():
+        raise AssertionError(f"ppo {env} train: checkpoint {mgr.latest()}, "
+                             f"fitness {fitness}")
+    log(f"ppo {env} train: {iters} iterations in {wall:.2f}s through the "
+        f"entry point ({POPULATION} members, {k} chained updates an "
+        f"iteration); launches {launches}, by route {by_route}; evolves "
+        f"{report.evolutions}; best fitness {report.best_fitness:+.2f}; "
+        f"metrics "
+        f"{ {k: round(float(v.mean()), 4) for k, v in report.metrics.items()} }")
+    trainer = report.trainer
+    iter_ms = _sync_ms(trainer.env_iteration)
+    share, busy_ms, busy_wall_ms = device_busy_share(trainer.env_iteration)
+    log(f"ppo {env} train: {iter_ms:.2f} ms per iteration (collect "
+        f"{t['collect_steps']} x {t['num_envs']} envs, GAE, {k} updates), "
+        f"one more profiled: device busy {busy_ms:.2f} ms of "
+        f"{busy_wall_ms:.2f} ms, share "
+        f"{'not measured' if share is None else f'{share:.4f}'}")
+
+    requests = 16
+    serve_argv = ["--algo", "ppo", "--env", env, "--ckpt-dir", ckpt_dir,
+                  "--ensemble", str(ENSEMBLE), "--mode", cfg["mode"],
+                  "--fused-linear", "--batch", str(BATCH), "--requests",
+                  str(requests), "--seed", str(SEED)]
+    served, _, mm, by_route, _ = _run_counted(lambda: serve_main(serve_argv))
+    want_routes = scaled(ppo_routes(env, "net"), requests + 2)
+    if mm != 3 * (requests + 2) or by_route != want_routes:
+        raise AssertionError(f"ppo {env} serve: pop_matmul launches {mm} by "
+                             f"route {by_route}, want {want_routes}")
+    members = served.server.set.members.tolist()
+    if members[0] != int(np.argmax(fitness)):
+        raise AssertionError(f"ppo {env} serve: the fittest member is not "
+                             f"in slot 0: {members}")
+    worst = unjudged = 0
+    for obs, actions in served.batches:
+        if cfg["discrete"]:
+            unjudged += check_votes(
+                served.server, obs, actions,
+                scores=lambda p, x: nets.pop_mlp_apply(p["actor"], x,
+                                                       fused=False))
+        else:
+            worst = max(worst, check_answers(
+                served.server, obs, actions,
+                head=lambda p, x: nets.pop_actor_apply(p["actor"], x,
+                                                       fused=False)))
+    judged = requests * BATCH - unjudged
+    if judged < 0.99 * requests * BATCH:
+        raise AssertionError(f"ppo {env} serve: {unjudged} near ties of "
+                             f"{requests * BATCH} requests")
+    log(f"ppo {env} serve ({cfg['mode']}): {served.requests} requests, "
+        f"{served.req_per_s:.1f} req/s, p50 {served.p50_ms:.4f} ms p99 "
+        f"{served.p99_ms:.4f} ms per batch of {BATCH}, {mm} pop_matmul "
+        f"launches {by_route}, members {members}; answers == plain "
+        f"ensemble" + (f" on {judged} of {requests * BATCH} requests "
+                       f"({unjudged} near ties left unjudged)"
+                       if cfg["discrete"] else f", max abs err {worst:.3g}"))
+    return {"launches": launches, "pop_matmul_launches_by_route":
+            dict(by_route), "train_launches_by_route": want_routes,
+            "updates_per_iteration": k, "seconds": wall, "iter_ms": iter_ms,
+            "device_busy_share": share, "device_busy_ms": busy_ms,
+            "busy_wall_ms": busy_wall_ms,
+            "device_busy_share_unprofiled": (None if share is None
+                                             else busy_ms / iter_ms),
+            "best_fitness": report.best_fitness,
+            "evolutions": report.evolutions,
+            "serve": {"mode": cfg["mode"], "req_per_s": served.req_per_s,
+                      "p50_ms": served.p50_ms, "p99_ms": served.p99_ms,
+                      "launches": mm, "max_abs_err": worst,
+                      "unjudged_near_ties": unjudged}}
 
 
 def _shape_leaves(tree):
@@ -3548,14 +4115,30 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as ckpt_dir:
             sac_dqn[algo].update(phase_sac_dqn_train_serve(algo, ckpt_dir))
     sac_dqn["torso"] = phase_torso()
-    fig2_sac = phase_fig2_sac()
+    fig2_sac = phase_fig2_arm("sac")
     lap("21-25 SAC, DQN, torso, Fig. 2 SAC")
+
+    # 26. PPO's kernel shapes; 27. its update, kernels vs plain; 28. GAE,
+    # card vs CPU; 29. trained and served through the entry points; 30.
+    # Fig. 2's PPO arm
+    torch.cuda.empty_cache()
+    ppo = {"kernels": phase_ppo_kernels()}
+    for env in PPO:
+        ppo[env] = {"update_parity": phase_ppo_update_parity(env)}
+    ppo["gae"] = phase_ppo_gae()
+    for env in PPO:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            ppo[env].update(phase_ppo_train_serve(env, ckpt_dir))
+    ppo["fig2"] = phase_fig2_arm("ppo")
+    lap("26-30 PPO")
     log(f"seconds at the end of each group of phases: {seconds}")
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
                             "dvd": shared["dvd"]["launches"][name],
                             **{f"{a}_train": sac_dqn[a]["launches"][name]
-                               for a in SAC_DQN}}
+                               for a in SAC_DQN},
+                            **{f"ppo_{e}_train": ppo[e]["launches"][name]
+                               for e in PPO}}
     sac_dqn_entry = lambda kernel: {
         a: {"work": sac_dqn["kernels"][a]["work"],
             **sac_dqn["kernels"][a][kernel],
@@ -3564,6 +4147,13 @@ def main() -> int:
                 if kernel == "pop_matmul" else SAC_DQN[a]["adam"]),
             "train_launches": sac_dqn[a]["launches"][kernel]}
         for a in SAC_DQN}
+    ppo_entry = lambda kernel: {
+        e: {"work": ppo["kernels"][e]["work"], **ppo["kernels"][e][kernel],
+            "launches_per_update_step": (
+                ppo[e]["update_parity"]["pop_matmul_per_step"]
+                if kernel == "pop_matmul" else 1),
+            "train_launches": ppo[e]["launches"][kernel]}
+        for e in PPO}
 
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
@@ -3583,16 +4173,21 @@ def main() -> int:
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
                            trained_serve_err, shared_err,
                            sac_dqn["kernels"]["max_abs_err"],
-                           sac_dqn["sac"]["serve"]["max_abs_err"]),
+                           sac_dqn["sac"]["serve"]["max_abs_err"],
+                           ppo["kernels"]["max_abs_err"],
+                           ppo["pendulum"]["serve"]["max_abs_err"],
+                           ppo["gae"]["value_max_abs_err"]),
         "tolerance": "rtol=atol=1e-5",
         "grad_max_abs_err": max(grad_err,
-                                sac_dqn["kernels"]["grad_max_abs_err"]),
+                                sac_dqn["kernels"]["grad_max_abs_err"],
+                                ppo["kernels"]["grad_max_abs_err"]),
         "grad_tolerance": "rtol=atol=1e-4",
         # max |kernel - plain| / (atol + rtol |plain|) over the forward and
         # gradient checks: at most 1 within tolerance
         "max_err_over_tolerance": max(kernel_share, train_share,
                                       shared_share,
-                                      sac_dqn["kernels"]["share"]),
+                                      sac_dqn["kernels"]["share"],
+                                      ppo["kernels"]["share"]),
         "work": "the 24 forward launches of one TD3 update step (N=8, "
                 "B=256); times are device times (CUDA graph replay, "
                 "L2-warm)",
@@ -3636,6 +4231,7 @@ def main() -> int:
                        "pop_matmul_launches_by_route"],
                    "per_launch": shared_mm_rows},
         "sac_dqn": sac_dqn_entry("pop_matmul"),
+        "ppo": ppo_entry("pop_matmul"),
     }, {
         "name": "pop_adam",
         "route": "triton",
@@ -3647,10 +4243,12 @@ def main() -> int:
         "launches_by_path": {**by_path("pop_adam"),
                              "lm_train": lm_train["launches"]["pop_adam"]},
         "max_abs_err": max(adam_err, adam_lm_err,
-                           sac_dqn["kernels"]["adam_max_abs_err"]),
+                           sac_dqn["kernels"]["adam_max_abs_err"],
+                           ppo["kernels"]["adam_max_abs_err"]),
         "tolerance": "rtol=1e-5, atol=1e-6",
         "max_err_over_tolerance": max(adam_share, adam_lm_share,
-                                      sac_dqn["kernels"]["adam_share"]),
+                                      sac_dqn["kernels"]["adam_share"],
+                                      ppo["kernels"]["adam_share"]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -3678,6 +4276,7 @@ def main() -> int:
                            "device times, CUDA graph replay, L2-warm",
                    **shared_adam_row},
         "sac_dqn": sac_dqn_entry("pop_adam"),
+        "ppo": ppo_entry("pop_adam"),
     }]
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
@@ -3759,7 +4358,8 @@ def main() -> int:
     print(json.dumps({"shared": shared}))
     print(json.dumps({"fig4": fig4}))
     print(json.dumps({"sac_dqn": sac_dqn}))
-    print(json.dumps({"fig2_sac": fig2_sac, "phase_seconds": seconds}))
+    print(json.dumps({"fig2_sac": fig2_sac}))
+    print(json.dumps({"ppo": ppo, "phase_seconds": seconds}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

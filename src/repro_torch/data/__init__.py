@@ -1,5 +1,11 @@
-"""Data of the port (``repro.data`` subset): the replay ring of the whole
-population and the synthetic LM token pipeline."""
+"""Data of the port (``repro.data`` subset): the experience contract (the
+replay ring and the trajectory buffer of the whole population, GAE) and
+the synthetic LM token pipeline."""
+from repro_torch.data.experience import (  # noqa: F401
+    EXPERIENCE_KINDS, ExperienceOps, TrajectoryBuffer, compute_gae,
+    experience_ops, select_items, traj_add, traj_full, traj_init, traj_reset,
+    trajectory_spec, transition_spec,
+)
 from repro_torch.data.lm_pipeline import (  # noqa: F401
     host_batches, synthetic_token_stream,
 )

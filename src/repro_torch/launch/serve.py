@@ -31,9 +31,12 @@ layer.
         --ckpt-dir DIR --ensemble 4 --mode mean --fused-linear --batch 256
     python -m repro_torch.launch.serve --algo dqn --env cartpole \\
         --ckpt-dir DIR --ensemble 4 --mode vote --fused-linear --batch 256
+    python -m repro_torch.launch.serve --algo ppo --env pendulum \\
+        --ckpt-dir DIR --mode mean --fused-linear
 
 The ensemble heads are td3's tanh actor, sac's tanh of the gaussian's
-mean and dqn's greedy action; ``vote`` needs a discrete env.
+mean, dqn's greedy action and ppo's tanh mean (continuous) or the argmax
+of its logits (discrete); ``vote`` needs a discrete env.
 
 Runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).
@@ -223,7 +226,7 @@ def main(argv=None):
                     "gemma-7b, rwkv6-1.6b, zamba2-7b or rwkv6-test")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
-                    "as an ensemble (td3, sac, dqn)")
+                    "as an ensemble (td3, sac, dqn, ppo)")
     ap.add_argument("--env", default="pendulum",
                     help="env of the trained checkpoint")
     ap.add_argument("--ckpt-dir", default=None,

@@ -14,15 +14,19 @@ same-family form. The MoE, MLA and frontend configs are refused by name.
     python -m repro_torch.launch.train --arch qwen2-0.5b --population 4 \\
         --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR
 
-``--algo <name>`` (td3, sac or dqn; ppo is refused) trains a population
-of the registered algorithm on an env (pendulum, reacher and mountain_car
+``--algo <name>`` (td3, sac, dqn or ppo) trains a population of the
+registered algorithm on an env (pendulum, reacher and mountain_car
 continuous, cartpole and acrobot discrete) through
-``PopTrainer.attach_rollout`` / ``run_env_loop``: collect,
-insert into the population's replay buffers, sample, and
-``--updates-per-iter`` chained population-level updates per iteration,
-with PBT every ``--pbt-interval`` iterations on the evaluator's fitness
-(or, with ``--strategy cem``, CEM refitting a gaussian over the actors'
-parameters and redrawing every member; lineage ``-1``).
+``PopTrainer.attach_rollout`` / ``run_env_loop``. An off-policy algorithm
+collects, inserts into the population's replay buffers, samples, and
+takes ``--updates-per-iter`` chained population-level updates per
+iteration; ppo collects a rollout of ``--collect-steps`` x ``--num-envs``
+per member, computes GAE on the device and takes ``--epochs`` x
+(rollout / ``--batch``) chained minibatch updates. PBT evolves every
+``--pbt-interval`` iterations on the evaluator's fitness (or, with
+``--strategy cem``, CEM refits a gaussian over the policies' parameters,
+ppo's whole ``{actor, critic, log_std}`` tree, and redraws every member;
+lineage ``-1``).
 On the card every population-batched linear (forward and under autograd)
 is one ``pop_matmul`` launch and every Adam step one ``pop_adam`` launch
 for the whole population; ``--fused-adam`` and ``--fused-linear`` are
@@ -34,6 +38,10 @@ taken so that the JAX CLI's command lines run, and change nothing.
         --fused-adam --fused-linear --ckpt-dir DIR
     python -m repro_torch.launch.train --algo sac --env pendulum ...
     python -m repro_torch.launch.train --algo dqn --env cartpole ...
+    python -m repro_torch.launch.train --algo ppo --env pendulum \\
+        --population 8 --steps 40 --pbt-interval 5 --num-envs 8 \\
+        --collect-steps 64 --batch 128 --epochs 4 --fused-adam \\
+        --fused-linear --ckpt-dir DIR
 
 The RL checkpoint is served by ``repro_torch.launch.serve``. Both run on
 the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
@@ -50,12 +58,13 @@ from dataclasses import dataclass, field
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
+# --epochs when an on-policy algorithm is run without it (the JAX CLI's)
+DEFAULT_EPOCHS = 4
 # flag -> why it is refused
 _REFUSED = {
     "policy_lag": "the overlapped acting engine is not ported yet",
     "chunk_steps": "chunked collection is not ported yet",
     "fused_epoch": "fused train-evolve epochs are not ported yet",
-    "epochs": "on-policy (ppo) training is not ported yet",
     "resume": "checkpoint resume is not ported yet",
     "resize": "elastic resume is not ported yet",
     "devices": "multi-device islands are not ported yet",
@@ -176,7 +185,9 @@ def _run_rl(args) -> TrainReport:
                          checkpoint_dir=args.ckpt_dir)
     trainer.attach_rollout(env, num_envs=args.num_envs,
                            collect_steps=args.collect_steps,
-                           batch_size=args.batch)
+                           batch_size=args.batch,
+                           epochs=(DEFAULT_EPOCHS if args.epochs is None
+                                   else args.epochs))
 
     t0 = time.time()
     report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
@@ -212,11 +223,11 @@ def main(argv=None):
                     "(e.g. qwen2-0.5b, rwkv6-test)")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm from the repro_torch.rl.ALGOS "
-                    "registry (td3, sac, dqn)")
+                    "registry (td3, sac, dqn, ppo)")
     ap.add_argument("--env", default="pendulum",
                     help="env name for the --algo workload: pendulum, "
-                    "reacher, mountain_car (continuous: td3, sac), "
-                    "cartpole, acrobot (discrete: dqn)")
+                    "reacher, mountain_car (continuous: td3, sac, ppo), "
+                    "cartpole, acrobot (discrete: dqn, ppo)")
     ap.add_argument("--population", type=int, default=1)
     ap.add_argument("--strategy", default="pbt",
                     choices=["pbt", "cem", "none"],
@@ -232,6 +243,10 @@ def main(argv=None):
     ap.add_argument("--collect-steps", type=int, default=32)
     ap.add_argument("--updates-per-iter", type=int, default=32,
                     help="chained off-policy updates per iteration")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="on-policy (ppo) epochs over each rollout per "
+                    f"iteration (default {DEFAULT_EPOCHS}); refused beside "
+                    "an off-policy --algo or an --arch")
     ap.add_argument("--batch", type=int, default=8,
                     help="RL: transitions per member-update; LM: sequences "
                     "per member and step")
@@ -270,6 +285,16 @@ def main(argv=None):
                 f"{why}")
     if (args.arch is None) == (args.algo is None):
         ap.error("pass exactly one of --arch (LM) or --algo (RL)")
+    if args.epochs is not None:
+        from repro_torch.rl import ALGOS
+        on_policy = sorted(name for name, a in ALGOS.items()
+                           if a.experience_kind == "trajectory")
+        if args.algo not in on_policy:
+            raise ValueError(
+                f"--epochs is taken by the on-policy algorithms only "
+                f"({', '.join(on_policy)}); "
+                f"{'--arch' if args.algo is None else '--algo ' + args.algo}"
+                f" would ignore it")
     if args.arch is not None:
         return _run_lm(args)
     return _run_rl(args)

@@ -4,6 +4,9 @@ update backends, the rollout engine and the serving layer consume.
   * ``ModuleAgent`` — a functional RL module (td3, sac, dqn): per-member
     state, a per-member ``update`` and a population-level
     ``fused_update``.
+  * ``PPOAgent``    — ``ModuleAgent`` over ppo, the on-policy agent:
+    ``experience_kind = "trajectory"``, and the state-value head GAE
+    bootstraps from.
   * ``LMAgent``     — the language-model train step: state is (params,
     opt_state, step), fitness is -loss.
   * ``SharedCriticAgent`` — the §4.2 family (CEM-RL, DvD): ONE critic
@@ -36,8 +39,9 @@ class ModuleAgent:
     device=..., **init_kwargs) -> state``, ``actor_init`` (one member's
     policy alone), ``policy``/``pop_policy`` and ``make_population_update``.
 
-    The policy is the state's ``actor`` field, or its ``q`` field (DQN)
-    where it has none; ``init_kwargs`` (DQN's ``conv_torso``) go to
+    The policy is the state's ``actor`` field, its ``q`` field (DQN) or
+    its ``params`` field (PPO: the whole ``{actor, critic[, log_std]}``
+    tree); ``init_kwargs`` (DQN's ``conv_torso``) go to
     ``init`` and ``actor_init``. ``device`` is where the agent's parameters
     live: the CUDA device unless the caller passes ``"cpu"``. The
     population-level update always goes through the ``pop_matmul`` and
@@ -92,7 +96,7 @@ class ModuleAgent:
 
     @staticmethod
     def _field(state) -> str:
-        return "actor" if hasattr(state, "actor") else "q"
+        return next(f for f in ("actor", "q", "params") if hasattr(state, f))
 
     def actor_params(self, pop_state):
         return getattr(pop_state, self._field(pop_state))
@@ -103,7 +107,7 @@ class ModuleAgent:
     def with_evolvable_params(self, pop_state, new_params):
         """The state with new policies, copied into the target policies
         too where the state has them (TD3's ``target_actor``, DQN's
-        ``target_q``; SAC has none)."""
+        ``target_q``; SAC and PPO have none)."""
         field = self._field(pop_state)
         repl = {field: new_params}
         if hasattr(pop_state, "target_" + field):
@@ -113,6 +117,34 @@ class ModuleAgent:
     def gather_members(self, pop_state, parents):
         """PBT exploit: member i adopts member ``parents[i]``'s state."""
         return tree_map(lambda x: x[parents], pop_state)
+
+
+class PPOAgent(ModuleAgent):
+    """Adapter for :mod:`repro_torch.rl.ppo`, the on-policy (trajectory)
+    agent. It plugs into the same backends and strategies as the other
+    module agents; what differs is declared: ``experience_kind =
+    "trajectory"`` makes the rollout engine collect fixed-length rollouts
+    with the policy's log_prob and value extras, run GAE on the device and
+    feed shuffled epoch minibatches to the update. ``discrete`` picks the
+    categorical head (a discrete env) over the gaussian one."""
+
+    experience_kind = "trajectory"
+
+    def __init__(self, obs_dim: int, act_dim: int, *, discrete: bool = False,
+                 device=DEFAULT_DEVICE, **init_kwargs):
+        from repro_torch.rl import ppo
+        super().__init__(ppo, obs_dim, act_dim, device=device,
+                         discrete=discrete, **init_kwargs)
+
+    def value(self, actor_params, obs):
+        """One member's state value (the head GAE bootstraps from)."""
+        return self.module.value(actor_params, obs)
+
+    def pop_value(self, actors, obs):
+        """Every member's state values at once: member-stacked params on
+        (N, B, obs) -> (N, B), one ``pop_matmul`` a layer."""
+        from repro_torch.rl import networks as nets
+        return nets.pop_value_apply(actors["critic"], obs)
 
 
 class LMState(NamedTuple):

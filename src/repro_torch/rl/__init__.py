@@ -1,2 +1,3 @@
-"""RL algorithms of the port (TD3 so far) and the algorithm registry."""
+"""RL algorithms of the port (TD3, SAC, DQN, PPO) and the algorithm
+registry."""
 from repro_torch.rl.registry import ALGOS, get_algo, make_agent  # noqa: F401

@@ -1,5 +1,6 @@
-"""The actors, critics and Q-networks of TD3, SAC and DQN, and the
-population-batched applies (``repro.rl.networks``).
+"""The actors, critics and Q-networks of TD3, SAC and DQN, PPO's
+categorical head and state-value critic with their log-probs and
+entropies, and the population-batched applies (``repro.rl.networks``).
 
 Standard size from Haarnoja et al. / Fujimoto et al.: 256-256 MLPs. DQN's
 Q-network is that MLP, or the Atari torso of the paper's Fig. 2 DQN study
@@ -72,6 +73,47 @@ def sample_squashed(eps, mean, log_std):
     return act, logp
 
 
+def logits_init(generator, obs_dim: int, num_actions: int, hidden=HIDDEN,
+                *, device="cpu"):
+    """PPO's categorical-policy head (raw logits; apply with
+    ``mlp_apply``)."""
+    return mlp_init(generator, [obs_dim, *hidden, num_actions],
+                    device=device)
+
+
+def value_init(generator, obs_dim: int, hidden=HIDDEN, *, device="cpu"):
+    """The state-value head V(s) (PPO's critic: no action input)."""
+    return mlp_init(generator, [obs_dim, *hidden, 1], device=device)
+
+
+def value_apply(params, obs):
+    return mlp_apply(params, obs)[..., 0]
+
+
+def gaussian_log_prob(mean, log_std, actions):
+    """Diagonal-gaussian log-density of ``actions`` (summed over the action
+    dims)."""
+    var = torch.exp(2.0 * log_std)
+    return torch.sum(-0.5 * ((actions - mean) ** 2 / var + 2.0 * log_std
+                             + math.log(2.0 * math.pi)), dim=-1)
+
+
+def gaussian_entropy(log_std):
+    return torch.sum(log_std + 0.5 * math.log(2.0 * math.pi * math.e),
+                     dim=-1)
+
+
+def categorical_log_prob(logits, actions):
+    # gather takes int64 indices; the trajectory buffer stores int32
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, actions.long()[..., None])[..., 0]
+
+
+def categorical_entropy(logits):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+
 def critic_init(generator, obs_dim: int, act_dim: int, hidden=HIDDEN, *,
                 device="cpu"):
     """Twin Q networks on ``concat(obs, act)``."""
@@ -133,6 +175,11 @@ def pop_gaussian_actor_apply(params, obs, *, fused=None):
     """Population-level ``gaussian_actor_apply``: (N,B,obs) -> (mean,
     log_std), each (N,B,act)."""
     return _mean_log_std(pop_mlp_apply(params, obs, fused=fused))
+
+
+def pop_value_apply(params, obs, *, fused=None):
+    """Population-level ``value_apply``: (N,B,obs) -> (N,B)."""
+    return pop_mlp_apply(params, obs, fused=fused)[..., 0]
 
 
 def pop_critic_apply(params, obs, act, *, fused=None):

@@ -3,9 +3,8 @@
 Each entry bundles an agent factory (env-spec aware, so action-space
 mismatches fail loudly), the action space it needs, the PBT hyper-space
 (paper §B.1 style ranges, copied from the JAX package) and the experience
-kind. TD3, SAC and DQN are ported; PPO, the JAX package's on-policy
-algorithm, raises "not ported yet" rather than an unknown-name error, so a
-caller can tell the two apart.
+kind: TD3, SAC and DQN (replay) and PPO (trajectory, either action space),
+every algorithm of the JAX package.
 
 SAC's space is the JAX package's verbatim, ``alpha`` included, so that the
 hypers sampled from the same draws match; neither package's SAC update
@@ -16,8 +15,6 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import HyperSpace
-
-_NOT_PORTED = ("ppo",)
 
 
 @dataclass(frozen=True)
@@ -47,6 +44,11 @@ def _make_dqn(spec, **kw):
     return ModuleAgent(dqn, spec.obs_dim, spec.act_dim, **kw)
 
 
+def _make_ppo(spec, **kw):
+    from repro_torch.pop import PPOAgent
+    return PPOAgent(spec.obs_dim, spec.act_dim, discrete=spec.discrete, **kw)
+
+
 ALGOS = {
     "td3": AlgoSpec(
         "td3", _make_td3, "continuous",
@@ -68,13 +70,18 @@ ALGOS = {
         HyperSpace(log_uniform=(("lr", 1e-5, 1e-3),),
                    uniform=(("epsilon", 0.01, 0.3), ("discount", 0.9, 1.0))),
         "replay"),
+    "ppo": AlgoSpec(
+        "ppo", _make_ppo, "both",
+        HyperSpace(log_uniform=(("lr", 1e-5, 1e-3),),
+                   uniform=(("clip_eps", 0.1, 0.3),
+                            ("entropy_coef", 0.0, 0.03),
+                            ("gae_lambda", 0.9, 1.0),
+                            ("discount", 0.9, 1.0))),
+        "trajectory"),
 }
 
 
 def get_algo(name: str) -> AlgoSpec:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ported: {sorted(ALGOS)})")
     spec = ALGOS.get(name)
     if spec is None:
         raise ValueError(f"unknown algorithm {name!r}; registered: "

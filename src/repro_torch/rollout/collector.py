@@ -3,16 +3,20 @@ collector``): each member drives its own ``num_envs`` environments with
 its own exploration, whose knob comes from that member's hypers.
 
 Per acting step the member-batched policy forward is ONE population-level
-call (the module's ``pop_policy``: one ``pop_matmul`` per layer), so the
-kernel runs on the card. Trajectories come back flattened to
-``(N, num_steps * num_envs, ...)`` time-major per env, ready for the FIFO
-insert; a discrete env's actions are integers ``(N, E)``. The unflattened
-trajectory (the PPO kind's) and chunked collection (``chunk_steps``,
-``collect_into``) come with later slices.
+call (the module's ``pop_policy``, or ``pop_explore``: one ``pop_matmul``
+per layer), so the kernel runs on the card. Trajectories come back
+flattened to ``(N, num_steps * num_envs, ...)`` time-major per env, ready
+for the FIFO insert, or time-major ``(N, num_steps, num_envs, ...)`` with
+``flat=False`` (the on-policy shape: GAE needs the time axis); a discrete
+env's actions are integers ``(N, E)``. Chunked collection
+(``chunk_steps``, ``collect_into``) comes with a later slice.
 
 The exploration policy contract is ``policy_fn(actors, obs, generator,
-hypers) -> actions`` over member-stacked actors and (N, E, obs)
-observations.
+hypers) -> actions`` or ``-> (actions, extras)`` over member-stacked
+actors and (N, E, obs) observations; ``extras`` is a dict of (N, E)
+tensors (PPO's ``log_prob`` and ``value``) that the collector records
+beside the transition, because an on-policy update must see the exact
+statistics of the distribution that sampled each action.
 """
 from __future__ import annotations
 
@@ -24,16 +28,21 @@ from repro_torch.tree import tree_map
 
 def exploration_policy(module):
     """Exploration policy of a functional RL module, driven by per-member
-    hypers. td3-style modules add gaussian ``exploration_noise`` whose
-    scale is the member's ``explore_noise`` hyper, else its ``noise``
-    hyper, else the module's default ``noise``; dqn-style modules act
-    epsilon-greedily with the member's ``epsilon`` (an (N,) vector), else
-    the module's default; anything else (sac's stochastic policy) just
-    draws from the generator.
+    hypers. A module exposing ``pop_explore(actors, obs, generator,
+    hypers)`` (the extras-emitting on-policy contract: ppo) is used
+    verbatim; otherwise td3-style modules add gaussian
+    ``exploration_noise`` whose scale is the member's ``explore_noise``
+    hyper, else its ``noise`` hyper, else the module's default ``noise``;
+    dqn-style modules act epsilon-greedily with the member's ``epsilon``
+    (an (N,) vector), else the module's default; anything else (sac's
+    stochastic policy) just draws from the generator.
 
     ``explore_noise`` is deliberately its own hyper: td3's ``noise`` is
     the target-policy smoothing inside the critic update, and reusing it
     for acting would let PBT disable smoothing while tuning exploration."""
+    explore = getattr(module, "pop_explore", None)
+    if explore is not None:
+        return explore
     defaults = getattr(module, "DEFAULT_HYPERS", {})
     if "noise" in defaults:
         def fn(actors, obs, generator, hypers=None):
@@ -58,6 +67,13 @@ def default_exploration(agent):
     return exploration_policy(agent.exploration_module)
 
 
+def split_actions(policy_out):
+    """Normalise a policy result to ``(actions, extras_dict)``."""
+    if isinstance(policy_out, tuple):
+        return policy_out
+    return policy_out, {}
+
+
 class Collector:
     """Drives a population of actors through their batched envs."""
 
@@ -71,15 +87,18 @@ class Collector:
 
     @torch.no_grad()
     def collect(self, actors, vstate, generator, num_steps: int,
-                hypers=None):
+                hypers=None, *, flat: bool = True):
         """Act ``num_steps`` batched steps. Returns ``(vstate, traj)`` with
         traj leaves ``(N, num_steps * num_envs, ...)`` in insertion order
-        (time-major per env, so FIFO eviction drops the oldest first)."""
+        (time-major per env, so FIFO eviction drops the oldest first), or
+        time-major ``(N, num_steps, num_envs, ...)`` with ``flat=False``.
+        Any extras the policy emits are recorded beside the transition."""
         steps = []
         for _ in range(num_steps):
-            actions = self.policy_fn(actors, vstate.obs, generator, hypers)
+            actions, extras = split_actions(
+                self.policy_fn(actors, vstate.obs, generator, hypers))
             vstate, trans = self.venv.step(vstate, actions, generator)
-            steps.append(trans)
-        traj = tree_map(
-            lambda *xs: torch.stack(xs, 1).flatten(1, 2), *steps)
-        return vstate, traj
+            steps.append({**trans, **extras})
+        stack = (lambda *xs: torch.stack(xs, 1).flatten(1, 2)) if flat \
+            else (lambda *xs: torch.stack(xs, 1))
+        return vstate, tree_map(stack, *steps)

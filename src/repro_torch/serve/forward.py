@@ -54,8 +54,9 @@ class PolicyForward:
         through ONE population-batched forward (``repro_torch.rl.networks
         .pop_*_apply``): each linear layer is one ``pop_matmul`` for the
         whole ensemble. ``member`` is unchanged. The heads are td3's tanh
-        actor, sac's tanh of the gaussian's mean and dqn's argmax of the
-        Q-values.
+        actor, sac's tanh of the gaussian's mean, dqn's argmax of the
+        Q-values, and ppo's tanh mean (continuous) or argmax of the logits
+        (discrete), of the ``actor`` subtree of its policy tree.
 
         The requests are broadcast over members as a stride-0 view
         (``expand``), which the kernel reads in place: no copy per member.
@@ -69,6 +70,10 @@ class PolicyForward:
                 nets.pop_gaussian_actor_apply(actors, obs)[0]),
             "dqn": lambda actors, obs: torch.argmax(
                 nets.pop_q_net_apply(actors, obs), dim=-1),
+            "ppo": lambda actors, obs: (
+                nets.pop_actor_apply(actors["actor"], obs)
+                if "log_std" in actors else torch.argmax(
+                    nets.pop_mlp_apply(actors["actor"], obs), dim=-1)),
         }
         fwd = cls.for_agent(agent)
         head = heads.get(name)

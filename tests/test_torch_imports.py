@@ -60,7 +60,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.nn.basic", "repro_torch.convert",
                  "repro_torch.pop.agent", "repro_torch.rollout.collector",
                  "repro_torch.rollout.evaluator", "repro_torch.rollout.vecenv",
-                 "repro_torch.serve.forward"):
+                 "repro_torch.serve.forward", "repro_torch.rl.ppo",
+                 "repro_torch.data.experience",
+                 "repro_torch.examples.pbt_ppo"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

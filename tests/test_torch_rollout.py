@@ -263,7 +263,7 @@ def test_engine_gate_is_the_host_count():
     assert set(metrics) == {"critic_loss", "actor_loss"}
     assert stats["episodes"].shape == (n,)
     assert eng.env_steps_per_iteration == 16
-    agent.experience_kind = "trajectory"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    agent.experience_kind = "episodic"
+    with pytest.raises(ValueError, match="unknown experience kind"):
         RolloutEngine(agent, pcfg, make("pendulum"), update=None,
                       generator=gen, init_state=state)

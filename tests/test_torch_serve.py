@@ -309,7 +309,5 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         serve_main(["--algo", "td3", "--ckpt-dir", str(tmp_path),
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_agent("ppo", make("pendulum").spec, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_agent("a2c", make("pendulum").spec, device="cpu")

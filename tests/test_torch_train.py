@@ -8,7 +8,8 @@ CLI runs with ``--device cpu`` and the port's serve CLI serves what it
 wrote (``train_then_serve`` runs the same for SAC and DQN from their own
 test files). The CLI refuses to run
 without CUDA unless ``--device cpu`` is given, refuses every flag whose
-subsystem is not ported, ``--arch`` beside ``--algo``, the backends not
+subsystem is not ported, ``--arch`` beside ``--algo``, ``--epochs`` beside
+an off-policy ``--algo``, the backends not
 ported, and a ``--ckpt-dir`` that already holds a checkpoint.
 """
 import jax
@@ -211,13 +212,14 @@ def test_train_cli_refuses_without_cuda(tmp_path):
 
 # each refused flag of the JAX training CLI and the error the port gives;
 # ``arch`` is --arch passed beside --algo, which the CLI refuses as the
-# JAX one does
+# JAX one does, and ``epochs`` is --epochs beside an off-policy --algo
+# (here td3), where it would do nothing
 _REFUSED_CASES = (
     ("arch", SystemExit, "pass exactly one of --arch"),
     ("chunk_steps", NotImplementedError, "not supported by the port"),
     ("compile_cache", NotImplementedError, "not supported by the port"),
     ("devices", NotImplementedError, "not supported by the port"),
-    ("epochs", NotImplementedError, "not supported by the port"),
+    ("epochs", ValueError, "taken by the on-policy algorithms only"),
     ("fused_epoch", NotImplementedError, "not supported by the port"),
     ("log_dir", NotImplementedError, "not supported by the port"),
     ("model_axis", NotImplementedError, "not supported by the port"),
@@ -229,8 +231,8 @@ _REFUSED_CASES = (
 
 
 def test_refused_cases_cover_every_refused_flag():
-    assert sorted(f for f, _, _ in _REFUSED_CASES if f != "arch") == \
-        sorted(_REFUSED)
+    assert sorted(f for f, _, _ in _REFUSED_CASES
+                  if f not in ("arch", "epochs")) == sorted(_REFUSED)
 
 
 @pytest.mark.parametrize("flag, error, match", _REFUSED_CASES,
@@ -250,8 +252,6 @@ def test_train_cli_refuses_unported_choices(tmp_path):
     for backend in ("sharded", "islands"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_main(base + ["--backend", backend])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_main(["--algo", "ppo"] + base[2:])
     # dvd, which the JAX CLI does not offer either
     with pytest.raises(SystemExit):
         train_main(base + ["--strategy", "dvd"])
