@@ -70,45 +70,60 @@ Phases, in order; any failure raises and the script exits non-zero:
                 32/64/112/128/256, GQA groups 1/2/4/7, S of 1/63/64/65/128/
                 129/200/512, the bf16 route's tile edges and a ragged 200
                 included, causal and not, both layouts, float32 and bf16),
-                then timed at the four dense and hybrid served shapes
-                beside its bound, its plain version and PyTorch's
+                then timed at the five dense, hybrid and MoE served
+                shapes (qwen3-moe's GQA group of 8 among them) beside its
+                bound, its plain version and PyTorch's
                 ``scaled_dot_product_attention``;
   9. LM parity — ``rwkv6-1.6b`` (2 layers), ``zamba2-7b`` (7: one
                 super-block with the shared attention and a 1-layer tail),
                 ``qwen2-0.5b``, ``qwen3-8b``, ``qwen2-1.5b`` and
                 ``gemma-7b`` (2 layers each; gemma's scaled embeddings,
-                GeGLU and head size 256) at full
+                GeGLU and head size 256), ``qwen3-moe-30b-a3b`` (2 MoE
+                layers, 2 ``flash_attention`` launches) and
+                ``deepseek-v2-lite-16b`` (its dense first layer and one MoE
+                layer, MLA: no kernel) at full
                 width in float32, weights drawn on the card and copied to
                 the CPU: a 256-token prefill's last logits and every
                 decode-state leaf, card (kernels) against CPU (plain
-                versions); a stateless ``lm.forward`` of qwen2-0.5b's
-                2 layers, every logit; then a backward through
+                versions), the MoE archs' with the card's routing replayed
+                on the CPU (``moe_routes``: a route at a top-k tie or a
+                capacity edge would otherwise move a token, and the count
+                of choices the CPU's own gating makes otherwise is
+                logged); a stateless ``lm.forward`` of qwen2-0.5b's and the
+                MoE archs' 2 layers, every logit (the MoE archs' last
+                logits also held to their prefill's); then a backward
+                through
                 ``lm.forward`` of zamba2-7b, rwkv6-1.6b and qwen2-0.5b at
                 ``.smoke()`` width with every parameter requiring grad: no
                 kernel launches and every gradient equals the CPU's; and
                 each of ``flash_attention``, ``wkv6`` and ``ssd`` raises on
                 a CUDA tensor that requires grad;
  10. LM serve — ``qwen2-0.5b``, ``qwen3-8b``, ``rwkv6-1.6b`` and
-                ``zamba2-7b`` at full published size through
+                ``zamba2-7b``, then ``qwen3-moe-30b-a3b`` (61 GB of bf16
+                weights) and ``deepseek-v2-lite-16b``, at full published
+                size through
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
                 --prompt-len 512 --tokens 32``) with every launch count set
-                to 0 just before and read just after: exactly 24, 36, 0
-                and 14 ``flash_attention`` launches, all on the bf16
+                to 0 just before and read just after: exactly 24, 36, 0,
+                14, 48 and 0 ``flash_attention`` launches, all on the bf16
                 tensor-core route, 24 ``wkv6`` for
                 rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no other kernel;
-                prefill and decode times; one prefill and one decode step
-                profiled;
+                the peak of allocated memory under 70 GB; prefill and
+                decode times; one prefill and one decode step profiled;
  11. pop_adam at the LM's size — (4, 494,032,768), qwen2-0.5b's
                 population, and (4, 2^28 + 1), one past the old grid's
                 limit, with a per-member decay and clip scale: kernel ==
                 plain (on the card, over column chunks), in place == out
                 of place bit for bit; timed beside its bound, the plain
                 version and ``torch._fused_adamw_``;
- 12. LM update — qwen2-0.5b at full width with 2 layers in float32, two
-                vectorized population updates on the card (one pop_adam
-                launch each) against the same on the CPU: losses, Adam's
-                first moment after each step (the gradients), and the
-                parameters after each step;
+ 12. LM update — qwen2-0.5b, then deepseek-v2-lite-16b (its dense and
+                one MoE layer, about 1.03 B parameters a member, the card's
+                routing replayed on the CPU), at full width with 2 layers
+                in float32, two vectorized population updates on the card
+                (one pop_adam launch each) against the same on the CPU:
+                losses (deepseek's with the aux term), Adam's first moment
+                after each step (the gradients), and the parameters after
+                each step;
  13. LM train — qwen2-0.5b at full published size (24 layers, remat, bf16
                 over float32 masters), 4 members of 4 x 512 tokens, 4
                 steps with PBT every 2, through ``PopTrainer(LMAgent)``
@@ -117,7 +132,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 losses, lineage, tokens/s per member of each backend, the
                 device's busy share and the peak of allocated memory
                 (under 70 GB);
- 14. LM CLI — ``repro_torch.launch.train.main --arch qwen2-0.5b --smoke``
+ 14. LM CLI — ``repro_torch.launch.train.main --arch A --smoke`` for
+                qwen2-0.5b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b
                 with each backend: launch counts, evolutions, and the
                 checkpoint read back bit for bit;
  15. Fig. 2 — TD3 at the repo's width, batch 256, 32 chained steps a
@@ -262,7 +278,8 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
 FLASH_SHAPES = {"qwen3-8b": (4, 32, 8, 512, 128),
                 "qwen2-0.5b": (4, 14, 2, 512, 64),
                 "zamba2-7b": (4, 32, 32, 512, 112),
-                "gemma-7b": (4, 16, 16, 512, 256)}
+                "gemma-7b": (4, 16, 16, 512, 256),
+                "qwen3-moe-30b-a3b": (4, 32, 4, 512, 128)}
 # the LM path at full width, card (kernels, cuBLAS) against CPU (plain
 # versions): fp32 sums of up to 24,576 terms in other orders, through 2
 # and 7 layers
@@ -270,8 +287,29 @@ PATH_TOL = dict(rtol=1e-3, atol=1e-3)
 PARITY_PROMPT = 256
 # the dense attention archs of the LM parity phase
 DENSE = ("qwen2-0.5b", "qwen3-8b", "qwen2-1.5b", "gemma-7b")
-# the LM serving runs: 4 prompts of 512 tokens, 32 new tokens each
+# slice 12: the mixture-of-experts archs (qwen3-moe's GQA attention takes
+# the flash kernel, deepseek's MLA and every MoE layer compute in plain
+# PyTorch, as the JAX package computes them outside its kernels)
+MOE = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+# the LM parity phase's archs: (arch, layers, kernel launches of the
+# float32 prefill)
+LM_PARITY_ARCHS = (("rwkv6-1.6b", 2, {"wkv6": 2}),
+                   ("zamba2-7b", 7, {"ssd": 7, "flash_attention": 2}),
+                   ("qwen2-0.5b", 2, {"flash_attention": 2}),
+                   ("qwen3-8b", 2, {"flash_attention": 2}),
+                   ("qwen2-1.5b", 2, {"flash_attention": 2}),
+                   ("gemma-7b", 2, {"flash_attention": 2}),
+                   ("qwen3-moe-30b-a3b", 2, {"flash_attention": 2}),
+                   ("deepseek-v2-lite-16b", 2, {}))
+# the LM serving runs: 4 prompts of 512 tokens, 32 new tokens each; each
+# arch with its kernel launches of one served run
 LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
+LM_SERVE_ARCHS = (("qwen2-0.5b", {"flash_attention": 24}),
+                  ("qwen3-8b", {"flash_attention": 36}),
+                  ("rwkv6-1.6b", {"wkv6": 24}),
+                  ("zamba2-7b", {"ssd": 81, "flash_attention": 14}),
+                  ("qwen3-moe-30b-a3b", {"flash_attention": 48}),
+                  ("deepseek-v2-lite-16b", {}))
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -288,6 +326,10 @@ LM_TRAIN = dict(arch="qwen2-0.5b", population=4, batch=4, seq_len=512,
 LM_PEAK_LIMIT = 70e9          # bytes allocated at most in the LM train phase
 LM_UPDATE = dict(arch="qwen2-0.5b", population=2, batch=2, seq_len=64,
                  steps=2)
+# slice 12: the same update parity for deepseek-v2-lite-16b at full width
+# with 2 layers (its dense first layer and one MoE layer), about 1.03 B
+# parameters a member
+LM_UPDATE_MOE = dict(LM_UPDATE, arch="deepseek-v2-lite-16b")
 LM_CLI = ["--arch", "qwen2-0.5b", "--smoke", "--population", "2", "--steps",
           "4", "--pbt-interval", "2", "--batch", "2", "--seq-len", "64"]
 # pop_adam at the LM's flat size, and at one past the old grid's limit of
@@ -1039,6 +1081,89 @@ def kernel_relu_masks(masks, *, replay: bool):
                              f"replayed: the routes' calls differ")
 
 
+@contextlib.contextmanager
+def moe_routes(routes, *, replay: bool):
+    """The card's MoE routing, replayed on the other side of a parity
+    check. Recording (``replay`` False): every call of the port's
+    ``nn.moe._top_k_gating`` appends the expert indices it chose to
+    ``routes``, in call order. Replaying: every call takes the next
+    recorded indices in place of its own, its gates its own probabilities
+    at those indices (normalised as the gating normalises them), so that a
+    token whose k-th and (k+1)-th probabilities lie within rounding of
+    each other, or that sits at an expert's capacity edge, takes one route
+    on both sides; the replay must consume every record. Yields a dict
+    whose ``"differ"`` counts the (token, slot) choices that the replaying
+    side's own gating would have made otherwise, and ``"choices"`` all of
+    them."""
+    from repro_torch.nn import moe
+
+    gating = moe._top_k_gating
+    info = {"differ": 0, "choices": 0}
+    if not replay:
+        def recording(logits, top_k, **kw):
+            probs, gates, idx = gating(logits, top_k, **kw)
+            routes.append(idx.detach())
+            return probs, gates, idx
+
+        moe._top_k_gating = recording
+        try:
+            yield info
+        finally:
+            moe._top_k_gating = gating
+        return
+
+    def replaying(logits, top_k, *, normalize=True):
+        probs, _, own = gating(logits, top_k, normalize=normalize)
+        idx = routes.pop(0).to(own.device)
+        if idx.shape != own.shape:
+            raise AssertionError(f"replayed routes {tuple(idx.shape)} for "
+                                 f"a gating of {tuple(own.shape)}")
+        info["differ"] += int((idx != own).sum())
+        info["choices"] += idx.numel()
+        gates = probs.gather(-1, idx)
+        if normalize:
+            gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+        return probs, gates, idx
+
+    moe._top_k_gating = replaying
+    try:
+        yield info
+    finally:
+        moe._top_k_gating = gating
+    if routes:
+        raise AssertionError(f"{len(routes)} recorded MoE routings were not "
+                             f"replayed: the two sides' calls differ")
+
+
+def lm_param_count(cfg):
+    """Parameters of an attention LM of ``cfg`` (GQA or MLA, dense or MoE
+    layers), reckoned from the config alone: the embedding, the head
+    unless tied, the final norm, and each layer's norms, attention and
+    MLP (the router, the experts and the shared experts of an MoE
+    layer)."""
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = (d * h * (m.qk_nope_dim + m.qk_rope_dim)
+                + d * m.kv_lora_rank + d * m.qk_rope_dim + m.kv_lora_rank
+                + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_dim)
+                + h * m.v_dim * d)
+    else:
+        q, kv = h * cfg.hd, cfg.num_kv_heads * cfg.hd
+        attn = 2 * d * q + 2 * d * kv + (q + 2 * kv) * cfg.qkv_bias \
+            + 2 * cfg.hd * cfg.qk_norm
+    dense = 2 * d + attn + 3 * d * cfg.d_ff
+    n_dense, moe_layer = cfg.num_layers, 0
+    if cfg.moe is not None:
+        e = cfg.moe
+        n_dense = e.first_dense_layers
+        moe_layer = (2 * d + attn + d * e.num_experts
+                     + 3 * e.num_experts * d * e.d_expert
+                     + 3 * d * e.d_expert * e.num_shared)
+    return (cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+            + n_dense * dense + (cfg.num_layers - n_dense) * moe_layer)
+
+
 def rl_batches(gen, k, n, bsz, obs=3, act=1, discrete=False):
     """``k`` steps of (N, B) replay batches on the card: pendulum's obs 3
     and act 1 by default; ``discrete``: int32 actions in [0, act). Drawn
@@ -1706,10 +1831,17 @@ def phase_lm_parity():
     rwkv6-1.6b with 2 layers, zamba2-7b with 7 (a 6-layer super-block with
     the shared attention, and a 1-layer tail), qwen2-0.5b, qwen3-8b,
     qwen2-1.5b and gemma-7b with 2 (the last two are served only at this
-    depth on the card). Weights drawn once on the card and copied to the CPU; one
-    256-token prompt prefilled on both; the last logits and every
-    decode-state leaf must agree; then qwen2-0.5b's stateless forward,
-    every logit. Returns {arch: (max abs err, share of the tolerance)}."""
+    depth on the card), and the MoE archs with 2: qwen3-moe-30b-a3b (2
+    flash_attention launches) and deepseek-v2-lite-16b (its dense first
+    layer and one MoE layer, MLA: no kernel). Weights drawn once on the
+    card and copied to the CPU; one 256-token prompt prefilled on both;
+    the last logits and every decode-state leaf must agree, the MoE archs'
+    with the card's routing replayed on the CPU (``moe_routes``); then the
+    stateless forward of qwen2-0.5b and of the MoE archs, every logit, the
+    MoE archs' with the card prefill's routing replayed on both sides and
+    their last logits held to the prefill's (one group of 256 tokens in
+    both). Returns {arch: (max abs err, share of the tolerance)}, and the
+    MoE archs' routing counts under "routes"."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
@@ -1717,24 +1849,25 @@ def phase_lm_parity():
     from repro_torch.tree import leaves, tree_map
 
     counters = {"wkv6": wkv6, "ssd": ssd, "flash_attention": flash_attention}
-    out = {}
-    for arch, layers, want in (
-            ("rwkv6-1.6b", 2, {"wkv6": 2}),
-            ("zamba2-7b", 7, {"ssd": 7, "flash_attention": 2}),
-            ("qwen2-0.5b", 2, {"flash_attention": 2}),
-            ("qwen3-8b", 2, {"flash_attention": 2}),
-            ("qwen2-1.5b", 2, {"flash_attention": 2}),
-            ("gemma-7b", 2, {"flash_attention": 2})):
+    out, routing = {}, {}
+    for arch, layers, want in LM_PARITY_ARCHS:
+        t_arch = time.perf_counter()
+        is_moe = arch in MOE
+        # the stateless forward's attention launches: the prefill's
+        flash_launches = want.get("flash_attention", 0)
         cfg = _lm_config(arch, num_layers=layers, dtype="float32")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
         params = lm.init_params(gen, cfg)
         tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_PROMPT),
                                generator=gen, device="cuda")
         step = lm.make_serve_step(cfg)
+        routes = []
         reset_counts(*counters.values())
-        logits, state = step(params, {"tokens": tokens},
-                             lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1,
-                                                  device="cuda"), 0)
+        with moe_routes(routes, replay=False):
+            logits, state = step(params, {"tokens": tokens},
+                                 lm.init_decode_state(cfg, 1,
+                                                      PARITY_PROMPT + 1,
+                                                      device="cuda"), 0)
         torch.cuda.synchronize()
         counts = {k: c.launches for k, c in counters.items()}
         expected = {k: want.get(k, 0) for k in counters}
@@ -1746,10 +1879,16 @@ def phase_lm_parity():
                                  f"(flash_attention by route "
                                  f"{flash_routes}), want {expected} for "
                                  f"{layers} layers")
+        moe_layers = len(routes)
+        if is_moe != bool(moe_layers) or (is_moe and moe_layers != layers - (
+                cfg.moe.first_dense_layers)):
+            raise AssertionError(f"{arch} parity: {moe_layers} MoE "
+                                 f"routings for {layers} layers")
         cpu_params = tree_map(lambda t: t.cpu(), params)
-        cpu_logits, cpu_state = step(
-            cpu_params, {"tokens": tokens.cpu()},
-            lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1), 0)
+        with moe_routes(list(routes), replay=True) as replayed:
+            cpu_logits, cpu_state = step(
+                cpu_params, {"tokens": tokens.cpu()},
+                lm.init_decode_state(cfg, 1, PARITY_PROMPT + 1), 0)
         worst = share = 0.0
         pairs = [(logits[:, -1], cpu_logits[:, -1])] + list(
             zip(leaves(state), leaves(cpu_state)))
@@ -1760,36 +1899,65 @@ def phase_lm_parity():
             torch.testing.assert_close(got, want, **PATH_TOL)
             worst = max(worst, (got - want).abs().max().item())
             share = max(share, tol_share(got, want, PATH_TOL))
+        routed = (f"; the card's routing of {moe_layers} MoE layers "
+                  f"replayed on the CPU: {replayed['choices']} choices, "
+                  f"{replayed['differ']} of which the CPU's own gating "
+                  f"makes otherwise" if is_moe else "")
         log(f"{arch} with {layers} layers at full width, fp32, a "
             f"{PARITY_PROMPT}-token prefill: card (kernels) == CPU (plain "
             f"versions) on the last logits and {len(pairs) - 1} state "
             f"leaves, launches {counts}, max abs err {worst:.3g}, "
-            f"{share:.3g} of the tolerance")
+            f"{share:.3g} of the tolerance{routed}")
         out[arch] = (worst, share)
-        if arch == "qwen2-0.5b":
+        if is_moe:
+            routing[arch] = {"prefill": dict(replayed)}
+        if arch == "qwen2-0.5b" or is_moe:
+            prefill_last = logits[:, -1]
             reset_counts(flash_attention)
-            logits, none = lm.forward(params, cfg, {"tokens": tokens})
+            with moe_routes(list(routes), replay=True) as card_own:
+                logits, none = lm.forward(params, cfg, {"tokens": tokens})
             torch.cuda.synchronize()
-            if none is not None or flash_attention.launches != layers:
+            if none is not None or flash_attention.launches != \
+                    flash_launches:
                 raise AssertionError(f"{arch} stateless forward: "
                                      f"{flash_attention.launches} "
                                      f"flash_attention launches for "
                                      f"{layers} layers")
-            cpu_logits, _ = lm.forward(cpu_params, cfg,
-                                       {"tokens": tokens.cpu()})
+            with moe_routes(list(routes), replay=True) as cpu_own:
+                cpu_logits, _ = lm.forward(cpu_params, cfg,
+                                           {"tokens": tokens.cpu()})
             got = logits.cpu()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{arch} stateless: non-finite values")
             torch.testing.assert_close(got, cpu_logits, **PATH_TOL)
             err = (got - cpu_logits).abs().max().item()
             err_share = tol_share(got, cpu_logits, PATH_TOL)
+            extra = ""
+            if is_moe:
+                # the stateless form groups the 256 tokens as the prefill
+                # does: its last logits are the prefill's
+                torch.testing.assert_close(logits[:, -1], prefill_last,
+                                           **PATH_TOL)
+                routing[arch].update(stateless_card=dict(card_own),
+                                     stateless_cpu=dict(cpu_own))
+                extra = (f"; the prefill's routing replayed on both, "
+                         f"{card_own['differ']} (card) and "
+                         f"{cpu_own['differ']} (CPU) of "
+                         f"{card_own['choices']} choices their own gating "
+                         f"makes otherwise; the last logits == the "
+                         f"prefill's")
             log(f"{arch} stateless forward, {layers} layers at full width, "
                 f"fp32, {PARITY_PROMPT} tokens: card == CPU on every logit, "
-                f"{layers} flash_attention launches, max abs err "
-                f"{err:.3g}, {err_share:.3g} of the tolerance")
+                f"{flash_attention.launches} flash_attention launches, max "
+                f"abs err {err:.3g}, {err_share:.3g} of the tolerance"
+                + extra)
             out[arch] = (max(worst, err), max(share, err_share))
+        if is_moe:
+            routing[arch]["seconds"] = round(time.perf_counter() - t_arch, 1)
+            log(f"{arch} parity took {routing[arch]['seconds']} s")
         del params, cpu_params, state, logits, cpu_state, cpu_logits
     torch.cuda.empty_cache()
+    out["routes"] = routing
     out["backward"] = lm_backward_check()
     return out
 
@@ -1913,11 +2081,16 @@ def phase_lm_serve():
     """Each config at its full published size through the port's entry
     point, ``--batch 4 --prompt-len 512 --tokens 32``: the launch counts
     set to 0 just before each run and read just after (one flash_attention
-    launch per attention layer or shared-block call of the prefill: 24 for
-    qwen2-0.5b, 36 for qwen3-8b, 14 for zamba2-7b; 24 wkv6 launches for
-    rwkv6-1.6b, 81 ssd for zamba2-7b, nothing else), the tokens' shape
-    and range; a second run for warm times; then one prefill and one
-    decode step profiled. Returns {arch: numbers}."""
+    launch per GQA attention layer or shared-block call of the prefill: 24
+    for qwen2-0.5b, 36 for qwen3-8b, 14 for zamba2-7b, 48 for
+    qwen3-moe-30b-a3b; 24 wkv6 launches for rwkv6-1.6b, 81 ssd for
+    zamba2-7b, none for deepseek-v2-lite-16b, whose MLA and MoE layers
+    compute in plain PyTorch; nothing else), the tokens' shape and range,
+    the peak of allocated memory under 70 GB (qwen3-moe's weights alone
+    are 61 GB, so only one copy of them may be alive at a time: the
+    reports hold the tokens and numbers only); a second run for warm
+    times; then one prefill and one decode step profiled. Returns {arch:
+    numbers}."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pop_adam import pop_adam
     from repro_torch.kernels.pop_matmul import pop_matmul
@@ -1930,10 +2103,8 @@ def phase_lm_serve():
                 "pop_matmul": pop_matmul, "pop_adam": pop_adam}
     out = {}
     b, s, t = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["tokens"]
-    for arch, want in (("qwen2-0.5b", {"flash_attention": 24}),
-                       ("qwen3-8b", {"flash_attention": 36}),
-                       ("rwkv6-1.6b", {"wkv6": 24}),
-                       ("zamba2-7b", {"ssd": 81, "flash_attention": 14})):
+    for arch, want in LM_SERVE_ARCHS:
+        t_arch = time.perf_counter()
         cfg = _lm_config(arch)
         argv = ["--arch", arch, "--batch", str(b), "--prompt-len", str(s),
                 "--tokens", str(t), "--seed", str(SEED)]
@@ -1993,18 +2164,32 @@ def phase_lm_serve():
             prof[phase] = {"busy_ms": busy, "wall_ms": wall, "top": top}
             log(f"serve {arch} {phase}: device busy {busy:.3f} ms of "
                 f"{wall:.3f} ms profiled ({busy / wall:.4f}); top kernels "
-                + ", ".join(f"{n} {ms:.3f} ms" for n, ms in top[:4]))
+                + ", ".join(f"{n} {ms:.3f} ms" for n, ms in
+                            top[:6 if arch in MOE else 4]))
+        # the cold and warm runs' and the profile's peak: one copy of the
+        # weights alive at a time
+        peak_allocated = torch.cuda.max_memory_allocated()
+        if peak_allocated >= LM_PEAK_LIMIT:
+            raise AssertionError(f"serve {arch}: peak allocated "
+                                 f"{peak_allocated:,} bytes, limit "
+                                 f"{LM_PEAK_LIMIT:,.0f}")
+        log(f"serve {arch}: peak allocated {peak_allocated:,} bytes over "
+            f"both runs and the profile (limit {LM_PEAK_LIMIT:,.0f})")
         out[arch] = {"launches": counts,
                      "flash_attention_by_route": flash_routes,
                      "num_params": report.num_params,
                      "weight_bytes": report.weight_bytes,
                      "state_bytes": state_bytes, "peak_bytes": peak,
+                     "max_memory_allocated_bytes": peak_allocated,
                      "allocated_before_bytes": before,
                      "prefill_ms_cold": report.prefill_ms,
                      "prefill_ms": warm.prefill_ms,
                      "decode_ms_per_token_cold": report.decode_ms_per_token,
                      "decode_ms_per_token": warm.decode_ms_per_token,
-                     "profile": prof}
+                     "profile": prof,
+                     "seconds": round(time.perf_counter() - t_arch, 1)}
+        if arch in MOE:
+            log(f"serve {arch} took {out[arch]['seconds']} s")
         del report, warm, params, state, prompts
         torch.cuda.empty_cache()
     return out
@@ -2164,9 +2349,11 @@ def phase_pop_adam_lm():
     return worst, share, rows
 
 
-def phase_lm_update_parity():
-    """qwen2-0.5b at full width with 2 layers, in float32, 2 members of 2
-    sequences of 64 tokens: 2 vectorized population updates on the card
+def phase_lm_update_parity(u):
+    """``u["arch"]`` (qwen2-0.5b; deepseek-v2-lite-16b, its dense first
+    layer and one MoE layer) at full width with 2 layers, in float32, 2
+    members of 2 sequences of 64 tokens: 2 vectorized population updates
+    on the card
     (one pop_adam launch each, nothing else launched) against the same
     updates on the CPU (pop_adam's plain version), from one population
     copied across. Held: the losses (rtol 1e-4); the gradients Adam took
@@ -2180,8 +2367,10 @@ def phase_lm_update_parity():
     gradient the check above lets differ by its own size takes a step
     its rounding decides, and is held only through that gradient. Then
     the same step check against the CPU's step scaled by 1.01, as a run
-    with a learning rate 1% off would take it, must fail. Returns the
-    errors and shares."""
+    with a learning rate 1% off would take it, must fail. An MoE arch's
+    card routing is replayed on the CPU (``moe_routes``; the losses carry
+    the aux term). The card's and the host's bytes are reckoned from the
+    config before the run and logged. Returns the errors and shares."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data.lm_pipeline import host_batches
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2189,9 +2378,9 @@ def phase_lm_update_parity():
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.pop import LMAgent, make_update
-    from repro_torch.tree import leaves
+    from repro_torch.tree import flat_buffer, leaves
 
-    u = LM_UPDATE
+    t_phase = time.perf_counter()
     if u["steps"] != 2:
         raise AssertionError("the LM update parity reads the gradients of "
                              "exactly two steps from Adam's moments")
@@ -2199,8 +2388,20 @@ def phase_lm_update_parity():
     tcfg = TrainConfig(total_steps=u["steps"],
                        warmup_steps=max(u["steps"] // 20, 1))
     n = u["population"]
+    p_member = lm_param_count(cfg)
+    # card: parameters, mu, nu, the gradients' buffer, mu after step 1,
+    # one member's gradient tree; host: the same but the copy of mu and
+    # with the parameters before step 2
+    gb = lambda rows: f"{rows * p_member * 4 / 1e9:.1f} GB"
+    log(f"LM update {cfg.name}: {p_member:,} parameters a member "
+        f"(reckoned from the config), N={n}: about {gb(5 * n + 1)} on the "
+        f"card and {gb(6 * n + 1)} on the host")
     card_agent = LMAgent(cfg, tcfg, device="cuda")
     card = card_agent.population_init(torch.Generator().manual_seed(SEED), n)
+    if flat_buffer(card.params).shape[1] != p_member:
+        raise AssertionError(f"LM update {cfg.name}: "
+                             f"{flat_buffer(card.params).shape[1]:,} "
+                             f"parameters a member, reckoned {p_member:,}")
     host = _lm_state_on(card, "cpu")
     card_update = make_update(card_agent, "vectorized")
     host_update = make_update(LMAgent(cfg, tcfg, device="cpu"),
@@ -2222,20 +2423,30 @@ def phase_lm_update_parity():
         return max(r[1] for r in rows), rows[0][0]
 
     mus, before = [], None
+    routing = {"choices": 0, "differ": 0}
     for k in range(u["steps"]):
         tokens = torch.from_numpy(next(stream)).reshape(n, u["batch"],
                                                         u["seq_len"])
         if k == 1:
             before = [p.clone() for p in leaves(host.params)]
-        card, mc = card_update(card, {"tokens": tokens.cuda()},
-                               _lm_hypers(n, "cuda"))
-        host, mh = host_update(host, {"tokens": tokens},
-                               _lm_hypers(n, "cpu"))
+        routes = []
+        with moe_routes(routes, replay=False):
+            card, mc = card_update(card, {"tokens": tokens.cuda()},
+                                   _lm_hypers(n, "cuda"))
+        with moe_routes(routes, replay=True) as replayed:
+            host, mh = host_update(host, {"tokens": tokens},
+                                   _lm_hypers(n, "cpu"))
+        for key in routing:
+            routing[key] += replayed[key]
         torch.testing.assert_close(mc["loss"].cpu(), mh["loss"], rtol=1e-4,
                                    atol=0.0, msg=f"LM update: loss, step "
                                                  f"{k + 1}")
-        mus.append(([m.cpu() for m in leaves(card.opt_state.mu)],
-                    [m.clone() for m in leaves(host.opt_state.mu)]))
+        # mu of the last step stays where it is; that of step 1 is kept
+        # beside it (on the card for the card's: the host holds the rest)
+        last = k == u["steps"] - 1
+        mus.append(tuple(leaves(state.opt_state.mu) if last else
+                         [m.clone() for m in leaves(state.opt_state.mu)]
+                         for state in (card, host)))
         if k == 0 and not all(torch.equal(a.cpu(), b) for a, b in zip(
                 leaves(card.params), leaves(host.params))):
             raise AssertionError("LM update: the parameters moved apart in "
@@ -2248,9 +2459,14 @@ def phase_lm_update_parity():
     (card1, host1), (card2, host2) = mus
     grad_rows, step_rows, wrong_rows = [], [], []
     held = total = 0
-    for path, p0, pc, ph, c1, h1, c2, h2 in zip(
-            paths, before, leaves(card.params), leaves(host.params), card1,
-            host1, card2, host2):
+    # on the card (the same IEEE operations; on the host, over deepseek's
+    # 2 x 1.03 B elements, they took minutes), a leaf and a member at a
+    # time, so that the temporaries stay the size of one member's leaf
+    for path, p0, pc, ph, c1, h1, c2, h2 in (
+            (path, *(t[i] for t in ts)) for path, *ts in zip(
+                paths, before, leaves(card.params), leaves(host.params),
+                card1, host1, card2, host2) for i in range(n)):
+        p0, ph, h1, h2 = (t.cuda() for t in (p0, ph, h1, h2))
         # the gradients (clipped) each step took, card and CPU
         gc = (c1 / 0.1, (c2 - 0.9 * c1) / 0.1)
         gh = (h1 / 0.1, (h2 - 0.9 * h1) / 0.1)
@@ -2263,7 +2479,7 @@ def phase_lm_update_parity():
         total += keep.numel()
         if not keep.any():
             continue
-        sc = (p0 - pc.cpu())[keep]
+        sc = (p0 - pc)[keep]
         sh = (p0 - ph)[keep]
         step_rows.append((tol_share(sc, sh, STEP1_GRAD_TOL),
                           (sc - sh).abs().max().item(), path))
@@ -2277,6 +2493,14 @@ def phase_lm_update_parity():
                              f"rate {LM_WRONG_LR}x the CPU's (share "
                              f"{wrong_share:.3g}): it cannot see the "
                              f"optimizer's arithmetic")
+    if cfg.moe is not None and not routing["choices"]:
+        raise AssertionError(f"LM update {cfg.name}: no MoE routing was "
+                             f"replayed")
+    routed = (f"; the card's routing replayed on the CPU: "
+              f"{routing['choices']} choices, {routing['differ']} of which "
+              f"the CPU's own gating makes otherwise"
+              if cfg.moe is not None else "")
+    seconds = round(time.perf_counter() - t_phase, 1)
     log(f"LM update parity, card (pop_adam kernel) vs CPU (plain), "
         f"{u['arch']} full width 2 layers fp32, N={n}: the gradients of "
         f"steps 1 and 2 max abs err {grad_err:.3g} ({grad_share:.3g} of "
@@ -2286,8 +2510,10 @@ def phase_lm_update_parity():
         f"{total:,} elements whose gradients exceed {LM_STEP_GRAD_FLOOR} in "
         f"both steps; against a learning rate {LM_WRONG_LR}x the CPU's "
         f"{wrong_share:.3g} of it; {u['steps']} pop_adam launches, no "
-        f"other")
-    return {"grad_max_abs_err": grad_err, "grad_share": grad_share,
+        f"other{routed}; {seconds} s")
+    return {"arch": cfg.name, "parameters_per_member": p_member,
+            "routing": routing, "seconds": seconds,
+            "grad_max_abs_err": grad_err, "grad_share": grad_share,
             "step_max_abs_err": step_err, "step_share": step_share,
             "step_elements_held": held, "elements": total,
             "step_share_at_lr_x1.01": wrong_share}
@@ -2433,8 +2659,8 @@ def phase_lm_train():
     return out
 
 
-def phase_lm_cli():
-    """``python -m repro_torch.launch.train --arch qwen2-0.5b --smoke
+def phase_lm_cli(arch="qwen2-0.5b"):
+    """``python -m repro_torch.launch.train --arch ARCH --smoke
     --population 2 --steps 4 --pbt-interval 2 --batch 2 --seq-len 64
     --ckpt-dir <fresh>`` on the card with each backend, through
     ``main``: 4 pop_adam launches (vectorized) or none (sequential), an
@@ -2446,36 +2672,40 @@ def phase_lm_cli():
     from repro_torch.tree import leaves
 
     out = {}
+    argv = [arch if a == LM_CLI[1] else a for a in LM_CLI]
     for backend in ("vectorized", "sequential"):
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
             ckpt = str(Path(d) / "ck")
             reset_counts(pop_adam)
-            report = train_main(LM_CLI + ["--ckpt-dir", ckpt, "--backend",
-                                          backend])
+            report = train_main(argv + ["--ckpt-dir", ckpt, "--backend",
+                                        backend])
             torch.cuda.synchronize()
             want = 4 if backend == "vectorized" else 0
             if pop_adam.launches != want:
-                raise AssertionError(f"LM CLI ({backend}): "
+                raise AssertionError(f"LM CLI {arch} ({backend}): "
                                      f"{pop_adam.launches} pop_adam "
                                      f"launches, want {want}")
             if [s for s, _ in report.evolutions] != [2, 4]:
-                raise AssertionError(f"LM CLI ({backend}): evolutions "
-                                     f"{report.evolutions}")
+                raise AssertionError(f"LM CLI {arch} ({backend}): "
+                                     f"evolutions {report.evolutions}")
             mgr = CheckpointManager(ckpt)
             params = report.trainer.state.params
             saved = mgr.restore_aux("actors", params)
             if mgr.latest() != 3 or not all(
                     np.array_equal(a, b.cpu().numpy())
                     for a, b in zip(leaves(saved), leaves(params))):
-                raise AssertionError(f"LM CLI ({backend}): the checkpoint "
-                                     f"does not read back bit for bit")
+                raise AssertionError(f"LM CLI {arch} ({backend}): the "
+                                     f"checkpoint does not read back bit "
+                                     f"for bit")
             if not np.isfinite(report.final_loss):
-                raise AssertionError(f"LM CLI ({backend}): final loss "
-                                     f"{report.final_loss}")
+                raise AssertionError(f"LM CLI {arch} ({backend}): final "
+                                     f"loss {report.final_loss}")
             out[backend] = report.final_loss
-        log(f"LM CLI ({backend}): final loss {report.final_loss:.4f}, "
-            f"evolutions {report.evolutions}, {pop_adam.launches} pop_adam "
-            f"launches, checkpoint step 3 read back bit for bit")
+        log(f"LM CLI {arch} ({backend}): final loss "
+            f"{report.final_loss:.4f}, evolutions {report.evolutions}, "
+            f"{pop_adam.launches} pop_adam launches, checkpoint step 3 read "
+            f"back bit for bit; {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4087,10 +4317,16 @@ def main() -> int:
     # backends; 15. the paper's Fig. 2 unit
     torch.cuda.empty_cache()
     adam_lm_err, adam_lm_share, adam_lm_rows = phase_pop_adam_lm()
-    lm_update = phase_lm_update_parity()
+    lm_update = phase_lm_update_parity(LM_UPDATE)
+    torch.cuda.empty_cache()
+    lm_update_moe = phase_lm_update_parity(LM_UPDATE_MOE)
+    torch.cuda.empty_cache()
     lm_train = phase_lm_train()
     lm_train["update_parity"] = lm_update
+    lm_train["update_parity_moe"] = lm_update_moe
     lm_train["cli_final_loss"] = phase_lm_cli()
+    lm_train["cli_final_loss_moe"] = {arch: phase_lm_cli(arch)
+                                      for arch in MOE}
     fig2 = phase_fig2()
     lap("11-15 LM training, Fig. 2")
 
@@ -4319,11 +4555,13 @@ def main() -> int:
                              for arch, r in lm_serve.items()},
         "launches_by_route": lm_serve["qwen3-8b"][
             "flash_attention_by_route"],
-        "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]),
+        "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]
+                           + [lm_parity["qwen3-moe-30b-a3b"][0]]),
         "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
                      "1e-3 (the path, card vs CPU)",
         "max_err_over_tolerance": max([flash_share]
-                                      + [lm_parity[a][1] for a in DENSE]),
+                                      + [lm_parity[a][1] for a in DENSE]
+                                      + [lm_parity["qwen3-moe-30b-a3b"][1]]),
         "work": "one causal launch at the qwen3-8b prefill's shape "
                 f"(B,H,Hkv,S,D)={head['shape']} bf16, 36 per served "
                 "prefill; device times, CUDA graph replay, L2-warm",

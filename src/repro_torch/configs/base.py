@@ -3,10 +3,11 @@ copied from the JAX package's ``repro.configs.base`` (the port imports
 nothing of it).
 
 ``LMConfig`` keeps the fields that the port's LM serving and training
-paths read, for the families it runs (dense attention, RWKV6 and Zamba2);
-``replace`` and ``smoke`` give the JAX package's values for them. The
-fields of the MoE, MLA and frontend paths come with the slices that port
-them; the SSM scans always compute in float32.
+paths read, for the families it runs (dense attention, mixture of experts
+with GQA or MLA, RWKV6 and Zamba2); ``replace`` and ``smoke`` give the
+JAX package's values for them, ``MoESpec`` and ``MLASpec`` its defaults.
+The frontends' fields come with the slice that ports them; the SSM scans
+always compute in float32.
 There is no ``use_flash``/``use_kernels`` switch: the device decides
 (the kernels on the card, their plain versions on the CPU).
 Where the JAX package scales gemma's embeddings by testing the config's
@@ -25,6 +26,26 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_expert: int
+    num_shared: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    group_size: int = 256   # tokens a group: dispatch memory O(T*k*cf)
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLASpec:
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -47,6 +68,8 @@ class LMConfig:
     ssm_state: int = 0
     ssm_head_dim: int = 64
     shared_attn_every: int = 0     # zamba2: shared attn block period
+    moe: Optional[MoESpec] = None
+    mla: Optional[MLASpec] = None
     dtype: str = "bfloat16"
     ssm_chunk: int = 128           # SSD/WKV chunk length
     remat: bool = True             # recompute each layer in the backward
@@ -73,6 +96,13 @@ class LMConfig:
             dtype="float32",
             remat=False,
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, d_expert=64,
+                num_shared=min(self.moe.num_shared, 1), group_size=64)
+        if self.mla is not None:
+            kw["mla"] = MLASpec(kv_lora_rank=32, qk_nope_dim=16,
+                                qk_rope_dim=8, v_dim=16)
         if self.shared_attn_every:
             kw["shared_attn_every"] = 4
         if self.block_type in ("rwkv6", "mamba2"):

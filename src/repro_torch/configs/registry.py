@@ -7,14 +7,12 @@ from __future__ import annotations
 import importlib
 
 _ARCHS = ("rwkv6_1_6b", "zamba2_7b", "rwkv6_test", "qwen2_0_5b",
-          "qwen2_1_5b", "qwen3_8b", "gemma_7b")
+          "qwen2_1_5b", "qwen3_8b", "gemma_7b", "qwen3_moe_30b_a3b",
+          "deepseek_v2_lite_16b")
 
 # the JAX package's archs whose path the port does not run yet, with the
 # part each waits for
 _NOT_PORTED = {
-    "qwen3_moe_30b_a3b": "its mixture-of-experts layers (nn/moe.py)",
-    "deepseek_v2_lite_16b": "its multi-head latent attention (MLA, "
-                            "nn/attention.py mla_*) and MoE layers",
     "musicgen_medium": "its audio-frame frontend (frontend='audio_frames')",
     "pixtral_12b": "its vision-patch frontend (frontend='vision_patches')",
 }

@@ -81,12 +81,24 @@ NUM_WARPS = 8
 _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 _BUILD_DIR = Path(__file__).parent / "_build"
+PLAIN_CHUNK = 1 << 24   # columns the plain version steps at a time in place
 
 
 def pop_adam_plain(params, grads, mu, nu, lr, step, *, wd=None, scale=None,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    inplace: bool = False):
-    """The plain PyTorch version: the reference the kernel is held to."""
+    """The plain PyTorch version: the reference the kernel is held to.
+    In place it steps ``PLAIN_CHUNK`` columns at a time, the same
+    elementwise expressions, so that its temporaries stay a few chunks in
+    size, not a few copies of the population (of 8 GB each for two
+    members of a billion parameters)."""
+    if inplace and params.shape[1] > PLAIN_CHUNK:
+        for c in range(0, params.shape[1], PLAIN_CHUNK):
+            cols = slice(c, c + PLAIN_CHUNK)
+            pop_adam_plain(params[:, cols], grads[:, cols], mu[:, cols],
+                           nu[:, cols], lr, step, wd=wd, scale=scale, b1=b1,
+                           b2=b2, eps=eps, inplace=True)
+        return params, mu, nu
     if scale is not None:
         grads = grads * scale[:, None]
     mu2 = b1 * mu + (1 - b1) * grads

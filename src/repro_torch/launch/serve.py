@@ -9,14 +9,16 @@ call per new token, sampling from the logits:
     python -m repro_torch.launch.serve --arch qwen3-8b --batch 4 \\
         --prompt-len 512 --tokens 32
 
-On the card every attention layer's prefill is one launch of the CUDA
+On the card every GQA attention layer's prefill is one launch of the CUDA
 ``flash_attention`` kernel (at any prompt length), every RWKV6 layer's
 one launch of ``wkv6`` and every
 Mamba2 layer's one launch of ``ssd``; decode steps attend over the KV
-cache and take the literal scans. Of the JAX package's archs the port
-runs the dense ``qwen2-0.5b``, ``qwen2-1.5b``, ``qwen3-8b`` and
-``gemma-7b``, ``rwkv6-1.6b``, ``zamba2-7b`` and ``rwkv6-test``; the MoE,
-MLA and frontend archs are refused.
+cache and take the literal scans. MLA (deepseek) and the mixture-of-
+experts layers compute in plain PyTorch, as the JAX package computes them
+outside its kernels. Of the JAX package's archs the port runs the dense
+``qwen2-0.5b``, ``qwen2-1.5b``, ``qwen3-8b`` and ``gemma-7b``, the MoE
+``qwen3-moe-30b-a3b`` and ``deepseek-v2-lite-16b``, ``rwkv6-1.6b``,
+``zamba2-7b`` and ``rwkv6-test``; the frontend archs are refused.
 
 ``--algo <name>`` loads a checkpoint a trained population left behind,
 promotes a fitness + diversity serving set
@@ -223,7 +225,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="LM config id: qwen2-0.5b, qwen2-1.5b, qwen3-8b, "
-                    "gemma-7b, rwkv6-1.6b, zamba2-7b or rwkv6-test")
+                    "gemma-7b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b, "
+                    "rwkv6-1.6b, zamba2-7b or rwkv6-test")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
                     "as an ensemble (td3, sac, dqn, ppo)")

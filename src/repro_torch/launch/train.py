@@ -9,7 +9,10 @@ takes ``--batch`` sequences of ``--seq-len`` tokens, PBT perturbs
 updates the whole population with one ``pop_adam`` launch a step on the
 card; ``--backend sequential`` steps one member at a time with the stock
 AdamW and launches no kernel. ``--smoke`` takes the config's reduced
-same-family form. The MoE, MLA and frontend configs are refused by name.
+same-family form. Every LM config of the registry trains, the MoE ones
+(``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``) with their auxiliary
+load-balancing loss in the members' loss; the frontend configs are
+refused by name.
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --population 4 \\
         --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR

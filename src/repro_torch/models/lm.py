@@ -1,12 +1,14 @@
 """Decoder LM (``repro.models.lm``): the dense attention transformers
-(qwen2, qwen3, gemma), RWKV6 and the Zamba2 hybrid (Mamba2 with a shared
-attention block).
+(qwen2, qwen3, gemma), the mixture-of-experts ones (qwen3-moe with GQA,
+deepseek-v2-lite with MLA, shared experts and a dense first layer), RWKV6
+and the Zamba2 hybrid (Mamba2 with a shared attention block).
 
 The model is organised, as in the JAX package, as *segments* of
 homogeneous blocks whose parameters are stacked along a leading layer
-axis; the port walks each segment's layers in a Python loop where JAX
-scans. Decode state (WKV states, SSD and convolution states, KV caches)
-is stacked the same way.
+axis (an MoE config: a ``dense`` segment of its ``first_dense_layers``,
+then a ``moe`` segment); the port walks each segment's layers in a Python
+loop where JAX scans. Decode state (WKV states, SSD and convolution
+states, KV caches, MLA's compressed caches) is stacked the same way.
 
 Public API:
     init_params(generator, cfg, dtype=torch.float32)
@@ -32,6 +34,11 @@ Differences from the JAX package, none of them in the numbers:
     the prompt's attention over the whole cache; the port's prefill
     (``cache_index`` 0) takes it over the prompt's own keys through the
     flash kernel, the same function (:mod:`repro_torch.nn.attention`).
+    MLA and the MoE layers compute in plain PyTorch on either device, as
+    the JAX package computes them outside its kernels;
+  * ``forward`` returns (logits, state): the MoE auxiliary loss, summed
+    over the layers as JAX's third output, reaches ``lm_loss`` through
+    :func:`_forward`.
 
 Training. ``lm_loss`` casts float32 master parameters to ``cfg.dtype``
 inside the differentiated function, as the JAX package's forward does,
@@ -46,9 +53,9 @@ the checkpoint. The population update then steps every member at once
 with ONE ``population_adam`` call over flat ``(N, P)`` buffers (the
 ``pop_adam`` kernel on the card, written in place).
 
-Not ported: the MoE and MLA layouts and the frontends (their configs are
-refused by the registry), a Mamba2 stack without the shared attention (no
-config has one), MoE's auxiliary loss, and ``input_specs``.
+Not ported: the frontends (their configs are refused by the registry),
+a Mamba2 stack without the shared attention (no config has one), and
+``input_specs``.
 """
 from __future__ import annotations
 
@@ -60,12 +67,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig, TrainConfig
 from repro_torch.kernels.ops import attention
-from repro_torch.nn.attention import gqa_apply, gqa_init
+from repro_torch.nn.attention import (gqa_apply, gqa_init, mla_apply,
+                                      mla_init)
 from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
                                   glu_mlp_init, layernorm_apply,
                                   layernorm_init, lecun_normal,
                                   rmsnorm_apply, rmsnorm_init)
 from repro_torch.nn.mamba2 import mamba2_block_apply, mamba2_block_init
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.rwkv6 import (channel_mix_apply, rwkv6_block_init,
                                   time_mix_apply)
 from repro_torch.optim.optimizers import (adam, apply_updates,
@@ -85,16 +94,24 @@ class Segment:
     kind: str            # attn | rwkv | mamba
     count: int           # layers (or super-blocks) stacked
     inner: int = 1       # mamba layers per super-block
+    moe: bool = False    # attention layers with a mixture of experts
 
 
 def layout(cfg: LMConfig) -> list[Segment]:
-    """Dense attention: one segment of layers. RWKV6: one segment of layers.
-    Zamba2: super-blocks of ``shared_attn_every`` Mamba2 layers, each led
-    by the shared attention block, then a tail super-block of the
-    remaining layers (81 = 13 x 6 + 3). Every Mamba2 segment carries the
-    shared attention."""
+    """Attention: a ``dense`` segment of the layers without experts (all of
+    them, or an MoE config's ``first_dense_layers``), then a ``moe``
+    segment of the rest. RWKV6: one segment of layers. Zamba2:
+    super-blocks of ``shared_attn_every`` Mamba2 layers, each led by the
+    shared attention block, then a tail super-block of the remaining
+    layers (81 = 13 x 6 + 3). Every Mamba2 segment carries the shared
+    attention."""
     if cfg.block_type == "attention":
-        return [Segment("dense", "attn", cfg.num_layers)]
+        nd = cfg.num_layers if cfg.moe is None else cfg.moe.first_dense_layers
+        segs = [Segment("dense", "attn", nd)] if nd else []
+        if cfg.num_layers > nd:
+            segs.append(Segment("moe", "attn", cfg.num_layers - nd,
+                                moe=True))
+        return segs
     if cfg.block_type == "rwkv6":
         return [Segment("rwkv", "rwkv", cfg.num_layers)]
     if cfg.block_type == "mamba2" and cfg.shared_attn_every:
@@ -118,31 +135,64 @@ def compute_dtype(cfg: LMConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_init(generator, cfg: LMConfig, dtype):
+def _attn_block_init(generator, cfg: LMConfig, dtype,
+                     moe_layer: bool = False):
     dev = generator.device
-    return {"attn_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
-            "mlp_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
-            "attn": gqa_init(generator, d_model=cfg.d_model,
+    p = {"attn_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
+         "mlp_norm": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        p["attn"] = mla_init(generator, d_model=cfg.d_model,
+                             num_heads=cfg.num_heads,
+                             kv_lora_rank=m.kv_lora_rank,
+                             qk_nope_dim=m.qk_nope_dim,
+                             qk_rope_dim=m.qk_rope_dim, v_dim=m.v_dim,
+                             dtype=dtype)
+    else:
+        p["attn"] = gqa_init(generator, d_model=cfg.d_model,
                              num_heads=cfg.num_heads,
                              num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
                              qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-                             dtype=dtype),
-            "mlp": glu_mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                dtype=dtype)}
+                             dtype=dtype)
+    if moe_layer:
+        m = cfg.moe
+        p["mlp"] = moe_init(generator, d_model=cfg.d_model,
+                            d_expert=m.d_expert, num_experts=m.num_experts,
+                            num_shared=m.num_shared, dtype=dtype)
+    else:
+        p["mlp"] = glu_mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                dtype=dtype)
+    return p
 
 
-def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index):
-    """``cache`` None: the stateless form; else this layer's KV cache,
-    written in place."""
+def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index,
+                      moe_layer: bool = False):
+    """``cache`` None: the stateless form; else this layer's KV (or MLA)
+    cache, written in place. Returns (h, the MoE layer's aux loss, or
+    None)."""
     y = rmsnorm_apply(p["attn_norm"], h)
-    y, _ = gqa_apply(p["attn"], y, positions, num_heads=cfg.num_heads,
-                     num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
-                     rope_theta=cfg.rope_theta, cache=cache,
-                     cache_index=cache_index, attn_fn=attention)
+    if cfg.mla is not None:
+        m = cfg.mla
+        y, _ = mla_apply(p["attn"], y, positions, num_heads=cfg.num_heads,
+                         kv_lora_rank=m.kv_lora_rank,
+                         qk_nope_dim=m.qk_nope_dim,
+                         qk_rope_dim=m.qk_rope_dim, v_dim=m.v_dim,
+                         rope_theta=cfg.rope_theta, cache=cache,
+                         cache_index=cache_index)
+    else:
+        y, _ = gqa_apply(p["attn"], y, positions, num_heads=cfg.num_heads,
+                         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+                         rope_theta=cfg.rope_theta, cache=cache,
+                         cache_index=cache_index, attn_fn=attention)
     h = h + y
-    y = glu_mlp_apply(p["mlp"], rmsnorm_apply(p["mlp_norm"], h),
-                      activation=cfg.activation)
-    return h + y
+    y = rmsnorm_apply(p["mlp_norm"], h)
+    if not moe_layer:
+        return h + glu_mlp_apply(p["mlp"], y, activation=cfg.activation), None
+    m = cfg.moe
+    y, aux = moe_apply(p["mlp"], y, num_experts=m.num_experts,
+                       top_k=m.top_k, capacity_factor=m.capacity_factor,
+                       group_size=m.group_size, activation=cfg.activation)
+    return h + y, aux
 
 
 def _rwkv_block_init(generator, cfg: LMConfig, dtype):
@@ -228,7 +278,8 @@ def init_params(generator: torch.Generator, cfg: LMConfig, *,
     for seg in layout(cfg):
         if seg.kind == "attn":
             params["segments"][seg.name] = _stacked_init(
-                seg.count, lambda: _attn_block_init(generator, cfg, dtype))
+                seg.count,
+                lambda: _attn_block_init(generator, cfg, dtype, seg.moe))
         elif seg.kind == "rwkv":
             params["segments"][seg.name] = _stacked_init(
                 seg.count, lambda: _rwkv_block_init(generator, cfg, dtype))
@@ -275,6 +326,15 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
     layer of the stateless form in the backward. Returns (logits (B,S,V),
     or the final-normed hidden (B,S,D) with ``return_hidden``; state or
     None)."""
+    out, state, _ = _forward(params, cfg, batch, state, cache_index,
+                             train=train, return_hidden=return_hidden)
+    return out, state
+
+
+def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
+             train: bool = False, return_hidden: bool = False):
+    """:func:`forward`, and the MoE layers' aux losses summed (float32; a
+    zero without MoE layers), the JAX package's third output."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     emb = params["embed"]["embedding"]
@@ -293,38 +353,44 @@ def forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
     remat = train and cfg.remat and not keep and torch.is_grad_enabled()
 
     def layer_fn(seg, layer_p, layer_st):
+        """The layer (or super-block) as h -> (h, aux or None)."""
         if seg.kind == "rwkv":
-            return lambda h: _rwkv_block_apply(layer_p, cfg, h, layer_st,
-                                               keep)
+            return lambda h: (_rwkv_block_apply(layer_p, cfg, h, layer_st,
+                                                keep), None)
         if seg.kind == "attn":
             return lambda h: _attn_block_apply(
                 layer_p, cfg, h, positions, layer_st["kv"] if keep else None,
-                cache_index)
+                cache_index, seg.moe)
 
         def super_block(h):
-            h = _attn_block_apply(params["shared_attn"], cfg, h, positions,
-                                  layer_st["attn"]["kv"] if keep else None,
-                                  cache_index)
+            h, _ = _attn_block_apply(params["shared_attn"], cfg, h,
+                                     positions,
+                                     layer_st["attn"]["kv"] if keep
+                                     else None, cache_index)
             for j in range(seg.inner):
                 h = _mamba_layer_apply(_layer(layer_p, j), cfg, h,
                                        _layer(layer_st["mamba"], j), keep)
-            return h
+            return h, None
         return super_block
 
     h = emb[tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    aux_total = torch.zeros((), device=tokens.device)
     for seg in layout(cfg):
         seg_p = params["segments"][seg.name]
         seg_st = state[seg.name]
         for i in range(seg.count):
             fn = layer_fn(seg, _layer(seg_p, i), _layer(seg_st, i))
-            h = checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
+            h, aux = (checkpoint(fn, h, use_reentrant=False) if remat
+                      else fn(h))
+            if aux is not None:
+                aux_total = aux_total + aux
 
     h = rmsnorm_apply(params["final_norm"], h)
-    if return_hidden:
-        return h, (state if keep else None)
-    return h @ _head_weight(params, cfg), (state if keep else None)
+    if not return_hidden:
+        h = h @ _head_weight(params, cfg)
+    return h, (state if keep else None), aux_total
 
 
 def _head_weight(params, cfg: LMConfig):
@@ -352,9 +418,11 @@ def lm_loss(params, cfg: LMConfig, batch):
     ``cfg.dtype`` here, so the gradient reaches the masters) -> (loss,
     {"ce", "aux"}). The last position has no label. With
     ``cfg.logits_chunk`` dividing S the logits are made a chunk of the
-    sequence at a time."""
+    sequence at a time. An MoE config adds ``aux_loss_weight`` times the
+    layers' summed aux loss over its number of MoE layers."""
     cparams = cast_params(params, cfg)
-    hidden, _ = forward(cparams, cfg, batch, train=True, return_hidden=True)
+    hidden, _, aux = _forward(cparams, cfg, batch, train=True,
+                              return_hidden=True)
     tokens = batch["tokens"]
     labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32,
@@ -371,9 +439,12 @@ def lm_loss(params, cfg: LMConfig, batch):
             ce, n = ce + ce_c, n + n_c
     else:
         ce, n = _token_ce(hidden @ w, labels, mask)
-    loss = ce / torch.clamp(n, min=1.0)
-    return loss, {"ce": loss.detach(),
-                  "aux": torch.zeros((), device=hidden.device)}
+    ce = ce / torch.clamp(n, min=1.0)
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux / max(
+            cfg.num_layers - cfg.moe.first_dense_layers, 1)
+    return loss, {"ce": ce.detach(), "aux": aux.detach()}
 
 
 def _make_grads_fn(cfg: LMConfig, tcfg: TrainConfig):
@@ -514,6 +585,11 @@ def make_serve_step(cfg: LMConfig):
 def _seg_state_shape(seg: Segment, cfg: LMConfig, batch: int, max_len: int):
     dtype = compute_dtype(cfg)
     kv = ((batch, max_len, cfg.num_kv_heads, cfg.hd), dtype)
+    if seg.kind == "attn" and cfg.mla is not None:
+        return {"kv": {"c_kv": ((batch, max_len, cfg.mla.kv_lora_rank),
+                                dtype),
+                       "k_rope": ((batch, max_len, cfg.mla.qk_rope_dim),
+                                  dtype)}}
     if seg.kind == "attn":
         return {"kv": {"k": kv, "v": kv}}
     if seg.kind == "rwkv":

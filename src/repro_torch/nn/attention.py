@@ -1,4 +1,5 @@
-"""Grouped-query attention (``repro.nn.attention``): GQA in both modes.
+"""Attention blocks (``repro.nn.attention``): GQA and DeepSeek's
+multi-head latent attention (MLA), each in both modes.
 
 Without a KV cache (the stateless full-sequence forward) the queries
 attend over the sequence's own keys through ``attn_fn`` (the model passes
@@ -12,9 +13,20 @@ those new keys through ``attn_fn``, which is the same function as
 attending over the whole cache (the unwritten slots lie past every
 query's position and weigh exactly 0), and every other step (a decode)
 attends over the whole cache through the plain :func:`sdpa`, as the JAX
-package's cache form does. MLA is not ported (no ported config has it).
+package's cache form does.
 
-Caches are plain dicts of tensors: k and v of shape (B, max_len, H_kv, D).
+MLA computes, as the JAX package does, outside any kernel. Its
+full-sequence form folds the latent attention into standard attention
+(q and k of head size nope + rope, the rope key shared by the heads, v of
+its own head size) through the plain :func:`sdpa`; the flash kernel's
+wrapper returns its output in q's head size and is not used. With a
+cache, every step (the prefill too, as in the JAX package) writes the
+compressed latent and the rope key and attends over the whole cache in
+the absorbed form, ``w_ukv`` folded into the query and the output.
+
+Caches are plain dicts of tensors: GQA's k and v of shape (B, max_len,
+H_kv, D), MLA's compressed ``c_kv`` (B, max_len, kv_lora) and ``k_rope``
+(B, max_len, rope).
 """
 from __future__ import annotations
 
@@ -108,4 +120,90 @@ def gqa_apply(p, x, positions, *, num_heads: int, num_kv_heads: int,
     kv_positions = torch.arange(max_len, device=x.device).expand(b, max_len)
     out = sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), positions,
                kv_positions, causal=True, scale=scale)
+    return out @ p["wo"]["w"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(generator, *, d_model: int, num_heads: int, kv_lora_rank: int,
+             qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+             v_dim: int = 128, dtype=torch.float32):
+    """The JAX package's tree: the query projection, the latent's down
+    projection and its RMS norm, the shared rope key's projection, the
+    latent's up projection to every head's nope key and value, and the
+    output projection."""
+    w = lambda shape: {"w": lecun_normal(generator, shape, dtype=dtype)}
+    return {
+        "wq": w((d_model, num_heads * (qk_nope_dim + qk_rope_dim))),
+        "w_dkv": w((d_model, kv_lora_rank)),
+        "w_kr": w((d_model, qk_rope_dim)),
+        "kv_norm": rmsnorm_init(kv_lora_rank, device=generator.device,
+                                dtype=dtype),
+        "w_ukv": w((kv_lora_rank, num_heads * (qk_nope_dim + v_dim))),
+        "wo": w((num_heads * v_dim, d_model)),
+    }
+
+
+def mla_init_cache(batch: int, max_len: int, kv_lora_rank: int,
+                   qk_rope_dim: int = 64, *, dtype=torch.bfloat16,
+                   device="cpu"):
+    return {"c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int,
+              qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+              v_dim: int = 128, rope_theta: float = 10000.0, cache=None,
+              cache_index=None):
+    """x: (B,S,Dm); positions (B,S). Without ``cache`` returns (out, None);
+    with one, the new latent and rope key are written into it in place
+    and (out, cache) is returned."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]["w"]).reshape(b, s, num_heads,
+                                   qk_nope_dim + qk_rope_dim)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, theta=rope_theta)
+    c_kv = rmsnorm_apply(p["kv_norm"], x @ p["w_dkv"]["w"])
+    k_rope = apply_rope(x @ p["w_kr"]["w"], positions, theta=rope_theta)
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+
+    if cache is None:
+        ukv = (c_kv @ p["w_ukv"]["w"].to(x.dtype)).reshape(
+            b, s, num_heads, qk_nope_dim + v_dim)
+        k_nope, v = ukv[..., :qk_nope_dim], ukv[..., qk_nope_dim:]
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        k_eff = torch.cat([k_nope, k_rope[:, :, None].expand(
+            b, s, num_heads, qk_rope_dim)], dim=-1)
+        out = sdpa(q_eff, k_eff, v, positions, positions, causal=True,
+                   scale=scale)
+        return out @ p["wo"]["w"], None
+
+    cache["c_kv"][:, cache_index:cache_index + s] = c_kv.to(
+        cache["c_kv"].dtype)
+    cache["k_rope"][:, cache_index:cache_index + s] = k_rope.to(
+        cache["k_rope"].dtype)
+    max_len = cache["c_kv"].shape[1]
+    kv_positions = torch.arange(max_len, device=x.device).expand(b, max_len)
+    # the absorbed form: w_ukv folded into the query and the output, so
+    # that attention runs over the compressed latent
+    w_ukv = p["w_ukv"]["w"].to(x.dtype).reshape(-1, num_heads,
+                                                qk_nope_dim + v_dim)
+    w_k, w_v = w_ukv[..., :qk_nope_dim], w_ukv[..., qk_nope_dim:]
+    ckv = cache["c_kv"].to(x.dtype)
+    kr = cache["k_rope"].to(x.dtype)
+    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, w_k)
+    logits = (torch.einsum("bqhl,bkl->bhqk", q_abs.float(), ckv.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
+              ) * scale
+    mask = positions[:, None, :, None] >= kv_positions[:, None, None, :]
+    probs = torch.softmax(torch.where(mask, logits, BIG_NEG), dim=-1).to(
+        x.dtype)
+    ctx = torch.einsum("bhqk,bkl->bqhl", probs, ckv)
+    out = torch.einsum("bqhl,lhd->bqhd", ctx, w_v).reshape(
+        b, s, num_heads * v_dim)
     return out @ p["wo"]["w"], cache

@@ -73,6 +73,30 @@ def test_pop_adam_zero_lr_keeps_params_and_moves_moments():
     np.testing.assert_allclose(v2.numpy(), np.asarray(want[2]), **TOL)
 
 
+def test_plain_in_place_steps_by_chunks_bit_for_bit(monkeypatch):
+    """In place, the plain version steps ``PLAIN_CHUNK`` columns at a time
+    (its temporaries a few chunks, not copies of the population): with a
+    chunk of 37 columns, a ragged last one among them, every result
+    equals the whole-row form's bit for bit, written into the inputs."""
+    from repro_torch.kernels import pop_adam as module
+
+    rng = np.random.default_rng(5)
+    rows = [torch.from_numpy(rng.standard_normal((3, 1000)).astype(
+        np.float32)) for _ in range(3)]
+    rows.append(torch.from_numpy(rng.random((3, 1000)).astype(np.float32)))
+    vec = lambda: torch.from_numpy(rng.random(3).astype(np.float32))
+    lr, wd, scale = vec() * 1e-3, vec(), vec()
+    step = torch.tensor([1, 5, 100], dtype=torch.int32)
+    want = pop_adam_plain(*rows, lr, step, wd=wd, scale=scale)
+    monkeypatch.setattr(module, "PLAIN_CHUNK", 37)
+    copies = [r.clone() for r in rows]
+    got = pop_adam(*copies, lr, step, wd=wd, scale=scale, inplace=True)
+    assert all(g is c for g, c in zip(got, (copies[0], copies[2],
+                                            copies[3])))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_pop_adam_refuses_bad_inputs():
     t = [torch.from_numpy(a) for a in _inputs(2, 8)]
     with pytest.raises(TypeError, match="int32 step"):

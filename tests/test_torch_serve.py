@@ -297,8 +297,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        serve_main(["--arch", "qwen3_moe_30b_a3b", "--ckpt-dir",
+    with pytest.raises(NotImplementedError, match="audio-frame frontend"):
+        serve_main(["--arch", "musicgen_medium", "--ckpt-dir",
                     str(tmp_path)])
     with pytest.raises(SystemExit):
         serve_main(["--algo", "td3", "--arch", "x",
