@@ -219,11 +219,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ``repro_torch.launch.serve.main`` (pendulum ``mean``,
                 cartpole ``vote``), 3 ``pop_matmul`` launches a batch,
                 answers against the plain ensemble;
- 30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 45 s.
+ 30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 45 s;
+ 31. hopper2d — the step kernel against its plain version at 8 members x
+                4,096 envs, from states 50 random-action steps in (the
+                count with a contact active logged), actions uniform in
+                [-1.2, 1.2]: one step and three chained at rtol=atol=2e-4,
+                then timed by graph replay beside the plain version and
+                its byte bound;
+ 32. fused epochs — ``run_env_loop(fused=True)``, one captured CUDA graph
+                an epoch, against the eager loop from the same seed: TD3,
+                SAC and PPO on hopper2d and DQN on cartpole with PBT, TD3
+                with CEM, width (256, 256), N = 8, 256 envs a member, 2
+                epochs of pbt_interval 4 with eval_every 2, the second
+                under ``set_sync_debug_mode("error")``: state, hypers,
+                buffers, env states, strategy state, fitness and lineage
+                (bit for bit or not, logged), each capture's node count,
+                capture time and private pool;
+ 33. acting engine — TD3 on hopper2d at 256, 1,024 and 4,096 envs a
+                member (N = 8, 4 acting steps, 2 updates of B = 64, K = 8
+                iterations with a host read each, median of 5 rounds with
+                min and max): the eager loop, the fused epoch and
+                ``policy_lag=1``, and at 4,096 envs ``chunk_steps=2`` bit
+                for bit against unchunked; ms per iteration, env steps/s
+                per member, the busy share, and at lag 1 the share of
+                acting's kernel time that overlaps the update's;
+ 34. acting CLI — ``launch/train.py`` on hopper2d with ``--fused-epoch``
+                (TD3), ``--chunk-steps 2`` (PPO) and ``--policy-lag 1``
+                (TD3), counted, each checkpoint served through
+                ``launch/serve.py`` against the plain ensemble.
+
+A captured graph's kernel launches are counted as its captured launches
+times its replays (the wrappers' Python counts do not see a replay).
 
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
-``{"fig2_sac": ...}`` and ``{"ppo": ...}`` lines, the card's
+``{"fig2_sac": ...}``, ``{"ppo": ...}`` and ``{"acting": ...}`` lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -448,6 +478,54 @@ GAE_TOL = dict(rtol=1e-5, atol=1e-6)
 # vectorized update step
 FIG2_ARMS = {"sac": dict(limit_s=75.0, launches=(24, 3)),
              "ppo": dict(limit_s=45.0, launches=(6, 1))}
+# slice 13, the acting engine. hopper2d's kernel against its plain version
+# at 8 members x 4,096 envs, from states 50 random-action steps in, with
+# actions past the [-1, 1] clip, at the tolerance at which the JAX package
+# holds its own step to the float64 oracle
+HOPPER2D_KERNEL = dict(members=8, envs=4096, warm_steps=50,
+                       action_limit=1.2, scale=(1, 4, 16))
+HOPPER2D_TOL = dict(rtol=2e-4, atol=2e-4)
+# one env of one launch: 27 float32 read (pose, velocities, action), 36
+# float32 and a bool written (pose, velocities, observation, reward,
+# termination); and its float operations, counted from csrc/hopper2d.cu
+# with sin, cos and tanh as one each: 396 a substep (16 gravity and
+# trigonometry, 3 joints of 60, 5 contacts of 28, 60 of integration),
+# and 38 outside the substeps (clip, inertias, observation, reward,
+# termination)
+HOPPER2D_BYTES = 27 * 4 + 36 * 4 + 1
+HOPPER2D_OPS = 5 * 396 + 38
+# the fused epoch, captured vs eager: PBT at the repo's width, N = 8, 256
+# envs a member, 2 epochs of pbt_interval 4 with eval_every 2; the JAX
+# sweep's collect and update shape (4 acting steps, 2 updates of B = 64;
+# PPO 2 epochs of 256-transition minibatches); 50-step evaluations of 16
+# envs. The match is expected bit for bit; FUSED_TOL is what is held
+FUSED = dict(population=8, num_envs=256, pbt_interval=4, eval_every=2,
+             collect_steps=4, updates=2, batch=64, ppo_batch=256,
+             ppo_epochs=2, eval_envs=16, eval_steps=50)
+FUSED_TOL = dict(rtol=1e-5, atol=1e-5)
+# the fused trainer's epochs: the capture, a replay, an eager epoch, and a
+# replay from the eager epoch's state (copied into the static inputs)
+FUSED_SEQUENCE = ("fused", "fused", "eager", "fused")
+FUSED_RUNS = (("td3", "hopper2d", "pbt"), ("sac", "hopper2d", "pbt"),
+              ("ppo", "hopper2d", "pbt"), ("dqn", "cartpole", "pbt"),
+              ("td3", "hopper2d", "cem"))
+# the acting engine at GPU-sim scale: benchmarks/actor_loop.py's overlap
+# sweep (TD3 on hopper2d, 4 acting steps, 2 updates of B = 64, K = 8
+# iterations with a host read each, the median of 5 rounds) at the repo's
+# width and N = 8
+ACTING = dict(population=8, envs=(256, 1024, 4096), collect_steps=4,
+              updates=2, batch=64, iters=8, rounds=5, chunk_steps=2)
+# the train CLI with each acting-engine flag on hopper2d, then served
+ACTING_CLI = dict(
+    steps=4, pbt_interval=2, eval_every=2, num_envs=256, collect_steps=4,
+    requests=8,
+    runs={"td3_fused_epoch": ("td3", ["--fused-epoch", "--updates-per-iter",
+                                      "2", "--batch", "64"], "mean"),
+          "ppo_chunk_steps": ("ppo", ["--chunk-steps", "2", "--batch", "256",
+                                      "--epochs", "2"], "mean"),
+          "td3_policy_lag": ("td3", ["--policy-lag", "1",
+                                     "--updates-per-iter", "2", "--batch",
+                                     "64"], "mean")})
 
 
 def log(msg: str):
@@ -1288,7 +1366,7 @@ def write_population(ckpt_dir, step, fitness):
         aux={"actors": agent.actor_params(state)})
 
 
-def check_answers(server, obs, actions, head=None):
+def check_answers(server, obs, actions, head=None, act_dim=1):
     """Finite actions in [-1, 1] that equal the plain ensemble on the same
     serving set and requests: TD3's actor, or ``head(params, x)``, the
     members' actions on (E, B, obs) requests by plain layers. Returns the
@@ -1297,7 +1375,7 @@ def check_answers(server, obs, actions, head=None):
 
     head = head or (lambda params, x: pop_actor_apply(params, x,
                                                       fused=False))
-    assert actions.shape == (len(obs), 1), actions.shape
+    assert actions.shape == (len(obs), act_dim), actions.shape
     assert np.isfinite(actions).all(), "non-finite actions"
     assert np.abs(actions).max() <= 1.0, "actions outside [-1, 1]"
     params = server.set.params
@@ -4184,6 +4262,514 @@ def _shape_leaves(tree):
 
 
 
+# ------------------------------------------------- slice 13: acting engine
+def hopper2d_bound(num):
+    """Least time (ms) and what bounds one hopper2d launch over ``num``
+    envs: HOPPER2D_BYTES an env (27 floats read, 36 floats and a byte
+    written) at the card's memory rate, against HOPPER2D_OPS an env at the
+    fp32 rate."""
+    t_bytes = num * HOPPER2D_BYTES / PEAK_BYTES_PER_S * 1e3
+    t_ops = num * HOPPER2D_OPS / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_hopper2d_kernel():
+    """hopper2d's kernel against its plain version at N = 8 members x
+    4,096 envs, from states 50 random-action steps in (contacts active),
+    with actions past the clip: one step and three chained, then timed
+    by graph replay beside the plain version and its bound; then its
+    limiter: the occupancy it can reach and its time at 4x and 16x the
+    envs."""
+    from repro_torch.envs import make
+    from repro_torch.envs.hopper2d import hopper2d_step_plain
+    from repro_torch.kernels.hopper2d import hopper2d_step
+
+    h = HOPPER2D_KERNEL
+    num = h["members"] * h["envs"]
+    env = make("hopper2d")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    state, _ = env.reset(gen, num, "cuda")
+    for _ in range(h["warm_steps"]):
+        act = torch.rand((num, 3), generator=gen, device="cuda") * 2 - 1
+        state, *_ = env.step(state, act, gen)
+    keys = ("pos", "th", "vel", "om")
+    x = [state[k].contiguous() for k in keys]
+    lim = h["action_limit"]
+    action = torch.rand((num, 3), generator=gen, device="cuda") * 2 * lim \
+        - lim
+    # a contact is active where a candidate point is below the ground:
+    # the foot's two ends, the leg's bottom, the torso's two ends
+    from repro_torch.envs.hopper2d import CONTACTS
+    z = []
+    for b, (ox, oz) in CONTACTS:
+        th = state["th"][:, b]
+        z.append(state["pos"][:, b, 1] + torch.sin(th) * ox
+                 + torch.cos(th) * oz)
+    in_contact = int((torch.stack(z, -1) < 0).any(-1).sum())
+    hopper2d_step.launches = 0
+    worst = share = 0.0
+    got, want = x, x
+    for n_steps in (1, 2, 3):
+        got = hopper2d_step(*got[:4], action)
+        want = hopper2d_step_plain(*want[:4], action)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if w.dtype == torch.bool:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"hopper2d: termination differs "
+                                         f"after {n_steps} steps")
+                continue
+            worst = max(worst, (g - w).abs().max().item())
+            share = max(share, tol_share(g, w, HOPPER2D_TOL))
+        if n_steps in (1, 3):
+            log(f"hopper2d: {n_steps} step(s) at {num} envs, max abs err "
+                f"{worst:.3g}, {share:.3g} of the tolerance")
+    if share > 1.0:
+        raise AssertionError(f"hopper2d kernel vs plain: {share:.3g} of "
+                             f"rtol=atol=2e-4")
+    if hopper2d_step.launches != 3:
+        raise AssertionError(f"hopper2d: {hopper2d_step.launches} launches "
+                             f"for 3 steps")
+    ms = graph_ms(lambda: hopper2d_step(*x, action))
+    plain_ms = graph_ms(lambda: hopper2d_step_plain(*x, action), reps=2,
+                        iters=5)
+    plain_eager_ms = eager_ms(lambda: hopper2d_step_plain(*x, action),
+                              iters=5)
+    bound_ms, bound_by = hopper2d_bound(num)
+    # what limits it: the occupancy the launch can reach, and its time as
+    # the env count grows (the same states tiled); at a fixed time an env
+    # costs less as the card fills, when latency, not bytes, bounds it
+    from repro_torch.kernels.hopper2d import kernel_info
+    info = kernel_info()
+    props = torch.cuda.get_device_properties(0)
+    slots = props.multi_processor_count * props.max_threads_per_multi_processor
+    info["resident_threads_share"] = (info["blocks_per_sm"]
+                                      * info["threads_per_block"]
+                                      / props.max_threads_per_multi_processor)
+    scaling = {}
+    for k in h["scale"]:
+        big = [t.repeat((k,) + (1,) * (t.ndim - 1)) for t in (*x, action)]
+        t_k = graph_ms(lambda: hopper2d_step(*big)) if k > 1 else ms
+        scaling[num * k] = {"ms": t_k, "ns_per_env": t_k * 1e6 / (num * k),
+                            "bound_ms": hopper2d_bound(num * k)[0],
+                            "thread_slots_filled": min(1.0, num * k / slots)}
+        del big
+    log(f"hopper2d limiter: {info['registers']} registers a thread, "
+        f"{info['blocks_per_sm']} blocks of {info['threads_per_block']} an "
+        f"SM at most ({info['resident_threads_share']:.3f} of its thread "
+        f"slots); by envs: " + ", ".join(
+            f"{n}: {r['ms'] * 1e3:.2f} us ({r['ns_per_env']:.3f} ns an env, "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound, "
+            f"{r['thread_slots_filled']:.3f} of the card's thread slots)"
+            for n, r in scaling.items()))
+    log(f"hopper2d at {num} envs ({in_contact} with a contact active): "
+        f"kernel {ms * 1e3:.2f} us (graph replay), plain {plain_ms * 1e3:.1f}"
+        f" us (graph replay) and {plain_eager_ms:.2f} ms eager, bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}: {HOPPER2D_BYTES} B and "
+        f"{HOPPER2D_OPS} operations an env)")
+    return {"envs": num, "in_contact": in_contact, "max_abs_err": worst,
+            "max_err_over_tolerance": share, "ms": ms, "plain_ms": plain_ms,
+            "plain_eager_ms": plain_eager_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "occupancy": info, "scaling": scaling}
+
+
+def _epoch_launches(trainer):
+    """Kernel launches of a trainer's fused epochs: each captured graph's
+    launches times its replays, plus its warm-up's (eager) launches."""
+    out = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    for fn in trainer._epochs.values():
+        for k in out:
+            out[k] += (fn.warmup_launches[k]
+                       + fn.captured_launches[k] * fn.replays)
+    return out
+
+
+def _fused_trainer(algo, env_name, strategy, *, num_envs, policy_lag=None,
+                   chunk_steps=None, cfg=None):
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import get_algo, make_agent
+
+    f = cfg or FUSED
+    env = make(env_name)
+    pcfg = PopulationConfig(
+        size=f["population"], strategy=strategy, backend="vectorized",
+        num_steps=f["updates"], pbt_interval=f["pbt_interval"],
+        fitness_window=10, hyper_space=get_algo(algo).hyper_space)
+    tr = PopTrainer(make_agent(algo, env.spec, device="cuda"), pcfg,
+                    seed=SEED)
+    kw = dict(num_envs=num_envs, collect_steps=f["collect_steps"],
+              eval_envs=f["eval_envs"], eval_steps=f["eval_steps"],
+              policy_lag=policy_lag, chunk_steps=chunk_steps)
+    if algo == "ppo":
+        tr.attach_rollout(env, batch_size=f["ppo_batch"],
+                          epochs=f["ppo_epochs"], **kw)
+    else:
+        tr.attach_rollout(env, batch_size=f["batch"],
+                          buffer_capacity=4 * num_envs * f["collect_steps"],
+                          **kw)
+    return tr
+
+
+def _tree_err(a, b):
+    """(bitwise equal, max abs difference, share of FUSED_TOL) over two
+    trees' leaves."""
+    from repro_torch.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"trees of {len(la)} and {len(lb)} leaves")
+    same, err, share = True, 0.0, 0.0
+    for x, y in zip(la, lb):
+        same = same and torch.equal(x, y)
+        if x.numel():
+            d = (x.double() - y.double()).abs().max().item()
+            err = max(err, d)
+            if x.is_floating_point():
+                share = max(share, tol_share(x.double(), y.double(),
+                                             FUSED_TOL))
+            elif d:             # integers (counts, lineage) must be equal
+                share = float("inf")
+    return same, err, share
+
+
+def phase_fused_epochs():
+    """The fused train-evolve epoch captured as a CUDA graph against the
+    eager loop from the same seed: TD3, SAC and PPO on hopper2d and DQN
+    on cartpole with PBT, TD3 with CEM; FUSED's epochs in FUSED_SEQUENCE
+    (capture, replay, eager, replay), every replay under
+    set_sync_debug_mode("error"), the last from the state the eager epoch
+    left, copied into the graph's static inputs. State, hypers,
+    buffers, fitness window and lineage compared; each capture's node
+    count, capture time and private pool logged."""
+    f = FUSED
+    rows = {}
+    for algo, env_name, strategy in FUSED_RUNS:
+        name = f"{algo}_{env_name}_{strategy}"
+        t0 = time.perf_counter()
+        eager = _fused_trainer(algo, env_name, strategy,
+                               num_envs=f["num_envs"])
+        fused = _fused_trainer(algo, env_name, strategy,
+                               num_envs=f["num_envs"])
+        iters = f["pbt_interval"] * len(FUSED_SEQUENCE)
+        lineage = {"eager": [], "fused": []}
+        hook = lambda k: (lambda it, m, s, fit, lin: lin is not None
+                          and lineage[k].append(lin))
+        eager.run_env_loop(iters, eval_every=f["eval_every"],
+                           on_iter=hook("eager"))
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        t_first = t_warm = t_mixed = 0.0
+        for e, kind in enumerate(FUSED_SEQUENCE):
+            t0 = time.perf_counter()
+            # every replay (from the second fused epoch on) runs with a
+            # host sync an error
+            if kind == "fused" and e:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                fused.run_env_loop(f["pbt_interval"],
+                                   eval_every=f["eval_every"],
+                                   on_iter=hook("fused"),
+                                   fused=kind == "fused")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if not e:
+                t_first = dt
+            elif kind == "fused" and not t_warm:
+                t_warm = dt
+            elif kind == "fused":
+                t_mixed = dt
+        checks = {
+            "state": _tree_err(eager.state, fused.state),
+            "hypers": _tree_err(eager.hypers, fused.hypers),
+            "buffers": _tree_err(eager.rollout.bufs, fused.rollout.bufs),
+            "env_states": _tree_err(eager.rollout.vstate,
+                                    fused.rollout.vstate),
+            "strategy": _tree_err(eager.strategy.export_state(),
+                                  fused.strategy.export_state()),
+            "last_fitness": _tree_err(eager.last_fitness,
+                                      fused.last_fitness),
+            "lineage": _tree_err(lineage["eager"], lineage["fused"]),
+        }
+        worst = max(c[2] for c in checks.values())
+        if worst > 1.0 or len(lineage["fused"]) != len(FUSED_SEQUENCE) or \
+                eager.step_count != fused.step_count or \
+                len(eager._window) != len(fused._window):
+            raise AssertionError(f"fused {name}: captured vs eager "
+                                 f"{checks}, lineages {lineage}")
+        bitwise = all(c[0] for c in checks.values())
+        (fn,) = fused._epochs.values()
+        if fn.replays != FUSED_SEQUENCE.count("fused"):
+            raise AssertionError(f"fused {name}: {fn.replays} replays of "
+                                 f"one capture for {FUSED_SEQUENCE}")
+        launches = _epoch_launches(fused)
+        rows[name] = {
+            "bitwise": bitwise,
+            "max_abs_err": max(c[1] for c in checks.values()),
+            "max_err_over_tolerance": worst,
+            "graph_nodes": fn.node_count(),
+            "capture_s": fn.capture_seconds, "pool_bytes": fn.pool_bytes,
+            "captured_launches": fn.captured_launches,
+            "replays": fn.replays, "launches": launches,
+            "eager_s": t_eager, "first_epoch_s": t_first,
+            "warm_epoch_s": t_warm, "after_eager_epoch_s": t_mixed}
+        log(f"fused {name}: captured == eager over {len(FUSED_SEQUENCE)} "
+            f"epochs {FUSED_SEQUENCE} "
+            f"({'bit for bit' if bitwise else 'within rtol=atol=1e-5'}, "
+            f"max abs err {rows[name]['max_abs_err']:.3g}); graph "
+            f"{rows[name]['graph_nodes']} nodes, captured in "
+            f"{fn.capture_seconds:.2f}s, pool {fn.pool_bytes / 2**20:.1f} "
+            f"MiB, {fn.captured_launches} launches a replay, {fn.replays} "
+            f"replays; warm epoch under sync debug 'error' in "
+            f"{t_warm:.3f}s, after an eager epoch {t_mixed:.3f}s (first, "
+            f"with warm-up and capture, "
+            f"{t_first:.2f}s; eager {iters} iterations {t_eager:.2f}s)")
+    return rows
+
+
+def _kernel_events(fn):
+    """(wall ms, [(stream, start us, end us, name)]) of the device kernels
+    of one synchronised ``fn()`` call, from torch.profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = [(e.get("args", {}).get("stream"), float(e["ts"]),
+               float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""))
+              for e in trace.get("traceEvents", [])
+              if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    return wall, events
+
+
+def _union(spans):
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _busy_and_overlap(fn):
+    """One profiled ``fn()``: (busy share: the union of the kernels' spans
+    over the wall time, kernel ms, wall ms, overlap share: the part of the
+    acting stream's kernel time (the stream that runs ``hopper2d``) spent
+    while another stream runs a kernel, or None with one stream)."""
+    wall, events = _kernel_events(fn)
+    if not events:
+        return None, 0.0, wall, None
+    busy = _union([(s, e) for _, s, e, _ in events])
+    acting = {st for st, _, _, name in events if "hopper2d" in name}
+    share = busy / (wall * 1e3)
+    streams = {st for st, *_ in events}
+    if len(acting) != 1 or len(streams) < 2:
+        return share, busy / 1e3, wall, None
+    (act,) = acting
+    others = sorted((s, e) for st, s, e, _ in events if st != act)
+    mine = [(s, e) for st, s, e, _ in events if st == act]
+    covered = 0.0
+    for s, e in mine:
+        for os_, oe in others:
+            if oe <= s:
+                continue
+            if os_ >= e:
+                break
+            covered += min(e, oe) - max(s, os_)
+    mine_total = sum(e - s for s, e in mine)
+    return share, busy / 1e3, wall, (covered / mine_total
+                                     if mine_total else None)
+
+
+def phase_acting_engine():
+    """TD3 on hopper2d at GPU-sim scale (the JAX package's acting sweep's
+    shape, ACTING): for 256, 1,024 and 4,096 envs a member, K iterations
+    with a host read of each iteration's episode count, timed as the
+    median of ACTING's rounds with min and max, for the eager serial
+    loop, the fused epoch (one graph replay for the K iterations, the
+    reads after it) and policy_lag=1; the 4,096-env serial arm again with
+    chunk_steps 2, bit for bit against the unchunked one. Each arm's ms
+    per iteration, env steps/s per member and busy share (one profiled
+    round); lag 1 also the share of acting's kernel time that overlaps
+    another stream's kernels. At 4,096 envs lag 1 runs chunked too, bit
+    for bit against lag 1 unchunked (the slot in flight included)."""
+    a = ACTING
+    cfg = dict(population=a["population"], updates=a["updates"],
+               pbt_interval=a["iters"], collect_steps=a["collect_steps"],
+               eval_envs=1, eval_steps=1, batch=a["batch"])
+    rows = {}
+    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    for num_envs in a["envs"]:
+        arms = {"eager": dict(), "fused": dict(fused=True),
+                "lag1": dict(policy_lag=1)}
+        if num_envs == max(a["envs"]):
+            arms["chunked"] = dict(chunk_steps=a["chunk_steps"])
+            arms["lag1_chunked"] = dict(policy_lag=1,
+                                        chunk_steps=a["chunk_steps"])
+        trainers, rounds = {}, {}
+        for arm, kw in arms.items():
+            fused = kw.pop("fused", False)
+            tr = _fused_trainer("td3", "hopper2d", "none", num_envs=num_envs,
+                                cfg=cfg, **kw)
+            reads = []
+
+            def one_round(tr=tr, fused=fused, reads=reads):
+                tr.run_env_loop(
+                    a["iters"], eval_every=0, fused=fused,
+                    on_iter=lambda it, m, s, fit, lin: reads.append(
+                        int(s["episodes"].sum())))
+                torch.cuda.synchronize()
+
+            trainers[arm], rounds[arm] = tr, one_round
+        from repro_torch.kernels import launch_counts
+        before = launch_counts()
+        for fn in rounds.values():          # warm: builds, capture, fill
+            fn()
+        times = {arm: [] for arm in arms}
+        for r in range(a["rounds"]):
+            order = list(arms)[r % len(arms):] + list(arms)[:r % len(arms)]
+            for arm in order:
+                t0 = time.perf_counter()
+                rounds[arm]()
+                times[arm].append((time.perf_counter() - t0) * 1e3
+                                  / a["iters"])
+        view = lambda t: (t.state, t.rollout.bufs, t.rollout.vstate,
+                          (getattr(t.rollout, "_pending", None)
+                           or ((),))[0])
+        bitwise = set()
+        for chunked, whole in (("chunked", "eager"), ("lag1_chunked",
+                                                      "lag1")):
+            if chunked not in arms:
+                continue
+            same, err, _ = _tree_err(view(trainers[whole]),
+                                     view(trainers[chunked]))
+            if not same:
+                raise AssertionError(f"acting {num_envs}: {chunked} != "
+                                     f"{whole} (max abs err {err})")
+            bitwise.add(chunked)
+        cell = {}
+        for arm in arms:
+            share, busy_ms, wall_ms, overlap = _busy_and_overlap(rounds[arm])
+            ts = sorted(times[arm])
+            med = ts[len(ts) // 2]
+            cell[arm] = {
+                "ms_per_iter": med, "min_ms": ts[0], "max_ms": ts[-1],
+                "env_steps_per_s_per_member":
+                    a["collect_steps"] * num_envs / (med / 1e3),
+                "device_busy_share": share, "device_busy_ms": busy_ms,
+                "profiled_wall_ms": wall_ms}
+            if arm.startswith("lag1"):
+                cell[arm]["overlap_share"] = overlap
+            if arm in bitwise:
+                cell[arm]["bitwise_vs_unchunked"] = True
+            log(f"acting {num_envs} envs/member {arm}: {med:.2f} ms per "
+                f"iteration (min {ts[0]:.2f}, max {ts[-1]:.2f}), "
+                f"{cell[arm]['env_steps_per_s_per_member']:.0f} env steps/s "
+                f"per member, busy share "
+                f"{'not measured' if share is None else f'{share:.4f}'}"
+                + (f", acting overlapped {overlap}"
+                   if arm.startswith("lag1") else ""))
+        cell["fused_speedup"] = (cell["eager"]["ms_per_iter"]
+                                 / cell["fused"]["ms_per_iter"])
+        cell["lag1_speedup"] = (cell["eager"]["ms_per_iter"]
+                                / cell["lag1"]["ms_per_iter"])
+        # the wrappers count eager launches and, once, each captured launch
+        # as the capture records it; a replay launches the captured ones
+        # again without counting
+        now = launch_counts()
+        for k in launches:
+            launches[k] += now[k] - before[k] + sum(
+                e.captured_launches[k] * (e.replays - 1)
+                for e in trainers["fused"]._epochs.values())
+        rows[num_envs] = cell
+    return rows, launches
+
+
+def phase_acting_cli(ckpt_root):
+    """The train CLI on hopper2d with each acting-engine flag (ACTING_CLI:
+    --fused-epoch for TD3, --chunk-steps 2 for PPO, --policy-lag 1 for
+    TD3), counted as the train phase (a fused run's graph launches as the
+    captured ones times the replays); then each checkpoint served through
+    the serve CLI and answers held to the plain ensemble."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.rl import networks as nets
+
+    c = ACTING_CLI
+    rows = {}
+    for name, (algo, flags, mode) in c["runs"].items():
+        ckpt_dir = str(Path(ckpt_root) / name)
+        argv = ["--algo", algo, "--env", "hopper2d", "--population",
+                str(POPULATION), "--steps", str(c["steps"]),
+                "--pbt-interval", str(c["pbt_interval"]), "--eval-every",
+                str(c["eval_every"]), "--num-envs", str(c["num_envs"]),
+                "--collect-steps", str(c["collect_steps"]), "--fused-adam",
+                "--fused-linear", "--ckpt-dir", ckpt_dir, "--seed",
+                str(SEED), *flags]
+        hopper2d_step.launches = 0
+        report, wall, mm, _, adam = _run_counted(lambda: train_main(argv))
+        launches = {"pop_matmul": mm, "pop_adam": adam,
+                    "hopper2d": hopper2d_step.launches}
+        for fn in report.trainer._epochs.values():
+            for k in launches:
+                launches[k] += fn.captured_launches[k] * (fn.replays - 1)
+        evolved = [it for it, _ in report.evolutions]
+        if evolved != list(range(c["pbt_interval"], c["steps"] + 1,
+                                 c["pbt_interval"])) or \
+                report.metrics is None or not all(
+                    torch.isfinite(v).all() for v in report.metrics.values()):
+            raise AssertionError(f"acting CLI {name}: evolutions "
+                                 f"{report.evolutions}, metrics "
+                                 f"{report.metrics}")
+        if CheckpointManager(ckpt_dir).latest() != c["steps"] - 1:
+            raise AssertionError(f"acting CLI {name}: no checkpoint at the "
+                                 f"last step")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"acting CLI {name}: launches {launches}")
+        serve_argv = ["--algo", algo, "--env", "hopper2d", "--ckpt-dir",
+                      ckpt_dir, "--ensemble", str(ENSEMBLE), "--mode", mode,
+                      "--fused-linear", "--batch", str(BATCH), "--requests",
+                      str(c["requests"]), "--seed", str(SEED)]
+        served, _, smm, _, _ = _run_counted(lambda: serve_main(serve_argv))
+        head = (None if algo == "td3" else
+                lambda p, x: nets.pop_actor_apply(p["actor"], x,
+                                                  fused=False))
+        worst = max(check_answers(served.server, obs, actions, head=head,
+                                  act_dim=3)
+                    for obs, actions in served.batches)
+        rows[name] = {"algo": algo, "flags": flags, "seconds": wall,
+                      "ms_per_iter": wall * 1e3 / c["steps"],
+                      "launches": launches, "evolutions": report.evolutions,
+                      "best_fitness": report.best_fitness,
+                      "serve": {"mode": mode, "launches": smm,
+                                "req_per_s": served.req_per_s,
+                                "max_abs_err": worst}}
+        log(f"acting CLI {name} ({algo} {' '.join(flags)}): {c['steps']} "
+            f"iterations in {wall:.2f}s, launches {launches}, evolves at "
+            f"{evolved}, best fitness {report.best_fitness:+.2f}; served "
+            f"({mode}) {served.requests} requests, {smm} pop_matmul "
+            f"launches, answers == plain ensemble (max abs err "
+            f"{worst:.3g})")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -4217,7 +4803,7 @@ def main() -> int:
     def nvcc():
         t0 = time.perf_counter()
         built["reports"] = build.build(["pop_matmul", "wkv6", "ssd",
-                                        "flash_attention"])
+                                        "flash_attention", "hopper2d"])
         built["seconds"] = time.perf_counter() - t0
 
     thread = threading.Thread(target=nvcc)
@@ -4367,14 +4953,37 @@ def main() -> int:
             ppo[env].update(phase_ppo_train_serve(env, ckpt_dir))
     ppo["fig2"] = phase_fig2_arm("ppo")
     lap("26-30 PPO")
+
+    # 31. hopper2d's kernel vs plain; 32. fused epochs, captured vs eager;
+    # 33. the acting engine at GPU-sim scale; 34. the train CLI's
+    # acting-engine flags on hopper2d, each run served
+    torch.cuda.empty_cache()
+    acting = {"hopper2d": phase_hopper2d_kernel()}
+    lap("31 hopper2d kernel")
+    acting["fused"] = phase_fused_epochs()
+    lap("32 fused epochs")
+    acting["engine"], engine_launches = phase_acting_engine()
+    lap("33 acting engine")
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        acting["cli"] = phase_acting_cli(ckpt_root)
+    lap("34 acting CLI")
     log(f"seconds at the end of each group of phases: {seconds}")
+    # a captured graph's launches are its captured launches times its
+    # replays (plus the eager warm-up's before the capture)
+    acting_paths = lambda name: {
+        "fused_epochs": sum(r["launches"][name]
+                            for r in acting["fused"].values()),
+        "acting_engine": engine_launches[name],
+        **{f"cli_{k}": r["launches"][name]
+           for k, r in acting["cli"].items()}}
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
                             "dvd": shared["dvd"]["launches"][name],
                             **{f"{a}_train": sac_dqn[a]["launches"][name]
                                for a in SAC_DQN},
                             **{f"ppo_{e}_train": ppo[e]["launches"][name]
-                               for e in PPO}}
+                               for e in PPO},
+                            **acting_paths(name)}
     sac_dqn_entry = lambda kernel: {
         a: {"work": sac_dqn["kernels"][a]["work"],
             **sac_dqn["kernels"][a][kernel],
@@ -4576,6 +5185,35 @@ def main() -> int:
         "bf16_hmma": hmma,
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("flash")},
     })
+    hop = acting["hopper2d"]
+    hopper2d_paths = acting_paths("hopper2d")
+    kernels.append({
+        "name": "hopper2d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hopper2d.cu",
+        "replaces": "none: src/repro/envs/hopper2d.py:161 (_hopper2d_step) "
+                    "has no pallas_call; XLA fuses the control step",
+        "launches": sum(hopper2d_paths.values()),
+        "launches_by_path": hopper2d_paths,
+        "launches_counted": "the wrapper's count for eager launches; a "
+                            "captured graph's as its captured launches "
+                            "times its replays",
+        "max_abs_err": hop["max_abs_err"],
+        "tolerance": "rtol=atol=2e-4",
+        "max_err_over_tolerance": hop["max_err_over_tolerance"],
+        "work": f"one launch over {hop['envs']} envs (8 members x 4,096 "
+                f"envs, {hop['in_contact']} with a contact active); device "
+                f"times, CUDA graph replay, L2-warm",
+        "ms": hop["ms"],
+        "plain_ms": hop["plain_ms"],
+        "plain_eager_ms": hop["plain_eager_ms"],
+        "bound_ms": hop["bound_ms"],
+        "bound_by": hop["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes this function",
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("hopper2d")},
+    })
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "
             f"{r['p50_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms per batch")
@@ -4597,7 +5235,8 @@ def main() -> int:
     print(json.dumps({"fig4": fig4}))
     print(json.dumps({"sac_dqn": sac_dqn}))
     print(json.dumps({"fig2_sac": fig2_sac}))
-    print(json.dumps({"ppo": ppo, "phase_seconds": seconds}))
+    print(json.dumps({"ppo": ppo}))
+    print(json.dumps({"acting": acting, "phase_seconds": seconds}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

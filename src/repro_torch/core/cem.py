@@ -77,20 +77,31 @@ def cem_sample(generator, state: CEMState, n: int, *, eps=None):
         eps.to(state.mean.device)
 
 
+def cem_weights(n: int, elite_frac: float = 0.5, device="cpu"):
+    """The elites' log-rank weights, ``(k,)`` with ``k = round(N
+    elite_frac)``, in the ascending order of :func:`cem_update`'s elites
+    (the fittest last, weighing most). Computed on the host and copied to
+    ``device`` once: a strategy makes them outside any captured graph."""
+    k = max(1, int(round(n * elite_frac)))
+    w = (torch.log(torch.tensor(float(1 + k)))
+         - torch.log(torch.arange(1, k + 1, dtype=torch.float32)))
+    return (w / w.sum()).flip(0).to(device)
+
+
 def cem_update(state: CEMState, samples, fitness, elite_frac: float = 0.5,
-               noise_decay: float = 0.999):
+               noise_decay: float = 0.999, *, weights=None):
     """Refit on the elites. samples: (N, P); fitness: (N,) higher-better.
     The elites are the top ``round(N elite_frac)`` by a stable ascending
     sort (ties keep member order, as ``jnp.argsort``); the log-rank weights
-    are reversed into that ascending order, so the fittest weighs most.
-    The new variance is taken about the OLD mean."""
+    (:func:`cem_weights`, or ``weights`` made by it) are in that ascending
+    order, so the fittest weighs most. The new variance is taken about the
+    OLD mean."""
     n = fitness.shape[0]
-    k = max(1, int(round(n * elite_frac)))
+    w = cem_weights(n, elite_frac, samples.device) if weights is None \
+        else weights
+    k = w.shape[0]
     elite_idx = torch.argsort(fitness, stable=True)[n - k:]
     elites = samples[elite_idx]
-    w = (torch.log(torch.tensor(float(1 + k)))
-         - torch.log(torch.arange(1, k + 1, dtype=torch.float32)))
-    w = (w / w.sum()).flip(0).to(samples.device)
     mean = torch.einsum("i,ip->p", w, elites)
     var = torch.einsum("i,ip->p", w, torch.square(elites - state.mean))
     return CEMState(mean=mean, var=var, noise=state.noise * noise_decay)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import device_tensor
 from repro_torch.rl import networks as nets
 from repro_torch.tree import leaves, tree_map
 
@@ -60,5 +61,6 @@ def dvd_coef_schedule(step, period: int = 20_000, hi: float = 0.5,
     device."""
     step = torch.as_tensor(step)
     phase = (step // (period // 2)) % 2
-    return torch.where(phase == 0, torch.tensor(lo, device=step.device),
-                       torch.tensor(hi, device=step.device))
+    return torch.where(phase == 0,
+                       device_tensor(lo, torch.float32, step.device),
+                       device_tensor(hi, torch.float32, step.device))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import HyperSpace
+from repro_torch.device import device_tensor
 
 
 def hyper_draws(generator, space: HyperSpace, n: int) -> dict:
@@ -27,13 +28,12 @@ def apply_hyper_draws(space: HyperSpace, draws: dict) -> dict:
     out = {}
     for name, lo, hi in space.log_uniform:
         u = draws[name]
-        lo_t, hi_t = (torch.log(torch.tensor(v, dtype=torch.float32,
-                                             device=u.device))
+        lo_t, hi_t = (torch.log(device_tensor(v, torch.float32, u.device))
                       for v in (lo, hi))
         out[name] = torch.exp(torch.maximum(lo_t, u * (hi_t - lo_t) + lo_t))
     for name, lo, hi in space.uniform:
         u = draws[name]
-        lo_t, hi_t = (torch.tensor(v, dtype=torch.float32, device=u.device)
+        lo_t, hi_t = (device_tensor(v, torch.float32, u.device)
                       for v in (lo, hi))
         out[name] = torch.maximum(lo_t, u * (hi_t - lo_t) + lo_t)
     return out
@@ -82,10 +82,8 @@ def perturb_hypers(generator, hypers, space: HyperSpace, mask,
         lo, hi = _bounds(space, name)
         h = hypers[name]
         factor = torch.where(draws["up"][name],
-                             torch.tensor(scale, dtype=h.dtype,
-                                          device=h.device),
-                             torch.tensor(1.0 / scale, dtype=h.dtype,
-                                          device=h.device))
+                             device_tensor(scale, h.dtype, h.device),
+                             device_tensor(1.0 / scale, h.dtype, h.device))
         perturbed = torch.clamp(h * factor, lo, hi)
         explored = torch.where(draws["resample"][name],
                                draws["fresh"][name], perturbed)

@@ -51,7 +51,7 @@ def pbt_step(generator, pop_state, hypers, fitness, pcfg: PopulationConfig,
     else:
         new_state = gather(pop_state, parents)
     replaced = torch.zeros((n,), dtype=torch.bool, device=fitness.device)
-    replaced[bottom] = True
+    replaced.index_fill_(0, bottom, True)
     new_hypers = tree_map(lambda x: x[parents], hypers)
     new_hypers = perturb_hypers(generator, new_hypers, pcfg.hyper_space,
                                 replaced, perturb_prob=pcfg.perturb_prob,

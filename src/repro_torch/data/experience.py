@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.data.replay_buffer import (buffer_add, buffer_can_sample,
                                             buffer_init)
+from repro_torch.device import device_tensor
 from repro_torch.tree import leaves
 
 
@@ -141,7 +142,7 @@ def compute_gae(reward, value, next_value, done, ep_end, discount, lam):
     A reverse loop over T. Returns ``(advantages, returns)`` with
     ``returns = advantages + value``."""
     def per_member(x):
-        x = torch.as_tensor(x, dtype=reward.dtype, device=reward.device)
+        x = device_tensor(x, reward.dtype, reward.device)
         return x if x.ndim == 0 else x.reshape((-1,) + (1,) *
                                                (reward.ndim - 1))
 

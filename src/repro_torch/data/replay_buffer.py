@@ -60,28 +60,44 @@ def buffer_can_sample(buf: ReplayBuffer, batch_size: int):
     return buf.total >= batch_size
 
 
+def sample_indices(buf: ReplayBuffer, generator, batch_size: int,
+                   steps: int = 1):
+    """``(steps, N, B)`` uniform indices into each member's filled items,
+    ``floor(u * min(total, capacity))`` from one uniform draw ``u`` of
+    ``generator``. The count is the device's ``buf.total``, never a host
+    number, so a CUDA graph that captures the draw samples each replay's
+    fill, not the capture's."""
+    n, capacity = leaves(buf.data)[0].shape[:2]
+    count = torch.clamp(buf.total, max=capacity)[None, :, None]
+    u = torch.rand((steps, n, batch_size), generator=generator,
+                   device=generator.device).to(count.device)
+    idx = torch.floor(u * count.float()).long()
+    # u * count can round up to count in float32 for large counts
+    return torch.minimum(idx, (count - 1).long())
+
+
 def buffer_sample(buf: ReplayBuffer, generator, batch_size: int,
                   steps: int = 1, *, filled: int | None = None, idx=None):
     """Uniform samples (with replacement): leaves ``(steps, N, B, ...)``.
 
-    One index tensor ``(steps, N, B)`` is drawn in ``[0, min(filled,
-    capacity))`` from ``generator``, or injected as ``idx``. ``filled`` is
+    One index tensor ``(steps, N, B)`` is drawn by :func:`sample_indices`
+    from ``generator`` (in ``[0, min(total, capacity))`` of each member,
+    the count read on the device), or injected as ``idx``. ``filled`` is
     the host's count of items each member's buffer holds (every member
     inserts the same number per collect, so a caller that counts its
-    inserts never reads the device); without it the count is read back
-    from ``buf.total``. Sampling an empty buffer raises: it would return
-    the zero initialization as if it were data."""
+    inserts never reads the device); it only guards against sampling an
+    empty buffer, which would return the zero initialization as if it
+    were data. Without it the count is read back from ``buf.total`` for
+    that check."""
     if filled is None:
         filled = int(buf.total.min())
     if filled <= 0:
         raise ValueError(
             "buffer_sample called on an empty buffer; gate on "
             "buffer_can_sample(buf, batch_size) first")
-    n, capacity = leaves(buf.data)[0].shape[:2]
+    n = leaves(buf.data)[0].shape[0]
     if idx is None:
-        idx = torch.randint(0, min(filled, capacity),
-                            (steps, n, batch_size), generator=generator,
-                            device=generator.device)
+        idx = sample_indices(buf, generator, batch_size, steps)
     rows = torch.arange(n, device=idx.device)[None, :, None]
     return tree_map(lambda store: store[rows, idx.to(store.device)],
                     buf.data)

@@ -17,3 +17,12 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def device_tensor(value, dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)`` that makes a
+    Python number on the device by a fill, not by a copy from the host (a
+    host copy inside a captured CUDA graph is refused). Same values."""
+    if isinstance(value, torch.Tensor):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return torch.full((), value, dtype=dtype, device=device)

@@ -24,6 +24,9 @@ from typing import Callable
 
 import torch
 
+from repro_torch.envs.hopper2d import (hopper2d_observe, hopper2d_reset,
+                                       hopper2d_step)
+
 
 @dataclass(frozen=True)
 class EnvSpec:
@@ -282,15 +285,14 @@ _REGISTRY = {
                      _mountain_car_obs),
     "acrobot": (EnvSpec("acrobot", 6, 3, True, 500),
                 _acrobot_reset, _acrobot_step, _acrobot_obs),
+    # the physics tier (repro_torch.envs.hopper2d): rigid-body planar
+    # hopper, one kernel launch a control step on the card
+    "hopper2d": (EnvSpec("hopper2d", 11, 3, False, 400, 1.0),
+                 hopper2d_reset, hopper2d_step, hopper2d_observe),
 }
-# the physics tier (the JAX package's rigid-body planar hopper)
-_NOT_PORTED = ("hopper2d",)
 
 
 def make(name: str) -> Env:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"env {name!r} is not ported yet "
-                                  f"(ported: {sorted(_REGISTRY)})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown env {name!r}; registered: "
                          f"{sorted(_REGISTRY)}")

@@ -1,0 +1,201 @@
+"""hopper2d: a planar hopper of four rigid bodies (``repro.envs.hopper2d``),
+batched over a leading env axis.
+
+The physics tier of the paper's §4 GPU-sim argument: every body carries
+its own pose and velocity (maximal coordinates), joints are spring-dampers
+that pin anchor points together (with actuation, relative-angle damping
+and soft angle limits), ground contacts are penalty springs with smooth
+Coulomb friction, and ``substeps`` semi-implicit Euler steps make one
+control step. The constants and tables are the JAX package's.
+
+A state is a dict of ``pos`` (num, 4, 2), ``th`` (num, 4), ``vel``
+(num, 4, 2), ``om`` (num, 4) and ``t`` (num,) int32. Body order: torso,
+thigh, leg, foot.
+
+:func:`hopper2d_step_plain` is the plain PyTorch control step, written a
+body at a time so that forces and torques accumulate in the JAX code's
+order (the ``.at[c].add(fj).at[p].add(-fj)`` sequence): float32 sums then
+round as JAX's do. The env's raw step sends CPU tensors to it and CUDA
+tensors to the hand-written kernel (:mod:`repro_torch.kernels.hopper2d`),
+which runs every substep of one env in registers.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+# body order: 0 torso, 1 thigh, 2 leg, 3 foot
+H2D = dict(
+    dt=0.002,            # integrator substep
+    substeps=5,          # substeps per control step (control dt = 10 ms)
+    gravity=9.8,
+    length=(0.40, 0.45, 0.50, 0.39),      # rod lengths
+    mass=(3.5, 4.0, 2.7, 5.1),            # ~ gym hopper link masses
+    joint_k=4000.0,      # joint anchor spring stiffness
+    joint_c=40.0,        # joint anchor damping
+    rot_c=2.0,           # relative-angle damping at each joint
+    limit_k=60.0,        # soft joint-limit spring (torque / rad)
+    torque=(30.0, 30.0, 15.0),            # actuator gains (hip, knee, ankle)
+    contact_k=6000.0,    # ground penalty stiffness
+    contact_c=30.0,      # ground penalty damping
+    friction=0.9,
+    v_smooth=0.1,        # tanh friction smoothing velocity
+    z_min=0.7,           # torso-height termination
+    th_max=1.0,          # torso-angle termination
+)
+
+# joints: (parent, parent-frame anchor, child, child-frame anchor,
+#          limit_lo, limit_hi): hip, knee, ankle
+JOINTS = (
+    (0, (0.0, -0.20), 1, (0.0, 0.225), -1.0, 1.0),
+    (1, (0.0, -0.225), 2, (0.0, 0.25), -1.2, 1.2),
+    (2, (0.0, -0.25), 3, (-0.0975, 0.0), -0.8, 0.8),
+)
+
+# ground-contact candidate points: (body, body-frame offset)
+CONTACTS = (
+    (3, (0.195, 0.0)), (3, (-0.195, 0.0)),    # foot toe / heel
+    (2, (0.0, -0.25)),                        # leg bottom (kneeling)
+    (0, (0.0, -0.20)), (0, (0.0, 0.20)),      # torso ends (falling over)
+)
+
+# upright rest pose: foot hovering at z=0.06, leg/thigh/torso stacked
+# vertically above the ankle anchor (all body angles zero)
+REST_POS = ((-0.0975, 1.21), (-0.0975, 0.785), (-0.0975, 0.31), (0.0, 0.06))
+
+
+def _rot(th, lx, lz):
+    """A body-frame offset rotated into the world frame: (x, z)."""
+    c, s = torch.cos(th), torch.sin(th)
+    return c * lx - s * lz, s * lx + c * lz
+
+
+def _point_vel(vx, vz, om, rx, rz):
+    """v + om x r, with om x (rx, rz) = om (-rz, rx) in 2D."""
+    return vx + om * -rz, vz + om * rx
+
+
+def _cross2(rx, rz, fx, fz):
+    return rx * fz - rz * fx
+
+
+def _forces(pos, th, vel, om, a):
+    """Net world force (fx, fz lists of 4 (num,) tensors) and torque (list
+    of 4) on every body, accumulated in the JAX code's order."""
+    px, pz = list(pos[..., 0].unbind(-1)), list(pos[..., 1].unbind(-1))
+    vx, vz = list(vel[..., 0].unbind(-1)), list(vel[..., 1].unbind(-1))
+    th, om = list(th.unbind(-1)), list(om.unbind(-1))
+    zero = torch.zeros_like(th[0])
+    fx = [zero] * 4
+    fz = [zero - H2D["gravity"] * torch.tensor(m, dtype=torch.float32)
+          for m in H2D["mass"]]
+    tau = [zero] * 4
+
+    for j, (p, ra, c, rb, lo, hi) in enumerate(JOINTS):
+        wax, waz = _rot(th[p], *ra)
+        wbx, wbz = _rot(th[c], *rb)
+        dx = (px[p] + wax) - (px[c] + wbx)
+        dz = (pz[p] + waz) - (pz[c] + wbz)
+        pvx, pvz = _point_vel(vx[p], vz[p], om[p], wax, waz)
+        cvx, cvz = _point_vel(vx[c], vz[c], om[c], wbx, wbz)
+        fjx = H2D["joint_k"] * dx + H2D["joint_c"] * (pvx - cvx)
+        fjz = H2D["joint_k"] * dz + H2D["joint_c"] * (pvz - cvz)
+        fx[c], fz[c] = fx[c] + fjx, fz[c] + fjz
+        fx[p], fz[p] = fx[p] + -fjx, fz[p] + -fjz
+        tau[c] = tau[c] + _cross2(wbx, wbz, fjx, fjz)
+        tau[p] = tau[p] + _cross2(wax, waz, -fjx, -fjz)
+        rel = th[c] - th[p]
+        tj = (H2D["torque"][j] * a[:, j]
+              - H2D["rot_c"] * (om[c] - om[p])
+              - H2D["limit_k"] * (torch.clamp(rel - hi, min=0.0)
+                                  + torch.clamp(rel - lo, max=0.0)))
+        tau[c] = tau[c] + tj
+        tau[p] = tau[p] + -tj
+
+    for b, off in CONTACTS:
+        rx, rz = _rot(th[b], *off)
+        pwz = pz[b] + rz
+        vwx, vwz = _point_vel(vx[b], vz[b], om[b], rx, rz)
+        pen = torch.clamp(-pwz, min=0.0)
+        active = (pen > 0.0).float()
+        fn = torch.clamp(H2D["contact_k"] * pen - H2D["contact_c"] * vwz,
+                         min=0.0) * active
+        ft = -H2D["friction"] * fn * torch.tanh(vwx / H2D["v_smooth"])
+        fx[b], fz[b] = fx[b] + ft, fz[b] + fn
+        tau[b] = tau[b] + _cross2(rx, rz, ft, fn)
+    return fx, fz, tau
+
+
+@functools.cache
+def _constants(device):
+    """Masses, inertias and the rest pose on ``device``, made once: a copy
+    from the host inside a captured CUDA graph is refused."""
+    m = torch.tensor(H2D["mass"], dtype=torch.float32, device=device)
+    length = torch.tensor(H2D["length"], dtype=torch.float32, device=device)
+    rest = torch.tensor(REST_POS, dtype=torch.float32, device=device)
+    return m, m * length ** 2 / 12.0, rest   # thin rods about their centers
+
+
+def hopper2d_obs(pos, th, vel, om):
+    """The 11 observations: torso height, torso angle, the three relative
+    joint angles, torso velocity, torso spin and the three relative joint
+    spins."""
+    return torch.stack([
+        pos[:, 0, 1], th[:, 0], th[:, 1] - th[:, 0], th[:, 2] - th[:, 1],
+        th[:, 3] - th[:, 2], vel[:, 0, 0], vel[:, 0, 1], om[:, 0],
+        om[:, 1] - om[:, 0], om[:, 2] - om[:, 1], om[:, 3] - om[:, 2]], -1)
+
+
+def hopper2d_step_plain(pos, th, vel, om, action):
+    """One control step of ``num`` envs, the plain PyTorch version:
+    ``(pos, th, vel, om, obs, reward, terminated)``."""
+    a = torch.clamp(action, -1.0, 1.0)
+    m, inertia, _ = _constants(pos.device)
+    dt = H2D["dt"]
+    x0 = pos[:, 0, 0]
+    for _ in range(H2D["substeps"]):
+        fx, fz, tau = _forces(pos, th, vel, om, a)
+        f = torch.stack([torch.stack(fx, -1), torch.stack(fz, -1)], -1)
+        vel = vel + dt * f / m[:, None]        # semi-implicit Euler:
+        om = om + dt * torch.stack(tau, -1) / inertia   # velocities first,
+        pos = pos + dt * vel                   # then positions from the
+        th = th + dt * om                      # NEW velocities
+    fwd = (pos[:, 0, 0] - x0) / (dt * H2D["substeps"])
+    reward = fwd + 1.0 - 1e-3 * torch.sum(a ** 2, -1)
+    terminated = (pos[:, 0, 1] < H2D["z_min"]) | \
+        (torch.abs(th[:, 0]) > H2D["th_max"])
+    return pos, th, vel, om, hopper2d_obs(pos, th, vel, om), reward, \
+        terminated
+
+
+def hopper2d_observe(state):
+    return hopper2d_obs(state["pos"], state["th"], state["vel"], state["om"])
+
+
+def hopper2d_reset(generator, num: int, device="cpu"):
+    """Fresh envs at the rest pose, each pose coordinate and angle moved by
+    a uniform draw in [-5e-3, 5e-3) from ``generator`` (poses first)."""
+    draw = dict(generator=generator, device=generator.device)
+    u_pos = torch.rand((num, 4, 2), **draw).to(device)
+    u_th = torch.rand((num, 4), **draw).to(device)
+    rest = _constants(torch.device(device))[2]
+    state = {
+        "pos": rest + (-5e-3 + 1e-2 * u_pos),
+        "th": -5e-3 + 1e-2 * u_th,
+        "vel": torch.zeros((num, 4, 2), dtype=torch.float32, device=device),
+        "om": torch.zeros((num, 4), dtype=torch.float32, device=device),
+        "t": torch.zeros((num,), dtype=torch.int32, device=device),
+    }
+    return state, hopper2d_observe(state)
+
+
+def hopper2d_step(state, action):
+    """The raw step: the CUDA kernel for CUDA tensors, the plain version
+    for CPU ones. Returns ``(state, obs, reward, terminated)``."""
+    from repro_torch.kernels.hopper2d import hopper2d_step as step
+    pos, th, vel, om, obs, reward, terminated = step(
+        *(state[k].contiguous() for k in ("pos", "th", "vel", "om")),
+        action.contiguous())
+    new = dict(state, pos=pos, th=th, vel=vel, om=om, t=state["t"] + 1)
+    return new, obs, reward, terminated

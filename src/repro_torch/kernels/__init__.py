@@ -24,3 +24,17 @@ def refuse_grad(name: str, *tensors):
         raise ValueError(f"{name}: the kernel has no backward; a "
                          "differentiated forward goes through kernels.ops, "
                          "which routes it to nn's plain form")
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count (``<wrapper>.launches``), by
+    kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    return {"pop_matmul": pop_matmul.launches, "pop_adam": pop_adam.launches,
+            "hopper2d": hopper2d_step.launches, "wkv6": wkv6.launches,
+            "ssd": ssd.launches, "flash_attention": flash_attention.launches}

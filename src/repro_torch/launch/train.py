@@ -18,8 +18,8 @@ refused by name.
         --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR
 
 ``--algo <name>`` (td3, sac, dqn or ppo) trains a population of the
-registered algorithm on an env (pendulum, reacher and mountain_car
-continuous, cartpole and acrobot discrete) through
+registered algorithm on an env (pendulum, reacher, mountain_car and the
+rigid-body hopper2d continuous, cartpole and acrobot discrete) through
 ``PopTrainer.attach_rollout`` / ``run_env_loop``. An off-policy algorithm
 collects, inserts into the population's replay buffers, samples, and
 takes ``--updates-per-iter`` chained population-level updates per
@@ -31,9 +31,21 @@ per member, computes GAE on the device and takes ``--epochs`` x
 ppo's whole ``{actor, critic, log_std}`` tree, and redraws every member;
 lineage ``-1``).
 On the card every population-batched linear (forward and under autograd)
-is one ``pop_matmul`` launch and every Adam step one ``pop_adam`` launch
-for the whole population; ``--fused-adam`` and ``--fused-linear`` are
-taken so that the JAX CLI's command lines run, and change nothing.
+is one ``pop_matmul`` launch, every Adam step one ``pop_adam`` launch
+for the whole population and every hopper2d control step one ``hopper2d``
+launch; ``--fused-adam`` and ``--fused-linear`` are taken so that the JAX
+CLI's command lines run, and change nothing.
+
+``--fused-epoch`` runs whole train-evolve epochs (``--pbt-interval``
+iterations, their evaluations and the evolve) as one captured CUDA graph
+each on the card, eagerly on the CPU, with the eager loop's results; it
+needs ``--steps`` a multiple of ``--pbt-interval`` and ``--eval-every``
+dividing it, and takes its checkpoints at epoch ends (one due mid-epoch
+waits for the epoch's end). ``--policy-lag 0|1`` selects the overlapped
+engine (1: collect on a second stream, acting one update behind; refused
+beside ``--fused-epoch``). ``--chunk-steps`` collects in chunks folded into the
+store one at a time (it must divide ``--collect-steps``; the results are
+unchanged).
 
     python -m repro_torch.launch.train --algo td3 --env pendulum \\
         --population 8 --steps 20 --pbt-interval 10 --eval-every 2 \\
@@ -45,6 +57,10 @@ taken so that the JAX CLI's command lines run, and change nothing.
         --population 8 --steps 40 --pbt-interval 5 --num-envs 8 \\
         --collect-steps 64 --batch 128 --epochs 4 --fused-adam \\
         --fused-linear --ckpt-dir DIR
+    python -m repro_torch.launch.train --algo td3 --env hopper2d \\
+        --population 8 --steps 8 --pbt-interval 4 --eval-every 2 \\
+        --num-envs 256 --collect-steps 4 --updates-per-iter 2 --batch 64 \\
+        --fused-epoch --ckpt-dir DIR
 
 The RL checkpoint is served by ``repro_torch.launch.serve``. Both run on
 the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
@@ -65,9 +81,6 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 DEFAULT_EPOCHS = 4
 # flag -> why it is refused
 _REFUSED = {
-    "policy_lag": "the overlapped acting engine is not ported yet",
-    "chunk_steps": "chunked collection is not ported yet",
-    "fused_epoch": "fused train-evolve epochs are not ported yet",
     "resume": "checkpoint resume is not ported yet",
     "resize": "elastic resume is not ported yet",
     "devices": "multi-device islands are not ported yet",
@@ -190,7 +203,9 @@ def _run_rl(args) -> TrainReport:
                            collect_steps=args.collect_steps,
                            batch_size=args.batch,
                            epochs=(DEFAULT_EPOCHS if args.epochs is None
-                                   else args.epochs))
+                                   else args.epochs),
+                           policy_lag=args.policy_lag,
+                           chunk_steps=args.chunk_steps)
 
     t0 = time.time()
     report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
@@ -209,10 +224,17 @@ def _run_rl(args) -> TrainReport:
                   f"lineage={lineage.tolist()} strategy="
                   f"{type(trainer.strategy).__name__}")
         if (it + 1) % args.ckpt_every == 0 or it == args.steps - 1:
+            due.append(it)
+        # a fused epoch reports its iterations after running them all, so
+        # a checkpoint due mid-epoch is taken at the epoch's end, where the
+        # trainer's state is that of the iteration reported
+        if due and it + 1 == trainer.step_count:
             trainer.save()
+            due.clear()
 
+    due = []
     trainer.run_env_loop(args.steps, eval_every=args.eval_every,
-                         on_iter=on_iter)
+                         on_iter=on_iter, fused=args.fused_epoch)
     report.seconds = time.time() - t0
     print(f"[train] done in {report.seconds:.1f}s, "
           f"best fitness {report.best_fitness:+.2f}")
@@ -229,8 +251,8 @@ def main(argv=None):
                     "registry (td3, sac, dqn, ppo)")
     ap.add_argument("--env", default="pendulum",
                     help="env name for the --algo workload: pendulum, "
-                    "reacher, mountain_car (continuous: td3, sac, ppo), "
-                    "cartpole, acrobot (discrete: dqn, ppo)")
+                    "reacher, mountain_car, hopper2d (continuous: td3, sac, "
+                    "ppo), cartpole, acrobot (discrete: dqn, ppo)")
     ap.add_argument("--population", type=int, default=1)
     ap.add_argument("--strategy", default="pbt",
                     choices=["pbt", "cem", "none"],
@@ -244,6 +266,16 @@ def main(argv=None):
                     "islands are not ported yet")
     ap.add_argument("--num-envs", type=int, default=8)
     ap.add_argument("--collect-steps", type=int, default=32)
+    ap.add_argument("--policy-lag", type=int, default=None, choices=[0, 1],
+                    help="the overlapped acting engine: 0 = collect then "
+                    "update (equal to the serial engine); 1 = collect on a "
+                    "second stream, acting one update behind; default: the "
+                    "serial engine (refused beside --fused-epoch at 1)")
+    ap.add_argument("--chunk-steps", type=int, default=None,
+                    help="collect in chunks of this many acting steps, "
+                    "each folded into the experience store before the next "
+                    "(must divide --collect-steps; the results are "
+                    "unchanged)")
     ap.add_argument("--updates-per-iter", type=int, default=32,
                     help="chained off-policy updates per iteration")
     ap.add_argument("--epochs", type=int, default=None,
@@ -270,9 +302,18 @@ def main(argv=None):
                     help="taken for the JAX CLI's command lines: every "
                     "population-batched linear runs the pop_matmul kernel "
                     "on the card anyway")
+    ap.add_argument("--fused-epoch", action="store_true",
+                    help="run whole train-evolve epochs (pbt_interval "
+                    "iterations + evaluations + evolve) as one captured "
+                    "CUDA graph each (eagerly on the CPU); needs --steps a "
+                    "multiple of --pbt-interval and --eval-every dividing "
+                    "it; the eager loop's results (checkpoints at epoch ends)")
     ap.add_argument("--ckpt-dir", required=True,
                     help="empty directory for the population checkpoints")
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="checkpoint every N iterations and at the last; "
+                    "under --fused-epoch one due mid-epoch is taken at "
+                    "that epoch's end")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
@@ -288,6 +329,11 @@ def main(argv=None):
                 f"{why}")
     if (args.arch is None) == (args.algo is None):
         ap.error("pass exactly one of --arch (LM) or --algo (RL)")
+    if args.arch is not None and (args.fused_epoch or args.policy_lag
+                                  is not None or args.chunk_steps):
+        raise ValueError("--fused-epoch, --policy-lag and --chunk-steps "
+                         "drive the acting engine: they are taken with "
+                         "--algo only")
     if args.epochs is not None:
         from repro_torch.rl import ALGOS
         on_policy = sorted(name for name, a in ALGOS.items()

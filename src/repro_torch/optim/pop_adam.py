@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from repro_torch.device import device_tensor
 from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.tree import flat_buffer, flat_empty, flatten, unflatten
@@ -92,8 +93,8 @@ def population_adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     def apply_fn(params, grads, state, lr_override=None, wd_override=None):
         step = state.step + 1
         n = step.shape[0]
-        vec = lambda v: torch.as_tensor(
-            v, dtype=torch.float32, device=step.device).expand(n).contiguous()
+        vec = lambda v: device_tensor(
+            v, torch.float32, step.device).expand(n).contiguous()
         lr_vec = vec(lr if lr_override is None else lr_override)
         decoupled = (wd_override is not None) or bool(weight_decay)
         wd_vec = None if not decoupled else vec(

@@ -10,9 +10,16 @@ afresh from a search distribution: never an index). ``NoEvolution``
 makes population size 1 the degenerate case.
 
 Strategies are objects of the training loop, built once per run and
-called every ``pbt_interval`` trainer steps, so CEM's gaussian lives on
-the instance (the JAX package threads it through ``jit``; the port runs
-eagerly).
+called every ``pbt_interval`` trainer steps. ``evolve`` wraps the pure
+step that ``evolve_fn()`` returns::
+
+    fn(generator, pop_state, hypers, fitness, strat_state)
+        -> (pop_state, hypers, lineage, strat_state)
+
+which threads the strategy's internal state (CEM's gaussian) through as
+tensors, so a fused train-evolve epoch can run it inside one captured CUDA
+graph: it stays on the device, reads nothing back and copies nothing from
+the host.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import PopulationConfig
 from repro_torch.core.cem import (CEMState, cem_init, cem_sample, cem_update,
-                                  ravel_stacked)
+                                  cem_weights, ravel_stacked)
 from repro_torch.core.dvd import dvd_coef_schedule
 from repro_torch.core.hyperparams import sample_hypers
 from repro_torch.core.pbt import pbt_step
@@ -51,8 +58,21 @@ class EvolutionStrategy:
     def import_state(self, state):
         """Restore what ``export_state`` produced (nothing here)."""
 
-    def evolve(self, generator, pop_state, hypers, fitness):
+    def evolve_fn(self):
+        """The pure evolve step (module docstring)."""
         raise NotImplementedError
+
+    def evolve(self, generator, pop_state, hypers, fitness):
+        pop_state, hypers, lineage, strat_state = self.evolve_fn()(
+            generator, pop_state, hypers, fitness, self.export_state())
+        if strat_state is not None:
+            self.import_state(strat_state)
+        return pop_state, hypers, lineage
+
+
+def _identity_evolve(generator, pop_state, hypers, fitness, strat_state):
+    return pop_state, hypers, torch.arange(fitness.shape[0],
+                                           device=fitness.device), strat_state
 
 
 class NoEvolution(EvolutionStrategy):
@@ -63,9 +83,8 @@ class NoEvolution(EvolutionStrategy):
     def __init__(self, pcfg: PopulationConfig | None = None):
         self.pcfg = pcfg
 
-    def evolve(self, generator, pop_state, hypers, fitness):
-        return pop_state, hypers, torch.arange(fitness.shape[0],
-                                               device=fitness.device)
+    def evolve_fn(self):
+        return _identity_evolve
 
 
 class PBT(EvolutionStrategy):
@@ -85,11 +104,17 @@ class PBT(EvolutionStrategy):
         self._gather = agent.gather_members
         return pop_state
 
-    def evolve(self, generator, pop_state, hypers, fitness):
-        state, new_hypers, parents = pbt_step(
-            generator, pop_state, {} if hypers is None else hypers, fitness,
-            self.pcfg, gather=self._gather)
-        return state, (None if hypers is None else new_hypers), parents
+    def evolve_fn(self):
+        pcfg, gather = self.pcfg, self._gather
+
+        def fn(generator, pop_state, hypers, fitness, strat_state):
+            state, new_hypers, parents = pbt_step(
+                generator, pop_state, {} if hypers is None else hypers,
+                fitness, pcfg, gather=gather)
+            return (state, None if hypers is None else new_hypers, parents,
+                    strat_state)
+
+        return fn
 
 
 class CEM(EvolutionStrategy):
@@ -97,25 +122,31 @@ class CEM(EvolutionStrategy):
 
     ``bind`` centres the distribution on member 0 and redraws every
     member from it; ``evolve`` refits on the elites and redraws every
-    member (lineage all -1: no member inherits a parent's state)."""
+    member (lineage all -1: no member inherits a parent's state). The
+    elites' weights are made on the device once, at ``bind``."""
 
     def __init__(self, pcfg: PopulationConfig):
         self.pcfg = pcfg
         self._agent = None
         self.cem_state = None
         self._unravel = None
+        self._weights = None
 
     def bind(self, generator, agent, pop_state):
         self._agent = agent
         params = agent.evolvable_params(pop_state)
+        first = leaves(params)[0]
         self.cem_state, self._unravel = cem_init(
             tree_map(lambda x: x[0], params),
             sigma_init=self.pcfg.sigma_init,
             noise_init=self.pcfg.cem_noise_init)
-        return self._redraw(generator, pop_state, leaves(params)[0].shape[0])
+        self._weights = cem_weights(first.shape[0], self.pcfg.elite_frac,
+                                    first.device)
+        return self._redraw(generator, pop_state, self.cem_state,
+                            first.shape[0])
 
-    def _redraw(self, generator, pop_state, n: int):
-        new_params = self._unravel(cem_sample(generator, self.cem_state, n))
+    def _redraw(self, generator, pop_state, cem_state, n: int):
+        new_params = self._unravel(cem_sample(generator, cem_state, n))
         return self._agent.with_evolvable_params(pop_state, new_params)
 
     def export_state(self):
@@ -124,16 +155,20 @@ class CEM(EvolutionStrategy):
     def import_state(self, state):
         self.cem_state = CEMState(*state)
 
-    def evolve(self, generator, pop_state, hypers, fitness):
-        n = fitness.shape[0]
-        flat = ravel_stacked(self._agent.evolvable_params(pop_state))
-        self.cem_state = cem_update(
-            self.cem_state, flat, fitness.to(flat.device),
-            elite_frac=self.pcfg.elite_frac,
-            noise_decay=self.pcfg.cem_noise_decay)
-        return (self._redraw(generator, pop_state, n), hypers,
-                torch.full((n,), -1, dtype=torch.int32,
-                           device=fitness.device))
+    def evolve_fn(self):
+        def fn(generator, pop_state, hypers, fitness, strat_state):
+            n = fitness.shape[0]
+            flat = ravel_stacked(self._agent.evolvable_params(pop_state))
+            cem_state = cem_update(
+                CEMState(*strat_state), flat, fitness.to(flat.device),
+                elite_frac=self.pcfg.elite_frac,
+                noise_decay=self.pcfg.cem_noise_decay,
+                weights=self._weights)
+            return (self._redraw(generator, pop_state, cem_state, n), hypers,
+                    torch.full((n,), -1, dtype=torch.int32,
+                               device=fitness.device), cem_state)
+
+        return fn
 
 
 class DvD(EvolutionStrategy):
@@ -151,9 +186,8 @@ class DvD(EvolutionStrategy):
             agent.dvd_coef_fn = lambda step: dvd_coef_schedule(
                 step, period=period)
 
-    def evolve(self, generator, pop_state, hypers, fitness):
-        return pop_state, hypers, torch.arange(fitness.shape[0],
-                                               device=fitness.device)
+    def evolve_fn(self):
+        return _identity_evolve
 
 
 STRATEGIES: dict[str, type] = {

@@ -38,6 +38,13 @@ layout of :mod:`repro_torch.checkpoint` (which the JAX package's
 ``repro.serve.load_actor_stack`` reads). The port's main tree has no
 per-member ``key`` leaf. ``save_async``, ``resume``, the ``rollout`` aux
 tree and telemetry come with later slices.
+
+``run_env_loop(fused=True)`` runs whole train-evolve epochs
+(``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
+one CUDA graph per epoch shape, captured at first use and replayed
+(:mod:`repro_torch.rollout.graph`); the results equal the eager loop's.
+``attach_rollout(policy_lag=0|1)`` selects the overlapped engine
+(:class:`repro_torch.rollout.OverlapEngine`).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ import torch
 from repro_torch.configs.base import PopulationConfig
 from repro_torch.pop.backend import make_update
 from repro_torch.pop.strategy import make_strategy
+from repro_torch.tree import tree_map
 
 
 class PopTrainer:
@@ -75,6 +83,7 @@ class PopTrainer:
         self.last_fitness = None  # the (N,) fitness used at the last evolve
         self.step_count = 0
         self._rollout = None
+        self._epochs = {}
         self._mgr = None
         if checkpoint_dir is not None:
             from repro_torch.checkpoint import CheckpointManager
@@ -112,16 +121,18 @@ class PopTrainer:
         """Attach the acting engine (``repro_torch.rollout.RolloutEngine``):
         batched envs per member, the population's replay buffers, the
         evaluator and the collect -> insert -> sample -> ``pcfg.num_steps``
-        updates iteration. Returns the engine."""
+        updates iteration; ``policy_lag`` (0 or 1) selects the overlapped
+        engine, ``chunk_steps`` chunked collection. Returns the engine."""
         from repro_torch.rollout.engine import RolloutEngine
-        if engine_kwargs.pop("policy_lag", None) is not None:
-            raise NotImplementedError(
-                "policy_lag (the overlapped engine) is not ported yet")
-        self._rollout = RolloutEngine(self.agent, self.pcfg, env,
-                                      update=self.update,
-                                      generator=self.generator,
-                                      init_state=self.state,
-                                      **engine_kwargs)
+        from repro_torch.rollout.overlap import OverlapEngine
+        engine = OverlapEngine
+        if engine_kwargs.get("policy_lag") is None:
+            engine_kwargs.pop("policy_lag", None)
+            engine = RolloutEngine
+        self._rollout = engine(self.agent, self.pcfg, env,
+                               update=self.update, generator=self.generator,
+                               init_state=self.state, **engine_kwargs)
+        self._epochs = {}
         return self._rollout
 
     @property
@@ -151,12 +162,18 @@ class PopTrainer:
         evaluator scores the population into the fitness window, and the
         strategy evolves every ``pcfg.pbt_interval`` trainer steps.
         ``on_iter(it, metrics, stats, fitness, lineage)`` is the logging
-        hook. Returns the last (metrics, stats). Eager only: ``fused=True``
-        (whole train-evolve epochs as one program) is not ported yet."""
+        hook. Returns the last (metrics, stats).
+
+        ``fused=True`` runs the same loop as whole train-evolve epochs
+        (``RolloutEngine.build_epoch``): ``pcfg.pbt_interval`` iterations,
+        their evaluations and the evolve, as one CUDA graph replay an
+        epoch on the card (eagerly on the CPU), equal to the eager loop.
+        It needs (and checks) ``iters`` a multiple of the epoch length,
+        ``eval_every`` dividing it, the epoch's evaluations within
+        ``fitness_window``, an epoch-aligned ``step_count`` and an empty
+        fitness window when evolution is on."""
         if fused:
-            raise NotImplementedError(
-                "run_env_loop(fused=True) is not ported yet: the port runs "
-                "the eager loop")
+            return self._run_env_loop_fused(iters, eval_every, on_iter)
         metrics = stats = None
         for it in range(iters):
             metrics, stats, _ = self.env_iteration()
@@ -167,6 +184,121 @@ class PopTrainer:
             lineage = self._maybe_evolve()
             if on_iter is not None:
                 on_iter(it, metrics, stats, fitness, lineage)
+        return metrics, stats
+
+    def _fused_epoch(self, epoch_len: int, eval_every: int, evolving: bool):
+        """The epoch function from the engine's next iteration, cached by
+        ``(epoch_len, eval_every, evolving, gate pattern)``: on the card a
+        :class:`CapturedFunction` (captured at its first call, then
+        replayed), on the CPU the eager function."""
+        r = self.rollout
+        gates = r.gates(r.iterations, epoch_len)
+        key = (epoch_len, eval_every, evolving, gates)
+        fn = self._epochs.get(key)
+        if fn is None:
+            epoch = r.build_epoch(
+                epoch_len=epoch_len, eval_every=eval_every,
+                evolve_fn=self.strategy.evolve_fn() if evolving else None,
+                start=r.iterations)
+            if self.generator.device.type == "cuda":
+                from repro_torch.kernels import launch_counts
+                from repro_torch.rollout.graph import CapturedFunction
+                fn = CapturedFunction(epoch, self.generator, carried=5,
+                                      counts=launch_counts)
+            else:
+                fn = lambda *trees: epoch(*trees, self.generator)
+            self._epochs[key] = fn
+        return fn, gates
+
+    def _run_env_loop_fused(self, iters: int, eval_every: int, on_iter):
+        r = self.rollout
+        pbt = self.pcfg.pbt_interval
+        evolving = bool(not self.strategy.null and pbt and iters >= pbt)
+        if evolving:
+            epoch_len = pbt
+            if iters % epoch_len:
+                raise ValueError(
+                    f"fused train-evolve epochs need iters ({iters}) to be "
+                    f"a multiple of pbt_interval ({epoch_len})")
+            if not eval_every or epoch_len % eval_every:
+                raise ValueError(
+                    f"fused train-evolve epochs need eval_every "
+                    f"({eval_every}) to divide pbt_interval ({epoch_len}) "
+                    f"so every epoch scores the population before evolving")
+            if epoch_len // eval_every > self.pcfg.fitness_window:
+                raise ValueError(
+                    f"{epoch_len // eval_every} evaluations per epoch "
+                    f"overflow fitness_window={self.pcfg.fitness_window}: "
+                    f"the eager loop would drop early rows and diverge")
+            if self.step_count % epoch_len:
+                raise ValueError(
+                    f"step_count={self.step_count} is not epoch-aligned "
+                    f"(pbt_interval={epoch_len}); the eager cadence would "
+                    f"evolve mid-epoch")
+            if self._window:
+                raise ValueError(
+                    "fitness window is non-empty at fused-epoch entry; the "
+                    "eager loop would mix pre-epoch rows into the evolve "
+                    "fitness")
+        else:
+            epoch_len = iters
+            if (not self.strategy.null and pbt and eval_every
+                    and (self.step_count + iters) // pbt
+                    > self.step_count // pbt):
+                raise ValueError(
+                    f"iters={iters} from step {self.step_count} crosses an "
+                    f"evolve boundary (pbt_interval={pbt}) mid-epoch; run "
+                    f"a multiple of pbt_interval instead")
+        n_evals = (epoch_len // eval_every) if eval_every else 0
+        metrics = stats = None
+        start = self.step_count
+        for _ in range(iters // epoch_len if epoch_len else 0):
+            fn, gates = self._fused_epoch(epoch_len, eval_every, evolving)
+            base = self.step_count
+            (self.state, r.bufs, r.vstate, hypers, strat_state, m_stack,
+             s_stack, _, evals, fitness, lineage) = fn(
+                self.state, r.bufs, r.vstate, self.hypers,
+                self.strategy.export_state())
+            self.step_count += epoch_len
+            r.iterations += epoch_len
+            metrics, stats = self._fused_epoch_bookkeeping(
+                base, start, epoch_len, eval_every, n_evals, evolving, gates,
+                hypers, strat_state, m_stack, s_stack, evals, fitness,
+                lineage, on_iter)
+        return metrics, stats
+
+    def _fused_epoch_bookkeeping(self, base, start, epoch_len, eval_every,
+                                 n_evals, evolving, gates, hypers,
+                                 strat_state, m_stack, s_stack, evals,
+                                 fitness, lineage, on_iter):
+        """Re-emit the eager loop's per-iteration side effects (the fitness
+        window, the evolve's ``last_fitness``, hypers and strategy state,
+        ``on_iter``) from one epoch's stacked outputs, reading nothing back
+        from the device. What the trainer keeps of them is cloned: a
+        replay of the epoch's graph overwrites its outputs. Returns the
+        last iteration's (metrics, stats)."""
+        keep = lambda tree: tree_map(torch.clone, tree)
+        m_stack, s_stack = keep(m_stack), keep(s_stack)
+        self.hypers = hypers
+        metrics = stats = None
+        for i in range(epoch_len):
+            metrics = None if not gates[i] else tree_map(
+                lambda x: x[i], m_stack)
+            stats = tree_map(lambda x: x[i], s_stack)
+            fit_i = None
+            if n_evals and (i + 1) % eval_every == 0:
+                fit_i = evals[(i + 1) // eval_every - 1].clone()
+                if not evolving:
+                    self.report_fitness(fit_i)
+            lin_i = None
+            if evolving and i == epoch_len - 1:
+                if strat_state is not None:
+                    self.strategy.import_state(strat_state)
+                self.last_fitness = fitness.clone()
+                self._window.clear()
+                lin_i = lineage.clone()
+            if on_iter is not None:
+                on_iter(base + i - start, metrics, stats, fit_i, lin_i)
         return metrics, stats
 
     # ---------------------------------------------------------------- evolve

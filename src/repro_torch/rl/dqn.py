@@ -21,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import device_tensor
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
 from repro_torch.rl.td3 import _grad_tree, _with_grad
@@ -58,7 +59,7 @@ def epsilon_greedy(greedy, epsilon, u, random_actions):
     """``random_actions`` where the uniform draw ``u`` is under
     ``epsilon`` (a scalar, or an (N,) per-member vector over (N, ...)
     actions), else ``greedy``."""
-    eps = torch.as_tensor(epsilon, dtype=u.dtype, device=u.device)
+    eps = device_tensor(epsilon, u.dtype, u.device)
     if eps.ndim:
         eps = eps.reshape(-1, *(1,) * (u.ndim - 1))
     return torch.where(u < eps, random_actions, greedy)

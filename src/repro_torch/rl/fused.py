@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import device_tensor
 from repro_torch.tree import tree_map
 
 
@@ -20,8 +21,8 @@ def pop_hypers(defaults: dict, hypers, n: int, device) -> dict:
     merged = dict(defaults)
     if hypers:
         merged.update(hypers)
-    return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
-            .expand(n) for k, v in merged.items()}
+    return {k: device_tensor(v, torch.float32, device).expand(n)
+            for k, v in merged.items()}
 
 
 def pop_select(mask, new, old):

@@ -22,6 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import device_tensor
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -85,8 +86,7 @@ def pop_policy(actors, obs, generator=None, exploration_noise=0.1):
     a scalar or an ``(N,)`` per-member scale."""
     a = nets.pop_actor_apply(actors, obs)
     if generator is not None:
-        scale = torch.as_tensor(exploration_noise, dtype=a.dtype,
-                                device=a.device)
+        scale = device_tensor(exploration_noise, a.dtype, a.device)
         if scale.ndim:
             scale = scale.reshape(-1, *(1,) * (a.ndim - 1))
         noise = torch.randn(a.shape, generator=generator,

@@ -8,8 +8,11 @@ per layer), so the kernel runs on the card. Trajectories come back
 flattened to ``(N, num_steps * num_envs, ...)`` time-major per env, ready
 for the FIFO insert, or time-major ``(N, num_steps, num_envs, ...)`` with
 ``flat=False`` (the on-policy shape: GAE needs the time axis); a discrete
-env's actions are integers ``(N, E)``. Chunked collection
-(``chunk_steps``, ``collect_into``) comes with a later slice.
+env's actions are integers ``(N, E)``. :meth:`Collector.collect_into`
+acts in chunks of ``chunk_steps`` and folds each chunk into the
+experience store, so memory holds one chunk per member at a time (the
+GPU-sim env counts), with the same results as one whole collect and one
+insert.
 
 The exploration policy contract is ``policy_fn(actors, obs, generator,
 hypers) -> actions`` or ``-> (actions, extras)`` over member-stacked
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.rollout.vecenv import VecEnv
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 def exploration_policy(module):
@@ -87,18 +90,66 @@ class Collector:
 
     @torch.no_grad()
     def collect(self, actors, vstate, generator, num_steps: int,
-                hypers=None, *, flat: bool = True):
+                hypers=None, *, flat: bool = True, chunk_steps=None):
         """Act ``num_steps`` batched steps. Returns ``(vstate, traj)`` with
         traj leaves ``(N, num_steps * num_envs, ...)`` in insertion order
         (time-major per env, so FIFO eviction drops the oldest first), or
         time-major ``(N, num_steps, num_envs, ...)`` with ``flat=False``.
-        Any extras the policy emits are recorded beside the transition."""
+        Any extras the policy emits are recorded beside the transition.
+        ``chunk_steps`` acts in chunks, each written into the one
+        trajectory as it is made, so the steps in flight are one chunk's
+        (identical results); to bound the trajectory's memory too, use
+        :meth:`collect_into`."""
+        n_chunks, chunk = self._chunks(num_steps, chunk_steps)
+        if n_chunks == 1:
+            vstate, traj = self._act(actors, vstate, generator, num_steps,
+                                     hypers)
+        else:
+            traj = None
+            for c in range(n_chunks):
+                vstate, part = self._act(actors, vstate, generator, chunk,
+                                         hypers)
+                if traj is None:
+                    traj = tree_map(lambda x: x.new_empty(
+                        (x.shape[0], num_steps) + x.shape[2:]), part)
+                for whole, x in zip(leaves(traj), leaves(part)):
+                    whole[:, c * chunk:(c + 1) * chunk].copy_(x)
+        if flat:
+            traj = tree_map(lambda x: x.flatten(1, 2), traj)
+        return vstate, traj
+
+    def _act(self, actors, vstate, generator, num_steps: int, hypers):
+        """``num_steps`` steps, time-major ``(N, num_steps, E, ...)``."""
         steps = []
         for _ in range(num_steps):
             actions, extras = split_actions(
                 self.policy_fn(actors, vstate.obs, generator, hypers))
             vstate, trans = self.venv.step(vstate, actions, generator)
             steps.append({**trans, **extras})
-        stack = (lambda *xs: torch.stack(xs, 1).flatten(1, 2)) if flat \
-            else (lambda *xs: torch.stack(xs, 1))
-        return vstate, tree_map(stack, *steps)
+        return vstate, tree_map(lambda *xs: torch.stack(xs, 1), *steps)
+
+    @staticmethod
+    def _chunks(num_steps: int, chunk_steps):
+        if chunk_steps is None:
+            return 1, num_steps
+        if num_steps % chunk_steps:
+            raise ValueError(
+                f"chunk_steps={chunk_steps} must divide num_steps={num_steps}")
+        return num_steps // chunk_steps, chunk_steps
+
+    def collect_into(self, actors, vstate, bufs, add_fn, generator,
+                     num_steps: int, chunk_steps, hypers=None, *,
+                     flat: bool = True):
+        """Chunked collect-and-store: act ``num_steps`` steps as
+        ``num_steps // chunk_steps`` chunks, folding each chunk into the
+        population's store with ``add_fn(bufs, chunk_traj)``. Equal bit for
+        bit to :meth:`collect` and one add: the generator's draws come in
+        the same order, and the FIFO and trajectory stores insert chunks at
+        the positions one whole insert would use. Returns ``(vstate,
+        bufs)``."""
+        n_chunks, chunk = self._chunks(num_steps, chunk_steps)
+        for _ in range(n_chunks):
+            vstate, traj = self.collect(actors, vstate, generator, chunk,
+                                        hypers, flat=flat)
+            bufs = add_fn(bufs, traj)
+        return vstate, bufs

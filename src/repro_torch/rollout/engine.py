@@ -22,14 +22,25 @@ iteration does with experience depends on the agent's declared
 
 The engine owns the mutable device state that is not part of the
 population state: the experience buffers and the env states with their
-episode accounting. ``build_epoch`` (fused train-evolve epochs) and
-``chunk_steps`` come with later slices.
+episode accounting. ``chunk_steps`` collects in chunks folded into the
+store one at a time (:meth:`Collector.collect_into`), bounding memory at
+thousands of envs a member with the same results.
+
+:meth:`RolloutEngine.build_epoch` returns a whole train-evolve epoch as
+one function: ``epoch_len`` iterations, an evaluation every
+``eval_every``, then the strategy's pure evolve on the epoch-mean
+fitness. The trainer runs it eagerly on the CPU, and on the card captures
+it once as a CUDA graph (:mod:`repro_torch.rollout.graph`) and replays
+it: the port's counterpart of the JAX package's one jitted epoch. Every
+step of it stays on the device; the only host decision inside, the
+can-sample gate, is known on the host before the epoch starts.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.data.experience import compute_gae, experience_ops
+from repro_torch.data.experience import (compute_gae, experience_ops,
+                                         traj_add, traj_reset)
 from repro_torch.data.replay_buffer import buffer_sample
 from repro_torch.rollout.collector import Collector, default_exploration
 from repro_torch.rollout.evaluator import Evaluator
@@ -50,7 +61,13 @@ class RolloutEngine:
     def __init__(self, agent, pcfg, env, *, update, generator, init_state,
                  num_envs: int = 8, collect_steps: int = 32,
                  batch_size: int = 128, buffer_capacity: int = 100_000,
-                 epochs: int = 4, eval_envs: int = 4):
+                 epochs: int = 4, eval_envs: int = 4,
+                 eval_steps: int | None = None,
+                 chunk_steps: int | None = None):
+        if chunk_steps is not None and collect_steps % chunk_steps:
+            raise ValueError(f"chunk_steps={chunk_steps} must divide "
+                             f"collect_steps={collect_steps}")
+        self.chunk_steps = chunk_steps
         self.agent = agent
         self.kind = agent.experience_kind
         self.exp = experience_ops(self.kind)
@@ -90,7 +107,7 @@ class RolloutEngine:
         module = agent.exploration_module
         self.evaluator = Evaluator(
             env, lambda actors, obs: module.pop_policy(actors, obs),
-            num_envs=eval_envs)
+            num_envs=eval_envs, num_steps=eval_steps)
 
         self.vstate = self.collector.init(generator, self.n, device)
         self.bufs = self.exp.init(
@@ -111,29 +128,131 @@ class RolloutEngine:
         iterations, decided on the host: every buffer holds a batch."""
         return self.filled(iterations) >= self.batch_size
 
+    def gates(self, start: int, count: int) -> tuple:
+        """Whether each of iterations ``start .. start + count - 1``
+        updates: the host-known gate pattern (an on-policy iteration always
+        updates)."""
+        if self.kind == "trajectory":
+            return (True,) * count
+        return tuple(self.can_sample(start + i + 1) for i in range(count))
+
+    def collect_insert(self, actors, bufs, vstate, hypers, generator):
+        """Collect one iteration's experience and store it; with
+        ``chunk_steps`` chunk by chunk (an on-policy store is reset once,
+        then appended to). Returns ``(bufs, vstate)``."""
+        flat = self.kind == "replay"
+        if self.chunk_steps is not None:
+            if flat:
+                add = self.exp.add
+            else:
+                bufs, add = traj_reset(bufs), traj_add
+            vstate, bufs = self.collector.collect_into(
+                actors, vstate, bufs, add, generator, self.collect_steps,
+                self.chunk_steps, hypers, flat=flat)
+            return bufs, vstate
+        vstate, traj = self.collector.collect(
+            actors, vstate, generator, self.collect_steps, hypers, flat=flat)
+        return self.exp.add(bufs, traj), vstate
+
+    def update_from(self, state, bufs, actors, hypers, generator,
+                    done: int):
+        """The update half of an iteration on stored experience, after
+        ``done`` iterations have inserted theirs: ``(state, metrics,
+        did_update)``, ``metrics`` None while the replay gate is shut."""
+        if self.kind == "trajectory":
+            batches = self.population_batches(bufs, actors, hypers,
+                                              generator)
+        elif not self.can_sample(done):
+            return state, None, False
+        else:
+            batches = buffer_sample(bufs, generator, self.batch_size,
+                                    self.num_steps, filled=self.filled(done))
+            if self.num_steps == 1:
+                batches = tree_map(lambda x: x[0], batches)
+        state, metrics = self.update(state, batches, hypers, generator)
+        return state, metrics, True
+
+    def iteration(self, state, bufs, vstate, hypers, generator, done: int):
+        """One iteration as a function of its inputs, ``done`` iterations
+        in: ``(state, bufs, vstate, metrics, episode_stats, did_update)``.
+        It changes nothing on the engine, so :meth:`build_epoch` chains
+        it."""
+        actors = self.agent.actor_params(state)
+        bufs, vstate = self.collect_insert(actors, bufs, vstate, hypers,
+                                           generator)
+        state, metrics, did = self.update_from(state, bufs, actors, hypers,
+                                               generator, done + 1)
+        return state, bufs, vstate, metrics, episode_stats(vstate), did
+
     def iterate(self, state, hypers, generator):
         """One train iteration. Returns ``(state, metrics, episode_stats,
         did_update)``; until a replay ring can serve a batch the iteration
         only collects, and ``metrics`` is None. An on-policy iteration
         always updates."""
-        actors = self.agent.actor_params(state)
-        self.vstate, traj = self.collector.collect(
-            actors, self.vstate, generator, self.collect_steps, hypers,
-            flat=self.kind == "replay")
-        self.bufs = self.exp.add(self.bufs, traj)
+        state, self.bufs, self.vstate, metrics, stats, did = self.iteration(
+            state, self.bufs, self.vstate, hypers, generator,
+            self.iterations)
         self.iterations += 1
-        if self.kind == "trajectory":
-            batches = self.population_batches(self.bufs, actors, hypers,
-                                              generator)
-        elif not self.can_sample():
-            return state, None, episode_stats(self.vstate), False
-        else:
-            batches = buffer_sample(self.bufs, generator, self.batch_size,
-                                    self.num_steps, filled=self.filled())
-            if self.num_steps == 1:
-                batches = tree_map(lambda x: x[0], batches)
-        state, metrics = self.update(state, batches, hypers, generator)
-        return state, metrics, episode_stats(self.vstate), True
+        return state, metrics, stats, did
+
+    # ------------------------------------------------- fused train-evolve
+    def build_epoch(self, *, epoch_len: int, eval_every: int = 0,
+                    evolve_fn=None, start: int = 0):
+        """A whole train-evolve epoch as one function of its inputs, from
+        iteration ``start``:
+
+            epoch(state, bufs, vstate, hypers, strat_state, generator) ->
+                (state, bufs, vstate, hypers, strat_state, metrics_stack,
+                 stats_stack, did_stack, evals, fitness, lineage)
+
+        ``epoch_len`` iterations; every ``eval_every``-th one also scores
+        the population into row ``(i + 1) // eval_every - 1`` of
+        ``evals`` (``(num_evals, N)``; ``eval_every=0`` disables); then
+        ``evolve_fn`` (a strategy's ``evolve_fn()``) runs on the mean of
+        those rows, which is the trainer's windowed fitness. The stacks
+        carry a leading ``(epoch_len,)`` axis: the metrics hold zeros where
+        the gate was shut (None when no iteration of the epoch updates),
+        ``did_stack`` is the gate pattern as a device bool vector, and
+        lineage is the identity without an evolve. The generator's draws
+        come in the eager loop's order (each iteration, its evaluation,
+        then the evolve), so the epoch equals that loop bit for bit.
+        Nothing in it reads the device or copies from the host."""
+        n = self.n
+        n_evals = (epoch_len // eval_every) if eval_every else 0
+        evaluator, agent = self.evaluator, self.agent
+
+        def epoch(state, bufs, vstate, hypers, strat_state, generator):
+            device = leaves(state)[0].device
+            evals = torch.zeros((max(n_evals, 1), n), device=device)
+            dids = torch.zeros((epoch_len,), dtype=torch.bool, device=device)
+            rows, stats = [], []
+            for i in range(epoch_len):
+                state, bufs, vstate, metrics, st, did = self.iteration(
+                    state, bufs, vstate, hypers, generator, start + i)
+                if did:
+                    dids[i].fill_(True)
+                rows.append(metrics)
+                stats.append(st)
+                if n_evals and (i + 1) % eval_every == 0:
+                    evals[(i + 1) // eval_every - 1] = evaluator.evaluate(
+                        agent.actor_params(state), generator)
+            fitness = evals.mean(0) if n_evals else torch.zeros(
+                (n,), device=device)
+            if evolve_fn is not None:
+                state, hypers, lineage, strat_state = evolve_fn(
+                    generator, state, hypers, fitness, strat_state)
+            else:
+                lineage = torch.arange(n, device=device)
+            real = next((m for m in rows if m is not None), None)
+            metrics = None if real is None else tree_map(
+                lambda *xs: torch.stack(xs), *(
+                    m if m is not None else tree_map(torch.zeros_like, real)
+                    for m in rows))
+            return (state, bufs, vstate, hypers, strat_state, metrics,
+                    tree_map(lambda *xs: torch.stack(xs), *stats), dids,
+                    evals, fitness, lineage)
+
+        return epoch
 
     # ------------------------------------------------------ on-policy side
     def advantages(self, bufs, actors, hypers=None):

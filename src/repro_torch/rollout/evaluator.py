@@ -3,8 +3,9 @@
 
 PBT consumes a per-member fitness: one call plays the first episode of
 ``num_envs`` fresh envs per member with the deterministic policy
-(exploration off) and returns the mean first-episode return per member,
-an (N,) tensor on the device. Every env stops accumulating at its first
+(exploration off) for ``num_steps`` steps (the env's episode length
+unless given) and returns the mean first-episode return per member, an
+(N,) tensor on the device. Every env stops accumulating at its first
 episode end, so auto-reset never leaks a second episode into the score.
 
 The action is the deterministic forward that
@@ -24,12 +25,14 @@ from repro_torch.tree import leaves
 
 
 class Evaluator:
-    def __init__(self, env: Env, pop_policy_fn, *, num_envs: int = 4):
+    def __init__(self, env: Env, pop_policy_fn, *, num_envs: int = 4,
+                 num_steps: int | None = None):
         """``pop_policy_fn(actors, obs)``: the deterministic population
-        forward, (N, E, obs) -> (N, E, act)."""
+        forward, (N, E, obs) -> (N, E, act); ``num_steps`` caps an
+        evaluation's steps (the JAX package's ``eval_steps``)."""
         self.pop_policy_fn = pop_policy_fn
         self.venv = VecEnv(env, num_envs)
-        self.num_steps = env.spec.episode_length
+        self.num_steps = num_steps or env.spec.episode_length
 
     @torch.no_grad()
     def evaluate(self, actors, generator, init_state=None):

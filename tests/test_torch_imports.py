@@ -65,7 +65,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.rollout.evaluator", "repro_torch.rollout.vecenv",
                  "repro_torch.serve.forward", "repro_torch.rl.ppo",
                  "repro_torch.data.experience",
-                 "repro_torch.examples.pbt_ppo"):
+                 "repro_torch.examples.pbt_ppo",
+                 "repro_torch.envs.hopper2d", "repro_torch.kernels.hopper2d",
+                 "repro_torch.rollout.graph", "repro_torch.rollout.overlap"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

@@ -76,10 +76,11 @@ def test_pop_trainer_env_loop_trains_and_evolves(tmp_path):
     assert trainer.fitness() is None and trainer.last_fitness is not None
     trainer.report_fitness(trainer.evaluate_fitness())
     assert trainer.fitness().shape == (3,)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trainer.run_env_loop(1, fused=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trainer.attach_rollout(make("pendulum"), policy_lag=1)
+    # a fused epoch that evolves must start from an empty window
+    with pytest.raises(ValueError, match="non-empty"):
+        trainer.run_env_loop(3, eval_every=1, fused=True)
+    with pytest.raises(ValueError, match="policy_lag must be 0 or 1"):
+        trainer.attach_rollout(make("pendulum"), policy_lag=2)
 
 
 def test_trainer_step_updates_without_a_rollout(tmp_path):
@@ -216,14 +217,11 @@ def test_train_cli_refuses_without_cuda(tmp_path):
 # (here td3), where it would do nothing
 _REFUSED_CASES = (
     ("arch", SystemExit, "pass exactly one of --arch"),
-    ("chunk_steps", NotImplementedError, "not supported by the port"),
     ("compile_cache", NotImplementedError, "not supported by the port"),
     ("devices", NotImplementedError, "not supported by the port"),
     ("epochs", ValueError, "taken by the on-policy algorithms only"),
-    ("fused_epoch", NotImplementedError, "not supported by the port"),
     ("log_dir", NotImplementedError, "not supported by the port"),
     ("model_axis", NotImplementedError, "not supported by the port"),
-    ("policy_lag", NotImplementedError, "not supported by the port"),
     ("profile", NotImplementedError, "not supported by the port"),
     ("resize", NotImplementedError, "not supported by the port"),
     ("resume", NotImplementedError, "not supported by the port"),
