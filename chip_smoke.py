@@ -70,9 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 32/64/112/128/256, GQA groups 1/2/4/7, S of 1/63/64/65/128/
                 129/200/512, the bf16 route's tile edges and a ragged 200
                 included, causal and not, both layouts, float32 and bf16),
-                then timed at the five dense, hybrid and MoE served
-                shapes (qwen3-moe's GQA group of 8 among them) beside its
-                bound, its plain version and PyTorch's
+                then timed at the six dense, hybrid, MoE and frontend
+                served shapes (qwen3-moe's GQA group of 8 and musicgen's
+                24 heads of 64 among them; pixtral's is qwen3-8b's)
+                beside its bound, its plain version and PyTorch's
                 ``scaled_dot_product_attention``;
   9. LM parity — ``rwkv6-1.6b`` (2 layers), ``zamba2-7b`` (7: one
                 super-block with the shared attention and a 1-layer tail),
@@ -100,13 +101,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 a CUDA tensor that requires grad;
  10. LM serve — ``qwen2-0.5b``, ``qwen3-8b``, ``rwkv6-1.6b`` and
                 ``zamba2-7b``, then ``qwen3-moe-30b-a3b`` (61 GB of bf16
-                weights) and ``deepseek-v2-lite-16b``, at full published
-                size through
+                weights) and ``deepseek-v2-lite-16b``, then the frontend
+                archs ``musicgen-medium`` (fed zero audio frames, as the
+                CLI feeds them) and ``pixtral-12b`` (fed no patches), at
+                full published size through
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
                 --prompt-len 512 --tokens 32``) with every launch count set
                 to 0 just before and read just after: exactly 24, 36, 0,
-                14, 48 and 0 ``flash_attention`` launches, all on the bf16
-                tensor-core route, 24 ``wkv6`` for
+                14, 48, 0, 48 and 40 ``flash_attention`` launches, all on
+                the bf16 tensor-core route, 24 ``wkv6`` for
                 rwkv6-1.6b and 81 ``ssd`` for zamba2-7b, no other kernel;
                 the peak of allocated memory under 70 GB; prefill and
                 decode times; one prefill and one decode step profiled;
@@ -246,14 +249,47 @@ Phases, in order; any failure raises and the script exits non-zero:
  34. acting CLI — ``launch/train.py`` on hopper2d with ``--fused-epoch``
                 (TD3), ``--chunk-steps 2`` (PPO) and ``--policy-lag 1``
                 (TD3), counted, each checkpoint served through
-                ``launch/serve.py`` against the plain ensemble.
+                ``launch/serve.py`` against the plain ensemble;
+ 35. frontend parity — ``musicgen-medium`` and ``pixtral-12b`` at full
+                width with 2 layers in float32, a 384-token sequence with
+                random frame or patch embeddings: the serve step's
+                prefill (last logits, every decode-state leaf), the
+                stateless forward (every logit, pixtral's patches
+                spliced) and ``lm_loss`` with its mask, card (kernels)
+                against CPU, 2 ``flash_attention`` launches a pass; and
+                pixtral's loss the same bits with the labels under its
+                patches changed;
+ 36. frontend training — each through ``repro_torch.launch.train.main``
+                at full width with its depth cut (``--num-layers``;
+                musicgen 2 layers, N = 4; pixtral 1 layer, N = 2, its 256
+                patch positions masked; ``--ckpt-every 0``): one
+                ``pop_adam`` launch a step and no other kernel, evolves,
+                finite losses (musicgen's ln 2048 exactly, its frames being
+                zeros), tokens/s per member, the busy share, the peak of
+                allocated memory under 70 GB; then ``pop_adam`` at the
+                run's (N, P) timed beside its bound, the plain version and
+                ``torch._fused_adamw_``;
+ 37. LM CEM — the chunked in-place refit and redraw over ``LMAgent``'s
+                flat buffer against the whole-matrix forms, bit for bit
+                (qwen2-0.5b at full width, 2 layers, N = 4); then
+                ``--arch qwen2-0.5b --strategy cem`` at full size through
+                the CLI (N = 4, evolves at steps 2 and 4): the bind and
+                each evolve timed, the buffer at one address throughout,
+                lineage all -1, one ``pop_adam`` launch a step, the peak
+                of allocated memory under 70 GB;
+ 38. acting update kernels — ``pop_matmul`` (24 forwards and 12
+                backwards) and ``pop_adam`` (actor and twin critic) at the
+                acting engine's update batch, TD3 on hopper2d at N = 8, B
+                = 64, timed beside their bounds, plain versions and
+                library calls.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
 
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
-``{"fig2_sac": ...}``, ``{"ppo": ...}`` and ``{"acting": ...}`` lines, the card's
+``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
+``{"frontends": ...}`` and ``{"lm_cem": ...}`` lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -263,6 +299,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -271,6 +308,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -309,7 +347,10 @@ FLASH_SHAPES = {"qwen3-8b": (4, 32, 8, 512, 128),
                 "qwen2-0.5b": (4, 14, 2, 512, 64),
                 "zamba2-7b": (4, 32, 32, 512, 112),
                 "gemma-7b": (4, 16, 16, 512, 256),
-                "qwen3-moe-30b-a3b": (4, 32, 4, 512, 128)}
+                "qwen3-moe-30b-a3b": (4, 32, 4, 512, 128),
+                # slice 14: musicgen's MHA at D = 64 (pixtral's shape is
+                # qwen3-8b's: 32 heads over 8 of 128)
+                "musicgen-medium": (4, 24, 24, 512, 64)}
 # the LM path at full width, card (kernels, cuBLAS) against CPU (plain
 # versions): fp32 sums of up to 24,576 terms in other orders, through 2
 # and 7 layers
@@ -339,7 +380,9 @@ LM_SERVE_ARCHS = (("qwen2-0.5b", {"flash_attention": 24}),
                   ("rwkv6-1.6b", {"wkv6": 24}),
                   ("zamba2-7b", {"ssd": 81, "flash_attention": 14}),
                   ("qwen3-moe-30b-a3b", {"flash_attention": 48}),
-                  ("deepseek-v2-lite-16b", {}))
+                  ("deepseek-v2-lite-16b", {}),
+                  ("musicgen-medium", {"flash_attention": 48}),
+                  ("pixtral-12b", {"flash_attention": 40}))
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # FLOP/s outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -526,6 +569,34 @@ ACTING_CLI = dict(
           "td3_policy_lag": ("td3", ["--policy-lag", "1",
                                      "--updates-per-iter", "2", "--batch",
                                      "64"], "mean")})
+# slice 14: the frontend archs (musicgen-medium: audio frames in place of
+# an embedding table; pixtral-12b: 256 vision-patch positions spliced over
+# the stateless form's first positions, their labels masked), served at
+# full size in LM_SERVE_ARCHS, their parity at full width with 2 layers
+FRONTENDS = ("musicgen-medium", "pixtral-12b")
+FRONTEND_PARITY_LAYERS = 2
+# pixtral's 256 patch positions and 128 text tokens: at 256 tokens every
+# label would be masked and the loss 0
+FRONTEND_PARITY_SEQ = 384
+# trained through the CLI at full width with their depth cut: float32
+# masters, Adam's moments and the gradients' buffer take 16 B a parameter
+# and member, so pixtral's 1.61 B a member at 1 layer and N = 2 take about
+# 52 GB of the 70 allowed
+FRONTEND_TRAIN = {"musicgen-medium": dict(population=4, layers=2, batch=4),
+                  "pixtral-12b": dict(population=2, layers=1, batch=1)}
+FRONTEND_TRAIN_RUN = dict(steps=4, pbt_interval=2, seq_len=512)
+# CEM over qwen2-0.5b's parameters at full size through the CLI (evolves
+# at steps 2 and 4), and its chunked in-place forms against the
+# whole-matrix ones at full width with 2 layers
+LM_CEM = dict(arch="qwen2-0.5b", population=4, batch=4, seq_len=512,
+              steps=4, pbt_interval=2)
+LM_CEM_PARITY_LAYERS = 2
+# the acting engine's update batch: TD3 on hopper2d (obs 11, act 3) at
+# the repo's width, N = 8, B = 64
+HOPPER_ACTOR_LAYERS = ((11, 256, "relu"), (256, 256, "relu"),
+                       (256, 3, "tanh"))
+HOPPER_CRITIC_LAYERS = ((14, 256, "relu"), (256, 256, "relu"),
+                        (256, 1, "none"))
 
 
 def log(msg: str):
@@ -664,6 +735,22 @@ def eager_ms(fn, iters: int = 200) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def events_ms(fn, reps: int = 5) -> float:
+    """Device time of one eager ``fn()`` call between CUDA events, the
+    mean of ``reps`` calls after one warm call: for launches too large
+    for L2 (cold by construction) or for a graph's private pool."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def tol_share(got, want, tol) -> float:
@@ -926,14 +1013,14 @@ def grad_cases(kms, gen):
     return worst_grad, worst_fwd, share, cases
 
 
-def training_rows(shapes, gen, label=""):
+def training_rows(shapes, gen, label="", bsz=None):
     """The forward and the backward's batched matmuls of each row of a
-    shape table (N=8, B=256), timed beside their bounds, the plain version
-    and ``baddbmm``+act."""
+    shape table (N=8, B=256 or ``bsz``), timed beside their bounds, the
+    plain version and ``baddbmm``+act."""
     from repro_torch.kernels.pop_matmul import (_launch, _route, pop_matmul,
                                                 pop_matmul_plain)
 
-    n, bsz = POPULATION, TRAIN["batch"]
+    n, bsz = POPULATION, bsz or TRAIN["batch"]
     acts = {"none": lambda t: t, "relu": torch.relu, "tanh": torch.tanh}
     rows = []
     for net, k, m, act, count, back in shapes:
@@ -1215,10 +1302,10 @@ def moe_routes(routes, *, replay: bool):
 
 def lm_param_count(cfg):
     """Parameters of an attention LM of ``cfg`` (GQA or MLA, dense or MoE
-    layers), reckoned from the config alone: the embedding, the head
-    unless tied, the final norm, and each layer's norms, attention and
-    MLP (the router, the experts and the shared experts of an MoE
-    layer)."""
+    layers), reckoned from the config alone: the embedding (none for an
+    ``audio_frames`` config), the head unless tied, the final norm, and
+    each layer's norms, attention and MLP (the router, the experts and the
+    shared experts of an MoE layer)."""
     d, h = cfg.d_model, cfg.num_heads
     if cfg.mla is not None:
         m = cfg.mla
@@ -1238,7 +1325,8 @@ def lm_param_count(cfg):
         moe_layer = (2 * d + attn + d * e.num_experts
                      + 3 * e.num_experts * d * e.d_expert
                      + 3 * d * e.d_expert * e.num_shared)
-    return (cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    tables = (cfg.frontend != "audio_frames") + (not cfg.tie_embeddings)
+    return (cfg.vocab_size * d * tables + d
             + n_dense * dense + (cfg.num_layers - n_dense) * moe_layer)
 
 
@@ -2231,13 +2319,14 @@ def phase_lm_serve():
                                 device="cuda")
         step = lm.make_serve_step(cfg)
         state = lm.init_decode_state(cfg, b, s + t + 1, device="cuda")
-        step(params, {"tokens": prompts}, state, 0)        # warm
+        # as the CLI feeds them: zero audio frames, no image patches
+        prompt = lm.frontend_inputs(cfg, prompts, patches=False)
+        token = lm.frontend_inputs(cfg, prompts[:, :1], patches=False)
+        step(params, prompt, state, 0)                     # warm
         prof = {}
         for phase, fn in (
-                ("prefill", lambda: step(params, {"tokens": prompts}, state,
-                                         0)),
-                ("decode", lambda: step(params, {"tokens": prompts[:, :1]},
-                                        state, s))):
+                ("prefill", lambda: step(params, prompt, state, 0)),
+                ("decode", lambda: step(params, token, state, s))):
             busy, wall, top = _profile_step(fn)
             prof[phase] = {"busy_ms": busy, "wall_ms": wall, "top": top}
             log(f"serve {arch} {phase}: device busy {busy:.3f} ms of "
@@ -2266,9 +2355,9 @@ def phase_lm_serve():
                      "decode_ms_per_token": warm.decode_ms_per_token,
                      "profile": prof,
                      "seconds": round(time.perf_counter() - t_arch, 1)}
-        if arch in MOE:
+        if arch in MOE + FRONTENDS:
             log(f"serve {arch} took {out[arch]['seconds']} s")
-        del report, warm, params, state, prompts
+        del report, warm, params, state, prompts, prompt, token
         torch.cuda.empty_cache()
     return out
 
@@ -2377,18 +2466,6 @@ def phase_pop_adam_lm():
         torch.cuda.synchronize()
 
         # timed on the same buffers, in place (values stay finite)
-        def timed(fn, reps=5):
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / reps
-
         rows_of = lambda t: [t[i] for i in range(n)]
         steps_f = [torch.tensor(1.0, device="cuda") for _ in range(n)]
 
@@ -2404,9 +2481,10 @@ def phase_pop_adam_lm():
 
         bound, bound_by = pop_adam_bound(n, p)
         row = {"n": n, "p": p,
-               "ms": timed(lambda: pop_adam(*args, **extra, inplace=True)),
-               "plain_ms": timed(lambda: plain_chunks(None), reps=2),
-               "library_ms": timed(library),
+               "ms": events_ms(lambda: pop_adam(*args, **extra,
+                                                inplace=True)),
+               "plain_ms": events_ms(lambda: plain_chunks(None), reps=2),
+               "library_ms": events_ms(library),
                "bound_ms": bound, "bound_by": bound_by,
                "cache": "cold (55.3 GB a launch at the LM's size, 30.1 GB "
                         "at the ragged one, past the 50 MB L2)"}
@@ -4770,6 +4848,543 @@ def phase_acting_cli(ckpt_root):
     return rows
 
 
+# ------------------------------- slice 14: frontends, CEM over an LM
+def _frontend_batch(cfg, gen, s):
+    """One sequence of ``s`` random tokens and its frontend's inputs:
+    frame embeddings (musicgen) or patch embeddings (pixtral) drawn from
+    a unit normal, a hidden state's scale."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s),
+                                     generator=gen, device="cuda")}
+    rows = (s if cfg.frontend == "audio_frames"
+            else cfg.num_frontend_positions)
+    key = "embeds" if cfg.frontend == "audio_frames" else "patch_embeds"
+    batch[key] = torch.randn((1, rows, cfg.d_model), generator=gen,
+                             device="cuda")
+    return batch
+
+
+def phase_frontend_parity():
+    """musicgen-medium and pixtral-12b at full width with 2 layers in
+    float32, weights drawn on the card and copied to the CPU, a 384-token
+    sequence with random frame or patch embeddings: the serve step's
+    prefill (the last logits and every decode-state leaf; musicgen fed its
+    frames, pixtral its patches, which the serve step ignores), the
+    stateless forward (every logit; pixtral's patches spliced over its
+    first 256 positions) and ``lm_loss`` with its mask, card (kernels)
+    against CPU (plain versions); each card pass 2 ``flash_attention``
+    launches on the float32 route. Then the mask on the card: pixtral's
+    loss is the same bits with the labels under the patches changed.
+    Returns {arch: (max abs err, share of the tolerance)}."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+
+    out = {}
+    for arch in FRONTENDS:
+        t0 = time.perf_counter()
+        cfg = _lm_config(arch, num_layers=FRONTEND_PARITY_LAYERS,
+                         dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        params = lm.init_params(gen, cfg)
+        s = FRONTEND_PARITY_SEQ
+        batch = _frontend_batch(cfg, gen, s)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        step = lm.make_serve_step(cfg)
+        worst = share = 0.0
+        launches = {}
+
+        def hold(got, want, what):
+            nonlocal worst, share
+            got = got.cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{arch} parity: non-finite {what}")
+            torch.testing.assert_close(got, want, **PATH_TOL,
+                                       msg=lambda m: f"{arch} {what}: {m}")
+            worst = max(worst, (got - want).abs().max().item())
+            share = max(share, tol_share(got, want, PATH_TOL))
+
+        def counted(name, fn):
+            reset_counts(flash_attention)
+            result = fn()
+            torch.cuda.synchronize()
+            launches[name] = dict(flash_attention.launches_by_route)
+            return result
+
+        logits, state = counted("prefill", lambda: step(
+            params, batch, lm.init_decode_state(cfg, 1, s + 1,
+                                                device="cuda"), 0))
+        cpu_logits, cpu_state = step(
+            cpu_params, cpu_batch, lm.init_decode_state(cfg, 1, s + 1), 0)
+        hold(logits[:, -1], cpu_logits[:, -1], "prefill's last logits")
+        pairs = list(zip(leaves(state), leaves(cpu_state)))
+        for got, want in pairs:
+            hold(got, want, "decode state")
+        del state, cpu_state
+        logits, _ = counted("stateless",
+                            lambda: lm.forward(params, cfg, batch))
+        cpu_logits, _ = lm.forward(cpu_params, cfg, cpu_batch)
+        hold(logits, cpu_logits, "stateless logits")
+        with torch.no_grad():
+            loss, _ = counted("loss", lambda: lm.lm_loss(params, cfg, batch))
+            cpu_loss, _ = lm.lm_loss(cpu_params, cfg, cpu_batch)
+            hold(loss, cpu_loss, "lm_loss")
+            if not loss.item() > 0:
+                raise AssertionError(f"{arch}: lm_loss {loss.item()}, as "
+                                     f"if every label were masked")
+            masked = "no mask"
+            if cfg.frontend == "vision_patches":
+                npos = cfg.num_frontend_positions
+                moved = dict(batch, tokens=batch["tokens"].clone())
+                moved["tokens"][:, 1:npos] = (
+                    moved["tokens"][:, 1:npos] + 1) % cfg.vocab_size
+                again, _ = lm.lm_loss(params, cfg, moved)
+                if not torch.equal(again, loss):
+                    raise AssertionError(f"{arch}: the loss moved with the "
+                                         f"labels under the patches")
+                masked = (f"the labels under the {npos} patch positions "
+                          f"masked (the loss the same bits with them "
+                          f"changed)")
+        want = {"bf16_mma": 0, "f32_fma": FRONTEND_PARITY_LAYERS}
+        if any(r != want for r in launches.values()):
+            raise AssertionError(f"{arch} parity: flash_attention launches "
+                                 f"by route {launches}, want {want} each")
+        log(f"{arch} with {FRONTEND_PARITY_LAYERS} layers at full width, "
+            f"fp32, {s} tokens with random "
+            f"{'frames' if cfg.frontend == 'audio_frames' else 'patches'}: "
+            f"card == CPU on the prefill's last logits and {len(pairs)} "
+            f"state leaves, every stateless logit and lm_loss "
+            f"({loss.item():.6f}; {masked}); flash_attention launches "
+            f"{launches}; max abs err {worst:.3g}, {share:.3g} of the "
+            f"tolerance; {time.perf_counter() - t0:.1f} s")
+        out[arch] = (worst, share)
+        del params, cpu_params, logits, cpu_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pop_adam_inplace_row(gen, n, p, label):
+    """pop_adam at (N, P) with a per-member decay and clip scale, in
+    place, as a vectorized LM step runs it: the first and last 2^24
+    columns held to the plain version on copies of their inputs (the
+    whole population has no room for an out-of-place result beside it),
+    then timed by CUDA events beside its bound, the plain version over
+    column chunks and ``torch._fused_adamw_``. Returns the row."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    def filled(draw):
+        # a member's row at a time: pixtral's (2, 1.6 B) is past 2^31
+        t = torch.empty((n, p), device="cuda")
+        for row in t:
+            draw(row)
+        return t
+
+    params, grads, mu = (filled(lambda r: r.normal_(generator=gen))
+                         for _ in range(3))
+    nu = filled(lambda r: r.uniform_(generator=gen))
+    lr = torch.linspace(1e-4, 3e-3, n, device="cuda")
+    step = torch.tensor([(1, 2, 1000)[i % 3] for i in range(n)],
+                        dtype=torch.int32, device="cuda")
+    extra = dict(wd=torch.linspace(0.0, 0.3, n, device="cuda"),
+                 scale=torch.linspace(1.0, 0.25, n, device="cuda"))
+    args = (params, grads, mu, nu, lr, step)
+    chunk = 1 << 24
+    ends = [slice(0, chunk), slice(p - chunk, p)]
+    saved = [[t[:, cols].clone() for t in args[:4]] for cols in ends]
+    pop_adam(*args, **extra, inplace=True)
+    worst = share = 0.0
+    for cols, ins in zip(ends, saved):
+        want = pop_adam_plain(*ins, lr, step, **extra)
+        for name, g, r in zip(("step", "mu", "nu"), (params[:, cols],
+                                                     mu[:, cols],
+                                                     nu[:, cols]), want):
+            if name == "step":
+                g, r = ins[0] - g, ins[0] - r
+            torch.testing.assert_close(g, r, **ADAM_TOL,
+                                       msg=lambda m: f"{label}: {m}")
+            worst = max(worst, (g - r).abs().max().item())
+            share = max(share, tol_share(g, r, ADAM_TOL))
+    del saved
+
+    def plain_chunks():
+        for c in range(0, p, chunk):
+            cols = slice(c, min(p, c + chunk))
+            pop_adam_plain(*(t[:, cols] for t in args[:4]), lr, step,
+                           **extra)
+
+    rows_of = lambda t: [t[i] for i in range(n)]
+    steps_f = [torch.tensor(1.0, device="cuda") for _ in range(n)]
+
+    def library():
+        torch._fused_adamw_(rows_of(params), rows_of(grads), rows_of(mu),
+                            rows_of(nu), [], steps_f, amsgrad=False,
+                            lr=3e-4, beta1=0.9, beta2=0.999,
+                            weight_decay=0.1, eps=1e-8, maximize=False,
+                            grad_scale=None, found_inf=None)
+
+    bound, bound_by = pop_adam_bound(n, p)
+    row = {"net": label, "n": n, "p": p,
+           "ms": events_ms(lambda: pop_adam(*args, **extra, inplace=True)),
+           "plain_ms": events_ms(plain_chunks, reps=2),
+           "library_ms": events_ms(library),
+           "bound_ms": bound, "bound_by": bound_by,
+           "max_abs_err": worst, "max_err_over_tolerance": share,
+           "cache": f"cold ({28 * n * p / 1e9:.1f} GB a launch, past the "
+                    f"50 MB L2)"}
+    row["ms_over_bound"] = row["ms"] / bound
+    log(f"pop_adam {label} (N={n}, P={p}, decay and clip scale, in "
+        f"place): == plain on the first and last 2^24 columns (max abs err "
+        f"{worst:.3g}, {share:.3g} of the tolerance); kernel "
+        f"{row['ms']:.3f} ms, bound {bound:.3f} ms ({bound_by}; "
+        f"{row['ms_over_bound']:.2f}x), plain {row['plain_ms']:.3f} ms (in "
+        f"column chunks), _fused_adamw_ (one lr and decay) "
+        f"{row['library_ms']:.3f} ms")
+    del params, grads, mu, nu, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_frontend_train():
+    """Each frontend arch trained at full width through the port's entry
+    point, ``python -m repro_torch.launch.train --arch A --num-layers L
+    --population N --steps 4 --pbt-interval 2 --batch B --seq-len 512
+    --ckpt-every 0`` (musicgen 2 layers, N = 4, B = 4; pixtral 1 layer,
+    N = 2, B = 1, its first 256 positions zero patches with their labels
+    masked; no checkpoint: pixtral's would write some 52 GB): the launch
+    counts set to 0 just before and read just after (one pop_adam launch
+    a step, no other kernel), an evolve at steps 2 and 4, finite losses
+    (musicgen's exactly ln 2048: the CLI's zero frames make every logit
+    0, as the JAX CLI's do), the members' parameter count from the config
+    alone, the peak of allocated memory under 70 GB; then one more
+    vectorized step timed (tokens/s per member) and profiled (busy share),
+    and pop_adam at the run's (N, P) timed (``pop_adam_inplace_row``).
+    Returns {arch: numbers}."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import lm
+    from repro_torch.tree import flat_buffer
+
+    counters = {"pop_adam": pop_adam, "flash_attention": flash_attention,
+                "wkv6": wkv6, "ssd": ssd, "pop_matmul": pop_matmul}
+    r = FRONTEND_TRAIN_RUN
+    out = {}
+    for arch, f in FRONTEND_TRAIN.items():
+        t_arch = time.perf_counter()
+        n, layers, b = f["population"], f["layers"], f["batch"]
+        cfg = _lm_config(arch, num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = Path(d) / "ck"
+            argv = ["--arch", arch, "--num-layers", str(layers),
+                    "--population", str(n), "--steps", str(r["steps"]),
+                    "--pbt-interval", str(r["pbt_interval"]), "--batch",
+                    str(b), "--seq-len", str(r["seq_len"]), "--ckpt-every",
+                    "0", "--ckpt-dir", str(ckpt), "--seed", str(SEED)]
+            reset_counts(*counters.values())
+            t0 = time.perf_counter()
+            report = train_main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = {k: c.launches for k, c in counters.items()}
+            if CheckpointManager(ckpt).latest() is not None:
+                raise AssertionError(f"train {arch}: a checkpoint was "
+                                     f"written under --ckpt-every 0")
+        want = dict.fromkeys(counters, 0) | {"pop_adam": r["steps"]}
+        if counts != want:
+            raise AssertionError(f"train {arch}: launches {counts}, want "
+                                 f"{want}")
+        trainer = report.trainer
+        p = flat_buffer(trainer.state.params).shape[1]
+        if p != lm_param_count(cfg):
+            raise AssertionError(f"train {arch}: {p} parameters a member, "
+                                 f"the config gives {lm_param_count(cfg)}")
+        evolved = [s for s, _ in report.evolutions]
+        loss = report.metrics["loss"]
+        if evolved != [2, 4] or not torch.isfinite(loss).all():
+            raise AssertionError(f"train {arch}: evolutions "
+                                 f"{report.evolutions}, losses "
+                                 f"{loss.tolist()}")
+        if cfg.frontend == "audio_frames":
+            torch.testing.assert_close(
+                loss, torch.full_like(loss, float(np.log(cfg.vocab_size))),
+                rtol=1e-6, atol=0)
+        tokens = torch.randint(0, cfg.vocab_size, (n * b, r["seq_len"]),
+                               device="cuda")
+        batch = {k: x.reshape((n, b) + x.shape[1:])
+                 for k, x in lm.frontend_inputs(cfg, tokens).items()}
+
+        def vec_step():
+            trainer.state, _ = trainer.update(trainer.state, batch,
+                                              trainer.hypers,
+                                              trainer.generator)
+
+        reset_counts(pop_adam)
+        step_ms = _sync_ms(vec_step, reps=2)
+        if pop_adam.launches != 3:
+            raise AssertionError(f"train {arch}: {pop_adam.launches} "
+                                 f"pop_adam launches in 3 vectorized steps")
+        share, busy_ms, busy_wall_ms = device_busy_share(vec_step)
+        peak = torch.cuda.max_memory_allocated()
+        if peak >= LM_PEAK_LIMIT:
+            raise AssertionError(f"train {arch}: peak allocated {peak:,} "
+                                 f"bytes, limit {LM_PEAK_LIMIT:,.0f}")
+        seq_tokens = b * r["seq_len"]
+        row = {"layers": layers, "population": n,
+               "parameters_per_member": p,
+               "tokens_per_member_step": seq_tokens,
+               "launches": counts, "evolutions": report.evolutions,
+               "losses": loss.tolist(), "run_s": run_s,
+               "vectorized_step_ms": step_ms,
+               "tokens_per_s_per_member": seq_tokens / (step_ms / 1e3),
+               "device_busy_share": share, "device_busy_ms": busy_ms,
+               "busy_wall_ms": busy_wall_ms,
+               "allocated_before_bytes": before,
+               "max_memory_allocated_bytes": peak}
+        log(f"train {arch} at full width, {layers} layers ({p:,} "
+            f"parameters a member), N={n}, {b}x{r['seq_len']} tokens a "
+            f"member and step, through the CLI: launches {counts}, "
+            f"evolutions {report.evolutions}, losses "
+            f"{[round(x, 4) for x in row['losses']]}, run {run_s:.1f} s; "
+            f"a vectorized step {step_ms:.1f} ms "
+            f"({row['tokens_per_s_per_member']:.0f} tokens/s per member), "
+            f"device busy {busy_ms:.1f} of {busy_wall_ms:.1f} ms profiled "
+            f"(share {'not measured' if share is None else f'{share:.4f}'})"
+            f"; peak allocated {peak:,} bytes (before {before:,})")
+        del report, trainer, batch, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        row["pop_adam"] = pop_adam_inplace_row(gen, n, p, f"{arch} train")
+        row["seconds"] = round(time.perf_counter() - t_arch, 1)
+        log(f"train {arch} took {row['seconds']} s")
+        out[arch] = row
+    return out
+
+
+def phase_lm_cem():
+    """CEM over a language model's flat parameters. First the chunked
+    in-place forms against the whole-matrix ones on the card: qwen2-0.5b
+    at full width with 2 layers, N = 4, one fitness (with a tie) and one
+    (N, P) draw: ``cem_update_chunked`` and ``cem_sample_into`` over
+    ``LMAgent``'s buffer (column chunks of 2^24) equal ``cem_update`` and
+    ``cem_sample`` over its ``ravel_stacked`` copy bit for bit, and the
+    buffer stays where it was. Then qwen2-0.5b at full size through the
+    CLI, ``--strategy cem --population 4 --steps 4 --pbt-interval 2
+    --batch 4 --seq-len 512 --ckpt-every 0``, with the launch counts set
+    to 0 just before and read just after (one pop_adam launch a step):
+    the bind and two evolves each timed, the flat buffer's address
+    unchanged across all three, lineage all -1, the distribution's (P,)
+    float32 mean and variance, the noise decayed twice, and the peak of
+    allocated memory under 70 GB. Returns the numbers."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import cem
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.pop import LMAgent
+    from repro_torch.pop import strategy as strategy_mod
+    from repro_torch.tree import flat_buffer
+
+    t_phase = time.perf_counter()
+    c = LM_CEM
+    n = c["population"]
+    # the chunked forms against the whole ones, 2 layers
+    cfg = _lm_config(c["arch"], num_layers=LM_CEM_PARITY_LAYERS)
+    agent = LMAgent(cfg, TrainConfig(), device="cuda")
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+    buffer = agent.evolvable_buffer(state)
+    p = buffer.shape[1]
+    fitness = torch.tensor([0.5, -1.0, 2.0, 0.5], device="cuda")[:n]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    eps = torch.randn(buffer.shape, generator=gen, device="cuda")
+    centre = lambda: cem.cem_centre(buffer[0].clone())
+    samples = cem.ravel_stacked(state.params)
+    if not torch.equal(samples, buffer):
+        raise AssertionError("LM CEM: the buffer is not the members' "
+                             "ravel")
+    whole = cem.cem_update(centre(), samples, fitness)
+    drawn = cem.cem_sample(None, whole, n, eps=eps)
+    del samples
+    ptr = buffer.data_ptr()
+    chunked = cem.cem_update_chunked(centre(), buffer, fitness)
+    cem.cem_sample_into(buffer, None, chunked, eps=eps)
+    torch.cuda.synchronize()
+    same = {name: torch.equal(a, b) for name, a, b in (
+        ("mean", chunked.mean, whole.mean), ("var", chunked.var, whole.var),
+        ("noise", chunked.noise, whole.noise), ("redraw", buffer, drawn))}
+    if not all(same.values()) or buffer.data_ptr() != ptr or \
+            flat_buffer(state.params).data_ptr() != ptr:
+        raise AssertionError(f"LM CEM: chunked == whole {same}, the buffer "
+                             f"at {buffer.data_ptr():#x}, was {ptr:#x}")
+    chunks = -(-p // cem.CHUNK)
+    log(f"LM CEM {cfg.name} at full width, {LM_CEM_PARITY_LAYERS} layers "
+        f"(N={n}, P={p:,}): the chunked refit and in-place redraw ({chunks} "
+        f"chunks of {cem.CHUNK:,} columns) == the whole-matrix forms bit "
+        f"for bit ({same}); the buffer stayed at its address")
+    parity = {"parameters_per_member": p, "chunks": chunks, "equal": same}
+    del agent, state, buffer, eps, whole, drawn, chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI at full size, the strategy's bind and evolves timed
+    records = []
+    real = {"bind": strategy_mod.CEM.bind, "evolve": strategy_mod.CEM.evolve}
+
+    def timed(name):
+        def call(self, generator, *a):
+            agent = self._agent if name == "evolve" else a[0]
+            pop_state = a[0] if name == "evolve" else a[1]
+            before = agent.evolvable_buffer(pop_state).data_ptr()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real[name](self, generator, *a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            new_state = result[0] if name == "evolve" else result
+            records.append({"call": name, "ms": ms, "before": before,
+                            "after": agent.evolvable_buffer(
+                                new_state).data_ptr()})
+            return result
+        return call
+
+    argv = ["--arch", c["arch"], "--strategy", "cem", "--population",
+            str(n), "--steps", str(c["steps"]), "--pbt-interval",
+            str(c["pbt_interval"]), "--batch", str(c["batch"]), "--seq-len",
+            str(c["seq_len"]), "--ckpt-every", "0", "--seed", str(SEED)]
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with mock.patch.object(strategy_mod.CEM, "bind", timed("bind")), \
+            mock.patch.object(strategy_mod.CEM, "evolve", timed("evolve")), \
+            tempfile.TemporaryDirectory() as d:
+        reset_counts(pop_adam, flash_attention)
+        t0 = time.perf_counter()
+        report = train_main(argv + ["--ckpt-dir", str(Path(d) / "ck")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = {"pop_adam": pop_adam.launches,
+                "flash_attention": flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    trainer = report.trainer
+    st = trainer.strategy.cem_state
+    p = flat_buffer(trainer.state.params).shape[1]
+    addresses = {r["before"] for r in records} | {r["after"]
+                                                  for r in records}
+    problems = []
+    if [r["call"] for r in records] != ["bind", "evolve", "evolve"]:
+        problems.append(f"calls {[r['call'] for r in records]}")
+    if len(addresses) != 1 or flat_buffer(
+            trainer.state.params).data_ptr() not in addresses:
+        problems.append(f"the buffer moved: {records}")
+    if report.evolutions != [(2, [-1] * n), (4, [-1] * n)]:
+        problems.append(f"evolutions {report.evolutions}")
+    if launches != {"pop_adam": c["steps"], "flash_attention": 0}:
+        problems.append(f"launches {launches}")
+    if p != LM_PARAMS or st.mean.shape != (p,) or st.var.shape != (p,) or \
+            st.mean.dtype != torch.float32 or st.var.dtype != torch.float32:
+        problems.append(f"P {p}, mean {st.mean.shape} {st.mean.dtype}, var "
+                        f"{st.var.shape} {st.var.dtype}")
+    if abs(float(st.noise) - 1e-2 * 0.999 ** 2) > 1e-9:
+        problems.append(f"noise {float(st.noise)}")
+    if not np.isfinite(report.final_loss):
+        problems.append(f"final loss {report.final_loss}")
+    if peak >= LM_PEAK_LIMIT:
+        problems.append(f"peak allocated {peak:,} bytes")
+    if problems:
+        raise AssertionError(f"LM CEM CLI: {'; '.join(problems)}")
+    ms = {r["call"] + ("" if r["call"] == "bind" else f"_{i}"): r["ms"]
+          for i, r in enumerate(records)}
+    out = {"parity": parity, "arch": c["arch"], "population": n,
+           "parameters_per_member": p, "launches": launches,
+           "evolutions": report.evolutions,
+           "final_loss": report.final_loss, "run_s": run_s,
+           "strategy_ms": ms, "buffer_address_unchanged": True,
+           "allocated_before_bytes": before,
+           "max_memory_allocated_bytes": peak,
+           "seconds": round(time.perf_counter() - t_phase, 1)}
+    log(f"LM CEM {c['arch']} at full size through the CLI (N={n}, "
+        f"P={p:,}, {c['batch']}x{c['seq_len']} tokens a member and step): "
+        f"launches {launches}, evolutions {report.evolutions}, final loss "
+        f"{report.final_loss:.4f}; bind and evolves "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+        + f", the flat buffer at one address throughout; mean and var "
+        f"({p:,},) float32, noise {float(st.noise):.6g}; run {run_s:.1f} s, "
+        f"peak allocated {peak:,} bytes (before {before:,}); "
+        f"{out['seconds']} s")
+    del report, trainer, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_acting_update_kernels():
+    """pop_matmul and pop_adam at the acting engine's update batch (TD3 on
+    hopper2d, obs 11, act 3, the repo's width, N = 8, B = 64): each
+    forward shape of an update step against its plain version, then timed
+    with its backwards beside their bounds, the plain version and
+    ``baddbmm``+act (``training_rows``); the actor's and the twin critic's
+    pop_adam beside ``torch._fused_adam_`` (``adam_row``). Returns the
+    rows and their sums over one update step."""
+    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    bsz = ACTING["batch"]
+    shapes = (_shape_rows(HOPPER_ACTOR_LAYERS, 2, "actor")
+              + _shape_rows(HOPPER_CRITIC_LAYERS, 6, "critic"))
+    worst = share = 0.0
+    for _, k, m, act, _, _ in shapes:
+        x = torch.randn((POPULATION, bsz, k), generator=gen, device="cuda")
+        w = torch.randn((POPULATION, k, m), generator=gen,
+                        device="cuda") / k ** 0.5
+        b = torch.randn((POPULATION, m), generator=gen, device="cuda")
+        got = pop_matmul(x, w, b, activation=act)
+        want = pop_matmul_plain(x, w, b, activation=act)
+        torch.testing.assert_close(got, want, **TOL)
+        worst = max(worst, (got - want).abs().max().item())
+        share = max(share, tol_share(got, want, TOL))
+    rows = training_rows(shapes, gen, label="hopper2d B=64 ", bsz=bsz)
+    params = lambda layers: sum(k * m + m for k, m, _ in layers)
+    adam = [adam_row(gen, "hopper2d actor", POPULATION,
+                     params(HOPPER_ACTOR_LAYERS)),
+            adam_row(gen, "hopper2d twin critic", POPULATION,
+                     2 * params(HOPPER_CRITIC_LAYERS))]
+    per_step = lambda key, rs: sum(r[key] * r.get(
+        "launches_per_update_step", 1) for r in rs)
+    out = {"work": f"one TD3 update step on hopper2d (N={POPULATION}, "
+                   f"B={bsz}): 24 pop_matmul forwards, 12 backwards, 2 "
+                   f"pop_adam launches; device times, CUDA graph replay, "
+                   f"L2-warm",
+           "max_abs_err": worst, "max_err_over_tolerance": share,
+           "pop_matmul": {k: per_step(k, rows) for k in (
+               "ms", "plain_ms", "bound_ms", "library_ms")},
+           "pop_matmul_backward_ms": sum(r["backward_ms_per_step"]
+                                         for r in rows),
+           "pop_matmul_backward_bound_ms": sum(
+               r["backward_bound_ms_per_step"] for r in rows),
+           "pop_adam": {k: per_step(k, adam) for k in (
+               "ms", "plain_ms", "bound_ms", "library_ms")},
+           "pop_matmul_rows": rows, "pop_adam_rows": adam}
+    log(f"the acting engine's update step (TD3 on hopper2d, N="
+        f"{POPULATION}, B={bsz}): pop_matmul forwards == plain (max abs err "
+        f"{worst:.3g}), 24 forwards {out['pop_matmul']['ms'] * 1e3:.3f} us "
+        f"(bound {out['pop_matmul']['bound_ms'] * 1e3:.3f}, baddbmm "
+        f"{out['pop_matmul']['library_ms'] * 1e3:.3f}), 12 backwards "
+        f"{out['pop_matmul_backward_ms'] * 1e3:.3f} us (bound "
+        f"{out['pop_matmul_backward_bound_ms'] * 1e3:.3f}); 2 pop_adam "
+        f"{out['pop_adam']['ms'] * 1e3:.3f} us (bound "
+        f"{out['pop_adam']['bound_ms'] * 1e3:.3f}, _fused_adam_ "
+        f"{out['pop_adam']['library_ms'] * 1e3:.3f})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -4967,6 +5582,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt_root:
         acting["cli"] = phase_acting_cli(ckpt_root)
     lap("34 acting CLI")
+
+    # 35. the frontend archs, card vs CPU; 36. each trained through the
+    # train CLI at full width; 37. CEM over an LM's flat parameters,
+    # chunked vs whole and through the CLI at full size; 38. pop_matmul
+    # and pop_adam at the acting engine's update batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontends = {"parity": phase_frontend_parity()}
+    lap("35 frontend parity")
+    frontends["train"] = phase_frontend_train()
+    lap("36 frontend training")
+    lm_cem = phase_lm_cem()
+    lap("37 LM CEM")
+    acting["update_kernels"] = phase_acting_update_kernels()
+    lap("38 acting update kernels")
     log(f"seconds at the end of each group of phases: {seconds}")
     # a captured graph's launches are its captured launches times its
     # replays (plus the eager warm-up's before the capture)
@@ -5000,6 +5630,11 @@ def main() -> int:
             "train_launches": ppo[e]["launches"][kernel]}
         for e in PPO}
 
+    adam_paths = {**by_path("pop_adam"),
+                  "lm_train": lm_train["launches"]["pop_adam"],
+                  **{f"{a}_train": r["launches"]["pop_adam"]
+                     for a, r in frontends["train"].items()},
+                  "lm_cem": lm_cem["launches"]["pop_adam"]}
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
@@ -5077,23 +5712,33 @@ def main() -> int:
                    "per_launch": shared_mm_rows},
         "sac_dqn": sac_dqn_entry("pop_matmul"),
         "ppo": ppo_entry("pop_matmul"),
+        "acting_update": {
+            "work": acting["update_kernels"]["work"],
+            **acting["update_kernels"]["pop_matmul"],
+            "backward_bmm_ms": acting["update_kernels"][
+                "pop_matmul_backward_ms"],
+            "backward_bound_ms": acting["update_kernels"][
+                "pop_matmul_backward_bound_ms"],
+            "per_launch": acting["update_kernels"]["pop_matmul_rows"]},
     }, {
         "name": "pop_adam",
         "route": "triton",
         "source": "src/repro_torch/kernels/pop_adam.py",
         "replaces": "src/repro/kernels/pop_adam.py:53",
         # each main path, driven with the counts set to 0 just before
-        "launches": sum(by_path("pop_adam").values())
-        + lm_train["launches"]["pop_adam"],
-        "launches_by_path": {**by_path("pop_adam"),
-                             "lm_train": lm_train["launches"]["pop_adam"]},
-        "max_abs_err": max(adam_err, adam_lm_err,
-                           sac_dqn["kernels"]["adam_max_abs_err"],
-                           ppo["kernels"]["adam_max_abs_err"]),
+        "launches": sum(adam_paths.values()),
+        "launches_by_path": adam_paths,
+        "max_abs_err": max([adam_err, adam_lm_err,
+                            sac_dqn["kernels"]["adam_max_abs_err"],
+                            ppo["kernels"]["adam_max_abs_err"]]
+                           + [r["pop_adam"]["max_abs_err"]
+                              for r in frontends["train"].values()]),
         "tolerance": "rtol=1e-5, atol=1e-6",
-        "max_err_over_tolerance": max(adam_share, adam_lm_share,
-                                      sac_dqn["kernels"]["adam_share"],
-                                      ppo["kernels"]["adam_share"]),
+        "max_err_over_tolerance": max(
+            [adam_share, adam_lm_share, sac_dqn["kernels"]["adam_share"],
+             ppo["kernels"]["adam_share"]]
+            + [r["pop_adam"]["max_err_over_tolerance"]
+               for r in frontends["train"].values()]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -5122,6 +5767,20 @@ def main() -> int:
                    **shared_adam_row},
         "sac_dqn": sac_dqn_entry("pop_adam"),
         "ppo": ppo_entry("pop_adam"),
+        "frontends": {
+            arch: {"work": f"one launch of {arch}'s vectorized step "
+                           f"(N={r['population']}, {r['layers']} layers at "
+                           f"full width), decay and clip scale, in place; "
+                           f"device times of eager launches, cold",
+                   **r["pop_adam"]}
+            for arch, r in frontends["train"].items()},
+        "lm_cem": {"work": "qwen2-0.5b's population step under CEM, N=4: "
+                           "the LM row's shape (lm above)",
+                   "launches": lm_cem["launches"]["pop_adam"]},
+        "acting_update": {
+            "work": acting["update_kernels"]["work"],
+            **acting["update_kernels"]["pop_adam"],
+            "per_launch": acting["update_kernels"]["pop_adam_rows"]},
     }]
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
@@ -5159,18 +5818,24 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "redesigned_in": REDESIGNED_IN["flash_attention"],
-        "launches": lm_serve["qwen3-8b"]["launches"]["flash_attention"],
+        "launches": sum(r["launches"]["flash_attention"]
+                        for r in lm_serve.values()),
         "launches_by_arch": {arch: r["launches"]["flash_attention"]
                              for arch, r in lm_serve.items()},
+        "launches_by_path": {f"serve_{arch}": r["launches"][
+            "flash_attention"] for arch, r in lm_serve.items()},
         "launches_by_route": lm_serve["qwen3-8b"][
             "flash_attention_by_route"],
         "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]
-                           + [lm_parity["qwen3-moe-30b-a3b"][0]]),
+                           + [lm_parity["qwen3-moe-30b-a3b"][0]]
+                           + [e for e, _ in frontends["parity"].values()]),
         "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
                      "1e-3 (the path, card vs CPU)",
         "max_err_over_tolerance": max([flash_share]
                                       + [lm_parity[a][1] for a in DENSE]
-                                      + [lm_parity["qwen3-moe-30b-a3b"][1]]),
+                                      + [lm_parity["qwen3-moe-30b-a3b"][1]]
+                                      + [s for _, s in
+                                         frontends["parity"].values()]),
         "work": "one causal launch at the qwen3-8b prefill's shape "
                 f"(B,H,Hkv,S,D)={head['shape']} bf16, 36 per served "
                 "prefill; device times, CUDA graph replay, L2-warm",
@@ -5237,6 +5902,8 @@ def main() -> int:
     print(json.dumps({"fig2_sac": fig2_sac}))
     print(json.dumps({"ppo": ppo}))
     print(json.dumps({"acting": acting, "phase_seconds": seconds}))
+    print(json.dumps({"frontends": frontends}))
+    print(json.dumps({"lm_cem": lm_cem}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ nothing of it).
 paths read, for the families it runs (dense attention, mixture of experts
 with GQA or MLA, RWKV6 and Zamba2); ``replace`` and ``smoke`` give the
 JAX package's values for them, ``MoESpec`` and ``MLASpec`` its defaults.
-The frontends' fields come with the slice that ports them; the SSM scans
-always compute in float32.
+``frontend`` says what stands before the first layer: the embedding
+table (``"none"``), precomputed audio-frame embeddings in its place
+(``"audio_frames"``, no table) or a prefix of ``num_frontend_positions``
+precomputed vision-patch embeddings spliced over the table's output
+(``"vision_patches"``). The SSM scans always compute in float32.
 There is no ``use_flash``/``use_kernels`` switch: the device decides
 (the kernels on the card, their plain versions on the CPU).
 Where the JAX package scales gemma's embeddings by testing the config's
@@ -70,6 +73,8 @@ class LMConfig:
     shared_attn_every: int = 0     # zamba2: shared attn block period
     moe: Optional[MoESpec] = None
     mla: Optional[MLASpec] = None
+    frontend: str = "none"         # none | audio_frames | vision_patches
+    num_frontend_positions: int = 0
     dtype: str = "bfloat16"
     ssm_chunk: int = 128           # SSD/WKV chunk length
     remat: bool = True             # recompute each layer in the backward
@@ -105,6 +110,8 @@ class LMConfig:
                                 qk_rope_dim=8, v_dim=16)
         if self.shared_attn_every:
             kw["shared_attn_every"] = 4
+        if self.num_frontend_positions:
+            kw["num_frontend_positions"] = 8
         if self.block_type in ("rwkv6", "mamba2"):
             kw["ssm_head_dim"] = 32
             kw["ssm_state"] = 16 if self.block_type == "mamba2" else 0

@@ -9,6 +9,15 @@ one ``(N, P)`` matrix, the stacked-population layout.
 
 The JAX package draws from a key; here :func:`cem_sample` draws from a
 ``torch.Generator``, or takes the standard normal draw as ``eps``.
+
+A language model's population is too large for the ``(N, P)`` copies of
+the plain forms (qwen2-0.5b: 7.9 GB each at N = 4). Its samples are the
+flat buffer that holds the members' parameters:
+:func:`cem_update_chunked` refits the distribution on the buffer's elites
+and :func:`cem_sample_into` redraws the members into the buffer, both a
+column chunk at a time and in place. Each computes what the plain form
+does, element for element in the same order, so the two agree bit for
+bit given the same draw.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.tree import flatten, unflatten
+
+CHUNK = 1 << 24   # columns the chunked forms refit and redraw at a time
 
 
 class CEMState(NamedTuple):
@@ -60,10 +71,14 @@ def cem_init(params_template, sigma_init: float = 1e-2,
     CEM's initial noise from 1e-3 to 1e-2 (§B.2). Returns (state,
     unravel)."""
     flat, unravel = ravel(params_template)
-    state = CEMState(mean=flat, var=torch.full_like(flat, sigma_init),
-                     noise=torch.tensor(noise_init, dtype=flat.dtype,
-                                        device=flat.device))
-    return state, unravel
+    return cem_centre(flat, sigma_init, noise_init), unravel
+
+
+def cem_centre(mean, sigma_init: float = 1e-2, noise_init: float = 1e-2):
+    """The distribution centred on ``mean``, a (P,) vector it keeps."""
+    return CEMState(mean=mean, var=torch.full_like(mean, sigma_init),
+                    noise=torch.tensor(noise_init, dtype=mean.dtype,
+                                       device=mean.device))
 
 
 def cem_sample(generator, state: CEMState, n: int, *, eps=None):
@@ -77,6 +92,24 @@ def cem_sample(generator, state: CEMState, n: int, *, eps=None):
         eps.to(state.mean.device)
 
 
+def cem_sample_into(out, generator, state: CEMState, *, eps=None,
+                    chunk: int | None = None):
+    """:func:`cem_sample` written into ``out``, an ``(N, P)`` tensor, in
+    place, ``chunk`` columns (default :data:`CHUNK`) at a time. Each
+    chunk's ``(N, chunk)`` standard normal draw is made from
+    ``generator``, or taken from the ``(N, P)`` ``eps``."""
+    n, p = out.shape
+    chunk = chunk or CHUNK
+    for c in range(0, p, chunk):
+        cols = slice(c, min(c + chunk, p))
+        e = (eps[:, cols] if eps is not None else
+             torch.randn((n, cols.stop - c), generator=generator,
+                         device=generator.device))
+        out[:, cols] = state.mean[cols] + torch.sqrt(
+            state.var[cols] + state.noise) * e.to(out.device)
+    return out
+
+
 def cem_weights(n: int, elite_frac: float = 0.5, device="cpu"):
     """The elites' log-rank weights, ``(k,)`` with ``k = round(N
     elite_frac)``, in the ascending order of :func:`cem_update`'s elites
@@ -88,6 +121,29 @@ def cem_weights(n: int, elite_frac: float = 0.5, device="cpu"):
     return (w / w.sum()).flip(0).to(device)
 
 
+def _elites(samples, fitness, elite_frac, weights):
+    """(the elites' log-rank weights, their rows of ``samples``): the top
+    ``round(N elite_frac)`` by a stable ascending sort (ties keep member
+    order, as ``jnp.argsort``), the fittest last."""
+    n = fitness.shape[0]
+    w = cem_weights(n, elite_frac, samples.device) if weights is None \
+        else weights
+    return w, torch.argsort(fitness, stable=True)[n - w.shape[0]:]
+
+
+def _refit(w, elites, old_mean):
+    """The elites' weighted mean, and their weighted variance about
+    ``old_mean``, summed over the elites in their order one elementwise
+    operation at a time: a column's result does not depend on which
+    columns are computed with it."""
+    mean = var = None
+    for i in range(w.shape[0]):
+        m = w[i] * elites[i]
+        v = w[i] * torch.square(elites[i] - old_mean)
+        mean, var = (m, v) if mean is None else (mean + m, var + v)
+    return mean, var
+
+
 def cem_update(state: CEMState, samples, fitness, elite_frac: float = 0.5,
                noise_decay: float = 0.999, *, weights=None):
     """Refit on the elites. samples: (N, P); fitness: (N,) higher-better.
@@ -96,12 +152,25 @@ def cem_update(state: CEMState, samples, fitness, elite_frac: float = 0.5,
     (:func:`cem_weights`, or ``weights`` made by it) are in that ascending
     order, so the fittest weighs most. The new variance is taken about the
     OLD mean."""
-    n = fitness.shape[0]
-    w = cem_weights(n, elite_frac, samples.device) if weights is None \
-        else weights
-    k = w.shape[0]
-    elite_idx = torch.argsort(fitness, stable=True)[n - k:]
-    elites = samples[elite_idx]
-    mean = torch.einsum("i,ip->p", w, elites)
-    var = torch.einsum("i,ip->p", w, torch.square(elites - state.mean))
+    w, idx = _elites(samples, fitness, elite_frac, weights)
+    mean, var = _refit(w, samples[idx], state.mean)
     return CEMState(mean=mean, var=var, noise=state.noise * noise_decay)
+
+
+def cem_update_chunked(state: CEMState, samples, fitness,
+                       elite_frac: float = 0.5, noise_decay: float = 0.999,
+                       *, weights=None, chunk: int | None = None):
+    """:func:`cem_update` written into ``state.mean`` and ``state.var``
+    in place, ``chunk`` columns (default :data:`CHUNK`) at a time, so that
+    its temporaries are a few ``(k, chunk)`` blocks and not copies of the
+    ``(N, P)`` samples. Returns the state with the decayed noise."""
+    w, idx = _elites(samples, fitness, elite_frac, weights)
+    p = samples.shape[1]
+    chunk = chunk or CHUNK
+    for c in range(0, p, chunk):
+        cols = slice(c, min(c + chunk, p))
+        mean, var = _refit(w, samples[idx, cols], state.mean[cols])
+        state.mean[cols] = mean
+        state.var[cols] = var
+    return CEMState(mean=state.mean, var=state.var,
+                    noise=state.noise * noise_decay)

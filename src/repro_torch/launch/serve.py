@@ -15,10 +15,12 @@ one launch of ``wkv6`` and every
 Mamba2 layer's one launch of ``ssd``; decode steps attend over the KV
 cache and take the literal scans. MLA (deepseek) and the mixture-of-
 experts layers compute in plain PyTorch, as the JAX package computes them
-outside its kernels. Of the JAX package's archs the port runs the dense
-``qwen2-0.5b``, ``qwen2-1.5b``, ``qwen3-8b`` and ``gemma-7b``, the MoE
-``qwen3-moe-30b-a3b`` and ``deepseek-v2-lite-16b``, ``rwkv6-1.6b``,
-``zamba2-7b`` and ``rwkv6-test``; the frontend archs are refused.
+outside its kernels. The port runs every arch of the JAX package: the
+dense ``qwen2-0.5b``, ``qwen2-1.5b``, ``qwen3-8b`` and ``gemma-7b``, the
+MoE ``qwen3-moe-30b-a3b`` and ``deepseek-v2-lite-16b``, ``rwkv6-1.6b``,
+``zamba2-7b``, ``rwkv6-test``, and the frontend archs ``musicgen-medium``
+(fed zero audio-frame embeddings, as the JAX CLI feeds them) and
+``pixtral-12b`` (fed no image patches, as the JAX CLI feeds none).
 
 ``--algo <name>`` loads a checkpoint a trained population left behind,
 promotes a fitness + diversity serving set
@@ -87,7 +89,10 @@ def generate(cfg, params, prompt_tokens, *, steps: int, max_len: int,
     of the serve step (the JAX package steps it token by token through
     the same step): returns the first prompt token followed by ``steps``
     new tokens, (B, 1+steps). Greedy, or sampled from the logits with
-    ``generator``. With a dict ``times``, the device is synchronised
+    ``generator``. An ``audio_frames`` config is fed zero frame
+    embeddings beside the tokens, as the JAX package's ``generate`` feeds
+    them; a ``vision_patches`` one no patches (its serve step would ignore
+    them). With a dict ``times``, the device is synchronised
     around the prefill and the decode loop and their seconds recorded as
     ``prefill_s`` and ``decode_s``."""
     from repro_torch.models import lm
@@ -96,6 +101,8 @@ def generate(cfg, params, prompt_tokens, *, steps: int, max_len: int,
     serve = lm.make_serve_step(cfg)
     state = lm.init_decode_state(cfg, b, max_len,
                                  device=prompt_tokens.device)
+
+    inputs = lambda tokens: lm.frontend_inputs(cfg, tokens, patches=False)
 
     def pick(logits):
         if greedy:
@@ -109,11 +116,11 @@ def generate(cfg, params, prompt_tokens, *, steps: int, max_len: int,
         return time.perf_counter()
 
     t0 = clock()
-    logits, state = serve(params, {"tokens": prompt_tokens}, state, 0)
+    logits, state = serve(params, inputs(prompt_tokens), state, 0)
     out = [prompt_tokens[:, :1], pick(logits[:, -1])]
     t1 = clock()
     for t in range(steps - 1):
-        logits, state = serve(params, {"tokens": out[-1]}, state, s0 + t)
+        logits, state = serve(params, inputs(out[-1]), state, s0 + t)
         out.append(pick(logits[:, -1]))
     t2 = clock()
     if times is not None:
@@ -226,7 +233,8 @@ def main(argv=None):
     ap.add_argument("--arch", default=None,
                     help="LM config id: qwen2-0.5b, qwen2-1.5b, qwen3-8b, "
                     "gemma-7b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b, "
-                    "rwkv6-1.6b, zamba2-7b or rwkv6-test")
+                    "rwkv6-1.6b, zamba2-7b, rwkv6-test, musicgen-medium "
+                    "or pixtral-12b")
     ap.add_argument("--algo", default=None,
                     help="RL algorithm whose population checkpoint to serve "
                     "as an ensemble (td3, sac, dqn, ppo)")

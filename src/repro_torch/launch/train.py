@@ -11,11 +11,27 @@ card; ``--backend sequential`` steps one member at a time with the stock
 AdamW and launches no kernel. ``--smoke`` takes the config's reduced
 same-family form. Every LM config of the registry trains, the MoE ones
 (``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``) with their auxiliary
-load-balancing loss in the members' loss; the frontend configs are
-refused by name.
+load-balancing loss in the members' loss, and the frontend ones as the
+JAX CLI feeds them: ``musicgen-medium`` zero audio-frame embeddings in
+place of the tokens' embeddings, ``pixtral-12b`` zero patch embeddings
+over the first 256 positions, whose labels the loss masks (so its
+``--seq-len`` must cover them). ``--strategy cem`` evolves every
+parameter of the members by CEM instead of PBT: the distribution is
+refit on the fittest members and every member redrawn from it, in place
+in the population's flat parameter buffer (the Adam moments and steps
+stay). ``--num-layers`` cuts the config's depth at its full width: a
+population of pixtral-12b at full depth would need some 465 GB. A
+checkpoint of a full-width population is large (about 36 GB for 4
+members of qwen2-0.5b under CEM); ``--ckpt-every 0`` writes none.
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --population 4 \\
         --steps 100 --pbt-interval 10 --batch 4 --seq-len 512 --ckpt-dir DIR
+    python -m repro_torch.launch.train --arch pixtral-12b --num-layers 1 \\
+        --population 2 --steps 4 --pbt-interval 2 --batch 1 --seq-len 512 \\
+        --ckpt-every 0 --ckpt-dir DIR
+    python -m repro_torch.launch.train --arch qwen2-0.5b --strategy cem \\
+        --population 4 --steps 4 --pbt-interval 2 --batch 4 --seq-len 512 \\
+        --ckpt-every 0 --ckpt-dir DIR
 
 ``--algo <name>`` (td3, sac, dqn or ppo) trains a population of the
 registered algorithm on an env (pendulum, reacher, mountain_car and the
@@ -118,16 +134,15 @@ def _run_lm(args) -> TrainReport:
     from repro_torch.configs import (HyperSpace, PopulationConfig,
                                      TrainConfig, get_config)
     from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.models.lm import frontend_inputs
     from repro_torch.pop import LMAgent, PopTrainer
 
-    if args.strategy == "cem":
-        raise NotImplementedError(
-            "--strategy cem over a language model's parameters is not "
-            "ported yet (ROADMAP.md item 15); it runs with --algo")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.num_layers:
+        cfg = cfg.replace(num_layers=args.num_layers)
     _refuse_used_ckpt_dir(args.ckpt_dir)
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1), seed=args.seed)
@@ -148,7 +163,8 @@ def _run_lm(args) -> TrainReport:
 
     def next_batch(step):
         tokens = torch.from_numpy(next(stream)).to(device)
-        return {"tokens": tokens.reshape(n, args.batch, args.seq_len)}
+        return {k: x.reshape((n, args.batch) + x.shape[1:])
+                for k, x in frontend_inputs(cfg, tokens).items()}
 
     t0 = time.time()
     report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
@@ -161,11 +177,13 @@ def _run_lm(args) -> TrainReport:
             print(f"[train] evolve at step {step + 1}: "
                   f"lineage={lineage.tolist()} strategy="
                   f"{type(trainer.strategy).__name__}")
-        if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
+        due = args.ckpt_every and (step + 1) % args.ckpt_every == 0
+        if due or step == args.steps - 1:
             report.final_loss = float(metrics["loss"].mean())
             print(f"[train] step {step + 1}: loss by member "
                   f"{[round(x, 4) for x in metrics['loss'].tolist()]}")
-            trainer.save({"loss": report.final_loss})
+            if args.ckpt_every:
+                trainer.save({"loss": report.final_loss})
 
     trainer.run(args.steps, next_batch, on_step=on_step)
     report.seconds = time.time() - t0
@@ -223,7 +241,8 @@ def _run_rl(args) -> TrainReport:
             print(f"[train] evolve at iter {it + 1}: "
                   f"lineage={lineage.tolist()} strategy="
                   f"{type(trainer.strategy).__name__}")
-        if (it + 1) % args.ckpt_every == 0 or it == args.steps - 1:
+        if args.ckpt_every and ((it + 1) % args.ckpt_every == 0
+                                or it == args.steps - 1):
             due.append(it)
         # a fused epoch reports its iterations after running them all, so
         # a checkpoint due mid-epoch is taken at the epoch's end, where the
@@ -256,8 +275,8 @@ def main(argv=None):
     ap.add_argument("--population", type=int, default=1)
     ap.add_argument("--strategy", default="pbt",
                     choices=["pbt", "cem", "none"],
-                    help="evolution strategy; cem (over the actors' "
-                    "parameters) is taken by --algo only")
+                    help="evolution strategy; cem evolves the actors' "
+                    "parameters (--algo) or every parameter (--arch)")
     ap.add_argument("--backend", default="vectorized",
                     choices=["vectorized", "sequential", "sharded",
                              "islands"],
@@ -289,6 +308,10 @@ def main(argv=None):
                     help="LM: tokens per sequence")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the reduced same-family config (CPU-sized)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="LM: cut the config to this many layers, at its "
+                    "full width (a population of a large model at full "
+                    "depth does not fit one card)")
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="LM: the base learning rate")
     ap.add_argument("--eval-every", type=int, default=2)
@@ -311,9 +334,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", required=True,
                     help="empty directory for the population checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50,
-                    help="checkpoint every N iterations and at the last; "
-                    "under --fused-epoch one due mid-epoch is taken at "
-                    "that epoch's end")
+                    help="checkpoint every N iterations and at the last "
+                    "(0: never, for a population too large to write "
+                    "out); under --fused-epoch one due mid-epoch is taken "
+                    "at that epoch's end")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
@@ -334,6 +358,9 @@ def main(argv=None):
         raise ValueError("--fused-epoch, --policy-lag and --chunk-steps "
                          "drive the acting engine: they are taken with "
                          "--algo only")
+    if args.algo is not None and args.num_layers is not None:
+        raise ValueError("--num-layers cuts a language model's depth: it "
+                         "is taken with --arch only")
     if args.epochs is not None:
         from repro_torch.rl import ALGOS
         on_policy = sorted(name for name, a in ALGOS.items()

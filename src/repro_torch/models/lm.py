@@ -19,6 +19,7 @@ Public API:
     make_train_step(cfg, tcfg) / make_population_update(cfg, tcfg)
     make_serve_step(cfg)
     decode_state_shapes(cfg, batch, max_len) / init_decode_state(...)
+    frontend_inputs(cfg, tokens, patches=True)
 
 Differences from the JAX package, none of them in the numbers:
 
@@ -53,9 +54,18 @@ the checkpoint. The population update then steps every member at once
 with ONE ``population_adam`` call over flat ``(N, P)`` buffers (the
 ``pop_adam`` kernel on the card, written in place).
 
-Not ported: the frontends (their configs are refused by the registry),
-a Mamba2 stack without the shared attention (no config has one), and
-``input_specs``.
+Frontends, as in the JAX package: ``audio_frames`` (musicgen) has no
+embedding table and takes ``batch["embeds"]`` (B,S,D) as the hidden
+state, in every form; ``vision_patches`` (pixtral) splices
+``batch["patch_embeds"]`` (B,P,D) over the first P positions of the
+table's output in the stateless form only (the JAX package's
+``cache_index is None``; the port's stateless form runs at cache index 0,
+so it is told apart by having no state), and ``lm_loss`` masks the labels
+of the first ``num_frontend_positions`` positions. The serve step, prefill
+included, ignores the patches, as the JAX package's does.
+
+Not ported: a Mamba2 stack without the shared attention (no config has
+one), and ``input_specs``.
 """
 from __future__ import annotations
 
@@ -271,10 +281,10 @@ def init_params(generator: torch.Generator, cfg: LMConfig, *,
     layer. With ``dtype`` given every leaf is cast as it is drawn, except
     ``final_norm``, which stays float32 (see :func:`cast_params`)."""
     dev = generator.device
-    params: dict[str, Any] = {
-        "embed": embedding_init(generator, cfg.vocab_size, cfg.d_model,
-                                dtype=dtype),
-        "segments": {}}
+    params: dict[str, Any] = {"segments": {}}
+    if cfg.frontend != "audio_frames":
+        params["embed"] = embedding_init(generator, cfg.vocab_size,
+                                         cfg.d_model, dtype=dtype)
     for seg in layout(cfg):
         if seg.kind == "attn":
             params["segments"][seg.name] = _stacked_init(
@@ -318,7 +328,10 @@ def _layer(tree, i):
 
 def forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
             train: bool = False, return_hidden: bool = False):
-    """batch: {"tokens": (B,S) integers}; params from :func:`cast_params`.
+    """batch: {"tokens": (B,S) integers, and ``"embeds"`` (B,S,D) for
+    an ``audio_frames`` config or, optionally, ``"patch_embeds"`` (B,P,D)
+    for a ``vision_patches`` one (spliced in the stateless form only);
+    params from :func:`cast_params`.
     With a decode state, the S tokens continue the sequence at
     ``cache_index`` and the state is updated in place. Without one
     (stateless) the recurrent blocks start from zero states and attention
@@ -337,9 +350,10 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
     zero without MoE layers), the JAX package's third output."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    emb = params["embed"]["embedding"]
-    if emb.dtype != compute_dtype(cfg):
-        raise TypeError(f"forward: parameters in {emb.dtype}, config "
+    dtype = compute_dtype(cfg)
+    head = _head_weight(params, cfg)      # a leaf every config has
+    if head.dtype != dtype:
+        raise TypeError(f"forward: parameters in {head.dtype}, config "
                         f"{cfg.name} computes in {cfg.dtype}: pass them "
                         f"through cast_params first")
     keep = state is not None
@@ -373,7 +387,19 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
             return h, None
         return super_block
 
-    h = emb[tokens]
+    if cfg.frontend == "audio_frames":
+        h = batch["embeds"].to(dtype)
+    else:
+        h = params["embed"]["embedding"][tokens]
+        if (cfg.frontend == "vision_patches" and "patch_embeds" in batch
+                and not keep):
+            patches = batch["patch_embeds"]
+            if patches.shape[1] > s:
+                raise ValueError(
+                    f"{cfg.name}: {patches.shape[1]} patch positions do "
+                    f"not fit a sequence of {s} tokens")
+            h = torch.cat([patches.to(dtype), h[:, patches.shape[1]:]],
+                          dim=1)
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     aux_total = torch.zeros((), device=tokens.device)
@@ -389,8 +415,26 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
 
     h = rmsnorm_apply(params["final_norm"], h)
     if not return_hidden:
-        h = h @ _head_weight(params, cfg)
+        h = h @ head
     return h, (state if keep else None), aux_total
+
+
+def frontend_inputs(cfg: LMConfig, tokens, *, patches: bool = True):
+    """A batch of ``tokens`` (..., S) with the zero frontend inputs the
+    JAX package's CLIs feed: zero frame embeddings (..., S, D) for an
+    ``audio_frames`` config and, with ``patches``, zero patch embeddings
+    (..., num_frontend_positions, D) for a ``vision_patches`` one (the
+    serve CLI feeds none: its serve step would ignore them)."""
+    batch = {"tokens": tokens}
+    zeros = lambda shape: torch.zeros(shape + (cfg.d_model,),
+                                      dtype=compute_dtype(cfg),
+                                      device=tokens.device)
+    if cfg.frontend == "audio_frames":
+        batch["embeds"] = zeros(tuple(tokens.shape))
+    elif cfg.frontend == "vision_patches" and patches:
+        batch["patch_embeds"] = zeros(tuple(tokens.shape[:-1])
+                                      + (cfg.num_frontend_positions,))
+    return batch
 
 
 def _head_weight(params, cfg: LMConfig):
@@ -416,7 +460,8 @@ def _token_ce(logits, labels, mask):
 def lm_loss(params, cfg: LMConfig, batch):
     """Next-token cross-entropy of float32 master ``params`` (cast to
     ``cfg.dtype`` here, so the gradient reaches the masters) -> (loss,
-    {"ce", "aux"}). The last position has no label. With
+    {"ce", "aux"}). The last position has no label, nor have a
+    ``vision_patches`` config's first ``num_frontend_positions``. With
     ``cfg.logits_chunk`` dividing S the logits are made a chunk of the
     sequence at a time. An MoE config adds ``aux_loss_weight`` times the
     layers' summed aux loss over its number of MoE layers."""
@@ -428,6 +473,8 @@ def lm_loss(params, cfg: LMConfig, batch):
     mask = torch.ones(tokens.shape, dtype=torch.float32,
                       device=tokens.device)
     mask[:, -1] = 0.0
+    if cfg.frontend == "vision_patches":
+        mask[:, :cfg.num_frontend_positions] = 0.0
     w = _head_weight(cparams, cfg)
     chunk = cfg.logits_chunk
     if chunk and hidden.shape[1] % chunk == 0:

@@ -31,7 +31,7 @@ import torch
 from repro_torch.core.population import population_init
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.optim.optimizers import AdamState
-from repro_torch.tree import flat_empty, tree_map
+from repro_torch.tree import flat_buffer, flat_empty, tree_map
 
 
 class ModuleAgent:
@@ -169,6 +169,9 @@ class LMAgent:
     ``lm.init_params`` on the agent's device, from a generator seeded by
     the i-th draw of the generator given (so a seed gives the same
     population on one device, and different ones on the CPU and the card).
+    Every parameter evolves under CEM, as in the JAX package; the CEM
+    strategy samples and redraws the parameters' buffer in place
+    (``evolvable_buffer``).
     """
 
     def __init__(self, cfg, tcfg, *, device=DEFAULT_DEVICE):
@@ -224,6 +227,17 @@ class LMAgent:
 
     def actor_params(self, pop_state):
         return pop_state.params
+
+    def evolvable_params(self, pop_state):
+        return pop_state.params
+
+    def with_evolvable_params(self, pop_state, new_params):
+        return pop_state._replace(params=new_params)
+
+    def evolvable_buffer(self, pop_state):
+        """The flat ``(N, P)`` buffer whose views the parameters are, which
+        CEM samples and redraws in place (``pop.strategy.CEM``)."""
+        return flat_buffer(pop_state.params)
 
     def fitness_from_metrics(self, metrics):
         return -metrics["loss"]

@@ -26,8 +26,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import PopulationConfig
-from repro_torch.core.cem import (CEMState, cem_init, cem_sample, cem_update,
-                                  cem_weights, ravel_stacked)
+from repro_torch.core.cem import (CEMState, cem_centre, cem_init,
+                                  cem_sample, cem_sample_into, cem_update,
+                                  cem_update_chunked, cem_weights,
+                                  ravel_stacked)
 from repro_torch.core.dvd import dvd_coef_schedule
 from repro_torch.core.hyperparams import sample_hypers
 from repro_torch.core.pbt import pbt_step
@@ -123,7 +125,15 @@ class CEM(EvolutionStrategy):
     ``bind`` centres the distribution on member 0 and redraws every
     member from it; ``evolve`` refits on the elites and redraws every
     member (lineage all -1: no member inherits a parent's state). The
-    elites' weights are made on the device once, at ``bind``."""
+    elites' weights are made on the device once, at ``bind``.
+
+    An agent whose evolvable parameters are views of one flat ``(N, P)``
+    buffer says so with ``evolvable_buffer(pop_state)`` (``LMAgent``):
+    the buffer is then the samples, the refit and the redraw go a column
+    chunk at a time (:func:`repro_torch.core.cem.cem_update_chunked`,
+    :func:`~repro_torch.core.cem.cem_sample_into`) and the redraw is
+    written into the buffer, so the leaves stay its views. Only the
+    parameters are redrawn: the optimizer state and steps stay."""
 
     def __init__(self, pcfg: PopulationConfig):
         self.pcfg = pcfg
@@ -131,21 +141,33 @@ class CEM(EvolutionStrategy):
         self.cem_state = None
         self._unravel = None
         self._weights = None
+        self._flat = False
 
     def bind(self, generator, agent, pop_state):
         self._agent = agent
-        params = agent.evolvable_params(pop_state)
-        first = leaves(params)[0]
-        self.cem_state, self._unravel = cem_init(
-            tree_map(lambda x: x[0], params),
-            sigma_init=self.pcfg.sigma_init,
-            noise_init=self.pcfg.cem_noise_init)
-        self._weights = cem_weights(first.shape[0], self.pcfg.elite_frac,
-                                    first.device)
+        self._flat = hasattr(agent, "evolvable_buffer")
+        if self._flat:
+            buffer = agent.evolvable_buffer(pop_state)
+            self.cem_state = cem_centre(buffer[0].clone(),
+                                        sigma_init=self.pcfg.sigma_init,
+                                        noise_init=self.pcfg.cem_noise_init)
+        else:
+            params = agent.evolvable_params(pop_state)
+            buffer = leaves(params)[0]
+            self.cem_state, self._unravel = cem_init(
+                tree_map(lambda x: x[0], params),
+                sigma_init=self.pcfg.sigma_init,
+                noise_init=self.pcfg.cem_noise_init)
+        self._weights = cem_weights(buffer.shape[0], self.pcfg.elite_frac,
+                                    buffer.device)
         return self._redraw(generator, pop_state, self.cem_state,
-                            first.shape[0])
+                            buffer.shape[0])
 
     def _redraw(self, generator, pop_state, cem_state, n: int):
+        if self._flat:
+            cem_sample_into(self._agent.evolvable_buffer(pop_state),
+                            generator, cem_state)
+            return pop_state
         new_params = self._unravel(cem_sample(generator, cem_state, n))
         return self._agent.with_evolvable_params(pop_state, new_params)
 
@@ -158,8 +180,13 @@ class CEM(EvolutionStrategy):
     def evolve_fn(self):
         def fn(generator, pop_state, hypers, fitness, strat_state):
             n = fitness.shape[0]
-            flat = ravel_stacked(self._agent.evolvable_params(pop_state))
-            cem_state = cem_update(
+            if self._flat:
+                flat, update = (self._agent.evolvable_buffer(pop_state),
+                                cem_update_chunked)
+            else:
+                flat, update = (ravel_stacked(
+                    self._agent.evolvable_params(pop_state)), cem_update)
+            cem_state = update(
                 CEMState(*strat_state), flat, fitness.to(flat.device),
                 elite_frac=self.pcfg.elite_frac,
                 noise_decay=self.pcfg.cem_noise_decay,

@@ -55,6 +55,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.gemma_7b",
                  "repro_torch.configs.qwen3_moe_30b_a3b",
                  "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.configs.pixtral_12b",
+                 "repro_torch.examples.population_lm",
                  "repro_torch.nn.moe",
                  "repro_torch.core.cem", "repro_torch.core.shared",
                  "repro_torch.examples.cemrl", "repro_torch.examples.dvd",

@@ -411,20 +411,25 @@ def test_cli_serves_lm_on_cpu(arch, capsys):
 
 
 def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported():
+    """Every arch of the JAX package is served, the frontend ones too; the
+    CUDA requirement and the refusals of what is not ported stand."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_main(["--arch", "rwkv6-test"])
     assert list_configs() == ["rwkv6-1.6b", "zamba2-7b", "rwkv6-test",
                               "qwen2-0.5b", "qwen2-1.5b", "qwen3-8b",
                               "gemma-7b", "qwen3-moe-30b-a3b",
-                              "deepseek-v2-lite-16b"]
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            serve_main(["--arch", "qwen3-8b"])
-    for arch, part in (("musicgen-medium", "audio-frame frontend"),
-                       ("pixtral-12b", "vision-patch frontend")):
-        with pytest.raises(NotImplementedError, match=part):
-            serve_main(["--arch", arch, "--device", "cpu"])
+                              "deepseek-v2-lite-16b", "musicgen-medium",
+                              "pixtral-12b"]
+    for arch in ("qwen3-8b", "musicgen-medium", "pixtral-12b"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                serve_main(["--arch", arch])
+    for arch in ("musicgen-medium", "pixtral-12b"):
+        report = serve_main(["--arch", arch, "--smoke", "--device", "cpu",
+                             "--batch", "1", "--prompt-len", "8",
+                             "--tokens", "2"])
+        assert report.tokens.shape == (1, 3)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     with pytest.raises(SystemExit):           # --algo still needs a ckpt

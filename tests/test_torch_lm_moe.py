@@ -220,9 +220,10 @@ def test_lm_grads_match_jax(arch, remat):
 
 # ------------------------------------------------------------ registry, CLI
 def test_registry_admits_moe_and_refuses_frontends():
-    """Both MoE configs come with the JAX package's values; the frontends
-    stay refused by name."""
-    assert list_configs()[-2:] == ARCHS
+    """Both MoE configs come with the JAX package's values; the frontend
+    configs, once refused by name, are admitted with the JAX package's
+    frontend fields, and an unknown arch is still refused."""
+    assert list_configs()[-4:-2] == ARCHS
     for arch in ARCHS:
         assert dataclasses.asdict(get_config(arch).moe) == \
             dataclasses.asdict(jax_get_config(arch).moe)
@@ -238,10 +239,14 @@ def test_registry_admits_moe_and_refuses_frontends():
             assert getattr(tc, field) == getattr(jc, field), (arch, field)
         assert dataclasses.asdict(tc.smoke().moe) == \
             dataclasses.asdict(jc.smoke().moe)
-    for arch, part in (("musicgen-medium", "audio-frame frontend"),
-                       ("pixtral-12b", "vision-patch frontend")):
-        with pytest.raises(NotImplementedError, match=part):
-            get_config(arch)
+    assert list_configs()[-2:] == ["musicgen-medium", "pixtral-12b"]
+    for arch in ("musicgen-medium", "pixtral-12b"):
+        jc, tc = jax_get_config(arch), get_config(arch)
+        assert (tc.frontend, tc.num_frontend_positions) == (
+            jc.frontend, jc.num_frontend_positions)
+        assert tc.moe is None and tc.mla is None
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("musicgen-large")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

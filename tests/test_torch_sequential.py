@@ -243,12 +243,28 @@ def test_train_cli_arch_on_cpu_writes_a_checkpoint(tmp_path, capsys,
 
 
 def test_train_cli_arch_refusals(tmp_path):
+    """The frontend archs, once refused, train on the sequential backend;
+    the CUDA requirement, a pixtral sequence shorter than its patch
+    prefix and the acting engine's flags beside ``--arch`` are still
+    refused."""
     base = ["--population", "2", "--steps", "2", "--ckpt-dir",
             str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_main(["--arch", "rwkv6-test"] + base)
-    for arch, part in (("musicgen-medium", "audio-frame frontend"),
-                       ("pixtral-12b", "vision-patch frontend")):
-        with pytest.raises(NotImplementedError, match=part):
-            train_main(["--arch", arch, "--device", "cpu"] + base)
+    small = ["--smoke", "--device", "cpu", "--backend", "sequential",
+             "--pbt-interval", "1", "--batch", "1", "--seq-len", "8"]
+    for arch in ("musicgen-medium", "pixtral-12b"):
+        report = train_main(["--arch", arch, *small, "--population", "2",
+                             "--steps", "2", "--ckpt-dir",
+                             str(tmp_path / arch)])
+        assert [s for s, _ in report.evolutions] == [1, 2]
+        assert np.isfinite(report.final_loss)
+    with pytest.raises(ValueError, match="patch positions"):
+        train_main(["--arch", "pixtral-12b", *small[:-1], "4"] + base)
+    with pytest.raises(ValueError, match="acting engine"):
+        train_main(["--arch", "rwkv6-test", "--fused-epoch", "--device",
+                    "cpu"] + base)
+    with pytest.raises(ValueError, match="--arch only"):
+        train_main(["--algo", "td3", "--num-layers", "1", "--device",
+                    "cpu"] + base)

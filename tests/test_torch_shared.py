@@ -402,10 +402,18 @@ def test_train_cli_evolves_td3_actors_with_cem(tmp_path, capsys):
 
 
 def test_train_cli_refuses_cem_over_a_language_model(tmp_path):
-    with pytest.raises(NotImplementedError, match="--strategy cem"):
-        train_main(["--arch", "rwkv6-test", "--smoke", "--population", "2",
-                    "--strategy", "cem", "--ckpt-dir", str(tmp_path),
-                    "--device", "cpu"])
+    """CEM over a language model's parameters, once refused, runs: every
+    member redrawn (lineage all -1); a strategy the CLI does not take is
+    still refused."""
+    args = ["--arch", "rwkv6-test", "--smoke", "--population", "2",
+            "--steps", "2", "--pbt-interval", "1", "--batch", "1",
+            "--seq-len", "8", "--device", "cpu"]
+    report = train_main(args + ["--strategy", "cem", "--ckpt-dir",
+                                str(tmp_path / "cem")])
+    assert report.evolutions == [(1, [-1, -1]), (2, [-1, -1])]
+    with pytest.raises(SystemExit):
+        train_main(args + ["--strategy", "dvd", "--ckpt-dir",
+                           str(tmp_path / "dvd")])
 
 
 @pytest.mark.parametrize("rel", [
