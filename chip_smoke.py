@@ -249,7 +249,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  34. acting CLI — ``launch/train.py`` on hopper2d with ``--fused-epoch``
                 (TD3), ``--chunk-steps 2`` (PPO) and ``--policy-lag 1``
                 (TD3), counted, each checkpoint served through
-                ``launch/serve.py`` against the plain ensemble;
+                ``launch/serve.py`` against the plain ensemble; the
+                lag-1 run's last checkpoint, saved with the next collect
+                in flight, equal to the engine's state once the card has
+                finished it;
  35. frontend parity — ``musicgen-medium`` and ``pixtral-12b`` at full
                 width with 2 layers in float32, a 384-token sequence with
                 random frame or patch embeddings: the serve step's
@@ -281,7 +284,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 backwards) and ``pop_adam`` (actor and twin critic) at the
                 acting engine's update batch, TD3 on hopper2d at N = 8, B
                 = 64, timed beside their bounds, plain versions and
-                library calls.
+                library calls;
+ 39. RL resume — TD3 on hopper2d in fused epochs (N = 8, 256 envs a
+                member): 2 epochs, a checkpoint, then a fresh trainer
+                resumes and runs 2 more, against 4 uninterrupted epochs
+                bit for bit (state, hypers, buffers, env states, the
+                generator), and a resume after its capture refused; then
+                the eager TD3 ``--fused-adam --fused-linear`` CLI on
+                pendulum run twice on one ``--ckpt-dir`` against one run
+                of twice the steps, its last checkpoint bit for bit;
+ 40. LM resume — qwen2-0.5b at full width, 2 layers, N = 4, through the
+                CLI: 4 steps with checkpoints at 2 and 4, and the same 4
+                steps resumed from step 2's checkpoint (``--resume
+                auto``), equal at the update parity's tolerance; the
+                seconds the loop was blocked by an asynchronous save (its
+                ``ckpt`` rows) and by a blocking one, and the
+                checkpoint's bytes;
+ 41. telemetry sink — the fused epoch (the acting engine's TD3 at 256,
+                1,024 and 4,096 envs a member) with a strict
+                ``JSONLSink`` attached from the trainer's construction:
+                two epoch lengths captured with the sink live (the second
+                while the writer copies the first epoch's rows), then
+                replayed under ``set_sync_debug_mode("error")`` with the
+                sink and without one: ms per iteration of each, and the
+                logged metrics equal to the returned ones;
+ 42. serve telemetry (run after phases 7 and 10, early in the process:
+                a profile window opened minutes after the process's
+                previous one loses its first kernels, ROADMAP §3 fault
+                8) — the RL serve CLI on phase 6's checkpoint and the LM
+                serve CLI (qwen2-0.5b at full size) with ``--log-dir``
+                and ``--profile``: every row schema-valid (the port's
+                copy of the JAX row schema, which ``tools/report.py
+                --check`` applies; the tool itself imports the JAX
+                package), the serve rows' p50 beside a run without
+                telemetry, and a Chrome trace that holds every kernel
+                launch of its window.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
@@ -289,7 +326,8 @@ times its replays (the wrappers' Python counts do not see a replay).
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
 ``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
-``{"frontends": ...}`` and ``{"lm_cem": ...}`` lines, the card's
+``{"frontends": ...}``, ``{"lm_cem": ...}`` and ``{"slice15": ...}``
+lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -302,6 +340,7 @@ import contextlib
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -597,6 +636,27 @@ HOPPER_ACTOR_LAYERS = ((11, 256, "relu"), (256, 256, "relu"),
                        (256, 3, "tanh"))
 HOPPER_CRITIC_LAYERS = ((14, 256, "relu"), (256, 256, "relu"),
                         (256, 1, "none"))
+# slice 15: checkpoint resume and run telemetry. The eager TD3 CLI on
+# pendulum at the repo's width (N = 8), run twice for 4 iterations on one
+# --ckpt-dir against once for 8 (PBT every 2, so the checkpoint at 4
+# follows an evolve and the fitness window is empty there)
+RESUME_CLI = dict(steps=4, pbt_interval=2, eval_every=2, num_envs=8,
+                  collect_steps=32, updates=32)
+# qwen2-0.5b at full width with its depth cut to 2 layers (about 166 M
+# parameters a member, 136 M of them the embedding), N = 4: 4 steps with a
+# checkpoint every 2 (about 2.7 GB of main tree and 0.7 GB of actors),
+# resumed from the first; held at the LM update parity's tolerance
+LM_RESUME = dict(arch="qwen2-0.5b", layers=2, population=4, batch=4,
+                 seq_len=512, steps=4, pbt_interval=2, ckpt_every=2)
+LM_RESUME_TOL = dict(rtol=1e-4, atol=1e-6)
+# the fused epoch with and without a live JSONL sink: ACTING's shape,
+# this many rounds of each, alternating
+SINK = dict(rounds=5)
+# the RL serve CLI with telemetry: the profiler's window in request
+# batches (a window opened minutes after the process's previous one
+# loses its first kernels, ROADMAP §3 fault 8: phase 42 runs early, and
+# a longer window than the CLI's default 3 leaves it more margin)
+SERVE_TELEMETRY = dict(profile_iters=16)
 
 
 def log(msg: str):
@@ -4464,7 +4524,7 @@ def _epoch_launches(trainer):
 
 
 def _fused_trainer(algo, env_name, strategy, *, num_envs, policy_lag=None,
-                   chunk_steps=None, cfg=None):
+                   chunk_steps=None, cfg=None, ckpt=None, telemetry=None):
     from repro_torch.configs.base import PopulationConfig
     from repro_torch.envs import make
     from repro_torch.pop import PopTrainer
@@ -4477,7 +4537,7 @@ def _fused_trainer(algo, env_name, strategy, *, num_envs, policy_lag=None,
         num_steps=f["updates"], pbt_interval=f["pbt_interval"],
         fitness_window=10, hyper_space=get_algo(algo).hyper_space)
     tr = PopTrainer(make_agent(algo, env.spec, device="cuda"), pcfg,
-                    seed=SEED)
+                    seed=SEED, checkpoint_dir=ckpt, telemetry=telemetry)
     kw = dict(num_envs=num_envs, collect_steps=f["collect_steps"],
               eval_envs=f["eval_envs"], eval_steps=f["eval_steps"],
               policy_lag=policy_lag, chunk_steps=chunk_steps)
@@ -4491,8 +4551,8 @@ def _fused_trainer(algo, env_name, strategy, *, num_envs, policy_lag=None,
     return tr
 
 
-def _tree_err(a, b):
-    """(bitwise equal, max abs difference, share of FUSED_TOL) over two
+def _tree_err(a, b, tol=FUSED_TOL):
+    """(bitwise equal, max abs difference, share of ``tol``) over two
     trees' leaves."""
     from repro_torch.tree import leaves
 
@@ -4507,7 +4567,7 @@ def _tree_err(a, b):
             err = max(err, d)
             if x.is_floating_point():
                 share = max(share, tol_share(x.double(), y.double(),
-                                             FUSED_TOL))
+                                             tol))
             elif d:             # integers (counts, lineage) must be equal
                 share = float("inf")
     return same, err, share
@@ -4789,6 +4849,7 @@ def phase_acting_cli(ckpt_root):
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.rl import networks as nets
+    from repro_torch.tree import leaves
 
     c = ACTING_CLI
     rows = {}
@@ -4819,6 +4880,23 @@ def phase_acting_cli(ckpt_root):
         if CheckpointManager(ckpt_dir).latest() != c["steps"] - 1:
             raise AssertionError(f"acting CLI {name}: no checkpoint at the "
                                  f"last step")
+        pending = None
+        if "--policy-lag" in flags:
+            # the last save landed with the next collect in flight on the
+            # side stream: its rollout tree must hold that collect's whole
+            # env states, read here after the card has finished
+            engine = report.trainer.rollout
+            pending = engine._pending is not None
+            torch.cuda.synchronize()
+            saved = CheckpointManager(ckpt_dir).restore_aux(
+                "rollout", engine.export_state())
+            if not pending or not all(
+                    np.array_equal(a, b.cpu().numpy()) for a, b in
+                    zip(leaves(saved), leaves(engine.export_state()))):
+                raise AssertionError(f"acting CLI {name}: the last "
+                                     f"checkpoint's rollout tree != the "
+                                     f"engine's after the pending collect "
+                                     f"(pending {pending})")
         if min(launches.values()) == 0:
             raise AssertionError(f"acting CLI {name}: launches {launches}")
         serve_argv = ["--algo", algo, "--env", "hopper2d", "--ckpt-dir",
@@ -4836,12 +4914,14 @@ def phase_acting_cli(ckpt_root):
                       "ms_per_iter": wall * 1e3 / c["steps"],
                       "launches": launches, "evolutions": report.evolutions,
                       "best_fitness": report.best_fitness,
+                      "checkpoint_during_pending_collect": pending,
                       "serve": {"mode": mode, "launches": smm,
                                 "req_per_s": served.req_per_s,
                                 "max_abs_err": worst}}
         log(f"acting CLI {name} ({algo} {' '.join(flags)}): {c['steps']} "
             f"iterations in {wall:.2f}s, launches {launches}, evolves at "
-            f"{evolved}, best fitness {report.best_fitness:+.2f}; served "
+            f"{evolved}, best fitness {report.best_fitness:+.2f}"
+            f"{'; the last checkpoint, saved with a collect in flight, == the engine state after it' if pending else ''}; served "
             f"({mode}) {served.requests} requests, {smm} pop_matmul "
             f"launches, answers == plain ensemble (max abs err "
             f"{worst:.3g})")
@@ -5385,6 +5465,403 @@ def phase_acting_update_kernels():
     return out
 
 
+# ------------------------- slice 15: checkpoint resume, run telemetry
+def _state_trees(t):
+    """A trainer's resumable trees: state, hypers, strategy state, the
+    engine's buffers and env states, the generator's state."""
+    return (t.state, t.hypers, t.strategy.export_state(),
+            t.rollout.export_state(), t.generator.get_state())
+
+
+def phase_resume_rl(ckpt_root):
+    """Fused TD3 on hopper2d: 4 uninterrupted epochs against 2, a
+    checkpoint, and 2 more in a fresh trainer resumed from it, bit for bit;
+    a resume after the fresh trainer's capture refused. Then the eager TD3
+    CLI on pendulum run twice on one --ckpt-dir against one run of twice
+    the steps: the last checkpoints bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.tree import leaves
+
+    f = FUSED
+    epoch = f["pbt_interval"]
+    t0 = time.perf_counter()
+    whole = _fused_trainer("td3", "hopper2d", "pbt", num_envs=f["num_envs"])
+    whole.run_env_loop(4 * epoch, eval_every=f["eval_every"], fused=True)
+    first = _fused_trainer("td3", "hopper2d", "pbt", num_envs=f["num_envs"],
+                           ckpt=Path(ckpt_root) / "fused")
+    first.run_env_loop(2 * epoch, eval_every=f["eval_every"], fused=True)
+    save_s = first.save(blocking=True)
+    resumed = _fused_trainer("td3", "hopper2d", "pbt",
+                             num_envs=f["num_envs"],
+                             ckpt=Path(ckpt_root) / "fused")
+    ptrs = [x.data_ptr() for x in leaves(_state_trees(resumed)[:2])]
+    if resumed.resume() != 2 * epoch - 1:
+        raise AssertionError("fused resume: not the step saved")
+    if ptrs != [x.data_ptr() for x in leaves(_state_trees(resumed)[:2])]:
+        raise AssertionError("fused resume rebound a tensor")
+    resumed.run_env_loop(2 * epoch, eval_every=f["eval_every"], fused=True)
+    torch.cuda.synchronize()
+    same, err, _ = _tree_err(_state_trees(whole), _state_trees(resumed))
+    if not same:
+        raise AssertionError(f"fused resume != 4 uninterrupted epochs (max "
+                             f"abs err {err})")
+    try:
+        resumed.resume()
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a resume after a capture was not refused")
+    launches = {k: a + b for (k, a), b in zip(
+        _epoch_launches(first).items(), _epoch_launches(resumed).values())}
+    fused_s = time.perf_counter() - t0
+    log(f"resume fused TD3 hopper2d: 2 epochs, checkpoint ({save_s:.3f} s "
+        f"blocking), a fresh trainer resumed for 2 more == 4 "
+        f"uninterrupted epochs bit for bit (state, hypers, strategy, "
+        f"buffers, env states, generator); leaves kept their storage; a "
+        f"resume after the capture refused ({refused[:60]}...); launches "
+        f"{launches}; {fused_s:.1f} s")
+
+    c = RESUME_CLI
+    argv = ["--algo", "td3", "--env", "pendulum", "--population",
+            str(POPULATION), "--pbt-interval", str(c["pbt_interval"]),
+            "--eval-every", str(c["eval_every"]), "--num-envs",
+            str(c["num_envs"]), "--collect-steps", str(c["collect_steps"]),
+            "--updates-per-iter", str(c["updates"]), "--batch", str(BATCH),
+            "--ckpt-every", str(c["steps"]), "--fused-adam",
+            "--fused-linear", "--seed", str(SEED)]
+    twice = str(Path(ckpt_root) / "twice")
+    once = str(Path(ckpt_root) / "once")
+    t0 = time.perf_counter()
+    a, wall_a, mm_a, _, adam_a = _run_counted(lambda: train_main(
+        argv + ["--steps", str(c["steps"]), "--ckpt-dir", twice]))
+    b, wall_b, mm_b, _, adam_b = _run_counted(lambda: train_main(
+        argv + ["--steps", str(c["steps"]), "--ckpt-dir", twice]))
+    whole_run = train_main(argv + ["--steps", str(2 * c["steps"]),
+                                   "--ckpt-dir", once])
+    torch.cuda.synchronize()
+    if b.trainer.step_count != 2 * c["steps"] or \
+            CheckpointManager(twice).all_steps() != [c["steps"] - 1,
+                                                     2 * c["steps"] - 1]:
+        raise AssertionError(f"TD3 CLI twice: step {b.trainer.step_count}, "
+                             f"checkpoints "
+                             f"{CheckpointManager(twice).all_steps()}")
+    same, err, _ = _tree_err(_state_trees(whole_run.trainer),
+                             _state_trees(b.trainer))
+    if not same:
+        raise AssertionError(f"TD3 CLI run twice != once with twice the "
+                             f"steps (max abs err {err})")
+    last = f"step_{2 * c['steps'] - 1:010d}"
+    for name in ("arrays", "aux_rollout", "aux_rng", "aux_hypers"):
+        with np.load(Path(twice) / last / f"{name}.npz") as x, \
+                np.load(Path(once) / last / f"{name}.npz") as y:
+            if not all(np.array_equal(x[k], y[k]) for k in x.files):
+                raise AssertionError(f"TD3 CLI: {name} differs")
+    cli = {"pop_matmul": mm_a + mm_b, "pop_adam": adam_a + adam_b,
+           "seconds": [wall_a, wall_b],
+           "evolutions": [a.evolutions, b.evolutions]}
+    log(f"resume TD3 CLI pendulum twice on one --ckpt-dir ({c['steps']} "
+        f"iterations each, {wall_a:.2f} s and {wall_b:.2f} s): resumed at "
+        f"step {c['steps']}, == one run of {2 * c['steps']} bit for bit "
+        f"(trainers and the last checkpoint's main tree, rollout, rng, "
+        f"hypers); launches pop_matmul {cli['pop_matmul']}, pop_adam "
+        f"{cli['pop_adam']}; {time.perf_counter() - t0:.1f} s")
+    hopper2d_step.launches = 0
+    return {"fused": {"bitwise": True, "launches": launches,
+                      "save_blocking_s": save_s, "seconds": fused_s,
+                      "refused_after_capture": True},
+            "cli": cli}
+
+
+def phase_resume_lm():
+    """qwen2-0.5b at full width, 2 layers, N = 4, through the train CLI:
+    4 steps with --ckpt-every 2, and the same 4 steps resumed from the
+    step-2 checkpoint; the resumed trainer's state against the
+    uninterrupted one's. The async saves' blocked seconds from the ckpt
+    rows of the run's log, a blocking save's from ``save``; the
+    checkpoint's bytes."""
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.launch.train import main as train_main
+
+    r = LM_RESUME
+    argv = ["--arch", r["arch"], "--num-layers", str(r["layers"]),
+            "--population", str(r["population"]), "--steps",
+            str(r["steps"]), "--pbt-interval", str(r["pbt_interval"]),
+            "--batch", str(r["batch"]), "--seq-len", str(r["seq_len"]),
+            "--ckpt-every", str(r["ckpt_every"]), "--seed", str(SEED)]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        reset_counts(pop_adam)
+        whole = train_main(argv + ["--ckpt-dir", str(d / "whole"),
+                                   "--log-dir", str(d / "log")])
+        torch.cuda.synchronize()
+        whole_adam = pop_adam.launches
+        t_whole = time.perf_counter() - t0
+        rows = _log_rows(d / "log")
+        ckpt_rows = [x for x in rows if x["kind"] == "ckpt"]
+        if [x["step"] for x in ckpt_rows] != [1, 3]:
+            raise AssertionError(f"LM resume log: ckpt rows {ckpt_rows}")
+        # the step-2 checkpoint moves (a rename, not a 10 GB copy) into
+        # the resumed run's directory; that run writes none of its own
+        saved = d / "whole" / f"step_{1:010d}"
+        ckpt_bytes = {p.name: p.stat().st_size for p in saved.iterdir()}
+        (d / "resumed").mkdir()
+        shutil.move(saved, d / "resumed" / saved.name)
+        t0 = time.perf_counter()
+        blocking_s = whole.trainer.save(blocking=True)
+        reset_counts(pop_adam)
+        resumed = train_main(argv[:-4] + [
+            "--ckpt-every", "0", "--seed", str(SEED), "--ckpt-dir",
+            str(d / "resumed"), "--resume", "auto"])
+        torch.cuda.synchronize()
+        resumed_adam = pop_adam.launches
+        t_resumed = time.perf_counter() - t0 - blocking_s
+        if resumed.trainer.step_count != r["steps"] or resumed_adam != \
+                r["steps"] - 2 or whole_adam != r["steps"]:
+            raise AssertionError(f"LM resume: step "
+                                 f"{resumed.trainer.step_count}, pop_adam "
+                                 f"{whole_adam} / {resumed_adam}")
+        same, err, share = _tree_err(
+            (whole.trainer.state, whole.trainer.hypers,
+             whole.trainer.generator.get_state()),
+            (resumed.trainer.state, resumed.trainer.hypers,
+             resumed.trainer.generator.get_state()), tol=LM_RESUME_TOL)
+        if share > 1.0:
+            raise AssertionError(f"LM resume != uninterrupted (max abs err "
+                                 f"{err})")
+        out = {"bitwise": same, "max_abs_err": err,
+               "max_err_over_tolerance": share,
+               "tolerance": "rtol=1e-4, atol=1e-6 (the LM update parity's)",
+               "async_blocked_s": [x["secs"] for x in ckpt_rows],
+               "blocking_s": blocking_s,
+               "checkpoint_bytes": sum(ckpt_bytes.values()),
+               "checkpoint_files": ckpt_bytes,
+               "launches": {"pop_adam": whole_adam + resumed_adam},
+               "seconds": {"uninterrupted": t_whole, "resumed": t_resumed},
+               "final_loss": [whole.final_loss, resumed.final_loss]}
+    log(f"resume LM {r['arch']} {r['layers']} layers N={r['population']} "
+        f"through the CLI: steps 3-4 resumed from step 2's checkpoint == "
+        f"uninterrupted ({'bit for bit' if same else f'max abs err {err:.3g}'}"
+        f"); checkpoint {out['checkpoint_bytes'] / 1e9:.3f} GB; the loop "
+        f"blocked {out['async_blocked_s']} s by async saves, "
+        f"{blocking_s:.3f} s by a blocking one; {nvidia_smi_line()}")
+    return out
+
+
+def phase_telemetry_sink():
+    """The acting engine's fused epoch (TD3 on hopper2d, ACTING's shape,
+    no evolve) at each env count, with a strict JSONLSink attached from
+    the trainer's construction: the epoch's capture runs with the step-0
+    members row and the engine row in the sink, and a second epoch length
+    is captured right after the first epoch's rows are written, while the
+    writer copies them. Then SINK["rounds"] rounds each with the sink and
+    with telemetry off, alternating, every replay under
+    set_sync_debug_mode("error"); ms per iteration (median, with min and
+    max), and every iter row's metrics and stats equal to what the loop
+    returned."""
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.telemetry import JSONLSink, RunTelemetry, jsonable
+
+    a = ACTING
+    cfg = dict(population=a["population"], updates=a["updates"],
+               pbt_interval=a["iters"], collect_steps=a["collect_steps"],
+               eval_envs=1, eval_steps=1, batch=a["batch"])
+    rows = {}
+    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    for num_envs in a["envs"]:
+        times = {"off": [], "sink": []}
+        seen = []
+        keep = lambda it, m, s, fit, lin: seen.append((m, s))
+        with tempfile.TemporaryDirectory() as d:
+            tel = RunTelemetry(JSONLSink(Path(d) / "t.jsonl", strict=True),
+                               device="cuda")
+            tr = _fused_trainer("td3", "hopper2d", "none",
+                                num_envs=num_envs, cfg=cfg, telemetry=tel)
+            # two captures with the sink live: the second while the
+            # writer copies the first epoch's rows
+            tr.run_env_loop(a["iters"], eval_every=0, fused=True,
+                            on_iter=keep)
+            tr.run_env_loop(a["iters"] // 2, eval_every=0, fused=True,
+                            on_iter=keep)
+            torch.cuda.synchronize()
+            for r in range(SINK["rounds"]):
+                for arm in (("off", "sink") if r % 2 else ("sink", "off")):
+                    tr.telemetry = tel if arm == "sink" else RunTelemetry()
+                    t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        tr.run_env_loop(
+                            a["iters"], eval_every=0, fused=True,
+                            on_iter=keep if arm == "sink" else None)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    times[arm].append((time.perf_counter() - t0) * 1e3
+                                      / a["iters"])
+            tr.telemetry = RunTelemetry()
+            tel.close()          # strict: a row that failed raises here
+            logged = [json.loads(x) for x in
+                      (Path(d) / "t.jsonl").read_text().splitlines()]
+        iters = [x for x in logged if x["kind"] == "iter"]
+        captures = [x for x in logged if x["kind"] == "compile"
+                    and x["event"] == "cuda_graph"]
+        if len(iters) != len(seen) or len(tr._epochs) != 2 or \
+                len(captures) != 2 or logged[0]["kind"] != "run" or \
+                not any(x["kind"] == "members" and x["step"] == 0
+                        for x in logged):
+            raise AssertionError(f"sink {num_envs}: {len(iters)} iter rows "
+                                 f"for {len(seen)} iterations, "
+                                 f"{len(tr._epochs)} epochs captured, "
+                                 f"{len(captures)} capture rows")
+        for row, (m, s) in zip(iters, seen):
+            host = lambda tree: None if tree is None else jsonable(
+                {k: v.cpu() for k, v in tree.items()})
+            if row.get("metrics") != host(m) or row["stats"] != host(s):
+                raise AssertionError(f"sink {num_envs}: row {row['step']} "
+                                     f"!= the loop's metrics")
+        for k, v in _epoch_launches(tr).items():
+            launches[k] += v
+        cell = {}
+        for arm, ts in times.items():
+            ts = sorted(ts)
+            cell[arm] = {"ms_per_iter": ts[len(ts) // 2], "min_ms": ts[0],
+                         "max_ms": ts[-1]}
+        cell["rows"] = len(logged)
+        cell["captures_with_the_sink_live"] = [x["secs"] for x in captures]
+        cell["sink_cost"] = (cell["sink"]["ms_per_iter"]
+                             / cell["off"]["ms_per_iter"])
+        rows[num_envs] = cell
+        log(f"sink {num_envs} envs/member: fused epoch "
+            f"{cell['off']['ms_per_iter']:.3f} ms per iteration without "
+            f"telemetry, {cell['sink']['ms_per_iter']:.3f} with a strict "
+            f"JSONL sink (x{cell['sink_cost']:.3f}; min/max "
+            f"{cell['sink']['min_ms']:.3f}/{cell['sink']['max_ms']:.3f}); "
+            f"2 captures with the sink live ({len(captures)} compile rows), "
+            f"every replay under sync debug 'error', {len(iters)} iter rows "
+            f"== the loop's metrics and stats")
+    hopper2d_step.launches = 0
+    return rows, launches
+
+
+def _trace_kernels(trace_dir, names):
+    """Count each kernel name's launches in the Chrome traces under
+    ``trace_dir`` (events of category ``kernel``)."""
+    counts = dict.fromkeys(names, 0)
+    files = sorted(Path(trace_dir).glob("*.trace.json"))
+    for path in files:
+        for e in json.loads(path.read_text()).get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                for n in names:
+                    if n in e.get("name", ""):
+                        counts[n] += 1
+    return len(files), counts
+
+
+def _log_rows(path):
+    """The rows of a telemetry log, each checked against the row schema
+    (the port's copy of the JAX package's, which ``tools/report.py
+    --check`` applies; that tool imports the JAX package)."""
+    from repro_torch.telemetry import validate_row
+
+    rows = [json.loads(x) for x in
+            (Path(path) / "telemetry.jsonl").read_text().splitlines()]
+    bad = [e for e in map(validate_row, rows) if e]
+    if bad:
+        raise AssertionError(f"{path}: rows off the schema: {bad}")
+    return rows
+
+
+def phase_serve_telemetry_rl(ckpt_dir):
+    """The RL serve CLI on phase 6's checkpoint without telemetry, then
+    with --log-dir and --profile over SERVE_TELEMETRY["profile_iters"]
+    batches: the rows schema-valid, serve and promotion rows present, the
+    p50 beside the run without, and every pop_matmul launch of the window
+    in the trace. It runs early in the process (ROADMAP §3 fault 8)."""
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.serve import main as serve_main
+
+    argv = ["--algo", "td3", "--env", "pendulum", "--ckpt-dir", ckpt_dir,
+            "--ensemble", str(ENSEMBLE), "--mode", "mean", "--fused-linear",
+            "--batch", str(BATCH), "--requests", str(REQUESTS), "--seed",
+            str(SEED)]
+    iters = SERVE_TELEMETRY["profile_iters"]
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        plain = serve_main(argv)
+        reset_counts(pop_matmul)
+        served = serve_main(argv + ["--log-dir", str(d / "rl"),
+                                    "--profile", str(d / "trace"),
+                                    "--profile-iters", str(iters)])
+        torch.cuda.synchronize()
+        launches = pop_matmul.launches
+        rows = _log_rows(d / "rl")
+        serve_rows = [x for x in rows if x["kind"] == "serve"]
+        files, kernels = _trace_kernels(d / "trace", ("pop_matmul",))
+        profiled = 3 * iters            # 3 launches a served batch
+        if not serve_rows or not any(x["kind"] == "promotion"
+                                     for x in rows) or files != 1 or \
+                kernels["pop_matmul"] != profiled:
+            raise AssertionError(f"serve RL telemetry: {len(serve_rows)} "
+                                 f"serve rows, traces {files}, kernels "
+                                 f"{kernels} of {profiled} profiled")
+    out = {"p50_ms": served.p50_ms, "p99_ms": served.p99_ms,
+           "p50_ms_without": plain.p50_ms, "p99_ms_without": plain.p99_ms,
+           "serve_rows": serve_rows, "rows": len(rows),
+           "trace_kernel_launches": kernels, "profiled_launches": profiled,
+           "process_age_s": time.perf_counter() - T_START,
+           "launches": {"pop_matmul": launches}}
+    log(f"serve RL with --log-dir and --profile: p50 {served.p50_ms:.4f} "
+        f"ms, p99 {served.p99_ms:.4f} ms per batch of {BATCH} (without "
+        f"telemetry p50 {plain.p50_ms:.4f}, p99 {plain.p99_ms:.4f}); "
+        f"{len(rows)} rows schema-valid, serve windows p50 "
+        f"{[x['p50_ms'] for x in serve_rows]}; the trace names "
+        f"{kernels['pop_matmul']} of the window's {profiled} pop_matmul "
+        f"launches ({out['process_age_s']:.0f} s into the process); "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def phase_serve_telemetry_lm():
+    """The LM serve CLI (qwen2-0.5b at full size, LM_SERVE's batch) with
+    --log-dir and --profile: the rows schema-valid, and the trace holding
+    every flash_attention launch the wrapper counted."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import main as serve_main
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        reset_counts(flash_attention)
+        lm = serve_main(["--arch", "qwen2-0.5b", "--batch",
+                         str(LM_SERVE["batch"]), "--prompt-len",
+                         str(LM_SERVE["prompt_len"]), "--tokens",
+                         str(LM_SERVE["tokens"]), "--seed", str(SEED),
+                         "--log-dir", str(d / "lm"), "--profile",
+                         str(d / "trace")])
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        rows = _log_rows(d / "lm")
+        files, kernels = _trace_kernels(d / "trace", ("flash_mma_bf16",))
+        if rows[-1]["kind"] != "run_end" or files != 1 or launches != 24 \
+                or kernels["flash_mma_bf16"] != launches:
+            raise AssertionError(f"serve LM telemetry: traces {files}, "
+                                 f"kernels {kernels}, launches {launches}")
+    out = {"prefill_ms": lm.prefill_ms,
+           "decode_ms_per_token": lm.decode_ms_per_token,
+           "rows": len(rows), "trace_kernel_launches": kernels,
+           "process_age_s": time.perf_counter() - T_START,
+           "launches": {"flash_attention": launches}}
+    log(f"serve LM qwen2-0.5b with --log-dir and --profile: prefill "
+        f"{lm.prefill_ms:.2f} ms, {lm.decode_ms_per_token:.3f} ms per "
+        f"decode step (profiled); {len(rows)} rows schema-valid; the trace "
+        f"names {kernels['flash_mma_bf16']} flash_mma_bf16 launches of the "
+        f"wrapper's {launches} ({out['process_age_s']:.0f} s into the "
+        f"process)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -5502,6 +5979,8 @@ def main() -> int:
         train = phase_train(ckpt_dir)
         trained_serve_err = phase_train_serve(ckpt_dir,
                                               train["saved_fitness"])
+        # 42 (RL half): the serve CLI with telemetry, early in the process
+        serve_telemetry = {"rl": phase_serve_telemetry_rl(ckpt_dir)}
     lap("3-7 TD3 kernels, update, serve, train")
 
     # 8. wkv6, ssd and flash_attention vs plain, timing; 9. the LM path,
@@ -5511,6 +5990,8 @@ def main() -> int:
     flash_err, flash_share, flash_rows = phase_flash_kernel()
     lm_parity = phase_lm_parity()
     lm_serve = phase_lm_serve()
+    # 42 (LM half): the LM serve CLI with telemetry
+    serve_telemetry["lm"] = phase_serve_telemetry_lm()
     lap("8-10 LM kernels, parity, serve")
 
     # 11. pop_adam at the LM's size; 12. the LM update, card vs CPU; 13.
@@ -5597,6 +6078,21 @@ def main() -> int:
     lap("37 LM CEM")
     acting["update_kernels"] = phase_acting_update_kernels()
     lap("38 acting update kernels")
+
+    # 39. RL resume, fused and through the CLI; 40. LM resume through the
+    # CLI at full width; 41. the fused epoch with a live sink (42, the
+    # serve CLIs with --log-dir and --profile, ran after 7 and 10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice15 = {"serve": serve_telemetry}
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        slice15["resume_rl"] = phase_resume_rl(ckpt_root)
+    lap("39 RL resume")
+    slice15["resume_lm"] = phase_resume_lm()
+    lap("40 LM resume")
+    slice15["sink"], sink_launches = phase_telemetry_sink()
+    lap("41 telemetry sink")
+    slice15["card"] = smi
     log(f"seconds at the end of each group of phases: {seconds}")
     # a captured graph's launches are its captured launches times its
     # replays (plus the eager warm-up's before the capture)
@@ -5605,7 +6101,10 @@ def main() -> int:
                             for r in acting["fused"].values()),
         "acting_engine": engine_launches[name],
         **{f"cli_{k}": r["launches"][name]
-           for k, r in acting["cli"].items()}}
+           for k, r in acting["cli"].items()},
+        "resume_fused": slice15["resume_rl"]["fused"]["launches"][name],
+        "fused_sink": sink_launches[name]}
+    resume_cli = slice15["resume_rl"]["cli"]
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
                             "dvd": shared["dvd"]["launches"][name],
@@ -5613,7 +6112,8 @@ def main() -> int:
                                for a in SAC_DQN},
                             **{f"ppo_{e}_train": ppo[e]["launches"][name]
                                for e in PPO},
-                            **acting_paths(name)}
+                            **acting_paths(name),
+                            "resume_cli": resume_cli[name]}
     sac_dqn_entry = lambda kernel: {
         a: {"work": sac_dqn["kernels"][a]["work"],
             **sac_dqn["kernels"][a][kernel],
@@ -5634,12 +6134,20 @@ def main() -> int:
                   "lm_train": lm_train["launches"]["pop_adam"],
                   **{f"{a}_train": r["launches"]["pop_adam"]
                      for a, r in frontends["train"].items()},
-                  "lm_cem": lm_cem["launches"]["pop_adam"]}
+                  "lm_cem": lm_cem["launches"]["pop_adam"],
+                  "lm_resume": slice15["resume_lm"]["launches"][
+                      "pop_adam"]}
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
     ops_share = per_step("bound_ms", [r for r in train_rows
                                       if r["bound_by"] == "operations"])
+    mm_paths = {**by_path("pop_matmul"), "serve_telemetry": slice15[
+        "serve"]["rl"]["launches"]["pop_matmul"]}
+    flash_paths = {**{f"serve_{arch}": r["launches"]["flash_attention"]
+                      for arch, r in lm_serve.items()},
+                   "serve_qwen2-0.5b_telemetry": slice15["serve"]["lm"][
+                       "launches"]["flash_attention"]}
     kernels = [{
         "name": "pop_matmul",
         "route": "cuda",
@@ -5647,8 +6155,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/pop_matmul.py:83",
         "redesigned_in": REDESIGNED_IN["pop_matmul"],
         # each main path, driven with the counts set to 0 just before
-        "launches": sum(by_path("pop_matmul").values()),
-        "launches_by_path": by_path("pop_matmul"),
+        "launches": sum(mm_paths.values()),
+        "launches_by_path": mm_paths,
         "launches_by_route": train["pop_matmul_launches_by_route"],
         "max_abs_err": max(kernel_err, train_fwd_err, serve_err,
                            trained_serve_err, shared_err,
@@ -5818,12 +6326,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "redesigned_in": REDESIGNED_IN["flash_attention"],
-        "launches": sum(r["launches"]["flash_attention"]
-                        for r in lm_serve.values()),
+        "launches": sum(flash_paths.values()),
         "launches_by_arch": {arch: r["launches"]["flash_attention"]
                              for arch, r in lm_serve.items()},
-        "launches_by_path": {f"serve_{arch}": r["launches"][
-            "flash_attention"] for arch, r in lm_serve.items()},
+        "launches_by_path": flash_paths,
         "launches_by_route": lm_serve["qwen3-8b"][
             "flash_attention_by_route"],
         "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]
@@ -5904,6 +6410,7 @@ def main() -> int:
     print(json.dumps({"acting": acting, "phase_seconds": seconds}))
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"lm_cem": lm_cem}))
+    print(json.dumps({"slice15": slice15}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tree import flatten, unflatten
+
 DEFAULT_DEVICE = "cuda"
 
 
@@ -26,3 +28,28 @@ def device_tensor(value, dtype, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return torch.as_tensor(value, dtype=dtype, device=device)
     return torch.full((), value, dtype=dtype, device=device)
+
+
+def to_host(tree):
+    """``tree`` with every tensor leaf copied to a CPU tensor that nothing
+    else writes, returned once every copy is done. A CUDA tensor goes by a
+    non-blocking copy into pinned memory on the current stream, and all of
+    them are waited for through one event recorded after them: no stream
+    sync, which ``torch.cuda.set_sync_debug_mode`` would flag. A CPU tensor
+    is cloned; other leaves are kept as they are. The checkpoint manager
+    and the telemetry writer both copy through this."""
+    flat, treedef = flatten(tree)
+    out, done = [], None
+    for leaf in flat:
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+            if leaf.is_cuda:
+                leaf = leaf.to("cpu", non_blocking=True)
+                done = done or torch.cuda.Event()
+            else:
+                leaf = leaf.clone()
+        out.append(leaf)
+    if done is not None:
+        done.record(torch.cuda.current_stream())
+        done.synchronize()
+    return unflatten(treedef, out)

@@ -26,11 +26,12 @@ from repro_torch.configs.base import PopulationConfig
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.envs import make
 from repro_torch.pop import PopTrainer, SharedCriticAgent
+from repro_torch.telemetry import make_telemetry
 
 
 def run(population=10, iters=20, rl_steps=64, collect_steps=100,
         strategy="cem", backend="vectorized", seed=0,
-        device=DEFAULT_DEVICE):
+        device=DEFAULT_DEVICE, log_dir=None):
     """Train for ``iters`` iterations; returns ``{"mean_fitness", "iters",
     "trainer"}``, ``iters`` one row an iteration (seconds, fitness,
     lineage, losses, and for CEM the distribution's mean variance and
@@ -46,7 +47,10 @@ def run(population=10, iters=20, rl_steps=64, collect_steps=100,
                             fitness_window=1)
     agent = SharedCriticAgent(env.spec.obs_dim, env.spec.act_dim,
                               train_frac=0.5, device=device)
-    trainer = PopTrainer(agent, pcfg, seed=seed)
+    telemetry = make_telemetry(log_dir, console=False, device=agent.device,
+                               meta={"example": "cemrl", "population": n,
+                                     "strategy": strategy})
+    trainer = PopTrainer(agent, pcfg, seed=seed, telemetry=telemetry)
     trainer.attach_rollout(env, num_envs=2, collect_steps=collect_steps,
                            batch_size=128, buffer_capacity=50_000,
                            eval_envs=2)
@@ -64,6 +68,7 @@ def run(population=10, iters=20, rl_steps=64, collect_steps=100,
             # the distribution's contraction: CEM's own health signal
             row["sigma"] = float(cem.var.mean())
             row["cem_noise"] = float(cem.noise)
+            telemetry.record("cem", step=it + 1, sigma=row["sigma"])
         now = time.perf_counter()
         row["seconds"] = now - clock[0]
         clock[0] = now
@@ -73,7 +78,11 @@ def run(population=10, iters=20, rl_steps=64, collect_steps=100,
               + (f", sigma {row['sigma']:.3g}" if "sigma" in row else ""),
               flush=True)
 
+    t0 = time.perf_counter()
     trainer.run_env_loop(iters, eval_every=1, on_iter=on_iter)
+    telemetry.record("run_end", mean_fitness=rows[-1]["mean_fitness"],
+                     secs=round(time.perf_counter() - t0, 2))
+    telemetry.close()
     return {"mean_fitness": rows[-1]["mean_fitness"], "iters": rows,
             "trainer": trainer}
 
@@ -88,14 +97,12 @@ def main(argv=None):
                     choices=["vectorized", "sequential"])
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
-    ap.add_argument("--log-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--log-dir", default=None,
+                    help="also write DIR/telemetry.jsonl (tools/report.py)")
     args = ap.parse_args(argv)
-    if args.log_dir is not None:
-        raise NotImplementedError("--log-dir is not supported by the port: "
-                                  "telemetry sinks are not ported yet")
     return run(population=args.population, iters=args.iters,
                strategy=args.strategy, backend=args.backend,
-               device=args.device)
+               device=args.device, log_dir=args.log_dir)
 
 
 if __name__ == "__main__":

@@ -26,12 +26,13 @@ from repro_torch.core.dvd import dvd_loss, pop_behavior_embedding
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.envs import make
 from repro_torch.pop import PopTrainer, SharedCriticAgent
+from repro_torch.telemetry import make_telemetry
 
 PROBE = 20
 
 
 def run(population=5, iters=20, collect_steps=100, updates_per_iter=32,
-        strategy="dvd", seed=0, device=DEFAULT_DEVICE):
+        strategy="dvd", seed=0, device=DEFAULT_DEVICE, log_dir=None):
     """Train for ``iters`` iterations; returns ``{"best_fitness", "iters",
     "trainer"}``, ``iters`` one row an iteration (seconds, fitness, the
     update steps taken, the probe's logdet)."""
@@ -42,7 +43,10 @@ def run(population=5, iters=20, collect_steps=100, updates_per_iter=32,
                             exploit_frac=0.2, fitness_window=1)
     agent = SharedCriticAgent(env.spec.obs_dim, env.spec.act_dim,
                               device=device)
-    trainer = PopTrainer(agent, pcfg, seed=seed)
+    telemetry = make_telemetry(log_dir, console=False, device=agent.device,
+                               meta={"example": "dvd", "population": n,
+                                     "strategy": strategy})
+    trainer = PopTrainer(agent, pcfg, seed=seed, telemetry=telemetry)
     engine = trainer.attach_rollout(env, num_envs=2,
                                     collect_steps=collect_steps,
                                     batch_size=128, buffer_capacity=50_000,
@@ -56,6 +60,7 @@ def run(population=5, iters=20, collect_steps=100, updates_per_iter=32,
             emb = pop_behavior_embedding(trainer.actors,
                                          engine.probe_obs(probe_gen, PROBE))
             logdet = float(-dvd_loss(emb))
+        telemetry.record("diversity", step=it + 1, logdet=logdet)
         row = {"iter": it + 1, "fitness": fitness.tolist(),
                "best_fitness": float(fitness.max()),
                "update_steps": int(trainer.state.step), "logdet": logdet}
@@ -70,7 +75,11 @@ def run(population=5, iters=20, collect_steps=100, updates_per_iter=32,
               f"{row['update_steps']} update steps ({row['seconds']:.2f}s)",
               flush=True)
 
+    t0 = time.perf_counter()
     trainer.run_env_loop(iters, eval_every=1, on_iter=on_iter)
+    telemetry.record("run_end", best_fitness=rows[-1]["best_fitness"],
+                     secs=round(time.perf_counter() - t0, 2))
+    telemetry.close()
     return {"best_fitness": rows[-1]["best_fitness"], "iters": rows,
             "trainer": trainer}
 
@@ -83,13 +92,12 @@ def main(argv=None):
                     choices=["dvd", "pbt", "none"])
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
-    ap.add_argument("--log-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--log-dir", default=None,
+                    help="also write DIR/telemetry.jsonl (tools/report.py)")
     args = ap.parse_args(argv)
-    if args.log_dir is not None:
-        raise NotImplementedError("--log-dir is not supported by the port: "
-                                  "telemetry sinks are not ported yet")
     return run(population=args.population, iters=args.iters,
-               strategy=args.strategy, device=args.device)
+               strategy=args.strategy, device=args.device,
+               log_dir=args.log_dir)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from repro_torch.configs.base import HyperSpace, PopulationConfig
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.envs import make
 from repro_torch.pop import PopTrainer, PPOAgent
+from repro_torch.telemetry import make_telemetry
 
 SPACE = HyperSpace(
     log_uniform=(("lr", 1e-5, 1e-3),),
@@ -37,7 +38,7 @@ SPACE = HyperSpace(
 def run(population=8, iters=40, num_envs=8, collect_steps=64,
         epochs=4, batch_size=128, pbt_every=5, backend="vectorized",
         env_name="pendulum", ckpt_dir=None, seed=0,
-        device=DEFAULT_DEVICE):
+        device=DEFAULT_DEVICE, log_dir=None):
     """Train for ``iters`` iterations; returns ``{"best_fitness",
     "seconds", "trainer"}``: the best member's fitness at the last
     evaluation, the run's seconds and the trainer."""
@@ -48,7 +49,11 @@ def run(population=8, iters=40, num_envs=8, collect_steps=64,
         exploit_frac=0.3, hyper_space=SPACE, fitness_window=5)
     agent = PPOAgent(env.spec.obs_dim, env.spec.act_dim,
                      discrete=env.spec.discrete, device=device)
-    trainer = PopTrainer(agent, pcfg, seed=seed, checkpoint_dir=ckpt_dir)
+    telemetry = make_telemetry(log_dir, console=False, device=agent.device,
+                               meta={"example": "pbt_ppo", "population": n,
+                                     "env": env_name, "backend": backend})
+    trainer = PopTrainer(agent, pcfg, seed=seed, checkpoint_dir=ckpt_dir,
+                         telemetry=telemetry)
     # on-policy knobs: each iteration consumes the whole fresh rollout of
     # collect_steps x num_envs transitions as epochs x minibatches
     trainer.attach_rollout(env, num_envs=num_envs,
@@ -68,8 +73,13 @@ def run(population=8, iters=40, num_envs=8, collect_steps=64,
                 trainer.save()
 
     trainer.run_env_loop(iters, eval_every=1, on_iter=on_iter)
-    return {"best_fitness": float(last["fitness"].max()),
-            "seconds": time.perf_counter() - t0, "trainer": trainer}
+    trainer.wait()
+    best = float(last["fitness"].max())
+    seconds = time.perf_counter() - t0
+    telemetry.record("run_end", best_fitness=best, secs=round(seconds, 2),
+                     compiles=telemetry.compile_count)
+    telemetry.close()
+    return {"best_fitness": best, "seconds": seconds, "trainer": trainer}
 
 
 def main(argv=None):
@@ -83,13 +93,12 @@ def main(argv=None):
                     choices=["vectorized", "sequential"])
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
-    ap.add_argument("--log-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--log-dir", default=None,
+                    help="also write DIR/telemetry.jsonl (tools/report.py)")
     args = ap.parse_args(argv)
-    if args.log_dir is not None:
-        raise NotImplementedError("--log-dir is not supported by the port: "
-                                  "telemetry sinks are not ported yet")
     return run(population=args.population, iters=args.iters,
-               env_name=args.env, backend=args.backend, device=args.device)
+               env_name=args.env, backend=args.backend, device=args.device,
+               log_dir=args.log_dir)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,12 @@ stale library is never loaded. Building happens at first use (or ahead of
 it through :func:`build`, which starts one ``nvcc`` per source, all at
 once), never at import: the package imports on machines without a CUDA
 toolkit, where only the kernels' plain versions run.
+
+Each build is announced to the compile listeners
+(:func:`add_compile_listener`: ``fn(event, secs)``, ``event`` the source's
+name, ``secs`` from the start of the builds to its ``nvcc``'s end); the
+captures of :mod:`repro_torch.rollout.graph` are announced through the
+same registry, as ``"cuda_graph"``. Run telemetry subscribes to it.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -26,6 +33,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # not contracted into FMAs, so that it rounds as its plain version's
 # separate PyTorch operations do
 SOURCE_FLAGS = {"hopper2d": ("-fmad=false",)}
+
+
+_compile_listeners: list = []
+
+
+def add_compile_listener(fn):
+    """Call ``fn(event, secs)`` at every kernel build and graph capture;
+    returns the function that unsubscribes it."""
+    _compile_listeners.append(fn)
+
+    def unsubscribe():
+        if fn in _compile_listeners:
+            _compile_listeners.remove(fn)
+
+    return unsubscribe
+
+
+def notify_compile(event: str, secs: float):
+    """Announce one build or capture to the listeners."""
+    for fn in list(_compile_listeners):
+        fn(event, secs)
 
 
 def _flags(name: str) -> tuple:
@@ -63,6 +91,7 @@ def build(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -81,6 +110,7 @@ def build(names) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)   # atomic: a loader sees all or none
+            notify_compile(name, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return reports

@@ -42,6 +42,15 @@ The ensemble heads are td3's tanh actor, sac's tanh of the gaussian's
 mean, dqn's greedy action and ppo's tanh mean (continuous) or the argmax
 of its logits (discrete); ``vote`` needs a discrete env.
 
+``--log-dir DIR`` writes the run's telemetry as ``DIR/telemetry.jsonl``:
+for ``--algo``, a ``serve`` row (latency p50/p99, batch fill, queue
+depth) every ``--telemetry-every`` batches and the ``promotion`` rows of
+the serving set; for both, the kernel builds and the ``run_end`` row.
+``tools/report.py`` replays it. ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace into DIR: of ``--profile-iters`` request
+batches after the first (``--algo``), or of the whole generation
+(``--arch``).
+
 Runs on the CUDA device; ``--device cpu`` runs on the CPU (the kernels'
 plain versions).
 """
@@ -133,22 +142,37 @@ def _serve_lm(args) -> LMServeReport:
     device, then :func:`generate`, sampling."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
+    from repro_torch.telemetry import make_telemetry
     from repro_torch.tree import leaves
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)
+    telemetry = make_telemetry(
+        args.log_dir, console=False, device=device,
+        meta={"workload": "serve-lm", "arch": cfg.name,
+              "batch": args.batch, "tokens": args.tokens})
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(gen, cfg, dtype=lm.compute_dtype(cfg))
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
     times = {}
+    if args.profile:
+        telemetry.start_profile(args.profile)
     out = generate(cfg, params, prompts, steps=args.tokens,
                    max_len=args.prompt_len + args.tokens + 1, greedy=False,
                    generator=gen, times=times)
+    telemetry.stop_profile()
     prefill_ms = 1e3 * times["prefill_s"]
     per_token = 1e3 * times["decode_s"] / max(args.tokens - 1, 1)
+    secs = times["prefill_s"] + times["decode_s"]
+    telemetry.record("run_end", tokens=args.batch * args.tokens,
+                     secs=round(secs, 4), prefill_ms=round(prefill_ms, 4),
+                     decode_ms_per_token=round(per_token, 4),
+                     compiles=telemetry.compile_count,
+                     compile_secs=round(telemetry.compile_secs, 4))
+    telemetry.close()
     weights = leaves(params)
     num_params = sum(t.numel() for t in weights)
     weight_bytes = sum(t.numel() * t.element_size() for t in weights)
@@ -170,6 +194,7 @@ def _serve_rl(args) -> ServeReport:
     from repro_torch.rl import make_agent
     from repro_torch.serve import (BatchServer, ContinuousEvaluator,
                                    PolicyForward, probe_observations)
+    from repro_torch.telemetry import make_telemetry
 
     device = resolve_device(args.device)
     env = make(args.env)
@@ -182,14 +207,22 @@ def _serve_rl(args) -> ServeReport:
             f"no checkpoint in {args.ckpt_dir}: serving needs a population "
             f"checkpoint with an 'actors' aux tree")
 
+    telemetry = make_telemetry(
+        args.log_dir, console=False, device=device,
+        meta={"workload": "serve-rl", "algo": args.algo, "env": args.env,
+              "mode": args.mode, "ensemble": args.ensemble,
+              "batch": args.batch})
+    tel = telemetry if telemetry.enabled else None
     gen = torch.Generator().manual_seed(args.seed)
     watcher = ContinuousEvaluator(
         mgr, agent, size=args.ensemble,
         probe_obs=probe_observations(env, gen, args.probe, device),
-        diversity_weight=args.diversity_weight, forward=forward)
+        diversity_weight=args.diversity_weight, forward=forward,
+        telemetry=tel)
     sset = watcher.poll()
     server = BatchServer(watcher.forward, env.spec, sset,
-                         max_batch=args.batch, mode=args.mode)
+                         max_batch=args.batch, mode=args.mode, telemetry=tel,
+                         telemetry_every=args.telemetry_every)
     print(f"[serve] algo={args.algo} env={args.env} mode={args.mode} "
           f"batch={args.batch} device={device} {sset.describe()}")
 
@@ -204,13 +237,15 @@ def _serve_rl(args) -> ServeReport:
     actions = None
     t0 = time.perf_counter()
     for i in range(args.requests):
+        telemetry.tick_profile(i, args.profile, iters=args.profile_iters)
         obs = _request_batch()
         t1 = time.perf_counter()
         actions = server.serve(obs)
         lat.append(time.perf_counter() - t1)
         batches.append((obs, actions))
         if args.poll_every and (i + 1) % args.poll_every == 0:
-            newer = watcher.poll(server)
+            with telemetry.compile_scope("promotion"):
+                newer = watcher.poll(server)
             if newer is not None:
                 ev = watcher.events[-1]
                 print(f"[serve] promoted step {newer.step}: "
@@ -223,6 +258,12 @@ def _serve_rl(args) -> ServeReport:
           f"({served / dt:.0f} req/s, p50 {p50:.3f} ms p99 {p99:.3f} ms "
           f"per batch)")
     print(f"[serve] last actions[:2] = {np.asarray(actions)[:2].tolist()}")
+    server.report_telemetry()            # the partial tail window
+    telemetry.record("run_end", requests=served, secs=round(dt, 4),
+                     req_per_s=round(served / dt, 2),
+                     compiles=telemetry.compile_count,
+                     compile_secs=round(telemetry.compile_secs, 4))
+    telemetry.close()
     return ServeReport(req_per_s=served / dt, p50_ms=p50, p99_ms=p99,
                        requests=served, seconds=dt, server=server,
                        watcher=watcher, batches=batches)
@@ -270,6 +311,19 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=16,
                     help="new tokens to generate per prompt")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="write the run's telemetry (latency windows, "
+                    "promotions, kernel builds) as DIR/telemetry.jsonl; "
+                    "inspect with tools/report.py")
+    ap.add_argument("--telemetry-every", type=int, default=16,
+                    help="summarize the serving latency window into one "
+                    "telemetry row every N served batches")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace into DIR: of "
+                    "a few request batches (--algo) or of the generation "
+                    "(--arch)")
+    ap.add_argument("--profile-iters", type=int, default=3,
+                    help="request batches the --profile window spans")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)

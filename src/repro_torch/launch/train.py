@@ -80,10 +80,24 @@ unchanged).
 
 The RL checkpoint is served by ``repro_torch.launch.serve``. Both run on
 the CUDA device; ``--device cpu`` runs on the CPU (the kernels' plain
-versions). Pass exactly one of ``--arch`` and ``--algo``. Flags of the
-JAX training CLI whose subsystems are not ported are refused, not
-accepted as no-ops; so is a ``--ckpt-dir`` that already holds a
-checkpoint (there is no resume yet to continue it).
+versions). Pass exactly one of ``--arch`` and ``--algo``.
+
+``--resume auto`` (the default, as in the JAX CLI) continues from the
+latest checkpoint in ``--ckpt-dir``: the population, hypers, strategy
+state, the engine's buffers and env states and the generator's state, so
+the run goes on as if it had not stopped. RL then runs ``--steps`` more
+iterations; LM runs up to step ``--steps``, its token stream resumed at
+the next step. A checkpoint of another population size raises (elastic
+resume is not ported), and under ``--fused-epoch`` one that is not at an
+epoch's end raises. Checkpoints are written asynchronously. ``--resume
+none`` starts afresh (and its checkpoints replace the old ones as they
+come). ``--log-dir DIR`` writes the run's telemetry as
+``DIR/telemetry.jsonl`` (phase timers, per-member fitness and hypers,
+lineage, kernel builds and graph captures, checkpoint times), which
+``tools/report.py`` replays; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of ``--profile-iters`` iterations after
+the first into DIR. Flags of the JAX training CLI whose subsystems are
+not ported are refused, not accepted as no-ops.
 """
 from __future__ import annotations
 
@@ -97,13 +111,10 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 DEFAULT_EPOCHS = 4
 # flag -> why it is refused
 _REFUSED = {
-    "resume": "checkpoint resume is not ported yet",
     "resize": "elastic resume is not ported yet",
     "devices": "multi-device islands are not ported yet",
     "model_axis": "model-sharded members are not ported yet",
     "compile_cache": "the port compiles no programs to cache",
-    "log_dir": "telemetry sinks are not ported yet",
-    "profile": "the profiler window is not ported yet",
 }
 
 
@@ -118,14 +129,24 @@ class TrainReport:
     final_loss: float | None = None                 # LM: the members' mean
 
 
-def _refuse_used_ckpt_dir(ckpt_dir):
-    from repro_torch.checkpoint import CheckpointManager
-    latest = CheckpointManager(ckpt_dir).latest()
-    if latest is not None:
-        raise FileExistsError(
-            f"--ckpt-dir {ckpt_dir} already holds a checkpoint (step "
-            f"{latest}); resume is not ported yet, so pass an empty "
-            f"directory rather than overwrite it")
+def _telemetry(args, device, **meta):
+    """One telemetry object a run: JSONL into ``--log-dir`` when given.
+    The ``[train]`` lines are this CLI's console, so no console sink."""
+    from repro_torch.telemetry import make_telemetry
+    return make_telemetry(args.log_dir, console=False, device=device,
+                          meta=dict(meta, seed=args.seed,
+                                    population=args.population,
+                                    strategy=args.strategy,
+                                    backend=args.backend))
+
+
+def _finish(args, trainer, telemetry, **fields):
+    """Wait for the last checkpoint write, record the ``run_end`` row and
+    close the telemetry (which writes a trace still open)."""
+    trainer.wait()
+    telemetry.record("run_end", **fields, compiles=telemetry.compile_count,
+                     compile_secs=round(telemetry.compile_secs, 3))
+    telemetry.close()
 
 
 def _run_lm(args) -> TrainReport:
@@ -143,7 +164,6 @@ def _run_lm(args) -> TrainReport:
         cfg = cfg.smoke()
     if args.num_layers:
         cfg = cfg.replace(num_layers=args.num_layers)
-    _refuse_used_ckpt_dir(args.ckpt_dir)
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1), seed=args.seed)
     n = args.population
@@ -156,13 +176,23 @@ def _run_lm(args) -> TrainReport:
             log_uniform=(("lr_scale", 0.1, 10.0),
                          ("weight_decay", 1e-3, 0.3)),
             uniform=(("warmup_frac", 0.01, 0.25),)))
+    telemetry = _telemetry(args, device, workload="lm", arch=cfg.name)
     trainer = PopTrainer(LMAgent(cfg, tcfg, device=device), pcfg,
-                         seed=args.seed, checkpoint_dir=args.ckpt_dir)
+                         seed=args.seed, checkpoint_dir=args.ckpt_dir,
+                         telemetry=telemetry)
+    trainer.tokens_per_step = args.batch * args.seq_len
+    start_step = 0
+    if args.resume == "auto":
+        resumed = trainer.resume()
+        if resumed is not None:
+            print(f"[train] resumed from step {resumed}")
+            start_step = resumed + 1
     stream = host_batches(cfg.vocab_size, args.batch * n, args.seq_len,
-                          seed=args.seed)
+                          seed=args.seed, start_step=start_step)
 
     def next_batch(step):
-        tokens = torch.from_numpy(next(stream)).to(device)
+        with telemetry.phase("data"):
+            tokens = torch.from_numpy(next(stream)).to(device)
         return {k: x.reshape((n, args.batch) + x.shape[1:])
                 for k, x in frontend_inputs(cfg, tokens).items()}
 
@@ -171,6 +201,8 @@ def _run_lm(args) -> TrainReport:
                          trainer=trainer)
 
     def on_step(step, metrics, lineage):
+        telemetry.tick_profile(step - start_step, args.profile,
+                               iters=args.profile_iters)
         report.metrics = metrics
         if lineage is not None:
             report.evolutions.append((step + 1, lineage.tolist()))
@@ -186,12 +218,13 @@ def _run_lm(args) -> TrainReport:
                 trainer.save({"loss": report.final_loss})
 
     trainer.run(args.steps, next_batch, on_step=on_step)
+    _finish(args, trainer, telemetry, final_loss=report.final_loss)
     report.seconds = time.time() - t0
     if report.metrics is not None:
         report.best_fitness = float(
             trainer.agent.fitness_from_metrics(report.metrics).max())
-    print(f"[train] done in {report.seconds:.1f}s, final loss "
-          f"{report.final_loss:.4f}")
+    loss = float("nan") if report.final_loss is None else report.final_loss
+    print(f"[train] done in {report.seconds:.1f}s, final loss {loss:.4f}")
     return report
 
 
@@ -202,7 +235,6 @@ def _run_rl(args) -> TrainReport:
     from repro_torch.rl import get_algo, make_agent
 
     device = resolve_device(args.device)
-    _refuse_used_ckpt_dir(args.ckpt_dir)
     algo = get_algo(args.algo)
     env = make(args.env)
     agent = make_agent(args.algo, env.spec, device=device)
@@ -215,8 +247,10 @@ def _run_rl(args) -> TrainReport:
         size=n, strategy=args.strategy, backend=args.backend,
         num_steps=args.updates_per_iter, pbt_interval=args.pbt_interval,
         hyper_space=algo.hyper_space)
+    telemetry = _telemetry(args, device, workload="rl", algo=algo.name,
+                           env=args.env)
     trainer = PopTrainer(agent, pcfg, seed=args.seed,
-                         checkpoint_dir=args.ckpt_dir)
+                         checkpoint_dir=args.ckpt_dir, telemetry=telemetry)
     trainer.attach_rollout(env, num_envs=args.num_envs,
                            collect_steps=args.collect_steps,
                            batch_size=args.batch,
@@ -224,12 +258,16 @@ def _run_rl(args) -> TrainReport:
                                    else args.epochs),
                            policy_lag=args.policy_lag,
                            chunk_steps=args.chunk_steps)
+    if args.resume == "auto" and trainer.resume() is not None:
+        print(f"[train] resumed at trainer step {trainer.step_count}")
+    start = trainer.step_count
 
     t0 = time.time()
     report = TrainReport(best_fitness=float("-inf"), seconds=0.0,
                          trainer=trainer)
 
     def on_iter(it, metrics, stats, fitness, lineage):
+        telemetry.tick_profile(it, args.profile, iters=args.profile_iters)
         if metrics is not None:
             report.metrics = metrics
         if fitness is not None:
@@ -247,13 +285,14 @@ def _run_rl(args) -> TrainReport:
         # a fused epoch reports its iterations after running them all, so
         # a checkpoint due mid-epoch is taken at the epoch's end, where the
         # trainer's state is that of the iteration reported
-        if due and it + 1 == trainer.step_count:
+        if due and start + it + 1 == trainer.step_count:
             trainer.save()
             due.clear()
 
     due = []
     trainer.run_env_loop(args.steps, eval_every=args.eval_every,
                          on_iter=on_iter, fused=args.fused_epoch)
+    _finish(args, trainer, telemetry, best_fitness=report.best_fitness)
     report.seconds = time.time() - t0
     print(f"[train] done in {report.seconds:.1f}s, "
           f"best fitness {report.best_fitness:+.2f}")
@@ -332,12 +371,26 @@ def main(argv=None):
                     "multiple of --pbt-interval and --eval-every dividing "
                     "it; the eager loop's results (checkpoints at epoch ends)")
     ap.add_argument("--ckpt-dir", required=True,
-                    help="empty directory for the population checkpoints")
+                    help="directory of the population checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50,
                     help="checkpoint every N iterations and at the last "
                     "(0: never, for a population too large to write "
                     "out); under --fused-epoch one due mid-epoch is taken "
                     "at that epoch's end")
+    ap.add_argument("--resume", default="auto", choices=["auto", "none"],
+                    help="auto: continue from the latest checkpoint in "
+                    "--ckpt-dir (same population size; under --fused-epoch "
+                    "one at an epoch's end); none: start afresh")
+    ap.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="write the run's telemetry (phase timers, "
+                    "per-member fitness and hypers, lineage, kernel builds "
+                    "and graph captures, checkpoint times) as "
+                    "DIR/telemetry.jsonl, which tools/report.py replays")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of a bounded "
+                    "window (from the second iteration) into DIR")
+    ap.add_argument("--profile-iters", type=int, default=3,
+                    help="iterations the --profile window spans")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")

@@ -31,13 +31,29 @@ exploration, replay indices, target-policy noise, PBT) comes from ONE
 generator on the agent's device, so on the card no draw crosses from the
 host.
 
-The fitness window stays on the device. ``save`` is blocking and writes
-the main tree ``(state, strategy.export_state())``, the ``actors`` and
-``hypers`` aux trees, and the ``size`` and ``fitness`` extras, in the
-layout of :mod:`repro_torch.checkpoint` (which the JAX package's
-``repro.serve.load_actor_stack`` reads). The port's main tree has no
-per-member ``key`` leaf. ``save_async``, ``resume``, the ``rollout`` aux
-tree and telemetry come with later slices.
+The fitness window stays on the device. ``save`` writes the main tree
+``(state, strategy.export_state())``, the ``actors``, ``hypers``,
+``rollout`` (the engine's buffers and env states) and ``rng`` (the
+trainer's generator state) aux trees, and the ``size`` and ``fitness``
+extras, in the layout of :mod:`repro_torch.checkpoint` (which the JAX
+package's ``repro.serve.load_actor_stack`` reads); by default it returns
+once the state is on the host and writes on a thread (``wait`` joins it).
+The port's main tree has no per-member ``key`` leaf: the ``rng`` aux tree
+is its counterpart, so a resumed run draws the numbers the uninterrupted
+run would have, and equals it bit for bit from an evolve boundary (the
+fitness window, which a checkpoint does not carry, is empty there).
+``resume`` writes every restored leaf into the trainer's own tensors
+(``tree.copy_into``): an ``LMAgent``'s leaves stay views of its flat
+buffers, and a captured epoch's static inputs stay its inputs. It is
+refused once an epoch has been captured (the graph holds the generator's
+registration; restoring under it is not done).
+
+``telemetry`` (a :class:`repro_torch.telemetry.RunTelemetry`; a disabled
+one by default) gets the phases ``update``, ``iterate``, ``eval``,
+``evolve``, ``epoch`` and ``ckpt`` and the ``iter``, ``members``,
+``evolve`` and ``ckpt`` rows where the JAX trainer records them; their
+tensors are snapshotted once an iteration (once an epoch in fused
+epochs), never read on this thread.
 
 ``run_env_loop(fused=True)`` runs whole train-evolve epochs
 (``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
@@ -48,6 +64,7 @@ one CUDA graph per epoch shape, captured at first use and replayed
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 
 import numpy as np
@@ -56,13 +73,22 @@ import torch
 from repro_torch.configs.base import PopulationConfig
 from repro_torch.pop.backend import make_update
 from repro_torch.pop.strategy import make_strategy
-from repro_torch.tree import tree_map
+from repro_torch.telemetry import RunTelemetry
+from repro_torch.tree import copy_into, leaves, tree_map
+
+
+def _part(snap, key):
+    """The ``key`` entry of a snapshot of a dict (None when disabled)."""
+    return None if snap is None else snap.map(lambda tree: tree[key])
 
 
 class PopTrainer:
     def __init__(self, agent, pcfg: PopulationConfig | None = None, *,
-                 seed: int = 0, checkpoint_dir=None, keep: int = 2):
+                 seed: int = 0, checkpoint_dir=None, keep: int = 2,
+                 telemetry: RunTelemetry | None = None):
         self.agent = agent
+        self.telemetry = telemetry if telemetry is not None \
+            else RunTelemetry(None)
         self.pcfg = pcfg = pcfg if pcfg is not None else PopulationConfig()
         self.n = pcfg.size
         self.generator = torch.Generator(device=agent.device).manual_seed(
@@ -82,12 +108,21 @@ class PopTrainer:
         self._window: deque = deque(maxlen=pcfg.fitness_window)
         self.last_fitness = None  # the (N,) fitness used at the last evolve
         self.step_count = 0
+        # an LM run sets the tokens one member consumes a step; the iter
+        # rows then carry a dispatch-rate tokens_per_sec_per_member
+        self.tokens_per_step = None
+        self._iter_t = None
         self._rollout = None
         self._epochs = {}
         self._mgr = None
         if checkpoint_dir is not None:
             from repro_torch.checkpoint import CheckpointManager
-            self._mgr = CheckpointManager(checkpoint_dir, keep=keep)
+            run_meta = ({"run_id": self.telemetry.run_id}
+                        if self.telemetry.enabled else None)
+            self._mgr = CheckpointManager(checkpoint_dir, keep=keep,
+                                          run_meta=run_meta)
+        # the step-0 snapshot anchors the hyper trajectories
+        self.telemetry.record_members(0, hypers=self.hypers)
 
     # ------------------------------------------------------------------ run
     def step(self, batch, fitness=None):
@@ -95,14 +130,25 @@ class PopTrainer:
         on cadence, one evolve. Fitness is ``fitness`` when given, else the
         agent's from the update's metrics (None for an RL agent). Returns
         ``(metrics, lineage)``; lineage is None unless evolution ran."""
-        self.state, metrics = self.update(self.state, batch, self.hypers,
-                                          self.generator)
+        with self.telemetry.phase("update"):
+            self.state, metrics = self.update(self.state, batch, self.hypers,
+                                              self.generator)
         self.step_count += 1
         fit = (fitness if fitness is not None
                else self.agent.fitness_from_metrics(metrics))
         if fit is not None:
             self.report_fitness(fit)
-        return metrics, self._maybe_evolve()
+        lineage = self._maybe_evolve()
+        extra = {}
+        if self.tokens_per_step:
+            now = time.perf_counter()
+            if self._iter_t is not None and now > self._iter_t:
+                extra["tokens_per_sec_per_member"] = \
+                    self.tokens_per_step / (now - self._iter_t)
+            self._iter_t = now
+        self.telemetry.record_iteration(self.step_count - 1, metrics=metrics,
+                                        **extra)
+        return metrics, lineage
 
     def run(self, steps: int, batch_fn, *, on_step=None):
         """Drive update calls up to trainer step ``steps``;
@@ -129,6 +175,7 @@ class PopTrainer:
         if engine_kwargs.get("policy_lag") is None:
             engine_kwargs.pop("policy_lag", None)
             engine = RolloutEngine
+        engine_kwargs.setdefault("telemetry", self.telemetry)
         self._rollout = engine(self.agent, self.pcfg, env,
                                update=self.update, generator=self.generator,
                                init_state=self.state, **engine_kwargs)
@@ -146,18 +193,21 @@ class PopTrainer:
         """One train iteration (collect + insert + sample + ``num_steps``
         updates). Counts as one trainer step for the evolve cadence.
         Returns ``(metrics, episode_stats, did_update)``."""
-        self.state, metrics, stats, did = self.rollout.iterate(
-            self.state, self.hypers, self.generator)
+        with self.telemetry.phase("iterate"):
+            self.state, metrics, stats, did = self.rollout.iterate(
+                self.state, self.hypers, self.generator)
         self.step_count += 1
         return metrics, stats, did
 
     def evaluate_fitness(self):
         """Per-member fitness from deterministic evaluation episodes, an
         (N,) device tensor; does not touch the fitness window."""
-        return self.rollout.evaluator.evaluate(self.actors, self.generator)
+        with self.telemetry.phase("eval"):
+            return self.rollout.evaluator.evaluate(self.actors,
+                                                   self.generator)
 
     def run_env_loop(self, iters: int, *, eval_every: int = 1, on_iter=None,
-                     fused: bool = False):
+                     fused: bool = False, block_every: int = 0):
         """Drive ``iters`` iterations. Every ``eval_every`` iterations the
         evaluator scores the population into the fitness window, and the
         strategy evolves every ``pcfg.pbt_interval`` trainer steps.
@@ -171,17 +221,38 @@ class PopTrainer:
         It needs (and checks) ``iters`` a multiple of the epoch length,
         ``eval_every`` dividing it, the epoch's evaluations within
         ``fitness_window``, an epoch-aligned ``step_count`` and an empty
-        fitness window when evolution is on."""
+        fitness window when evolution is on.
+
+        ``block_every=N`` (the eager loop only) waits for the iteration's
+        results every N iterations under ``telemetry.block``, splitting the
+        iter rows into dispatch time (``phases``) and wait (``blocks``)."""
         if fused:
+            if block_every:
+                raise ValueError("block_every instruments the eager loop; "
+                                 "a fused epoch is one device program")
             return self._run_env_loop_fused(iters, eval_every, on_iter)
+        tel = self.telemetry
         metrics = stats = None
         for it in range(iters):
-            metrics, stats, _ = self.env_iteration()
+            metrics, stats, did = self.env_iteration()
+            if block_every and (it + 1) % block_every == 0:
+                tel.block("iterate", (metrics, stats))
             fitness = None
             if eval_every and (it + 1) % eval_every == 0:
                 fitness = self.evaluate_fitness()
                 self.report_fitness(fitness)
+            # one snapshot an iteration, before the evolve replaces hypers
+            snap = tel.snapshot({"metrics": metrics, "stats": stats,
+                                 "fitness": fitness, "hypers": self.hypers})
+            if fitness is not None:
+                tel.record_members(self.step_count,
+                                   fitness=_part(snap, "fitness"),
+                                   hypers=_part(snap, "hypers"))
             lineage = self._maybe_evolve()
+            tel.record_iteration(
+                self.step_count - 1,
+                metrics=None if metrics is None else _part(snap, "metrics"),
+                stats=_part(snap, "stats"), did_update=did)
             if on_iter is not None:
                 on_iter(it, metrics, stats, fitness, lineage)
         return metrics, stats
@@ -255,31 +326,41 @@ class PopTrainer:
         for _ in range(iters // epoch_len if epoch_len else 0):
             fn, gates = self._fused_epoch(epoch_len, eval_every, evolving)
             base = self.step_count
-            (self.state, r.bufs, r.vstate, hypers, strat_state, m_stack,
-             s_stack, _, evals, fitness, lineage) = fn(
-                self.state, r.bufs, r.vstate, self.hypers,
-                self.strategy.export_state())
+            # the replay overwrites the hypers in place: the eval rows'
+            # hypers are those the epoch started with
+            hypers_before = self.telemetry.snapshot(self.hypers)
+            with self.telemetry.phase("epoch"):
+                (self.state, r.bufs, r.vstate, hypers, strat_state, m_stack,
+                 s_stack, _, evals, fitness, lineage) = fn(
+                    self.state, r.bufs, r.vstate, self.hypers,
+                    self.strategy.export_state())
             self.step_count += epoch_len
             r.iterations += epoch_len
             metrics, stats = self._fused_epoch_bookkeeping(
                 base, start, epoch_len, eval_every, n_evals, evolving, gates,
-                hypers, strat_state, m_stack, s_stack, evals, fitness,
-                lineage, on_iter)
+                hypers, hypers_before, strat_state, m_stack, s_stack, evals,
+                fitness, lineage, on_iter)
         return metrics, stats
 
     def _fused_epoch_bookkeeping(self, base, start, epoch_len, eval_every,
                                  n_evals, evolving, gates, hypers,
-                                 strat_state, m_stack, s_stack, evals,
-                                 fitness, lineage, on_iter):
+                                 hypers_before, strat_state, m_stack,
+                                 s_stack, evals, fitness, lineage, on_iter):
         """Re-emit the eager loop's per-iteration side effects (the fitness
         window, the evolve's ``last_fitness``, hypers and strategy state,
-        ``on_iter``) from one epoch's stacked outputs, reading nothing back
-        from the device. What the trainer keeps of them is cloned: a
-        replay of the epoch's graph overwrites its outputs. Returns the
-        last iteration's (metrics, stats)."""
+        the telemetry rows, ``on_iter``) from one epoch's stacked outputs,
+        reading nothing back from the device. What the trainer keeps of
+        them is cloned once (a replay of the epoch's graph overwrites its
+        outputs), and the rows read slices of one snapshot of those
+        clones. Returns the last iteration's (metrics, stats)."""
+        tel = self.telemetry
         keep = lambda tree: tree_map(torch.clone, tree)
-        m_stack, s_stack = keep(m_stack), keep(s_stack)
+        m_stack, s_stack, evals, fitness, lineage = keep(
+            (m_stack, s_stack, evals, fitness, lineage))
         self.hypers = hypers
+        snap = None if not tel.enabled else tel.snapshot(
+            {"m": m_stack, "s": s_stack, "evals": evals, "fitness": fitness,
+             "lineage": lineage, "hypers": keep(hypers)}, clone=False)
         metrics = stats = None
         for i in range(epoch_len):
             metrics = None if not gates[i] else tree_map(
@@ -287,16 +368,32 @@ class PopTrainer:
             stats = tree_map(lambda x: x[i], s_stack)
             fit_i = None
             if n_evals and (i + 1) % eval_every == 0:
-                fit_i = evals[(i + 1) // eval_every - 1].clone()
+                row = (i + 1) // eval_every - 1
+                fit_i = evals[row]
                 if not evolving:
                     self.report_fitness(fit_i)
+                tel.record_members(
+                    base + i + 1, hypers=hypers_before,
+                    fitness=None if snap is None else snap.map(
+                        lambda t, row=row: t["evals"][row]))
             lin_i = None
             if evolving and i == epoch_len - 1:
                 if strat_state is not None:
                     self.strategy.import_state(strat_state)
-                self.last_fitness = fitness.clone()
+                self.last_fitness = fitness
                 self._window.clear()
-                lin_i = lineage.clone()
+                lin_i = lineage
+                tel.record_evolve(base + epoch_len, _part(snap, "lineage"),
+                                  fitness=_part(snap, "fitness"),
+                                  strategy=type(self.strategy).__name__)
+                tel.record_members(base + epoch_len,
+                                   hypers=_part(snap, "hypers"))
+            if snap is not None:
+                pick = lambda name, i=i: snap.map(
+                    lambda t: tree_map(lambda x: x[i], t[name]))
+                tel.record_iteration(
+                    base + i, metrics=pick("m") if gates[i] else None,
+                    stats=pick("s"), did_update=gates[i])
             if on_iter is not None:
                 on_iter(base + i - start, metrics, stats, fit_i, lin_i)
         return metrics, stats
@@ -326,11 +423,20 @@ class PopTrainer:
         """One evolve step. The lineage it returns is for reporting only:
         CEM's -1 (a fresh draw) would index the last member."""
         self.last_fitness = self.fitness()
-        self.state, self.hypers, lineage = self.strategy.evolve(
-            self.generator, self.state, self.hypers, self.last_fitness)
+        tel = self.telemetry
+        with tel.phase("evolve"), tel.compile_scope("evolve"):
+            self.state, self.hypers, lineage = self.strategy.evolve(
+                self.generator, self.state, self.hypers, self.last_fitness)
         # pre-evolve fitness describes states that may just have been
         # replaced; start the next window fresh
         self._window.clear()
+        snap = tel.snapshot({"lineage": lineage, "fitness": self.last_fitness,
+                             "hypers": self.hypers})
+        tel.record_evolve(self.step_count, _part(snap, "lineage"),
+                          fitness=_part(snap, "fitness"),
+                          strategy=type(self.strategy).__name__)
+        # post-evolve: the hypers the children train with
+        tel.record_members(self.step_count, hypers=_part(snap, "hypers"))
         return lineage
 
     # ------------------------------------------------------------ checkpoint
@@ -339,20 +445,90 @@ class PopTrainer:
         """Stacked per-member policy params (for rollout and serving)."""
         return self.agent.actor_params(self.state)
 
-    def save(self, extra: dict | None = None):
-        """Blocking checkpoint at step ``step_count - 1``: main tree
-        (population state, strategy internals), ``actors`` and ``hypers``
-        aux trees, ``size`` and ``fitness`` (the live window's mean, or
-        None right after an evolve) in the extras."""
+    def save(self, extra: dict | None = None, *,
+             blocking: bool = False) -> float:
+        """Checkpoint at step ``step_count - 1``: the main tree (population
+        state, strategy internals), the ``actors``, ``hypers``,
+        ``rollout`` and ``rng`` aux trees, ``size`` and ``fitness`` (the
+        live window's mean, or None right after an evolve) in the extras.
+        ``blocking=False`` returns once every leaf is on the host and
+        writes on a thread. Returns the seconds the caller was blocked
+        (also the ``ckpt`` row's ``secs``)."""
         if self._mgr is None:
             raise ValueError("PopTrainer built without checkpoint_dir")
+        t0 = time.perf_counter()
         fit = self.fitness()
         meta = dict(extra or {}, size=self.n,
                     fitness=None if fit is None else
                     fit.cpu().numpy().astype(np.float64).tolist())
-        aux = {"actors": self.actors}
+        aux = {"actors": self.actors, "rng": self.generator.get_state()}
         if self.hypers is not None:
             aux["hypers"] = self.hypers
-        self._mgr.save(self.step_count - 1,
-                       (self.state, self.strategy.export_state()), meta,
-                       aux=aux)
+        if self._rollout is not None:
+            aux["rollout"] = self._rollout.export_state()
+        save = self._mgr.save if blocking else self._mgr.save_async
+        with self.telemetry.phase("ckpt"):
+            save(self.step_count - 1,
+                 (self.state, self.strategy.export_state()), meta, aux=aux)
+        secs = time.perf_counter() - t0
+        self.telemetry.record_ckpt(self.step_count - 1, secs,
+                                   blocking=blocking)
+        return secs
+
+    def resume(self):
+        """Restore the latest checkpoint, if there is one: population
+        state, hypers, strategy internals, the engine's buffers and env
+        states (when an engine is attached and the checkpoint has them),
+        the generator's state and the step; every leaf written into the
+        trainer's own tensors. Returns the restored step (the one ``save``
+        recorded) or None. The population size must be the checkpoint's:
+        elastic resume is not ported."""
+        if self._mgr is None or self._mgr.latest() is None:
+            return None
+        if any(getattr(fn, "graph", None) is not None
+               for fn in self._epochs.values()):
+            raise RuntimeError(
+                "resume after a fused epoch was captured as a CUDA graph: "
+                "the graph holds the generator's registration, and "
+                "restoring under it is not supported; resume before the "
+                "first fused epoch")
+        (state, strat_state), extra = self._mgr.restore(
+            (self.state, self.strategy.export_state()))
+        restored_n = leaves(self.agent.actor_params(state))[0].shape[0]
+        if restored_n != self.n:
+            raise ValueError(
+                f"checkpoint holds a population of {restored_n} but the "
+                f"config says size={self.n}; resume with the original "
+                f"size (elastic resume, --resize, is not ported)")
+        copy_into(self.state, state)
+        if self.hypers is not None:
+            hypers = self._mgr.restore_aux("hypers", self.hypers)
+            if hypers is not None:
+                copy_into(self.hypers, hypers)
+        if strat_state is not None:
+            self.strategy.import_state(
+                copy_into(self.strategy.export_state(), strat_state))
+        if self._rollout is not None:
+            rstate = self._mgr.restore_aux("rollout",
+                                           self._rollout.export_state())
+            if rstate is not None:
+                self._rollout.import_state(rstate)
+                # an RL trainer step is one engine iteration
+                self._rollout.iterations = extra["step"] + 1
+        mine = self.generator.get_state()
+        rng = self._mgr.restore_aux("rng", mine)
+        if rng is not None:
+            if rng.shape != tuple(mine.shape):
+                raise ValueError(
+                    f"the checkpoint's generator state has {rng.shape[0]} "
+                    f"bytes, this trainer's {mine.shape[0]}: it was written "
+                    f"on another device type")
+            self.generator.set_state(torch.from_numpy(rng))
+        self._window.clear()
+        self.step_count = extra["step"] + 1
+        return extra["step"]
+
+    def wait(self):
+        """Wait for the checkpoint write in flight."""
+        if self._mgr is not None:
+            self._mgr.wait()

@@ -34,6 +34,13 @@ it once as a CUDA graph (:mod:`repro_torch.rollout.graph`) and replays
 it: the port's counterpart of the JAX package's one jitted epoch. Every
 step of it stays on the device; the only host decision inside, the
 can-sample gate, is known on the host before the epoch starts.
+
+:meth:`RolloutEngine.export_state` and :meth:`~RolloutEngine.import_state`
+carry the buffers and env states through a checkpoint (the trainer's
+``rollout`` aux tree), every leaf population-first; the import writes
+into the engine's own tensors, which a captured epoch holds as its static
+inputs. Given an enabled ``telemetry``, the engine records its shape once
+as an ``engine`` row.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from repro_torch.data.replay_buffer import buffer_sample
 from repro_torch.rollout.collector import Collector, default_exploration
 from repro_torch.rollout.evaluator import Evaluator
 from repro_torch.rollout.vecenv import VecEnv, episode_stats
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import copy_into, distinct, leaves, tree_map
 
 # the rollout fields an on-policy update consumes, besides GAE's two
 _ONPOLICY_FIELDS = ("obs", "action", "log_prob", "value")
@@ -63,7 +70,7 @@ class RolloutEngine:
                  batch_size: int = 128, buffer_capacity: int = 100_000,
                  epochs: int = 4, eval_envs: int = 4,
                  eval_steps: int | None = None,
-                 chunk_steps: int | None = None):
+                 chunk_steps: int | None = None, telemetry=None):
         if chunk_steps is not None and collect_steps % chunk_steps:
             raise ValueError(f"chunk_steps={chunk_steps} must divide "
                              f"collect_steps={collect_steps}")
@@ -116,6 +123,15 @@ class RolloutEngine:
             extras=getattr(agent, "experience_extras",
                            ("log_prob", "value")))
         self.iterations = 0
+        if telemetry is not None and telemetry.enabled:
+            # the acting side's shape, once, so a log describes itself
+            telemetry.record(
+                "engine", algo=type(agent).__name__, experience=self.kind,
+                env=env.spec.name, population=self.n, num_envs=num_envs,
+                collect_steps=collect_steps, batch_size=batch_size,
+                num_steps=self.num_steps, chunk_steps=chunk_steps,
+                policy_lag=getattr(self, "policy_lag", None),
+                env_steps_per_iteration=self.env_steps_per_iteration)
 
     def filled(self, iterations: int | None = None) -> int:
         """Transitions each member has inserted after ``iterations``
@@ -304,6 +320,26 @@ class RolloutEngine:
         buf0 = tree_map(lambda x: x[:1], self.bufs)
         return buffer_sample(buf0, generator, size,
                              filled=self.filled())["obs"][0, 0]
+
+    # ------------------------------------------------------- checkpoints
+    def export_state(self):
+        """The engine's mutable device state, the population's experience
+        buffers and the env states with their episode accounting, as one
+        tree whose every leaf carries the leading population axis."""
+        return {"bufs": self.bufs, "vstate": self.vstate}
+
+    def import_state(self, state):
+        """Write what :meth:`export_state` produced (numpy leaves from a
+        checkpoint, or tensors) into the engine's own tensors; a leaf that
+        shares its storage with another (fresh env states share their
+        zeros) gets its own first."""
+        n = leaves(state["bufs"])[0].shape[0]
+        if n != self.n:
+            raise ValueError(f"rollout state holds {n} members but the "
+                             f"engine was built for {self.n}; elastic "
+                             f"resize is not ported")
+        self.bufs, self.vstate = distinct((self.bufs, self.vstate))
+        copy_into(self.export_state(), state)
 
     @property
     def env_steps_per_iteration(self) -> int:

@@ -30,6 +30,12 @@ moves (the kernel wrappers') do not move on a replay, so given
 records how many launches of each it captured (``captured_launches``)
 and the warm-up ran (``warmup_launches``); a replay launches the captured
 ones again (``replays`` counts them).
+
+A capture holds :data:`repro_torch.telemetry.sink.capture_lock`, so a
+telemetry writer thread copies nothing while it runs (a capture refuses
+other threads' work), and is announced to the compile listeners
+(:func:`repro_torch.kernels.build.notify_compile`) as ``"cuda_graph"``
+with its seconds.
 """
 from __future__ import annotations
 
@@ -38,24 +44,9 @@ import time
 
 import torch
 
-from repro_torch.tree import flatten, leaves, tree_map
-
-
-def _distinct(tree):
-    """The tree with every leaf its own contiguous storage: a leaf that
-    shares memory with an earlier one (two fields built from one zeros
-    tensor) or is an expanded view is cloned, so copying a result into
-    one leaf never writes another."""
-    seen = set()
-
-    def own(x):
-        key = x.untyped_storage().data_ptr()
-        if key in seen or not x.is_contiguous():
-            x = x.clone(memory_format=torch.contiguous_format)
-        seen.add(x.untyped_storage().data_ptr())
-        return x
-
-    return tree_map(own, tree)
+from repro_torch.kernels.build import notify_compile
+from repro_torch.telemetry.sink import capture_lock
+from repro_torch.tree import distinct, flatten, leaves, tree_map
 
 
 class CapturedFunction:
@@ -99,8 +90,13 @@ class CapturedFunction:
         self.generator.set_state(state)
 
     def _capture(self, trees):
+        with capture_lock:
+            self._capture_locked(trees)
+        notify_compile("cuda_graph", self.capture_seconds)
+
+    def _capture_locked(self, trees):
         self._warm_up(trees)
-        self.static = _distinct(trees)
+        self.static = distinct(trees)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         register = getattr(graph, "register_generator_state", None)
         if register is None:

@@ -142,6 +142,21 @@ class OverlapEngine(RolloutEngine):
         self._collect_async(actors, hypers, generator, ready)
         return new_state, metrics, stats, did
 
+    def export_state(self):
+        """:meth:`RolloutEngine.export_state` once the collect in flight
+        has written the env states: at lag 1 on the card the current stream
+        waits for that collect, so a copy enqueued on it (a checkpoint's)
+        reads them whole."""
+        if self._pending is not None and self._pending[2] is not None:
+            main = torch.cuda.current_stream()
+            main.wait_event(self._pending[2])
+            _hold(self.vstate, main)
+        return super().export_state()
+
+    def import_state(self, state):
+        super().import_state(state)
+        self._pending = None     # a restored run acts its prologue again
+
     def build_epoch(self, **kwargs):
         if self.policy_lag == 0:
             return super().build_epoch(**kwargs)

@@ -6,7 +6,8 @@ population size, step — no array IO), loads ONLY the stacked actor
 params (the ``"actors"`` aux tree, against an agent-derived template),
 embeds every member's behavior on a fixed probe batch, and reselects the
 serving set by fitness + DvD diversity. The latest checkpoint always
-wins; membership changes are recorded as promote/demote events.
+wins; membership changes are recorded as promote/demote events, and,
+given a telemetry object, as ``promotion`` rows.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ class ContinuousEvaluator:
 
     def __init__(self, manager, agent, *, size: int = 4, probe_obs=None,
                  diversity_weight: float = 1.0,
-                 forward: PolicyForward | None = None):
+                 forward: PolicyForward | None = None, telemetry=None):
         self.mgr = manager
         self.agent = agent
         self.size = size
@@ -75,6 +76,7 @@ class ContinuousEvaluator:
             else PolicyForward.for_agent(agent)
         self.serving: ServingSet | None = None
         self.events: list[dict] = []
+        self.telemetry = telemetry
         self._last_step: int | None = None
 
     def select(self, actors, fitness) -> np.ndarray:
@@ -111,12 +113,18 @@ class ContinuousEvaluator:
         old = set() if self.serving is None else set(
             self.serving.members.tolist())
         now = set(members.tolist())
-        self.events.append({
+        event = {
             "step": step,
             "promoted": sorted(now - old),
             "demoted": sorted(old - now),
             "members": members.tolist(),
-        })
+        }
+        self.events.append(event)
+        if self.telemetry is not None:
+            self.telemetry.record(
+                "promotion", **event,
+                fitness=None if fitness is None else list(fitness),
+                population=extra["size"])
         self.serving = new
         self._last_step = step
         if server is not None:

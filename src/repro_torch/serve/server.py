@@ -13,7 +13,9 @@ stacked members, not ``k`` (with ``PolicyForward.fused_for_agent``: one
   * ``best`` — the single fittest member's action.
 
 Fixed padding keeps every launch at one shape whatever the load, as the
-JAX package's one compiled executable does.
+JAX package's one compiled executable does. Given ``telemetry``, the
+latency window is summarized into one ``serve`` row every
+``telemetry_every`` served batches (host bookkeeping around the call).
 """
 from __future__ import annotations
 
@@ -39,11 +41,13 @@ class BatchServer:
     mean); ``serving_set`` the initial :class:`ServingSet` (install more
     via :meth:`install` as the ``ContinuousEvaluator`` promotes). Requests
     run on the device the serving set's params live on. ``window`` holds
-    the latency of every served batch (the warm-up excluded).
+    the latency of every served batch (the warm-up excluded) since the
+    last ``serve`` row.
     """
 
     def __init__(self, forward: PolicyForward, spec, serving_set=None, *,
-                 max_batch: int = 256, mode: str = "mean"):
+                 max_batch: int = 256, mode: str = "mean", telemetry=None,
+                 telemetry_every: int = 100):
         if mode not in MODES:
             raise ValueError(f"unknown reduction mode {mode!r}; one of "
                              f"{MODES}")
@@ -60,6 +64,8 @@ class BatchServer:
         self._pending: list = []
         self.requests_served = 0
         self.window = LatencyWindow()
+        self.telemetry = telemetry
+        self.telemetry_every = max(1, telemetry_every)
         self._recording = True
         if serving_set is not None:
             self.install(serving_set)
@@ -130,8 +136,23 @@ class BatchServer:
             self.window.add(time.perf_counter() - t0,
                             fill=len(obs) / (tiles * self.max_batch),
                             requests=len(obs))
+            if (self.telemetry is not None
+                    and self.window.count >= self.telemetry_every):
+                self.report_telemetry()
         out = np.concatenate(outs, axis=0)
         return out[0] if single else out
+
+    def report_telemetry(self):
+        """Emit the latency window as one ``serve`` row (p50/p99, fill,
+        queue depth) and start a fresh window. Called every
+        ``telemetry_every`` batches; call it once more at shutdown for the
+        partial tail."""
+        if self.telemetry is None or not self.window.count:
+            return
+        self.telemetry.record(
+            "serve", mode=self.mode, ensemble=getattr(self.set, "size", 0),
+            max_batch=self.max_batch, **self.window.summary())
+        self.window.reset()
 
     # ------------------------------------------------- request accumulation
     def submit(self, obs) -> int:

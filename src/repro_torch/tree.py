@@ -87,6 +87,44 @@ def tree_map(fn, tree, *rest):
     return unflatten(treedef, [fn(*xs) for xs in zip(flat, *others)])
 
 
+def distinct(tree):
+    """The tree with every leaf its own contiguous storage: a leaf that
+    shares memory with an earlier one (two fields built from one zeros
+    tensor) or is an expanded view is cloned, so copying a value into one
+    leaf never writes another."""
+    seen = set()
+
+    def own(x):
+        key = x.untyped_storage().data_ptr()
+        if key in seen or not x.is_contiguous():
+            x = x.clone(memory_format=torch.contiguous_format)
+        seen.add(x.untyped_storage().data_ptr())
+        return x
+
+    return tree_map(own, tree)
+
+
+def copy_into(dst, src):
+    """Write ``src``'s leaves (numpy arrays or tensors) into ``dst``'s
+    tensors in place, leaf by leaf, and return ``dst``: a restore that
+    must not rebind the tensors (views of a flat buffer, a captured
+    graph's static inputs). Raises ``ValueError`` on a structure or shape
+    mismatch (``copy_`` alone would broadcast)."""
+    mine, treedef = flatten(dst)
+    theirs, src_def = flatten(src)
+    if len(mine) != len(theirs):
+        raise ValueError(f"copy_into: {len(theirs)} leaves into "
+                         f"{len(mine)}")
+    for d, s in zip(mine, theirs):
+        s = torch.as_tensor(s)
+        if tuple(s.shape) != tuple(d.shape):
+            raise ValueError(f"copy_into: a leaf of shape "
+                             f"{tuple(s.shape)} into one of "
+                             f"{tuple(d.shape)}")
+        d.copy_(s)
+    return dst
+
+
 def stack(trees):
     """List of per-member trees -> one tree with a leading member axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

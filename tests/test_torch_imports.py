@@ -32,6 +32,7 @@ def test_port_imports_no_jax_and_no_repro():
     assert result["bad"] == []
     for name in ("repro_torch.kernels.pop_matmul", "repro_torch.serve.server",
                  "repro_torch.launch.serve", "repro_torch.checkpoint.manager",
+                 "repro_torch.telemetry.window_probe",
                  "repro_torch.core.dvd", "repro_torch.envs.core",
                  "repro_torch.kernels.pop_adam", "repro_torch.optim.pop_adam",
                  "repro_torch.rl.td3", "repro_torch.rl.fused",
@@ -70,7 +71,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.data.experience",
                  "repro_torch.examples.pbt_ppo",
                  "repro_torch.envs.hopper2d", "repro_torch.kernels.hopper2d",
-                 "repro_torch.rollout.graph", "repro_torch.rollout.overlap"):
+                 "repro_torch.rollout.graph", "repro_torch.rollout.overlap",
+                 "repro_torch.telemetry.run", "repro_torch.telemetry.sink",
+                 "repro_torch.telemetry.latency"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

@@ -25,6 +25,7 @@ The kernels on the card are held against these plain versions by
 the card against the CPU.
 """
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -410,9 +411,12 @@ def test_cli_serves_lm_on_cpu(arch, capsys):
     assert "ms per decode step" in capsys.readouterr().out
 
 
-def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported():
+def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported(tmp_path,
+                                                          monkeypatch):
     """Every arch of the JAX package is served, the frontend ones too; the
-    CUDA requirement and the refusals of what is not ported stand."""
+    CUDA requirement and the refusals of what is not ported stand.
+    ``--log-dir``, left out until telemetry was ported, now writes the
+    run's log (its header and ``run_end`` row)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_main(["--arch", "rwkv6-test"])
@@ -434,6 +438,10 @@ def test_cli_lm_needs_cuda_and_refuses_what_is_not_ported():
         get_config("gpt-5")
     with pytest.raises(SystemExit):           # --algo still needs a ckpt
         serve_main(["--algo", "td3", "--device", "cpu"])
-    with pytest.raises(SystemExit):           # left out, not a no-op
-        serve_main(["--arch", "rwkv6-test", "--log-dir", "x",
-                    "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)
+    serve_main(["--arch", "rwkv6-test", "--smoke", "--log-dir", "x",
+                "--device", "cpu", "--batch", "1", "--prompt-len", "8",
+                "--tokens", "2"])
+    kinds = [json.loads(line)["kind"]
+             for line in (tmp_path / "x" / "telemetry.jsonl").open()]
+    assert kinds[0] == "run" and kinds[-1] == "run_end"

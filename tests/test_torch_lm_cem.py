@@ -204,11 +204,13 @@ def test_train_cli_runs_cem_over_an_lm(backend, tmp_path):
         1e-2 * 0.999 ** 2, rel=1e-6)
 
 
-def test_population_lm_example_trains_with_pbt(tmp_path):
+def test_population_lm_example_trains_with_pbt(tmp_path, capsys):
     """``repro_torch.examples.population_lm``, the JAX package's
-    ``examples/population_lm.py`` without its ``--resume none``: PBT over
-    4 qwen2-0.5b members at ``.smoke()`` width, an evolve at step 20, the
-    checkpoint at the last step."""
+    ``examples/population_lm.py`` with its ``--resume none``: PBT over 4
+    qwen2-0.5b members at ``.smoke()`` width, an evolve at step 20, the
+    checkpoint at the last step. Its ``--resume auto`` (refused as a flag
+    of the train CLI before resume was ported) continues that run: steps
+    21-22 from step 19's checkpoint."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.examples import population_lm
 
@@ -217,7 +219,9 @@ def test_population_lm_example_trains_with_pbt(tmp_path):
     assert all(-1 < p < 4 for p in report.evolutions[0][1])
     assert np.isfinite(report.final_loss)
     assert CheckpointManager(tmp_path).latest() == 19
-    with pytest.raises(NotImplementedError, match="--resume"):
-        train_main(["--arch", "qwen2_0_5b", "--resume", "none",
-                    "--ckpt-dir", str(tmp_path / "again"), "--device",
-                    "cpu"])
+    again = population_lm.main(["--ckpt-dir", str(tmp_path), "--steps",
+                                "22", "--resume", "auto", "--device",
+                                "cpu"])
+    assert "resumed from step 19" in capsys.readouterr().out
+    assert again.trainer.step_count == 22 and again.evolutions == []
+    assert CheckpointManager(tmp_path).latest() == 21

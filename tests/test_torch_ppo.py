@@ -472,7 +472,7 @@ def test_ppo_checkpoint_is_read_bitwise_by_jax(tmp_path):
     trainer.attach_rollout(make("pendulum"), num_envs=2, collect_steps=8,
                            batch_size=16, epochs=1, eval_envs=2)
     trainer.run_env_loop(2, eval_every=1)
-    trainer.save()
+    trainer.save(blocking=True)
     jagent = jax_make_agent("ppo", jax_make("pendulum").spec)
     jactors, _ = jax_load_actor_stack(JaxCheckpointManager(tmp_path), jagent)
     want = leaves(trainer.actors)

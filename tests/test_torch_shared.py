@@ -13,7 +13,10 @@ sequential one's from ``fold_in(kc, i)``. Tolerance rtol = 1e-4, atol =
 carried through Adam); members that do not train are held bit for bit
 to their start. N = 4, B = 32.
 """
+import json
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -368,7 +371,11 @@ def test_pop_trainer_trains_the_shared_critic(strategy, backend):
                                start.policies["layer_0"]["w"])
 
 
-def test_examples_run_at_toy_size_on_the_cpu(capsys):
+def test_examples_run_at_toy_size_on_the_cpu(capsys, tmp_path):
+    """Both examples at toy size; their ``--log-dir``, refused until
+    telemetry was ported, now writes a log that ``tools/report.py
+    --check`` accepts, with the example's own rows (``cem``,
+    ``diversity``)."""
     # 64 acting steps of 2 envs fill the examples' batch of 128 at once
     out = cemrl_example.run(population=3, iters=2, rl_steps=2,
                             collect_steps=64, device="cpu")
@@ -384,9 +391,20 @@ def test_examples_run_at_toy_size_on_the_cpu(capsys):
     assert all(np.isfinite(r["logdet"]) for r in out["iters"])
     said = capsys.readouterr().out
     assert "[cemrl] iter 2" in said and "[dvd] iter 2" in said
-    for main in (cemrl_example.main, dvd_example.main):
-        with pytest.raises(NotImplementedError, match="telemetry"):
-            main(["--log-dir", "x", "--device", "cpu"])
+    cemrl_example.run(population=3, iters=1, rl_steps=2, collect_steps=64,
+                      device="cpu", log_dir=tmp_path / "cemrl")
+    dvd_example.run(population=3, iters=1, collect_steps=64,
+                    updates_per_iter=2, device="cpu",
+                    log_dir=tmp_path / "dvd")
+    report = Path(__file__).resolve().parent.parent / "tools" / "report.py"
+    for name, kind in (("cemrl", "cem"), ("dvd", "diversity")):
+        log = tmp_path / name
+        subprocess.run([sys.executable, str(report), str(log), "--check"],
+                       check=True, capture_output=True)
+        kinds = {json.loads(line)["kind"]
+                 for line in (log / "telemetry.jsonl").open()}
+        assert {"run", "engine", "iter", "members", kind,
+                "run_end"} <= kinds
 
 
 def test_train_cli_evolves_td3_actors_with_cem(tmp_path, capsys):

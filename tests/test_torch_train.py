@@ -9,8 +9,9 @@ wrote (``train_then_serve`` runs the same for SAC and DQN from their own
 test files). The CLI refuses to run
 without CUDA unless ``--device cpu`` is given, refuses every flag whose
 subsystem is not ported, ``--arch`` beside ``--algo``, ``--epochs`` beside
-an off-policy ``--algo``, the backends not
-ported, and a ``--ckpt-dir`` that already holds a checkpoint.
+an off-policy ``--algo``, the backends not ported, a ``--resume`` outside
+``auto|none``, and a ``--ckpt-dir`` whose checkpoint has another
+structure; ``--log-dir`` and ``--profile`` write their files.
 """
 import jax
 import numpy as np
@@ -103,7 +104,7 @@ def test_trainer_step_updates_without_a_rollout(tmp_path):
 def test_checkpoint_is_read_bitwise_by_jax(tmp_path):
     trainer = _trainer(tmp_path)
     trainer.run_env_loop(2, eval_every=1)
-    trainer.save()
+    trainer.save(blocking=True)
     extra = CheckpointManager(tmp_path).peek_extra()
     assert extra["size"] == 3 and extra["step"] == 1
     assert len(extra["fitness"]) == 3
@@ -190,7 +191,7 @@ def test_dqn_checkpoint_is_read_bitwise_by_jax(tmp_path):
     trainer.attach_rollout(make("cartpole"), num_envs=2, collect_steps=8,
                            batch_size=16, buffer_capacity=256, eval_envs=2)
     trainer.run_env_loop(2, eval_every=1)
-    trainer.save()
+    trainer.save(blocking=True)
     jagent = jax_make_agent("dqn", jax_make("cartpole").spec)
     jactors, _ = jax_load_actor_stack(JaxCheckpointManager(tmp_path), jagent)
     want = leaves(trainer.actors)
@@ -214,32 +215,49 @@ def test_train_cli_refuses_without_cuda(tmp_path):
 # each refused flag of the JAX training CLI and the error the port gives;
 # ``arch`` is --arch passed beside --algo, which the CLI refuses as the
 # JAX one does, and ``epochs`` is --epochs beside an off-policy --algo
-# (here td3), where it would do nothing
+# (here td3), where it would do nothing. ``log_dir`` and ``profile`` are
+# taken now (error None: the file whose name ends in ``match`` is written
+# into the directory ``1``), and ``resume`` takes auto|none only.
 _REFUSED_CASES = (
     ("arch", SystemExit, "pass exactly one of --arch"),
     ("compile_cache", NotImplementedError, "not supported by the port"),
     ("devices", NotImplementedError, "not supported by the port"),
     ("epochs", ValueError, "taken by the on-policy algorithms only"),
-    ("log_dir", NotImplementedError, "not supported by the port"),
+    ("log_dir", None, "telemetry.jsonl"),
     ("model_axis", NotImplementedError, "not supported by the port"),
-    ("profile", NotImplementedError, "not supported by the port"),
+    ("profile", None, ".trace.json"),
     ("resize", NotImplementedError, "not supported by the port"),
-    ("resume", NotImplementedError, "not supported by the port"),
+    ("resume", SystemExit, "invalid choice: '1'"),
 )
 
 
 def test_refused_cases_cover_every_refused_flag():
+    """Every flag still refused has its case; the flags this CLI now takes
+    (``--log-dir``, ``--profile``, ``--resume auto|none``) keep theirs."""
     assert sorted(f for f, _, _ in _REFUSED_CASES
-                  if f not in ("arch", "epochs")) == sorted(_REFUSED)
+                  if f not in ("arch", "epochs", "log_dir", "profile",
+                               "resume")) == sorted(_REFUSED)
 
 
 @pytest.mark.parametrize("flag, error, match", _REFUSED_CASES,
                          ids=[flag for flag, _, _ in _REFUSED_CASES])
-def test_train_cli_refuses_unported_flags(tmp_path, capsys, flag, error,
-                                          match):
+def test_train_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch,
+                                          flag, error, match):
+    """A refused flag raises; ``[log_dir]`` and ``[profile]``, refused
+    until checkpoint resume and telemetry were ported, now hold that the
+    run writes the log and the Chrome trace into the directory named;
+    ``[resume]`` that a value outside ``auto|none`` is refused by
+    argparse, as the JAX CLI's choices refuse it."""
+    monkeypatch.chdir(tmp_path)
+    argv = SMALL + ["--ckpt-dir", str(tmp_path / "ck"), "--device", "cpu",
+                    "--" + flag.replace("_", "-"), "1"]
+    if error is None:
+        train_main(argv)
+        assert [p.name for p in (tmp_path / "1").iterdir()
+                if p.name.endswith(match)]
+        return
     with pytest.raises(error) as raised:
-        train_main(SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu",
-                            "--" + flag.replace("_", "-"), "1"])
+        train_main(argv)
     said = str(raised.value) if error is not SystemExit \
         else capsys.readouterr().err
     assert match in said
@@ -256,7 +274,11 @@ def test_train_cli_refuses_unported_choices(tmp_path):
 
 
 def test_train_cli_refuses_a_used_ckpt_dir(tmp_path):
+    """The CLI resumes from a used ``--ckpt-dir`` now (it refused any
+    before resume was ported): a checkpoint of another structure than the
+    run's is refused by the restore's leaf-count check."""
     CheckpointManager(tmp_path).save(
         0, {"x": np.zeros(2, np.float32)}, {"size": 1, "fitness": None})
-    with pytest.raises(FileExistsError, match="already holds a checkpoint"):
+    with pytest.raises(ValueError, match="holds 1 leaves but the restore "
+                       "template has"):
         train_main(SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"])
