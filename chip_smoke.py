@@ -310,15 +310,45 @@ Phases, in order; any failure raises and the script exits non-zero:
                 logged metrics equal to the returned ones;
  42. serve telemetry (run after phases 7 and 10, early in the process:
                 a profile window opened minutes after the process's
-                previous one loses its first kernels, ROADMAP §3 fault
-                8) — the RL serve CLI on phase 6's checkpoint and the LM
-                serve CLI (qwen2-0.5b at full size) with ``--log-dir``
-                and ``--profile``: every row schema-valid (the port's
-                copy of the JAX row schema, which ``tools/report.py
-                --check`` applies; the tool itself imports the JAX
-                package), the serve rows' p50 beside a run without
-                telemetry, and a Chrome trace that holds every kernel
-                launch of its window.
+                previous one loses kernels, ROADMAP §3 fault 8) — the RL
+                serve CLI on phase 6's checkpoint and the LM serve CLI
+                (qwen2-0.5b at full size) with ``--log-dir`` and ``--profile``: every
+                row schema-valid (the port's copy of the JAX row schema,
+                which ``tools/report.py --check`` applies; the tool
+                itself imports the JAX package), the serve rows' p50
+                beside a run without telemetry, and a Chrome trace that
+                holds every kernel launch of its window;
+ 43. RL elastic — TD3 on pendulum at N = 8 (B = 256) saved with a fitness
+                the phase sets, restored at 6 and at 12 members by
+                ``restore_elastic``: the lineage computed from that
+                fitness, every leaf (state, hypers, replay rings and
+                counters, env states and episode accounting) gathered
+                bit for bit, 2 more iterations with their ``pop_matmul``
+                and ``pop_adam`` launches counted; the save, the restore
+                and the first iteration timed; then the train CLI with
+                ``--resize auto`` at both sizes (the lineage it prints,
+                its launches) and ``--resize strict`` refused;
+ 44. fused elastic — the acting engine's fused TD3 on hopper2d (N = 8,
+                256 envs a member) saved after 2 epochs, restored at 6
+                and 12: 2 epochs captured after the restore against the
+                eager loop, bit for bit, ``hopper2d`` launches counted;
+ 45. LM elastic — phase 40's step-2 checkpoint (qwen2-0.5b at full
+                width, 2 layers, N = 4) resumed at 2 and 6 through the
+                CLI with ``--resize auto``: the lineage it prints, every
+                row bit for bit, the flat buffers kept, the gather's
+                host seconds and the peak of allocated memory, one
+                ``pop_adam`` step on the restored buffers against its
+                plain version, then one step of the resumed trainer
+                (one ``pop_adam`` launch in place); ``--resize strict``
+                refused;
+ 46. DoubleBuffer — token and float batches to the card under
+                ``set_sync_debug_mode("error")``, each equal to its host
+                values;
+ 47. examples — ``repro_torch.examples.quickstart`` and ``.pbt_td3`` on
+                the card, their launches counted. After phase 15 a line
+                gives the LM train step's model FLOPs
+                (``models.accounting``) and their share of the card's
+                dense bf16 peak.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
@@ -326,8 +356,8 @@ times its replays (the wrappers' Python counts do not see a replay).
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
 ``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
-``{"frontends": ...}``, ``{"lm_cem": ...}`` and ``{"slice15": ...}``
-lines, the card's
+``{"frontends": ...}``, ``{"lm_cem": ...}``, ``{"slice15": ...}`` and
+``{"slice16": ...}`` lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -644,8 +674,9 @@ RESUME_CLI = dict(steps=4, pbt_interval=2, eval_every=2, num_envs=8,
                   collect_steps=32, updates=32)
 # qwen2-0.5b at full width with its depth cut to 2 layers (about 166 M
 # parameters a member, 136 M of them the embedding), N = 4: 4 steps with a
-# checkpoint every 2 (about 2.7 GB of main tree and 0.7 GB of actors),
-# resumed from the first; held at the LM update parity's tolerance
+# checkpoint every 2 (about 8 GB of main tree: the parameters and both
+# Adam moments of the 4 members; with the actors 10.6 GB), resumed from
+# the first; held at the LM update parity's tolerance
 LM_RESUME = dict(arch="qwen2-0.5b", layers=2, population=4, batch=4,
                  seq_len=512, steps=4, pbt_interval=2, ckpt_every=2)
 LM_RESUME_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -657,6 +688,23 @@ SINK = dict(rounds=5)
 # loses its first kernels, ROADMAP §3 fault 8: phase 42 runs early, and
 # a longer window than the CLI's default 3 leaves it more margin)
 SERVE_TELEMETRY = dict(profile_iters=16)
+# slice 16: elastic population resize. TD3 on pendulum at the repo's width
+# (N = 8, B = 256, RESUME_CLI's collect and update shape, no evolve),
+# saved after 2 iterations with this fitness (distinct values, so the
+# lineage is the fitness's order) and resumed at 6 and at 12 members; the
+# fused TD3 on hopper2d (FUSED's shape) saved after 2 epochs with the same
+# fitness and resumed at the same sizes
+ELASTIC = dict(population=8, sizes=(6, 12), iters=2,
+               fitness=(5.0, 1.0, 7.0, 3.0, 8.0, 2.0, 6.0, 4.0))
+# the LM population resumed at these sizes from phase 40's step-2
+# checkpoint (N = 4), one step each through the CLI
+LM_ELASTIC_SIZES = (2, 6)
+# DoubleBuffer on the card: this many batches of the LM train phase's
+# token shape, with a float leaf beside them
+DOUBLE_BUFFER = dict(batches=4, floats=(256, 64))
+# the two examples on the card: quickstart's iterations; pbt_td3's
+# population and iterations (its default shape otherwise)
+EXAMPLES = dict(quickstart_iters=3, pbt_td3_population=8, pbt_td3_iters=4)
 
 
 def log(msg: str):
@@ -5044,6 +5092,35 @@ def phase_frontend_parity():
     return out
 
 
+def pop_adam_in_place_vs_plain(args, extra, tol, label):
+    """``pop_adam(*args, **extra, inplace=True)`` on (N, P) buffers too
+    large for an out-of-place result beside them, held to the plain
+    version on copies of their first and last 2^24 columns: Adam's step
+    p - p' and both moments at ``tol``. Returns (max abs error, share of
+    the tolerance)."""
+    from repro_torch.kernels.pop_adam import pop_adam, pop_adam_plain
+
+    params, _, mu, nu, lr, step = args
+    p = params.shape[1]
+    chunk = min(1 << 24, p)
+    ends = [slice(0, chunk), slice(p - chunk, p)]
+    saved = [[t[:, cols].clone() for t in args[:4]] for cols in ends]
+    pop_adam(*args, **extra, inplace=True)
+    worst = share = 0.0
+    for cols, ins in zip(ends, saved):
+        want = pop_adam_plain(*ins, lr, step, **extra)
+        for name, g, r in zip(("step", "mu", "nu"), (params[:, cols],
+                                                     mu[:, cols],
+                                                     nu[:, cols]), want):
+            if name == "step":
+                g, r = ins[0] - g, ins[0] - r
+            torch.testing.assert_close(g, r, **tol,
+                                       msg=lambda m: f"{label}: {m}")
+            worst = max(worst, (g - r).abs().max().item())
+            share = max(share, tol_share(g, r, tol))
+    return worst, share
+
+
 def pop_adam_inplace_row(gen, n, p, label):
     """pop_adam at (N, P) with a per-member decay and clip scale, in
     place, as a vectorized LM step runs it: the first and last 2^24
@@ -5070,22 +5147,7 @@ def pop_adam_inplace_row(gen, n, p, label):
                  scale=torch.linspace(1.0, 0.25, n, device="cuda"))
     args = (params, grads, mu, nu, lr, step)
     chunk = 1 << 24
-    ends = [slice(0, chunk), slice(p - chunk, p)]
-    saved = [[t[:, cols].clone() for t in args[:4]] for cols in ends]
-    pop_adam(*args, **extra, inplace=True)
-    worst = share = 0.0
-    for cols, ins in zip(ends, saved):
-        want = pop_adam_plain(*ins, lr, step, **extra)
-        for name, g, r in zip(("step", "mu", "nu"), (params[:, cols],
-                                                     mu[:, cols],
-                                                     nu[:, cols]), want):
-            if name == "step":
-                g, r = ins[0] - g, ins[0] - r
-            torch.testing.assert_close(g, r, **ADAM_TOL,
-                                       msg=lambda m: f"{label}: {m}")
-            worst = max(worst, (g - r).abs().max().item())
-            share = max(share, tol_share(g, r, ADAM_TOL))
-    del saved
+    worst, share = pop_adam_in_place_vs_plain(args, extra, ADAM_TOL, label)
 
     def plain_chunks():
         for c in range(0, p, chunk):
@@ -5574,13 +5636,15 @@ def phase_resume_rl(ckpt_root):
             "cli": cli}
 
 
-def phase_resume_lm():
+def phase_resume_lm(d):
     """qwen2-0.5b at full width, 2 layers, N = 4, through the train CLI:
     4 steps with --ckpt-every 2, and the same 4 steps resumed from the
     step-2 checkpoint; the resumed trainer's state against the
     uninterrupted one's. The async saves' blocked seconds from the ckpt
     rows of the run's log, a blocking save's from ``save``; the
-    checkpoint's bytes."""
+    checkpoint's bytes. Works in the directory ``d`` and leaves the step-2
+    checkpoint in ``d / "resumed"`` (the resumed run writes none) for the
+    elastic phase; the rest is removed."""
     from repro_torch.kernels.pop_adam import pop_adam
     from repro_torch.launch.train import main as train_main
 
@@ -5590,58 +5654,57 @@ def phase_resume_lm():
             str(r["steps"]), "--pbt-interval", str(r["pbt_interval"]),
             "--batch", str(r["batch"]), "--seq-len", str(r["seq_len"]),
             "--ckpt-every", str(r["ckpt_every"]), "--seed", str(SEED)]
-    out = {}
-    with tempfile.TemporaryDirectory() as d:
-        d = Path(d)
-        t0 = time.perf_counter()
-        reset_counts(pop_adam)
-        whole = train_main(argv + ["--ckpt-dir", str(d / "whole"),
-                                   "--log-dir", str(d / "log")])
-        torch.cuda.synchronize()
-        whole_adam = pop_adam.launches
-        t_whole = time.perf_counter() - t0
-        rows = _log_rows(d / "log")
-        ckpt_rows = [x for x in rows if x["kind"] == "ckpt"]
-        if [x["step"] for x in ckpt_rows] != [1, 3]:
-            raise AssertionError(f"LM resume log: ckpt rows {ckpt_rows}")
-        # the step-2 checkpoint moves (a rename, not a 10 GB copy) into
-        # the resumed run's directory; that run writes none of its own
-        saved = d / "whole" / f"step_{1:010d}"
-        ckpt_bytes = {p.name: p.stat().st_size for p in saved.iterdir()}
-        (d / "resumed").mkdir()
-        shutil.move(saved, d / "resumed" / saved.name)
-        t0 = time.perf_counter()
-        blocking_s = whole.trainer.save(blocking=True)
-        reset_counts(pop_adam)
-        resumed = train_main(argv[:-4] + [
-            "--ckpt-every", "0", "--seed", str(SEED), "--ckpt-dir",
-            str(d / "resumed"), "--resume", "auto"])
-        torch.cuda.synchronize()
-        resumed_adam = pop_adam.launches
-        t_resumed = time.perf_counter() - t0 - blocking_s
-        if resumed.trainer.step_count != r["steps"] or resumed_adam != \
-                r["steps"] - 2 or whole_adam != r["steps"]:
-            raise AssertionError(f"LM resume: step "
-                                 f"{resumed.trainer.step_count}, pop_adam "
-                                 f"{whole_adam} / {resumed_adam}")
-        same, err, share = _tree_err(
-            (whole.trainer.state, whole.trainer.hypers,
-             whole.trainer.generator.get_state()),
-            (resumed.trainer.state, resumed.trainer.hypers,
-             resumed.trainer.generator.get_state()), tol=LM_RESUME_TOL)
-        if share > 1.0:
-            raise AssertionError(f"LM resume != uninterrupted (max abs err "
-                                 f"{err})")
-        out = {"bitwise": same, "max_abs_err": err,
-               "max_err_over_tolerance": share,
-               "tolerance": "rtol=1e-4, atol=1e-6 (the LM update parity's)",
-               "async_blocked_s": [x["secs"] for x in ckpt_rows],
-               "blocking_s": blocking_s,
-               "checkpoint_bytes": sum(ckpt_bytes.values()),
-               "checkpoint_files": ckpt_bytes,
-               "launches": {"pop_adam": whole_adam + resumed_adam},
-               "seconds": {"uninterrupted": t_whole, "resumed": t_resumed},
-               "final_loss": [whole.final_loss, resumed.final_loss]}
+    t0 = time.perf_counter()
+    reset_counts(pop_adam)
+    whole = train_main(argv + ["--ckpt-dir", str(d / "whole"),
+                               "--log-dir", str(d / "log")])
+    torch.cuda.synchronize()
+    whole_adam = pop_adam.launches
+    t_whole = time.perf_counter() - t0
+    rows = _log_rows(d / "log")
+    ckpt_rows = [x for x in rows if x["kind"] == "ckpt"]
+    if [x["step"] for x in ckpt_rows] != [1, 3]:
+        raise AssertionError(f"LM resume log: ckpt rows {ckpt_rows}")
+    # the step-2 checkpoint moves (a rename, not a 10 GB copy) into
+    # the resumed run's directory; that run writes none of its own
+    saved = d / "whole" / f"step_{1:010d}"
+    ckpt_bytes = {p.name: p.stat().st_size for p in saved.iterdir()}
+    (d / "resumed").mkdir()
+    shutil.move(saved, d / "resumed" / saved.name)
+    t0 = time.perf_counter()
+    blocking_s = whole.trainer.save(blocking=True)
+    reset_counts(pop_adam)
+    resumed = train_main(argv[:-4] + [
+        "--ckpt-every", "0", "--seed", str(SEED), "--ckpt-dir",
+        str(d / "resumed"), "--resume", "auto"])
+    torch.cuda.synchronize()
+    resumed_adam = pop_adam.launches
+    t_resumed = time.perf_counter() - t0 - blocking_s
+    if resumed.trainer.step_count != r["steps"] or resumed_adam != \
+            r["steps"] - 2 or whole_adam != r["steps"]:
+        raise AssertionError(f"LM resume: step "
+                             f"{resumed.trainer.step_count}, pop_adam "
+                             f"{whole_adam} / {resumed_adam}")
+    same, err, share = _tree_err(
+        (whole.trainer.state, whole.trainer.hypers,
+         whole.trainer.generator.get_state()),
+        (resumed.trainer.state, resumed.trainer.hypers,
+         resumed.trainer.generator.get_state()), tol=LM_RESUME_TOL)
+    if share > 1.0:
+        raise AssertionError(f"LM resume != uninterrupted (max abs err "
+                             f"{err})")
+    out = {"bitwise": same, "max_abs_err": err,
+           "max_err_over_tolerance": share,
+           "tolerance": "rtol=1e-4, atol=1e-6 (the LM update parity's)",
+           "async_blocked_s": [x["secs"] for x in ckpt_rows],
+           "blocking_s": blocking_s,
+           "checkpoint_bytes": sum(ckpt_bytes.values()),
+           "checkpoint_files": ckpt_bytes,
+           "launches": {"pop_adam": whole_adam + resumed_adam},
+           "seconds": {"uninterrupted": t_whole, "resumed": t_resumed},
+           "final_loss": [whole.final_loss, resumed.final_loss]}
+    del whole, resumed
+    shutil.rmtree(d / "whole")
     log(f"resume LM {r['arch']} {r['layers']} layers N={r['population']} "
         f"through the CLI: steps 3-4 resumed from step 2's checkpoint == "
         f"uninterrupted ({'bit for bit' if same else f'max abs err {err:.3g}'}"
@@ -5775,8 +5838,8 @@ def _log_rows(path):
 
 
 def phase_serve_telemetry_rl(ckpt_dir):
-    """The RL serve CLI on phase 6's checkpoint without telemetry, then
-    with --log-dir and --profile over SERVE_TELEMETRY["profile_iters"]
+    """The RL serve CLI on a TD3 checkpoint without telemetry, then with
+    --log-dir and --profile over SERVE_TELEMETRY["profile_iters"]
     batches: the rows schema-valid, serve and promotion rows present, the
     p50 beside the run without, and every pop_matmul launch of the window
     in the trace. It runs early in the process (ROADMAP §3 fault 8)."""
@@ -5860,6 +5923,619 @@ def phase_serve_telemetry_lm():
         f"wrapper's {launches} ({out['process_age_s']:.0f} s into the "
         f"process)")
     return out
+
+
+# ------------------------------- slice 16: elastic population resize
+def _elastic_lineage(fitness, new_n):
+    """The lineage an elastic resize must give, computed here from the
+    fitness: a shrink keeps the new_n fittest in member order, a grow
+    keeps every member and clones the fittest round-robin."""
+    old = len(fitness)
+    rank = sorted(range(old), key=lambda i: -fitness[i])
+    if new_n <= old:
+        return sorted(rank[:new_n])
+    return list(range(old)) + [rank[i % old] for i in range(new_n - old)]
+
+
+def _check_gathered(what, trainer, saved, lineage, old_n):
+    """Every leaf of the trainer's state, hypers and engine state equal,
+    bit for bit, to the saved one gathered by ``lineage`` (a leaf without
+    the member axis equal as it was). Returns the leaves compared."""
+    from repro_torch.tree import leaves
+
+    idx = torch.tensor(lineage, device="cuda")
+    got = leaves((trainer.state, trainer.hypers,
+                  trainer.rollout.export_state()))
+    if len(got) != len(saved):
+        raise AssertionError(f"{what}: {len(got)} leaves, saved "
+                             f"{len(saved)}")
+    for i, (g, x) in enumerate(zip(got, saved)):
+        want = x[idx] if x.ndim and x.shape[0] == old_n else x
+        if not torch.equal(g, want):
+            raise AssertionError(f"{what}: leaf {i} of shape "
+                                 f"{tuple(g.shape)} is not the saved one "
+                                 f"gathered by {lineage}")
+    return len(got)
+
+
+def _rl_elastic_trainer(n, ckpt):
+    """TD3 on pendulum as the train CLI builds it for ELASTIC's runs."""
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import get_algo, make_agent
+
+    c = RESUME_CLI
+    env = make("pendulum")
+    pcfg = PopulationConfig(size=n, num_steps=c["updates"], pbt_interval=0,
+                            hyper_space=get_algo("td3").hyper_space)
+    tr = PopTrainer(make_agent("td3", env.spec, device="cuda"), pcfg,
+                    seed=SEED, checkpoint_dir=ckpt)
+    tr.attach_rollout(env, num_envs=c["num_envs"],
+                      collect_steps=c["collect_steps"], batch_size=BATCH)
+    return tr
+
+
+def _printed_lineage(text, old_n, new_n):
+    """The lineage the train CLI printed for its elastic resume."""
+    found = re.findall(rf"elastic resume from step \d+: population "
+                       rf"{old_n} -> {new_n}, lineage=\[([\d, ]*)\]", text)
+    if len(found) != 1:
+        raise AssertionError(f"the CLI printed no elastic resume "
+                             f"{old_n} -> {new_n}: {text[-400:]}")
+    return [int(x) for x in found[0].split(",")]
+
+
+def _cli_printed(fn):
+    """``fn()`` with its standard output captured and printed again:
+    (result, text)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    print(text, end="")
+    return out, text
+
+
+def phase_elastic_rl(root):
+    """TD3 on pendulum at N = 8 (B = 256), 2 iterations, saved with
+    ELASTIC's fitness; for 6 and 12 members a fresh trainer restored by
+    ``restore_elastic``: the lineage computed here from that fitness, every
+    leaf of the state, hypers, replay rings with their counters and env
+    states with their episode accounting gathered bit for bit into the
+    trainer's own tensors, then 2 more iterations with their
+    ``pop_matmul`` and ``pop_adam`` launches counted at the new N. The
+    save, the restore and the first iteration after it timed (the phases
+    of ``benchmarks/elastic_resize.py``). Then the train CLI with
+    ``--resize auto`` at each size on a copy of the checkpoint (the
+    lineage it prints, its launches), and ``--resize strict`` refused with
+    a message that names ``--resize auto``."""
+    from repro_torch.elastic import restore_elastic
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.tree import leaves
+
+    e, c = ELASTIC, RESUME_CLI
+    old_n = e["population"]
+    root = Path(root)
+    src_dir = root / "src"
+    t0 = time.perf_counter()
+    src = _rl_elastic_trainer(old_n, src_dir)
+    src.run_env_loop(e["iters"], eval_every=0)
+    src.report_fitness(torch.tensor(e["fitness"], device="cuda"))
+    torch.cuda.synchronize()
+    save_s = src.save(blocking=True)
+    saved = [x.clone() for x in leaves((src.state, src.hypers,
+                                        src.rollout.export_state()))]
+    del src
+    ckpt_bytes = sum(p.stat().st_size for p in src_dir.rglob("*")
+                     if p.is_file())
+    per_iter = {"pop_matmul": 24 * c["updates"] + 3 * c["collect_steps"],
+                "pop_adam": 2 * c["updates"]}
+    out = {"save_s": save_s, "checkpoint_bytes": ckpt_bytes, "restored": {},
+           "cli": {}, "launches": {"pop_matmul": 0, "pop_adam": 0}}
+    for n in e["sizes"]:
+        want = _elastic_lineage(e["fitness"], n)
+        tr = _rl_elastic_trainer(n, src_dir)
+        ptrs = [x.data_ptr() for x in leaves((tr.state, tr.hypers))]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step, lineage = restore_elastic(tr)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        if step != e["iters"] - 1 or lineage.tolist() != want or ptrs != [
+                x.data_ptr() for x in leaves((tr.state, tr.hypers))]:
+            raise AssertionError(f"elastic RL {old_n} -> {n}: step {step}, "
+                                 f"lineage {lineage.tolist()} (want "
+                                 f"{want}), a tensor rebound")
+        compared = _check_gathered(f"elastic RL {old_n} -> {n}", tr, saved,
+                                   want, old_n)
+        reset_counts(pop_matmul, pop_adam)
+        t1 = time.perf_counter()
+        tr.run_env_loop(1, eval_every=0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        tr.run_env_loop(e["iters"] - 1, eval_every=0)
+        torch.cuda.synchronize()
+        launches = {"pop_matmul": pop_matmul.launches,
+                    "pop_adam": pop_adam.launches}
+        if launches != {k: v * e["iters"] for k, v in per_iter.items()} \
+                or not all(torch.isfinite(x).all() for x in leaves(tr.state)
+                           if x.is_floating_point()):
+            raise AssertionError(f"elastic RL {old_n} -> {n}: launches "
+                                 f"{launches} (want {per_iter} an "
+                                 f"iteration), or a parameter not finite")
+        for k, v in launches.items():
+            out["launches"][k] += v
+        out["restored"][n] = {"lineage": want, "restore_s": restore_s,
+                              "first_iter_s": first_s,
+                              "leaves_compared": compared,
+                              "launches": launches}
+        log(f"elastic RL TD3 pendulum {old_n} -> {n}: lineage {want} (from "
+            f"the fitness); {compared} leaves (state, hypers, replay rings "
+            f"and counters, env states and episode accounting) gathered bit "
+            f"for bit into the trainer's own tensors; save {save_s:.3f} s "
+            f"(blocking), restore {restore_s:.3f} s, first iteration after "
+            f"it {first_s:.3f} s; {e['iters']} iterations at N={n}: "
+            f"launches {launches}")
+        del tr
+
+    argv = ["--algo", "td3", "--env", "pendulum", "--pbt-interval", "0",
+            "--eval-every", str(e["iters"]), "--num-envs",
+            str(c["num_envs"]), "--collect-steps", str(c["collect_steps"]),
+            "--updates-per-iter", str(c["updates"]), "--batch", str(BATCH),
+            "--steps", str(e["iters"]), "--fused-adam", "--fused-linear",
+            "--seed", str(SEED)]
+    want_cli = {"pop_matmul": per_iter["pop_matmul"] * e["iters"]
+                + 3 * EVAL_STEPS, "pop_adam": per_iter["pop_adam"]
+                * e["iters"]}
+    for n in e["sizes"]:
+        d = root / f"cli_{n}"
+        shutil.copytree(src_dir, d)
+        (report, wall, mm, _, adam), text = _cli_printed(
+            lambda: _run_counted(lambda: train_main(
+                argv + ["--population", str(n), "--resize", "auto",
+                        "--ckpt-dir", str(d)])))
+        printed = _printed_lineage(text, old_n, n)
+        launches = {"pop_matmul": mm, "pop_adam": adam}
+        if printed != _elastic_lineage(e["fitness"], n) or \
+                launches != want_cli or \
+                report.trainer.step_count != 2 * e["iters"]:
+            raise AssertionError(f"elastic RL CLI {old_n} -> {n}: lineage "
+                                 f"{printed}, launches {launches} (want "
+                                 f"{want_cli}), step "
+                                 f"{report.trainer.step_count}")
+        out["cli"][n] = {"lineage": printed, "seconds": wall,
+                         "launches": launches}
+        log(f"elastic RL CLI --population {n} --resize auto: printed "
+            f"lineage {printed}, {e['iters']} iterations in {wall:.2f} s, "
+            f"launches {launches}")
+    d = root / "strict"
+    shutil.copytree(src_dir, d)
+    try:
+        train_main(argv + ["--population", str(e["sizes"][0]), "--resize",
+                           "strict", "--ckpt-dir", str(d)])
+    except ValueError as err:
+        refused = str(err)
+    else:
+        refused = ""
+    if "--resize auto" not in refused:
+        raise AssertionError(f"--resize strict at another size: "
+                             f"{refused!r}")
+    out["strict_refused"] = refused
+    out["seconds"] = time.perf_counter() - t0
+    log(f"elastic RL CLI --resize strict at {e['sizes'][0]} members "
+        f"refused: {refused}; phase {out['seconds']:.1f} s; "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def phase_elastic_fused(root):
+    """The acting engine's fused TD3 on hopper2d (FUSED's shape, N = 8),
+    2 epochs, saved with ELASTIC's fitness; for 6 and 12 members two
+    trainers restored by ``restore_elastic``, one running 2 fused epochs
+    (captured after the restore at the new N, the second a replay under
+    ``set_sync_debug_mode("error")``), the other the eager loop: equal
+    bit for bit (state, hypers, buffers, env states, strategy, last
+    fitness, lineage). Launches: the graph's captured launches times its
+    replays plus its warm-up's, and the eager loop's counts."""
+    from repro_torch.elastic import restore_elastic
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+
+    f, e = FUSED, ELASTIC
+    epoch, old_n = f["pbt_interval"], f["population"]
+    d = Path(root) / "fused"
+    t0 = time.perf_counter()
+    first = _fused_trainer("td3", "hopper2d", "pbt", num_envs=f["num_envs"],
+                           ckpt=d)
+    first.run_env_loop(2 * epoch, eval_every=f["eval_every"], fused=True)
+    first.report_fitness(torch.tensor(e["fitness"], device="cuda"))
+    save_s = first.save(blocking=True)
+    launches = _epoch_launches(first)
+    del first
+    out = {"save_s": save_s, "restored": {}}
+    for n in e["sizes"]:
+        want = _elastic_lineage(e["fitness"], n)
+        runs = {}
+        for kind in ("fused", "eager"):
+            tr = _fused_trainer("td3", "hopper2d", "pbt",
+                                num_envs=f["num_envs"],
+                                cfg=dict(f, population=n), ckpt=d)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step, lineage = restore_elastic(tr)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            if step != 2 * epoch - 1 or lineage.tolist() != want:
+                raise AssertionError(f"elastic fused {old_n} -> {n}: step "
+                                     f"{step}, lineage {lineage.tolist()} "
+                                     f"(want {want})")
+            reset_counts(pop_matmul, pop_adam)
+            hopper2d_step.launches = 0
+            lin, secs = [], []
+            for i in range(2):
+                t1 = time.perf_counter()
+                if kind == "fused" and i:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tr.run_env_loop(
+                        epoch, eval_every=f["eval_every"],
+                        fused=kind == "fused",
+                        on_iter=lambda it, m, s, fit, l: l is not None
+                        and lin.append(l))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t1)
+            counted = ({"pop_matmul": pop_matmul.launches,
+                        "pop_adam": pop_adam.launches,
+                        "hopper2d": hopper2d_step.launches}
+                       if kind == "eager" else _epoch_launches(tr))
+            runs[kind] = (tr, lin, {"restore_s": restore_s,
+                                    "epoch_s": secs, "launches": counted})
+        (fused, lin_f, row_f), (eager, lin_e, row_e) = (runs["fused"],
+                                                        runs["eager"])
+        checks = {
+            "state": _tree_err(eager.state, fused.state),
+            "hypers": _tree_err(eager.hypers, fused.hypers),
+            "buffers": _tree_err(eager.rollout.bufs, fused.rollout.bufs),
+            "env_states": _tree_err(eager.rollout.vstate,
+                                    fused.rollout.vstate),
+            "strategy": _tree_err(eager.strategy.export_state(),
+                                  fused.strategy.export_state()),
+            "last_fitness": _tree_err(eager.last_fitness,
+                                      fused.last_fitness),
+            "lineage": _tree_err(lin_e, lin_f)}
+        (fn,) = fused._epochs.values()
+        bitwise = all(c[0] for c in checks.values())
+        if not bitwise or len(lin_f) != 2 or fn.replays != 2 or \
+                row_f["launches"]["hopper2d"] == 0:
+            raise AssertionError(f"elastic fused {old_n} -> {n}: captured "
+                                 f"vs eager {checks}, {len(lin_f)} evolves, "
+                                 f"{fn.replays} replays, launches "
+                                 f"{row_f['launches']}")
+        for k, v in row_f["launches"].items():
+            launches[k] += v + row_e["launches"][k]
+        out["restored"][n] = {"lineage": want, "bitwise": True,
+                              "graph_nodes": fn.node_count(),
+                              "capture_s": fn.capture_seconds,
+                              "fused": row_f, "eager": row_e}
+        log(f"elastic fused TD3 hopper2d {old_n} -> {n}: lineage {want}; "
+            f"2 epochs captured after the restore == the eager loop bit for "
+            f"bit (state, hypers, buffers, env states, strategy, fitness, "
+            f"lineage); save {save_s:.3f} s, restore "
+            f"{row_f['restore_s']:.3f} s, epochs {row_f['epoch_s']} s fused "
+            f"(the first with warm-up and a capture of "
+            f"{fn.node_count()} nodes), {row_e['epoch_s']} s eager; "
+            f"launches fused {row_f['launches']}, eager "
+            f"{row_e['launches']}")
+        del runs, fused, eager
+    hopper2d_step.launches = 0
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _npz_arrays(path):
+    """The arrays of an uncompressed ``.npz`` (``np.savez``'s), each a
+    read-only memory map of its bytes in the file: read from the page
+    cache as they are used, without the zip reader's checksum pass (about
+    0.5 GB/s, half a minute for an LM checkpoint's main tree)."""
+    import struct
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        infos = z.infolist()
+    out = {}
+    with open(path, "rb") as f:
+        for info in infos:
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise AssertionError(f"{path}: {info.filename} compressed")
+            f.seek(info.header_offset)
+            header = f.read(30)
+            name_len, extra_len = struct.unpack("<HH", header[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            out[info.filename[:-len(".npy")]] = np.memmap(
+                path, dtype=dtype, mode="r", shape=shape, offset=f.tell(),
+                order="F" if fortran else "C")
+    return out
+
+
+def phase_elastic_lm(ckpt):
+    """qwen2-0.5b at full width, 2 layers: phase 40's step-2 checkpoint (N
+    = 4) resumed at 2 and at 6 members through the train CLI with
+    ``--resize auto`` and ``--steps`` at the checkpoint's (so the CLI
+    restores and returns): the lineage it prints, the host seconds of
+    ``restore_elastic`` and the peak of allocated memory; every row of
+    every leaf bit for bit against the checkpoint's, the flat (N, P)
+    buffers kept (the leaves their views); one ``pop_adam`` step on the
+    restored buffers held against its plain version at LM_RESUME_TOL;
+    then one step of the resumed trainer (one ``pop_adam`` launch at the
+    new N, in place, a finite loss). ``--resize strict`` refused."""
+    import repro_torch.elastic as elastic
+    from repro_torch.data import host_batches
+    from repro_torch.elastic import plan_resize
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.tree import flat_buffer, leaves
+
+    r = LM_RESUME
+    ckpt = Path(ckpt)
+    start = r["ckpt_every"]          # the step after the checkpoint's
+    step_dir = ckpt / f"step_{start - 1:010d}"
+    meta = json.loads((step_dir / "meta.json").read_text())["extra"]
+    saved = _npz_arrays(step_dir / "arrays.npz")
+    argv = ["--arch", r["arch"], "--num-layers", str(r["layers"]),
+            "--steps", str(start), "--pbt-interval", str(r["pbt_interval"]),
+            "--batch", str(r["batch"]), "--seq-len", str(r["seq_len"]),
+            "--ckpt-every", "0", "--seed", str(SEED), "--ckpt-dir",
+            str(ckpt)]
+    old_n = meta["size"]
+    t0 = time.perf_counter()
+    out = {"checkpoint_fitness": meta["fitness"], "restored": {}}
+    real = elastic.restore_elastic
+    timed = {}
+
+    def timed_restore(trainer, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        result = real(trainer, *args, **kwargs)
+        torch.cuda.synchronize()
+        timed.update(gather_s=time.perf_counter() - t1,
+                     allocated_before=before,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+        return result
+
+    for n in LM_ELASTIC_SIZES:
+        want = plan_resize(old_n, n, meta["fitness"])[1].tolist()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with mock.patch.object(elastic, "restore_elastic", timed_restore):
+            report, text = _cli_printed(lambda: train_main(
+                argv + ["--population", str(n), "--resize", "auto"]))
+        trainer = report.trainer
+        flats = (trainer.state.params, trainer.state.opt_state.mu,
+                 trainer.state.opt_state.nu)
+        printed = _printed_lineage(text, old_n, n)
+        if printed != want or trainer.step_count != start:
+            raise AssertionError(f"elastic LM {old_n} -> {n}: lineage "
+                                 f"{printed} (want {want}), step "
+                                 f"{trainer.step_count}")
+        t1 = time.perf_counter()
+        rows = 0
+        mine = leaves((trainer.state, trainer.strategy.export_state()))
+        if len(saved) != len(mine):
+            raise AssertionError(f"elastic LM: {len(saved)} leaves saved, "
+                                 f"{len(mine)} restored")
+        for i, leaf in enumerate(mine):
+            x = saved[f"leaf_{i}"]
+            if not (x.ndim and x.shape[0] == old_n):
+                raise AssertionError(f"elastic LM: leaf {i} has no member "
+                                     f"axis")
+            for j, p in enumerate(want):
+                if not torch.equal(leaf[j], torch.as_tensor(
+                        np.asarray(x[p]), device="cuda")):
+                    raise AssertionError(f"elastic LM {old_n} -> {n}: leaf "
+                                         f"{i} row {j} is not saved row "
+                                         f"{p}")
+                rows += 1
+        check_s = time.perf_counter() - t1
+        # the leaves are still views of one flat (N, P) buffer each, which
+        # the population step writes in place
+        params, mu, nu = (flat_buffer(t) for t in flats)
+        ptrs = [params.data_ptr(), mu.data_ptr(), nu.data_ptr()]
+        # one pop_adam step on the restored buffers against its plain
+        # version
+        p_cols = params.shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        grads = torch.empty_like(params)
+        for row in grads:
+            row.normal_(generator=gen)
+        lr = torch.full((n,), 3e-4, device="cuda")
+        worst, share = pop_adam_in_place_vs_plain(
+            (params, grads, mu, nu, lr, trainer.state.opt_state.step + 1),
+            {}, LM_RESUME_TOL, f"elastic LM {old_n} -> {n}")
+        del grads
+        # the resumed trainer trains on: the CLI's stream at its next step
+        stream = host_batches(trainer.agent.cfg.vocab_size, r["batch"] * n,
+                              r["seq_len"], seed=SEED, start_step=start)
+        batch = {"tokens": torch.from_numpy(next(stream)).to("cuda").reshape(
+            n, r["batch"], r["seq_len"])}
+        reset_counts(pop_adam)
+        metrics, _ = trainer.step(batch)
+        torch.cuda.synchronize()
+        loss = metrics["loss"].mean().item()
+        if pop_adam.launches != 1 or not np.isfinite(loss) or ptrs != [
+                flat_buffer(t).data_ptr() for t in flats]:
+            raise AssertionError(f"elastic LM {old_n} -> {n}: pop_adam "
+                                 f"{pop_adam.launches}, loss {loss}, or a "
+                                 f"flat buffer replaced")
+        out["restored"][n] = {
+            "lineage": want, "gather_s": timed["gather_s"],
+            "allocated_before_bytes": timed["allocated_before"],
+            "peak_bytes": timed["peak_bytes"], "rows_compared": rows,
+            "check_s": check_s, "pop_adam_max_abs_err": worst,
+            "pop_adam_max_err_over_tolerance": share,
+            "parameters_per_member": p_cols, "loss_after": loss,
+            "launches": {"pop_adam": pop_adam.launches}}
+        log(f"elastic LM {r['arch']} {r['layers']} layers {old_n} -> {n} "
+            f"through the CLI: lineage {want} (checkpoint fitness "
+            f"{meta['fitness']}); restore_elastic {timed['gather_s']:.3f} s "
+            f"on the host, allocated {timed['allocated_before'] / 1e9:.2f} "
+            f"GB before it (the new trainer) and at most "
+            f"{timed['peak_bytes'] / 1e9:.2f} GB during it; {rows} rows "
+            f"bit for bit, the flat buffers kept; pop_adam "
+            f"at ({n}, {p_cols}) on them == plain (max abs err "
+            f"{worst:.3g}, {share:.3g} of rtol=1e-4, atol=1e-6); one more "
+            f"step: 1 pop_adam launch in place, loss {loss:.4f}")
+        del report, trainer, flats, params, mu, nu, metrics, mine, leaf
+    del saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        train_main(argv + ["--population", str(LM_ELASTIC_SIZES[0])])
+    except ValueError as err:
+        refused = str(err)
+    else:
+        refused = ""
+    if "--resize auto" not in refused:
+        raise AssertionError(f"LM --resize strict at another size: "
+                             f"{refused!r}")
+    out["launches"] = {"pop_adam": sum(x["launches"]["pop_adam"]
+                                       for x in out["restored"].values())}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"elastic LM --resize strict at {LM_ELASTIC_SIZES[0]} members "
+        f"refused: {refused}; phase {out['seconds']:.1f} s; "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def phase_double_buffer():
+    """DoubleBuffer on the card: DOUBLE_BUFFER's batches (the LM train
+    phase's tokens and a float leaf) through it and used on the current
+    stream under ``set_sync_debug_mode("error")``: no host
+    synchronisation, and each batch equal to its host values."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DoubleBuffer, host_batches
+
+    b = DOUBLE_BUFFER
+    cfg = get_config(LM_TRAIN["arch"])
+    stream = host_batches(cfg.vocab_size, LM_TRAIN["population"]
+                          * LM_TRAIN["batch"], LM_TRAIN["seq_len"],
+                          seed=SEED)
+    rng = np.random.default_rng(SEED)
+    host = [{"tokens": next(stream),
+             "embeds": rng.standard_normal(b["floats"], dtype=np.float32)}
+            for _ in range(b["batches"])]
+    got, sums = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in DoubleBuffer(iter(host), device="cuda"):
+            got.append(batch)
+            sums.append(batch["embeds"].sum() + batch["tokens"].sum())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if len(got) != len(host):
+        raise AssertionError(f"DoubleBuffer: {len(got)} batches of "
+                             f"{len(host)}")
+    for i, (g, h) in enumerate(zip(got, host)):
+        if not all(x.device.type == "cuda" and
+                   np.array_equal(x.cpu().numpy(), h[k])
+                   for k, x in g.items()):
+            raise AssertionError(f"DoubleBuffer: batch {i} != its host "
+                                 f"values")
+    nbytes = sum(x.nbytes for h in host for x in h.values())
+    log(f"DoubleBuffer: {len(host)} batches ({nbytes / 1e6:.2f} MB: tokens "
+        f"{host[0]['tokens'].shape}, floats {b['floats']}) to the card "
+        f"under sync debug 'error' in {secs * 1e3:.2f} ms, each equal to "
+        f"its host values")
+    return {"batches": len(host), "bytes": nbytes, "seconds": secs}
+
+
+def accounting_line(lm_train):
+    """The LM train phase's model FLOPs a step (6 x active parameters x
+    tokens, ``models.accounting``) and their share of the card's dense
+    bf16 peak (its matmuls run in the config's bf16) at that phase's
+    vectorized step time."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models.accounting import active_param_count, model_flops
+
+    cfg = get_config(lm_train["arch"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} computes in {cfg.dtype}")
+    n = LM_TRAIN["population"]
+    shape = ShapeSpec("lm_train_step", LM_TRAIN["seq_len"],
+                      n * LM_TRAIN["batch"], "train")
+    flops = model_flops(cfg, shape)
+    step_ms = lm_train["vectorized_step_ms"]
+    rate = flops / (step_ms / 1e3)
+    out = {"arch": cfg.name, "active_parameters": active_param_count(cfg),
+           "tokens_per_step": shape.seq_len * shape.global_batch,
+           "model_flops_per_step": flops, "step_ms": step_ms,
+           "model_flops_per_s": rate, "peak_flops": PEAK_BF16_FLOPS,
+           "peak_dtype": "bf16", "share_of_peak": rate / PEAK_BF16_FLOPS,
+           "card": nvidia_smi_line()}
+    log(f"accounting: {cfg.name} LM train step (N={n}, "
+        f"{out['tokens_per_step']} tokens) is {flops:.4g} model FLOPs "
+        f"(6 x {out['active_parameters']} active parameters x tokens); at "
+        f"{step_ms:.1f} ms a step {rate / 1e12:.2f} TFLOP/s, "
+        f"{out['share_of_peak']:.4f} of the dense bf16 peak (989 TFLOP/s "
+        f"at 700 W); card {out['card']}")
+    return out
+
+
+def phase_examples():
+    """``repro_torch.examples.quickstart`` and ``.pbt_td3`` on the card,
+    their ``pop_matmul`` and ``pop_adam`` launches counted against what
+    their loops make."""
+    from repro_torch.examples import pbt_td3, quickstart
+    from repro_torch.tree import leaves
+
+    x = EXAMPLES
+    q_iters = x["quickstart_iters"]
+    tr, q_s, q_mm, _, q_adam = _run_counted(
+        lambda: quickstart.run(iters=q_iters, device="cuda"))
+    # an iteration: STEPS acting steps of 3 launches, one update step
+    want_q = {"pop_matmul": q_iters * (3 * quickstart.STEPS + 24),
+              "pop_adam": 2 * q_iters}
+    n, p_iters = x["pbt_td3_population"], x["pbt_td3_iters"]
+    best, p_s, p_mm, _, p_adam = _run_counted(
+        lambda: pbt_td3.run(population=n, iters=p_iters, device="cuda"))
+    # pbt_td3's shape: 32 acting steps and 64 updates an iteration (4
+    # envs fill its batch of 128 in the first), an evaluation every 2
+    want_p = {"pop_matmul": p_iters * (24 * 64 + 3 * 32)
+              + 3 * EVAL_STEPS * (p_iters // 2),
+              "pop_adam": p_iters * 2 * 64}
+    got_q = {"pop_matmul": q_mm, "pop_adam": q_adam}
+    got_p = {"pop_matmul": p_mm, "pop_adam": p_adam}
+    finite = all(torch.isfinite(v).all() for v in leaves(tr.state)
+                 if v.is_floating_point())
+    if got_q != want_q or got_p != want_p or not np.isfinite(best) or \
+            not finite:
+        raise AssertionError(f"examples: quickstart {got_q} (want "
+                             f"{want_q}), pbt_td3 {got_p} (want {want_p}), "
+                             f"best fitness {best}, finite {finite}")
+    log(f"examples: quickstart {q_iters} iterations in {q_s:.2f} s, "
+        f"launches {got_q}; pbt_td3 N={n} {p_iters} iterations in "
+        f"{p_s:.2f} s, best fitness {best:+.2f}, launches {got_p}")
+    return {"quickstart": {"seconds": q_s, "launches": got_q},
+            "pbt_td3": {"seconds": p_s, "best_fitness": best,
+                        "launches": got_p},
+            "launches": {k: got_q[k] + got_p[k] for k in got_q}}
 
 
 def main() -> int:
@@ -6011,6 +6687,8 @@ def main() -> int:
                                       for arch in MOE}
     fig2 = phase_fig2()
     lap("11-15 LM training, Fig. 2")
+    # the LM train phase's model FLOPs a step (slice 16's accounting)
+    slice16 = {"accounting": accounting_line(lm_train)}
 
     # 16. the shared-critic update, kernels vs plain; 17. its kernel
     # shapes; 18. CEM-RL and 19. DvD through the examples; 20. Fig. 4
@@ -6088,11 +6766,33 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt_root:
         slice15["resume_rl"] = phase_resume_rl(ckpt_root)
     lap("39 RL resume")
-    slice15["resume_lm"] = phase_resume_lm()
-    lap("40 LM resume")
-    slice15["sink"], sink_launches = phase_telemetry_sink()
-    lap("41 telemetry sink")
+    # phase 40's step-2 checkpoint stays in lm_root for phase 45
+    with tempfile.TemporaryDirectory() as lm_root, \
+            tempfile.TemporaryDirectory() as rl_root:
+        slice15["resume_lm"] = phase_resume_lm(Path(lm_root))
+        lap("40 LM resume")
+        slice15["sink"], sink_launches = phase_telemetry_sink()
+        lap("41 telemetry sink")
+
+        # 43. RL elastic resize, the trainer and the CLI; 44. the fused
+        # engine resized; 45. the LM resized, from phase 40's checkpoint;
+        # 46. DoubleBuffer; 47. the examples
+        gc.collect()
+        torch.cuda.empty_cache()
+        slice16["elastic_rl"] = phase_elastic_rl(rl_root)
+        lap("43 elastic RL")
+        slice16["elastic_fused"] = phase_elastic_fused(rl_root)
+        lap("44 elastic fused")
+        gc.collect()
+        torch.cuda.empty_cache()
+        slice16["elastic_lm"] = phase_elastic_lm(Path(lm_root) / "resumed")
+        lap("45 elastic LM")
+        shutil.rmtree(Path(lm_root) / "resumed")
+        slice16["double_buffer"] = phase_double_buffer()
+        slice16["examples"] = phase_examples()
+        lap("46-47 DoubleBuffer, examples")
     slice15["card"] = smi
+    slice16["card"] = smi
     log(f"seconds at the end of each group of phases: {seconds}")
     # a captured graph's launches are its captured launches times its
     # replays (plus the eager warm-up's before the capture)
@@ -6103,7 +6803,8 @@ def main() -> int:
         **{f"cli_{k}": r["launches"][name]
            for k, r in acting["cli"].items()},
         "resume_fused": slice15["resume_rl"]["fused"]["launches"][name],
-        "fused_sink": sink_launches[name]}
+        "fused_sink": sink_launches[name],
+        "elastic_fused": slice16["elastic_fused"]["launches"][name]}
     resume_cli = slice15["resume_rl"]["cli"]
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
@@ -6113,7 +6814,14 @@ def main() -> int:
                             **{f"ppo_{e}_train": ppo[e]["launches"][name]
                                for e in PPO},
                             **acting_paths(name),
-                            "resume_cli": resume_cli[name]}
+                            "resume_cli": resume_cli[name],
+                            "elastic_rl": slice16["elastic_rl"][
+                                "launches"][name],
+                            "elastic_rl_cli": sum(
+                                r["launches"][name] for r in
+                                slice16["elastic_rl"]["cli"].values()),
+                            "examples": slice16["examples"]["launches"][
+                                name]}
     sac_dqn_entry = lambda kernel: {
         a: {"work": sac_dqn["kernels"][a]["work"],
             **sac_dqn["kernels"][a][kernel],
@@ -6136,6 +6844,8 @@ def main() -> int:
                      for a, r in frontends["train"].items()},
                   "lm_cem": lm_cem["launches"]["pop_adam"],
                   "lm_resume": slice15["resume_lm"]["launches"][
+                      "pop_adam"],
+                  "elastic_lm": slice16["elastic_lm"]["launches"][
                       "pop_adam"]}
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
@@ -6411,6 +7121,7 @@ def main() -> int:
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"lm_cem": lm_cem}))
     print(json.dumps({"slice15": slice15}))
+    print(json.dumps({"slice16": slice16}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""``LMConfig``, ``HyperSpace``, ``PopulationConfig`` and ``TrainConfig``,
-copied from the JAX package's ``repro.configs.base`` (the port imports
-nothing of it).
+"""``LMConfig``, ``ShapeSpec`` (with ``LM_SHAPES`` and
+``applicable_shapes``), ``HyperSpace``, ``PopulationConfig`` and
+``TrainConfig``, copied from the JAX package's ``repro.configs.base``
+(the port imports nothing of it).
 
 ``LMConfig`` keeps the fields that the port's LM serving and training
 paths read, for the families it runs (dense attention, mixture of experts
@@ -84,6 +85,12 @@ class LMConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True iff long-context (500k) decode is supported: a recurrent
+        block's state does not grow with the sequence."""
+        return self.block_type in ("rwkv6", "mamba2")
+
     def replace(self, **kw) -> "LMConfig":
         return dataclasses.replace(self, **kw)
 
@@ -116,6 +123,29 @@ class LMConfig:
             kw["ssm_head_dim"] = 32
             kw["ssm_state"] = 16 if self.block_type == "mamba2" else 0
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: LMConfig) -> list[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        names.append("long_500k")
+    return names
 
 
 @dataclass(frozen=True)

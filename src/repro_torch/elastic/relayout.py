@@ -1,0 +1,126 @@
+"""Resume a checkpointed trainer at another population size
+(``repro.elastic.relayout``).
+
+Checkpoints hold host numpy trees, so an elastic resume is: restore ->
+resize the population -> write into the new trainer's tensors. The resize
+is PBT's mechanics (:mod:`repro_torch.elastic.resize`): a shrink drops the
+least fit members, a grow refills with clones of the fittest, and the
+attached engine's replay buffers and env states ride along, gathered by
+the same member map, so survivors keep their collected experience bit for
+bit. On one card there is no layout to plan: the members live on the
+trainer's device. The JAX package's ``relayout`` (placement by the
+sharding rules over a mesh) is not ported.
+
+    trainer = PopTrainer(agent, PopulationConfig(size=8, ...),
+                         checkpoint_dir=DIR)
+    trainer.attach_rollout(env)
+    trainer.run_env_loop(100)
+    trainer.save(blocking=True)
+    # ... restart with a smaller population:
+    trainer = PopTrainer(agent, PopulationConfig(size=6, ...),
+                         checkpoint_dir=DIR)
+    trainer.attach_rollout(env)
+    step, lineage = restore_elastic(trainer)   # worst 2 members dropped
+    trainer.run_env_loop(100)                  # training continues
+"""
+from __future__ import annotations
+
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.elastic.resize import plan_resize, resize_into, resize_tree
+from repro_torch.tree import copy_into, leaves
+
+
+def restore_elastic(trainer, directory=None, *, step=None):
+    """Restore ``trainer`` (and its attached engine, if any) from a
+    checkpoint written by a trainer of a possibly different population
+    size.
+
+    The trainer must be freshly built at the NEW size (``pcfg.size``),
+    with the checkpointed run's strategy and hyper space so the trees line
+    up. Returns ``(saved_step, lineage)``: ``lineage[i]`` is the
+    checkpointed member whose state member ``i`` now holds. Raises
+    ``FileNotFoundError`` when no checkpoint exists (callers deciding
+    between a fresh start and an elastic resume check
+    ``manager.peek_extra()`` first, as ``launch.train --resize auto``
+    does), ``ValueError`` when the trainer has no checkpoint directory and
+    none is given, and ``RuntimeError`` once a fused epoch was captured
+    (as :meth:`PopTrainer.resume`).
+
+    Every leaf is gathered from the loaded numpy tree into the trainer's
+    own tensors (the population state, the hypers, the engine's buffers
+    and env states), never rebinding them. The strategy's state is
+    restored unresized (it has no member axis), as in the JAX package.
+    The trainer's generator is restored from the ``rng`` aux tree, as
+    :meth:`PopTrainer.resume` restores it: the port draws every member's
+    numbers from that one generator where the JAX package carries a key a
+    member, so there are no keys to resize. The JAX package warms the
+    next iteration's compile on a thread during the restore; the port
+    compiles nothing but its kernels, which are cached, so there is
+    nothing to overlap. Kernel builds and graph captures inside are
+    labelled ``"resize"`` in the trainer's telemetry."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    if directory is not None:
+        if not Path(directory).is_dir():   # the manager would mkdir a
+            raise FileNotFoundError(       # typo'd path; stay read-only
+                f"restore_elastic: checkpoint directory {directory} does "
+                f"not exist")
+        mgr = CheckpointManager(directory)
+    elif trainer._mgr is not None:
+        mgr = trainer._mgr
+    else:
+        raise ValueError("restore_elastic: trainer has no checkpoint_dir; "
+                         "pass directory=")
+    step = mgr.latest() if step is None else step
+    if step is None:
+        raise FileNotFoundError(
+            f"restore_elastic: no checkpoint in {mgr.dir}; check "
+            f"manager.peek_extra() (None when empty) before calling, or "
+            f"start fresh")
+    trainer.refuse_after_capture("an elastic restore")
+
+    with trainer.telemetry.compile_scope("resize"):
+        (state, strat_state), extra = mgr.restore(
+            (trainer.state, trainer.strategy.export_state()), step)
+        old_n = extra.get("size")
+        if old_n is None:
+            old_n = leaves(trainer.agent.actor_params(state))[0].shape[0]
+        fitness = extra.get("fitness")
+        if old_n != trainer.n and fitness is None:
+            warnings.warn(
+                "restore_elastic: checkpoint has no fitness record; "
+                f"resizing {old_n} -> {trainer.n} by member index, not by "
+                f"fitness", stacklevel=2)
+        parents, lineage = plan_resize(old_n, trainer.n, fitness)
+
+        resize_into(trainer.state, state, old_n, parents)
+        del state
+        if trainer.hypers is not None:   # fresh hypers stay when the
+            hypers = mgr.restore_aux("hypers", trainer.hypers, step)
+            if hypers is not None:       # source run had none
+                resize_into(trainer.hypers, hypers, old_n, parents)
+        if strat_state is not None:
+            trainer.strategy.import_state(
+                copy_into(trainer.strategy.export_state(), strat_state))
+
+        if trainer._rollout is not None:
+            rstate = mgr.restore_aux("rollout",
+                                     trainer._rollout.export_state(), step)
+            if rstate is not None:
+                trainer._rollout.import_state(
+                    resize_tree(rstate, old_n, parents))
+                # an RL trainer step is one engine iteration
+                trainer._rollout.iterations = extra["step"] + 1
+        trainer.restore_generator(mgr, step)
+
+    trainer._window.clear()
+    trainer.step_count = extra["step"] + 1
+    trainer.last_fitness = None if fitness is None else torch.as_tensor(
+        np.asarray(fitness)[parents], dtype=torch.float32,
+        device=trainer.agent.device)
+    return extra["step"], lineage

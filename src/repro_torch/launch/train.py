@@ -87,16 +87,20 @@ latest checkpoint in ``--ckpt-dir``: the population, hypers, strategy
 state, the engine's buffers and env states and the generator's state, so
 the run goes on as if it had not stopped. RL then runs ``--steps`` more
 iterations; LM runs up to step ``--steps``, its token stream resumed at
-the next step. A checkpoint of another population size raises (elastic
-resume is not ported), and under ``--fused-epoch`` one that is not at an
-epoch's end raises. Checkpoints are written asynchronously. ``--resume
-none`` starts afresh (and its checkpoints replace the old ones as they
-come). ``--log-dir DIR`` writes the run's telemetry as
-``DIR/telemetry.jsonl`` (phase timers, per-member fitness and hypers,
-lineage, kernel builds and graph captures, checkpoint times), which
-``tools/report.py`` replays; ``--profile DIR`` writes a
-``torch.profiler`` Chrome trace of ``--profile-iters`` iterations after
-the first into DIR. Flags of the JAX training CLI whose subsystems are
+the next step. A checkpoint of another population size raises under
+``--resize strict`` (the default); ``--resize auto`` resumes it through
+``repro_torch.elastic.restore_elastic``: a shrink keeps the fittest
+members, a grow clones the fittest into the new slots, and the hypers,
+replay buffers and env states follow the same member map (the LM's token
+stream resumes with the new population's batch). Under ``--fused-epoch``
+a checkpoint that is not at an epoch's end raises. Checkpoints are
+written asynchronously. ``--resume none`` starts afresh (and its
+checkpoints replace the old ones as they come). ``--log-dir DIR``
+writes the run's telemetry as ``DIR/telemetry.jsonl`` (phase timers,
+per-member fitness and hypers, lineage, kernel builds and graph
+captures, checkpoint times), which ``tools/report.py`` replays;
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
+``--profile-iters`` iterations after the first into DIR. Flags of the JAX training CLI whose subsystems are
 not ported are refused, not accepted as no-ops.
 """
 from __future__ import annotations
@@ -111,9 +115,10 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 DEFAULT_EPOCHS = 4
 # flag -> why it is refused
 _REFUSED = {
-    "resize": "elastic resume is not ported yet",
-    "devices": "multi-device islands are not ported yet",
-    "model_axis": "model-sharded members are not ported yet",
+    "devices": "multi-device islands (the elastic island layouts over "
+               "several cards) are not ported yet",
+    "model_axis": "model-sharded members (the elastic island layouts over "
+                  "several cards) are not ported yet",
     "compile_cache": "the port compiles no programs to cache",
 }
 
@@ -147,6 +152,27 @@ def _finish(args, trainer, telemetry, **fields):
     telemetry.record("run_end", **fields, compiles=telemetry.compile_count,
                      compile_secs=round(telemetry.compile_secs, 3))
     telemetry.close()
+
+
+def _resume(args, trainer):
+    """``--resume auto``: the latest checkpoint, through
+    ``restore_elastic`` when ``--resize auto`` and its population size
+    differs from ``--population``, else ``trainer.resume()`` (which
+    raises on another size). Prints what it did; returns the restored
+    step or None."""
+    meta = trainer._mgr.peek_extra()
+    if args.resize == "auto" and meta is not None and \
+            meta["size"] != trainer.n:
+        from repro_torch.elastic import restore_elastic
+        resumed, lineage = restore_elastic(trainer)
+        print(f"[train] elastic resume from step {resumed}: population "
+              f"{meta['size']} -> {trainer.n}, lineage={lineage.tolist()}")
+        return resumed
+    resumed = trainer.resume()
+    if resumed is not None:
+        print(f"[train] resumed from step {resumed}" if args.arch else
+              f"[train] resumed at trainer step {trainer.step_count}")
+    return resumed
 
 
 def _run_lm(args) -> TrainReport:
@@ -183,9 +209,8 @@ def _run_lm(args) -> TrainReport:
     trainer.tokens_per_step = args.batch * args.seq_len
     start_step = 0
     if args.resume == "auto":
-        resumed = trainer.resume()
+        resumed = _resume(args, trainer)
         if resumed is not None:
-            print(f"[train] resumed from step {resumed}")
             start_step = resumed + 1
     stream = host_batches(cfg.vocab_size, args.batch * n, args.seq_len,
                           seed=args.seed, start_step=start_step)
@@ -258,8 +283,8 @@ def _run_rl(args) -> TrainReport:
                                    else args.epochs),
                            policy_lag=args.policy_lag,
                            chunk_steps=args.chunk_steps)
-    if args.resume == "auto" and trainer.resume() is not None:
-        print(f"[train] resumed at trainer step {trainer.step_count}")
+    if args.resume == "auto":
+        _resume(args, trainer)
     start = trainer.step_count
 
     t0 = time.time()
@@ -379,8 +404,15 @@ def main(argv=None):
                     "at that epoch's end")
     ap.add_argument("--resume", default="auto", choices=["auto", "none"],
                     help="auto: continue from the latest checkpoint in "
-                    "--ckpt-dir (same population size; under --fused-epoch "
-                    "one at an epoch's end); none: start afresh")
+                    "--ckpt-dir (another population size needs --resize "
+                    "auto; under --fused-epoch one at an epoch's end); "
+                    "none: start afresh")
+    ap.add_argument("--resize", default="strict",
+                    choices=["strict", "auto"],
+                    help="auto: resume a checkpoint whose population size "
+                    "differs from --population (the worst members "
+                    "dropped, or clones of the fittest refill); strict: "
+                    "such a checkpoint raises")
     ap.add_argument("--log-dir", default=None, metavar="DIR",
                     help="write the run's telemetry (phase timers, "
                     "per-member fitness and hypers, lineage, kernel builds "

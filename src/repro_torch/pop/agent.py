@@ -171,7 +171,10 @@ class LMAgent:
     population on one device, and different ones on the CPU and the card).
     Every parameter evolves under CEM, as in the JAX package; the CEM
     strategy samples and redraws the parameters' buffer in place
-    (``evolvable_buffer``).
+    (``evolvable_buffer``). A restore (``PopTrainer.resume``, or
+    ``repro_torch.elastic.restore_elastic`` at another population size)
+    writes the checkpoint's rows into the same buffers, so the leaves
+    stay their views and ``pop_adam`` steps them in place after it.
     """
 
     def __init__(self, cfg, tcfg, *, device=DEFAULT_DEVICE):

@@ -46,7 +46,9 @@ fitness window, which a checkpoint does not carry, is empty there).
 (``tree.copy_into``): an ``LMAgent``'s leaves stay views of its flat
 buffers, and a captured epoch's static inputs stay its inputs. It is
 refused once an epoch has been captured (the graph holds the generator's
-registration; restoring under it is not done).
+registration; restoring under it is not done). A checkpoint of another
+population size resumes through :func:`repro_torch.elastic.restore_elastic`
+(the worst members dropped, or the fittest cloned).
 
 ``telemetry`` (a :class:`repro_torch.telemetry.RunTelemetry`; a disabled
 one by default) gets the phases ``update``, ``iterate``, ``eval``,
@@ -475,6 +477,31 @@ class PopTrainer:
                                    blocking=blocking)
         return secs
 
+    def refuse_after_capture(self, what: str):
+        """Raise once a fused epoch was captured as a CUDA graph: the graph
+        holds the generator's registration, and restoring under it is not
+        done."""
+        if any(getattr(fn, "graph", None) is not None
+               for fn in self._epochs.values()):
+            raise RuntimeError(
+                f"{what} after a fused epoch was captured as a CUDA graph: "
+                f"the graph holds the generator's registration, and "
+                f"restoring under it is not supported; restore before the "
+                f"first fused epoch")
+
+    def restore_generator(self, mgr, step=None):
+        """Set the generator to the checkpoint's ``rng`` aux tree, when it
+        has one."""
+        mine = self.generator.get_state()
+        rng = mgr.restore_aux("rng", mine, step)
+        if rng is not None:
+            if rng.shape != tuple(mine.shape):
+                raise ValueError(
+                    f"the checkpoint's generator state has {rng.shape[0]} "
+                    f"bytes, this trainer's {mine.shape[0]}: it was written "
+                    f"on another device type")
+            self.generator.set_state(torch.from_numpy(rng))
+
     def resume(self):
         """Restore the latest checkpoint, if there is one: population
         state, hypers, strategy internals, the engine's buffers and env
@@ -482,16 +509,11 @@ class PopTrainer:
         the generator's state and the step; every leaf written into the
         trainer's own tensors. Returns the restored step (the one ``save``
         recorded) or None. The population size must be the checkpoint's:
-        elastic resume is not ported."""
+        a resume at another size goes through
+        :func:`repro_torch.elastic.restore_elastic`."""
         if self._mgr is None or self._mgr.latest() is None:
             return None
-        if any(getattr(fn, "graph", None) is not None
-               for fn in self._epochs.values()):
-            raise RuntimeError(
-                "resume after a fused epoch was captured as a CUDA graph: "
-                "the graph holds the generator's registration, and "
-                "restoring under it is not supported; resume before the "
-                "first fused epoch")
+        self.refuse_after_capture("resume")
         (state, strat_state), extra = self._mgr.restore(
             (self.state, self.strategy.export_state()))
         restored_n = leaves(self.agent.actor_params(state))[0].shape[0]
@@ -499,7 +521,9 @@ class PopTrainer:
             raise ValueError(
                 f"checkpoint holds a population of {restored_n} but the "
                 f"config says size={self.n}; resume with the original "
-                f"size (elastic resume, --resize, is not ported)")
+                f"size, or take the elastic resume: "
+                f"repro_torch.elastic.restore_elastic (launch.train: "
+                f"--resize auto)")
         copy_into(self.state, state)
         if self.hypers is not None:
             hypers = self._mgr.restore_aux("hypers", self.hypers)
@@ -515,15 +539,7 @@ class PopTrainer:
                 self._rollout.import_state(rstate)
                 # an RL trainer step is one engine iteration
                 self._rollout.iterations = extra["step"] + 1
-        mine = self.generator.get_state()
-        rng = self._mgr.restore_aux("rng", mine)
-        if rng is not None:
-            if rng.shape != tuple(mine.shape):
-                raise ValueError(
-                    f"the checkpoint's generator state has {rng.shape[0]} "
-                    f"bytes, this trainer's {mine.shape[0]}: it was written "
-                    f"on another device type")
-            self.generator.set_state(torch.from_numpy(rng))
+        self.restore_generator(self._mgr)
         self._window.clear()
         self.step_count = extra["step"] + 1
         return extra["step"]

@@ -39,8 +39,9 @@ can-sample gate, is known on the host before the epoch starts.
 carry the buffers and env states through a checkpoint (the trainer's
 ``rollout`` aux tree), every leaf population-first; the import writes
 into the engine's own tensors, which a captured epoch holds as its static
-inputs. Given an enabled ``telemetry``, the engine records its shape once
-as an ``engine`` row.
+inputs; a state of another population size is resized before the import
+(:func:`repro_torch.elastic.restore_elastic`). Given an enabled
+``telemetry``, the engine records its shape once as an ``engine`` row.
 """
 from __future__ import annotations
 
@@ -336,8 +337,9 @@ class RolloutEngine:
         n = leaves(state["bufs"])[0].shape[0]
         if n != self.n:
             raise ValueError(f"rollout state holds {n} members but the "
-                             f"engine was built for {self.n}; elastic "
-                             f"resize is not ported")
+                             f"engine was built for {self.n}; resize it "
+                             f"first (repro_torch.elastic.restore_elastic "
+                             f"does)")
         self.bufs, self.vstate = distinct((self.bufs, self.vstate))
         copy_into(self.export_state(), state)
 

@@ -154,6 +154,9 @@ class OverlapEngine(RolloutEngine):
         return super().export_state()
 
     def import_state(self, state):
+        """:meth:`RolloutEngine.import_state` (a state of this engine's
+        size: ``restore_elastic`` resizes it first), then no collect in
+        flight."""
         super().import_state(state)
         self._pending = None     # a restored run acts its prologue again
 

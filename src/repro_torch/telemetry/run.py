@@ -27,8 +27,10 @@ steady state shows as a recompile does.
 ``start_profile``/``stop_profile``/``tick_profile`` drive
 ``torch.profiler`` (CPU and, on the card, CUDA activities) and write a
 Chrome trace into the directory given. On the card a window opened
-minutes after the process's previous one can lose its first kernels:
-their timestamps fall before the window's start.
+minutes after the process's previous one can lose kernels: in the
+probe's runs its first 19 launches' kernels (each launch itself is in the
+trace), or all of a window shorter than that; a wait after the session's
+start, a synchronisation or a warm-up step do not help.
 :mod:`repro_torch.telemetry.window_probe` measures it.
 """
 from __future__ import annotations

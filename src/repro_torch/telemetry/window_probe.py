@@ -1,17 +1,47 @@
 """How many of a profile window's kernels reach its Chrome trace when the
-window opens minutes after the process's previous one, through
-:meth:`RunTelemetry.start_profile` as it is (arm ``profiler``) and after
-a throwaway session that records one small kernel (arm ``throwaway``, a
-candidate remedy).
+window opens minutes after the process's previous one.
 
     PYTHONPATH=src python -m repro_torch.telemetry.window_probe [--gap 230]
 
-Two processes run side by side, one an arm. Each profiles a window of
-``--iters`` small products at its start and another one ``--gap``
-seconds later, and prints one JSON line: ``{"arm", "early", "late",
-"gap_s"}``, ``early`` and ``late`` the kernels each window's trace
-holds. A trace that loses kernels has ``late`` below ``early``. Needs
-the card.
+One process an arm, all side by side. Each profiles a window of
+``--iters`` small products (3 launches each) at its start and another
+one ``--gap`` seconds later (``--gap`` x 2 for ``spread_long``), and
+prints one JSON line: ``{"arm", "early", "late", "gap_s"}``, ``early``
+and ``late`` each window's counts. A trace that loses kernels has
+``late["kernels"]`` below ``late["launches"]``. The arms:
+
+``profiler``
+    :meth:`RunTelemetry.start_profile` as it is, the window's launches
+    right after the session starts.
+``settle``
+    as ``profiler``, with a wait of ``SETTLE_S`` between the window's
+    start and its first launch.
+``sync_after``
+    as ``profiler``, with ``torch.cuda.synchronize()`` between the
+    window's start and its first launch.
+``warmup``
+    a ``torch.profiler`` schedule with one warm-up step (one small
+    kernel) before the active step that holds the window.
+``many``
+    as ``profiler``, with 64 products: whether the kernels lost are the
+    first few launches or the first milliseconds.
+``spread``, ``spread_long``
+    as ``profiler``, the window's products in bursts at ``SPREAD_S``
+    seconds after its start: which bursts the trace keeps says how long
+    after the session starts kernels begin to be recorded.
+``burst``
+    as ``profiler``, with ``BURST`` small launches (synchronised) between
+    the window's start and its first product: a candidate remedy if a
+    late session loses its first launches by count.
+
+Each window's counts (a ``burst`` window's include its burst's
+launches, which come first): ``launches`` (the runtime's launch events in
+the trace), ``kernels`` (kernel events), ``kept`` (for each launch in order,
+whether its kernel is in the trace, by correlation id), ``first_kept_ms``
+(the first kept launch's time after the window's first launch) and
+``lag_us`` (the least of kernel start minus its launch's start over the
+kept kernels; negative if the card's timestamps ran behind the host's).
+Needs the card.
 """
 from __future__ import annotations
 
@@ -25,44 +55,89 @@ from pathlib import Path
 
 import torch
 
-ARMS = ("profiler", "throwaway")
+ARMS = ("profiler", "settle", "sync_after", "warmup", "many", "spread",
+        "spread_long", "burst")
+SETTLE_S = 0.5
+BURST = 64
+SPREAD_S = (0.0, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1, 0.15, 0.2,
+            0.3, 0.5, 1.0)
 
 
-def _kernels(trace_dir) -> int:
-    return sum(e.get("cat") == "kernel"
-               for path in Path(trace_dir).glob("*.json")
-               for e in json.loads(path.read_text()).get("traceEvents", []))
+def _counts(trace_dir) -> dict:
+    """Launch and kernel events of the traces under ``trace_dir``."""
+    events = [e for path in Path(trace_dir).glob("*.json")
+              for e in json.loads(path.read_text()).get("traceEvents", [])]
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    kernels = {e.get("args", {}).get("correlation"): e for e in events
+               if e.get("cat") == "kernel"}
+    kept = [e.get("args", {}).get("correlation") in kernels
+            for e in launches]
+    lags = [kernels[e["args"]["correlation"]]["ts"] - e["ts"]
+            for e, k in zip(launches, kept) if k]
+    first = next((e["ts"] for e, k in zip(launches, kept) if k), None)
+    return {"launches": len(launches), "kernels": len(kernels),
+            "kept": kept, "lag_us": min(lags) if lags else None,
+            "first_kept_ms": (None if first is None
+                              else (first - launches[0]["ts"]) / 1e3)}
 
 
-def window(arm: str, iters: int) -> int:
-    """Profile ``iters`` products on the card through ``arm``; the
-    kernels the trace holds."""
-    from torch.profiler import ProfilerActivity, profile
+def _products(x, iters: int):
+    for _ in range(iters):
+        torch.relu_(x @ x)
+
+
+def window(arm: str, iters: int) -> dict:
+    """Profile ``iters`` products on the card through ``arm``; the trace's
+    counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.telemetry.run import RunTelemetry
 
     x = torch.ones(256, 256, device="cuda")
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
+        if arm == "warmup":
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1))
+            prof.start()
+            x.add_(0)
+            torch.cuda.synchronize()
+            prof.step()
+            _products(x, iters)
+            torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(str(Path(d) / "w.trace.json"))
+            return _counts(d)
         tel = RunTelemetry()
-        if arm == "throwaway":
-            one = torch.zeros(1, device="cuda")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]):
-                one.add_(1)
-                torch.cuda.synchronize()
         tel.start_profile(d)
-        for _ in range(iters):
-            torch.relu_(x @ x)
+        if arm == "settle":
+            time.sleep(SETTLE_S)
+        if arm == "sync_after":
+            torch.cuda.synchronize()
+        if arm == "burst":
+            one = torch.zeros(1, device="cuda")
+            for _ in range(BURST):
+                one.add_(1)
+            torch.cuda.synchronize()
+        if arm.startswith("spread"):
+            t0 = time.perf_counter()
+            for at in SPREAD_S:
+                time.sleep(max(0.0, at - (time.perf_counter() - t0)))
+                _products(x, iters)
+        else:
+            _products(x, 64 if arm == "many" else iters)
         torch.cuda.synchronize()
         tel.stop_profile()
-        return _kernels(d)
+        return _counts(d)
 
 
 def run_arm(arm: str, gap: float, iters: int) -> dict:
     early = window(arm, iters)
     t0 = time.perf_counter()
-    time.sleep(gap)
+    time.sleep(2 * gap if arm == "spread_long" else gap)
     late = window(arm, iters)
     return {"arm": arm, "early": early, "late": late,
             "gap_s": time.perf_counter() - t0}
@@ -73,21 +148,22 @@ def main(argv=None) -> int:
     ap.add_argument("--gap", type=float, default=230.0,
                     help="seconds between a process's two windows")
     ap.add_argument("--iters", type=int, default=3,
-                    help="products in a window")
-    ap.add_argument("--arm", choices=ARMS,
-                    help="run this arm alone (default: both, side by side)")
+                    help="products in a window (a burst, for spread)")
+    ap.add_argument("--arm", choices=ARMS, action="append",
+                    help="run this arm (repeatable; default: all, side by "
+                    "side)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("window_probe needs the card", file=sys.stderr)
         return 2
-    if args.arm:
-        print(json.dumps(run_arm(args.arm, args.gap, args.iters)),
+    if args.arm and len(args.arm) == 1:
+        print(json.dumps(run_arm(args.arm[0], args.gap, args.iters)),
               flush=True)
         return 0
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.telemetry.window_probe",
          "--arm", arm, "--gap", str(args.gap), "--iters", str(args.iters)])
-        for arm in ARMS]
+        for arm in (args.arm or ARMS)]
     return max(p.wait() for p in procs)
 
 

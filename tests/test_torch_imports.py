@@ -73,7 +73,11 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.envs.hopper2d", "repro_torch.kernels.hopper2d",
                  "repro_torch.rollout.graph", "repro_torch.rollout.overlap",
                  "repro_torch.telemetry.run", "repro_torch.telemetry.sink",
-                 "repro_torch.telemetry.latency"):
+                 "repro_torch.telemetry.latency",
+                 "repro_torch.elastic.resize", "repro_torch.elastic.relayout",
+                 "repro_torch.data.prefetch", "repro_torch.models.accounting",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.pbt_td3"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

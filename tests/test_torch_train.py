@@ -226,17 +226,18 @@ _REFUSED_CASES = (
     ("log_dir", None, "telemetry.jsonl"),
     ("model_axis", NotImplementedError, "not supported by the port"),
     ("profile", None, ".trace.json"),
-    ("resize", NotImplementedError, "not supported by the port"),
+    ("resize", SystemExit, "invalid choice: '1'"),
     ("resume", SystemExit, "invalid choice: '1'"),
 )
 
 
 def test_refused_cases_cover_every_refused_flag():
     """Every flag still refused has its case; the flags this CLI now takes
-    (``--log-dir``, ``--profile``, ``--resume auto|none``) keep theirs."""
+    (``--log-dir``, ``--profile``, ``--resume auto|none``, ``--resize
+    strict|auto``) keep theirs."""
     assert sorted(f for f, _, _ in _REFUSED_CASES
                   if f not in ("arch", "epochs", "log_dir", "profile",
-                               "resume")) == sorted(_REFUSED)
+                               "resize", "resume")) == sorted(_REFUSED)
 
 
 @pytest.mark.parametrize("flag, error, match", _REFUSED_CASES,
@@ -246,8 +247,9 @@ def test_train_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch,
     """A refused flag raises; ``[log_dir]`` and ``[profile]``, refused
     until checkpoint resume and telemetry were ported, now hold that the
     run writes the log and the Chrome trace into the directory named;
-    ``[resume]`` that a value outside ``auto|none`` is refused by
-    argparse, as the JAX CLI's choices refuse it."""
+    ``[resume]`` and ``[resize]`` (refused until elastic resize was
+    ported) that a value outside ``auto|none`` or ``strict|auto`` is
+    refused by argparse, as the JAX CLI's choices refuse it."""
     monkeypatch.chdir(tmp_path)
     argv = SMALL + ["--ckpt-dir", str(tmp_path / "ck"), "--device", "cpu",
                     "--" + flag.replace("_", "-"), "1"]
