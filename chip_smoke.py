@@ -223,12 +223,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                 cartpole ``vote``), 3 ``pop_matmul`` launches a batch,
                 answers against the plain ensemble;
  30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 45 s;
- 31. hopper2d — the step kernel against its plain version at 8 members x
-                4,096 envs, from states 50 random-action steps in (the
-                count with a contact active logged), actions uniform in
-                [-1.2, 1.2]: one step and three chained at rtol=atol=2e-4,
-                then timed by graph replay beside the plain version and
-                its byte bound;
+ 31. hopper2d — its two kernels against their plain versions at 8
+                members x 4,096 envs, from states 50 random-action steps
+                in (the count with a contact active logged), actions
+                uniform in [-1.2, 1.2]: the raw step, one step and three
+                chained at rtol=atol=2e-4; the vector env's whole step
+                (time limit, auto-reset, accounting), one step and three
+                chained from a state with every fifth env at t = 399 and
+                every seventh torso fallen, every output equal to the bit
+                but those named (at rtol=atol=2e-4); each timed by graph
+                replay beside its plain version and its byte bound; then
+                what limits them (registers, threads an env, occupancy,
+                stack frame and spills from ptxas, LDL/STL from the SASS)
+                and their times, and ``VecEnv.step``'s on its route and on
+                the generic path, at 2,048, 8,192, 32,768 and 524,288
+                envs, beside the kernel's before its redesign;
  32. fused epochs — ``run_env_loop(fused=True)``, one captured CUDA graph
                 an epoch, against the eager loop from the same seed: TD3,
                 SAC and PPO on hopper2d and DQN on cartpole with PBT, TD3
@@ -237,7 +246,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 under ``set_sync_debug_mode("error")``: state, hypers,
                 buffers, env states, strategy state, fitness and lineage
                 (bit for bit or not, logged), each capture's node count,
-                capture time and private pool;
+                capture time and private pool. Here and in phases 33,
+                34, 39, 41 and 44 every hopper2d launch of a ``VecEnv``
+                path must take the vector step's route (one launch a
+                step: the wrapper's count by route), and each fused
+                phase logs its graphs' node counts;
  33. acting engine — TD3 on hopper2d at 256, 1,024 and 4,096 envs a
                 member (N = 8, 4 acting steps, 2 updates of B = 64, K = 8
                 iterations with a host read each, median of 5 rounds with
@@ -308,16 +321,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                 replayed under ``set_sync_debug_mode("error")`` with the
                 sink and without one: ms per iteration of each, and the
                 logged metrics equal to the returned ones;
- 42. serve telemetry (run after phases 7 and 10, early in the process:
-                a profile window opened minutes after the process's
-                previous one loses kernels, ROADMAP §3 fault 8) — the RL
-                serve CLI on phase 6's checkpoint and the LM serve CLI
+ 42. serve telemetry — the RL serve CLI on phase 6's checkpoint and the LM serve CLI
                 (qwen2-0.5b at full size) with ``--log-dir`` and ``--profile``: every
                 row schema-valid (the port's copy of the JAX row schema,
                 which ``tools/report.py --check`` applies; the tool
                 itself imports the JAX package), the serve rows' p50
                 beside a run without telemetry, and a Chrome trace that
-                holds every kernel launch of its window;
+                holds every kernel launch of its window (a session opened
+                minutes after the process's previous one loses its first
+                launches' kernels, ROADMAP §3 fault 8: ``start_profile``
+                and ``stop_profile`` give it throwaway launches to lose);
  43. RL elastic — TD3 on pendulum at N = 8 (B = 256) saved with a fitness
                 the phase sets, restored at 6 and at 12 members by
                 ``restore_elastic``: the lineage computed from that
@@ -485,7 +498,8 @@ LM_HYPER_SPACE = dict(log_uniform=(("lr_scale", 0.1, 10.0),
 # the port's slice that last redesigned each kernel (PERF.md keeps their
 # times before it)
 REDESIGNED_IN = {"pop_matmul": "slice 5", "flash_attention": "slice 5",
-                 "ssd": "slice 6", "wkv6": "slice 7"}
+                 "ssd": "slice 6", "wkv6": "slice 7",
+                 "hopper2d": "slice 17"}
 # the backward check of the LM parity phase: gradients of mean(logits * w)
 # through lm.forward at .smoke() width, card (plain nn forms, cuBLAS)
 # against CPU: fp32 sums in other orders through up to 8 layers and back;
@@ -590,12 +604,25 @@ GAE_TOL = dict(rtol=1e-5, atol=1e-6)
 # vectorized update step
 FIG2_ARMS = {"sac": dict(limit_s=75.0, launches=(24, 3)),
              "ppo": dict(limit_s=45.0, launches=(6, 1))}
-# slice 13, the acting engine. hopper2d's kernel against its plain version
-# at 8 members x 4,096 envs, from states 50 random-action steps in, with
+# slice 13, the acting engine. hopper2d's kernels against their plain
+# versions at 8 members x 4,096 envs, from states 50 random-action steps in, with
 # actions past the [-1, 1] clip, at the tolerance at which the JAX package
 # holds its own step to the float64 oracle
 HOPPER2D_KERNEL = dict(members=8, envs=4096, warm_steps=50,
-                       action_limit=1.2, scale=(1, 4, 16))
+                       action_limit=1.2)
+# what limits it: its time at the acting engine's 256, 1,024 and 4,096
+# envs a member (N = 8) and at 16 times the largest (524,288 envs)
+HOPPER2D_SIZES = (256, 1024, 4096, 65536)
+# the kernel before its redesign (one thread an env, the tables in
+# __constant__ memory, the VecEnv step's tail as tensor code): its ptxas
+# figures, its SASS's local-memory instructions, and the raw step's and
+# VecEnv.step's us by graph replay at 8 x HOPPER2D_SIZES envs, from
+# hopper2d_limits on an NVIDIA H100 80GB HBM3 at 700 W
+HOPPER2D_BEFORE = dict(
+    registers=62, stack_frame_bytes=208, ldl_stl=231,
+    raw_us={2048: 13.118, 8192: 13.571, 32768: 27.924, 524288: 340.365},
+    generic_step_us={2048: 96.295, 8192: 101.984, 32768: 134.407,
+                     524288: 765.672})
 HOPPER2D_TOL = dict(rtol=2e-4, atol=2e-4)
 # one env of one launch: 27 float32 read (pose, velocities, action), 36
 # float32 and a bool written (pose, velocities, observation, reward,
@@ -605,6 +632,12 @@ HOPPER2D_TOL = dict(rtol=2e-4, atol=2e-4)
 # and 38 outside the substeps (clip, inertias, observation, reward,
 # termination)
 HOPPER2D_BYTES = 27 * 4 + 36 * 4 + 1
+# one env of the vector env's whole step (``hopper2d_vec_step``): read the
+# state (24 floats and t), the action (3), the reset draws (12) and the 6
+# accounting values; write the state and t, the observation after and
+# before the reset (22), the reward and the transition's two flags as
+# floats, done and truncated as bytes, and the 6 accounting values
+HOPPER2D_VEC_BYTES = (25 + 3 + 12 + 6) * 4 + (25 + 22 + 3 + 6) * 4 + 2
 HOPPER2D_OPS = 5 * 396 + 38
 # the fused epoch, captured vs eager: PBT at the repo's width, N = 8, 256
 # envs a member, 2 epochs of pbt_interval 4 with eval_every 2; the JAX
@@ -684,9 +717,7 @@ LM_RESUME_TOL = dict(rtol=1e-4, atol=1e-6)
 # this many rounds of each, alternating
 SINK = dict(rounds=5)
 # the RL serve CLI with telemetry: the profiler's window in request
-# batches (a window opened minutes after the process's previous one
-# loses its first kernels, ROADMAP §3 fault 8: phase 42 runs early, and
-# a longer window than the CLI's default 3 leaves it more margin)
+# batches
 SERVE_TELEMETRY = dict(profile_iters=16)
 # slice 16: elastic population resize. TD3 on pendulum at the repo's width
 # (N = 8, B = 256, RESUME_CLI's collect and update shape, no evolve),
@@ -728,6 +759,31 @@ def reset_counts(*wrappers):
             fn.launches_by_route[route] = 0
 
 
+def hopper2d_counts():
+    """hopper2d's launches, all routes, and those of the vector env's
+    one-launch route."""
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    return {"hopper2d": hopper2d_step.launches,
+            "hopper2d_vec": hopper2d_step.launches_by_route["vec"]}
+
+
+def reset_hopper2d_counts():
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    hopper2d_step.launches = 0
+    hopper2d_step.launches_by_route = dict.fromkeys(
+        hopper2d_step.launches_by_route, 0)
+
+
+def expect_vec_route(what, launches):
+    """A VecEnv path on hopper2d: launched hopper2d, every launch on the
+    vector env's route (none on the raw step and the generic tail)."""
+    if not launches["hopper2d"] or \
+            launches["hopper2d_vec"] != launches["hopper2d"]:
+        raise AssertionError(f"{what}: {launches['hopper2d']} hopper2d "
+                             f"launches, {launches['hopper2d_vec']} of them "
+                             f"on the vec route")
+
+
 def pop_matmul_routes(n, bsz, layers):
     """Launches of each pop_matmul route for ``layers`` of (K, M, count),
     by the wrapper's own rule."""
@@ -748,8 +804,8 @@ def added(*routes):
 
 
 def ptxas_figures(report):
-    """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    ``-Xptxas -v`` lines of one nvcc build."""
+    """{kernel: (registers, spill store bytes, spill load bytes, stack
+    frame bytes)} from the ``-Xptxas -v`` lines of one nvcc build."""
     out, entry, props, spills = {}, None, None, {}
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -760,14 +816,15 @@ def ptxas_figures(report):
         if m:
             props = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and entry and props in (None, entry):
-            spills[entry] = (int(m.group(1)), int(m.group(2)))
+            spills[entry] = (int(m.group(2)), int(m.group(3)),
+                             int(m.group(1)))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            out[entry] = (int(m.group(1)),) + spills.get(entry, (0, 0))
+            out[entry] = (int(m.group(1)),) + spills.get(entry, (0, 0, 0))
     return out
 
 
@@ -787,9 +844,9 @@ def kernel_labels(mangled):
             for m, d in zip(names, out)}
 
 
-def sass_hmma_counts(library):
-    """{kernel: count of HMMA (tensor-core) instructions} in a built
-    library's SASS, read with the toolkit's cuobjdump."""
+def sass_counts(library, pattern):
+    """{kernel: count of the instructions matching ``pattern``} in a
+    built library's SASS, read with the toolkit's cuobjdump."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
@@ -798,16 +855,24 @@ def sass_hmma_counts(library):
                           timeout=300).stdout
     counts = {}
     for chunk in sass.split("Function : ")[1:]:
-        counts[chunk.split("\n", 1)[0].strip()] = chunk.count("HMMA")
+        counts[chunk.split("\n", 1)[0].strip()] = len(
+            re.findall(pattern, chunk))
     return counts
 
 
+def sass_hmma_counts(library):
+    """{kernel: count of HMMA (tensor-core) instructions} in a built
+    library's SASS."""
+    return sass_counts(library, r"HMMA")
+
+
 # ------------------------------------------------------------------ timing
-def graph_ms(fn, reps: int = 50, iters: int = 20) -> float:
+def graph_ms(fn, reps: int = 50, iters: int = 20, generator=None) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured into one
     CUDA graph, replayed ``iters`` times between CUDA events. Host launch
     overhead is left out; inputs stay in L2, as the serving path's
-    weights do between batches."""
+    weights do between batches. A CUDA ``generator`` that ``fn`` draws
+    from is registered with the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -815,6 +880,8 @@ def graph_ms(fn, reps: int = 50, iters: int = 20) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
@@ -1677,23 +1744,14 @@ def _sync_ms(fn, reps: int = 3) -> float:
 
 def device_busy_share(fn):
     """(busy share, device ms, wall ms) of one synchronised ``fn()`` call:
-    the summed duration of the device's kernels (torch.profiler's CUPTI
-    trace) over the wall time. The share is None when the trace shows no
-    device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    share = busy_us / (wall * 1e6) if busy_us > 0 else None
-    return share, busy_us / 1e3, wall * 1e3
+    the summed duration of the device's work (torch.profiler's CUPTI
+    trace, _kernel_events) over the wall time. The share is None when the
+    trace shows no device activity or lost some of the window's
+    kernels."""
+    wall, events, (kept, n) = _kernel_events(fn)
+    busy_us = sum(end - start for _, start, end, _ in events)
+    share = busy_us / (wall * 1e3) if busy_us > 0 and kept == n else None
+    return share, busy_us / 1e3, wall
 
 
 def phase_train(ckpt_dir):
@@ -2330,25 +2388,15 @@ def lm_backward_check():
 
 def _profile_step(step):
     """(device busy ms, wall ms, top kernels by device time) of one
-    synchronised ``step()`` under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (sum(by_name.values()) / 1e3, wall * 1e3,
-            [(name[:60], us / 1e3) for name, us in top])
+    synchronised ``step()`` under torch.profiler (_kernel_events; busy
+    None when the window lost kernels)."""
+    wall, events, (kept, n) = _kernel_events(step)
+    by_name = collections.Counter()
+    for _, start, end, name in events:
+        by_name[name] += end - start
+    top = by_name.most_common(6)
+    busy = sum(by_name.values()) / 1e3 if kept == n else None
+    return busy, wall, [(name[:60], us / 1e3) for name, us in top]
 
 
 def phase_lm_serve():
@@ -2437,8 +2485,10 @@ def phase_lm_serve():
                 ("decode", lambda: step(params, token, state, s))):
             busy, wall, top = _profile_step(fn)
             prof[phase] = {"busy_ms": busy, "wall_ms": wall, "top": top}
-            log(f"serve {arch} {phase}: device busy {busy:.3f} ms of "
-                f"{wall:.3f} ms profiled ({busy / wall:.4f}); top kernels "
+            log(f"serve {arch} {phase}: device busy "
+                + ("not measured" if busy is None else
+                   f"{busy:.3f} ms of {wall:.3f} ms profiled "
+                   f"({busy / wall:.4f})") + "; top kernels "
                 + ", ".join(f"{n} {ms:.3f} ms" for n, ms in
                             top[:6 if arch in MOE else 4]))
         # the cold and warm runs' and the profile's peak: one copy of the
@@ -4449,27 +4499,125 @@ def _shape_leaves(tree):
 
 
 # ------------------------------------------------- slice 13: acting engine
-def hopper2d_bound(num):
+def hopper2d_bound(num, vec=False):
     """Least time (ms) and what bounds one hopper2d launch over ``num``
     envs: HOPPER2D_BYTES an env (27 floats read, 36 floats and a byte
-    written) at the card's memory rate, against HOPPER2D_OPS an env at the
-    fp32 rate."""
-    t_bytes = num * HOPPER2D_BYTES / PEAK_BYTES_PER_S * 1e3
+    written; HOPPER2D_VEC_BYTES for the vector env's whole step) at the
+    card's memory rate, against HOPPER2D_OPS an env at the fp32 rate."""
+    nbytes = HOPPER2D_VEC_BYTES if vec else HOPPER2D_BYTES
+    t_bytes = num * nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = num * HOPPER2D_OPS / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def phase_hopper2d_kernel():
-    """hopper2d's kernel against its plain version at N = 8 members x
-    4,096 envs, from states 50 random-action steps in (contacts active),
-    with actions past the clip: one step and three chained, then timed
-    by graph replay beside the plain version and its bound; then its
-    limiter: the occupancy it can reach and its time at 4x and 16x the
-    envs."""
+def _rows_to(t, num):
+    """``t``'s first ``num`` rows, or ``t`` repeated to ``num`` rows."""
+    if num > t.shape[0]:
+        t = t.repeat((-(-num // t.shape[0]),) + (1,) * (t.ndim - 1))
+    return t[:num].contiguous()
+
+
+def hopper2d_limits(state, action, gen, figures):
+    """What limits hopper2d's kernels: from ptxas (``figures``, {label:
+    {registers, spills, stack frame}}) and the SASS (LDL/STL: local
+    memory), the occupancy a launch can reach, and the time by graph
+    replay at HOPPER2D_SIZES (envs a member, N members) of the raw step
+    kernel, of ``VecEnv.step`` on hopper2d, and of ``VecEnv.step`` on the
+    generic path (the raw step, then the time limit, auto-reset and
+    accounting as tensor code), each beside its bound."""
+    import dataclasses
+
     from repro_torch.envs import make
-    from repro_torch.envs.hopper2d import hopper2d_step_plain
-    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hopper2d import (hopper2d_step,
+                                              hopper2d_vec_step, kernel_info)
+    from repro_torch.rollout.vecenv import VecEnv, VecEnvState
+
+    n = HOPPER2D_KERNEL["members"]
+    env = make("hopper2d")
+    generic = dataclasses.replace(env, vec_step=None)
+    local = sass_counts(build.library_path("hopper2d"),
+                        r"\b(?:LDL|STL)\b")
+    labels = kernel_labels(list(local))
+    out = {"kernels": {}, "sizes": {}}
+    for mangled, count in local.items():
+        name = labels[mangled]
+        route = "vec" if "vec" in name else "raw"
+        info = kernel_info(route)
+        info.update(figures.get(name, {}), ldl_stl=count)
+        out["kernels"][route] = info
+    props = torch.cuda.get_device_properties(0)
+    slots = props.multi_processor_count * props.max_threads_per_multi_processor
+    for e in HOPPER2D_SIZES:
+        num = n * e
+        x = [_rows_to(state[k], num) for k in ("pos", "th", "vel", "om")]
+        a = _rows_to(action, num)
+        vs = VecEnvState(
+            env_state={k: _rows_to(state[k], num).reshape(
+                (n, e) + tuple(state[k].shape[1:])) for k in state},
+            obs=torch.zeros((n, e, 11), device="cuda"),
+            **{f: torch.zeros((n, e), device="cuda", dtype=dt) for f, dt in (
+                ("episode_return", torch.float32),
+                ("episode_length", torch.int32),
+                ("completed_episodes", torch.int32),
+                ("completed_return_sum", torch.float32),
+                ("completed_length_sum", torch.int32),
+                ("last_episode_return", torch.float32))})
+        acts = a.reshape(n, e, 3)
+        v_in, draws, accounts = _hopper2d_vec_inputs(state, gen, num)
+        row = {"raw_ms": graph_ms(lambda: hopper2d_step(*x, a)),
+               "raw_bound_ms": hopper2d_bound(num)[0],
+               "vec_ms": graph_ms(lambda: hopper2d_vec_step(
+                   *v_in, a, *draws, accounts, 400)),
+               "vec_bound_ms": hopper2d_bound(num, vec=True)[0]}
+        for arm, which in (("step_ms", env), ("generic_step_ms", generic)):
+            venv = VecEnv(which, e)
+            row[arm] = graph_ms(lambda: venv.step(vs, acts, gen),
+                                reps=10, iters=10, generator=gen)
+        row["thread_slots_filled"] = {
+            r: min(1.0, num * info.get("threads_per_env", 1) / slots)
+            for r, info in out["kernels"].items()}
+        out["sizes"][num] = row
+        del x, a, vs, acts, v_in, draws, accounts
+    return out
+
+
+def _hopper2d_vec_inputs(state, gen, num):
+    """The vector env's step inputs at ``num`` envs from ``state``: every
+    fifth env at t = 399 (a time limit this step), every seventh torso at
+    z = 0.5 (fallen), accounting tensors of random values, draws from
+    ``gen``."""
+    from repro_torch.envs.hopper2d import reset_draws
+
+    x = [_rows_to(state[k], num).clone() for k in ("pos", "th", "vel", "om",
+                                                   "t")]
+    x[4][::5] = 399
+    x[0][::7, 0, 1] = 0.5
+    r = torch.randn((3, num), generator=gen, device="cuda")
+    i = torch.randint(0, 400, (3, num), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    accounts = (r[0], i[0], i[1], r[1], i[2], r[2])
+    return x, reset_draws(gen, num, "cuda"), accounts
+
+
+def phase_hopper2d_kernel(figures):
+    """hopper2d's kernels against their plain versions at N = 8 members x
+    4,096 envs, from states 50 random-action steps in (contacts active),
+    with actions past the clip: the raw step, one step and three chained;
+    the vector env's whole step, one step and three chained from
+    _hopper2d_vec_inputs' state (time limits and falls), every output
+    compared: equal to the bit but the named ones, which are held at
+    rtol=atol=2e-4. Each timed by graph replay beside its plain version
+    and its bound; then what limits them (hopper2d_limits, ``figures``
+    its ptxas figures) at HOPPER2D_SIZES, beside the parent kernel's
+    (HOPPER2D_BEFORE)."""
+    from repro_torch.envs import make
+    from repro_torch.envs.hopper2d import (CONTACTS, hopper2d_step_plain,
+                                           hopper2d_vec_step_plain,
+                                           reset_draws)
+    from repro_torch.kernels.hopper2d import (ACCOUNTS, hopper2d_step,
+                                              hopper2d_vec_step)
 
     h = HOPPER2D_KERNEL
     num = h["members"] * h["envs"]
@@ -4486,14 +4634,13 @@ def phase_hopper2d_kernel():
         - lim
     # a contact is active where a candidate point is below the ground:
     # the foot's two ends, the leg's bottom, the torso's two ends
-    from repro_torch.envs.hopper2d import CONTACTS
     z = []
     for b, (ox, oz) in CONTACTS:
         th = state["th"][:, b]
         z.append(state["pos"][:, b, 1] + torch.sin(th) * ox
                  + torch.cos(th) * oz)
     in_contact = int((torch.stack(z, -1) < 0).any(-1).sum())
-    hopper2d_step.launches = 0
+    reset_hopper2d_counts()
     worst = share = 0.0
     got, want = x, x
     for n_steps in (1, 2, 3):
@@ -4509,61 +4656,102 @@ def phase_hopper2d_kernel():
             worst = max(worst, (g - w).abs().max().item())
             share = max(share, tol_share(g, w, HOPPER2D_TOL))
         if n_steps in (1, 3):
-            log(f"hopper2d: {n_steps} step(s) at {num} envs, max abs err "
-                f"{worst:.3g}, {share:.3g} of the tolerance")
+            log(f"hopper2d raw step: {n_steps} step(s) at {num} envs, max "
+                f"abs err {worst:.3g}, {share:.3g} of the tolerance")
+    # the vector env's step, every output, chained
+    names = ("pos", "th", "vel", "om", "t", "obs", "terminal_obs", "reward",
+             "done", "truncated", "done_f", "truncated_f", *ACCOUNTS)
+    v_in, (u_pos, u_th), accounts = _hopper2d_vec_inputs(state, gen, num)
+    got = want = (*v_in, accounts)
+    off_bit, ends = set(), {}
+    for n_steps in (1, 2, 3):
+        draws = reset_draws(gen, num, "cuda")
+        got = hopper2d_vec_step(*got[:5], action, *draws, got[-1], 400)
+        want = hopper2d_vec_step_plain(*want[:5], action, *draws, want[-1],
+                                       400)
+        torch.cuda.synchronize()
+        for name, g, w in zip(names, (*got[:-1], *got[-1]),
+                              (*want[:-1], *want[-1])):
+            if torch.equal(g, w):
+                continue
+            if not g.is_floating_point():
+                raise AssertionError(f"hopper2d vec step: {name} differs "
+                                     f"after {n_steps} steps")
+            off_bit.add(name)
+            worst = max(worst, (g - w).abs().max().item())
+            share = max(share, tol_share(g, w, HOPPER2D_TOL))
+        if n_steps == 1:
+            ends = {"done": int(want[8].sum()),
+                    "truncated": int(want[9].sum())}
+    off_bit = [n for n in names if n in off_bit]
+    log(f"hopper2d vec step: 3 steps at {num} envs ({ends['done']} ended "
+        f"at the first, {ends['truncated']} of them at the time limit): "
+        f"bit for bit on {len(names) - len(off_bit)} of {len(names)} "
+        f"outputs; off the bit {off_bit or 'none'} (max abs err "
+        f"{worst:.3g}, {share:.3g} of rtol=atol=2e-4)")
     if share > 1.0:
-        raise AssertionError(f"hopper2d kernel vs plain: {share:.3g} of "
+        raise AssertionError(f"hopper2d kernels vs plain: {share:.3g} of "
                              f"rtol=atol=2e-4")
-    if hopper2d_step.launches != 3:
-        raise AssertionError(f"hopper2d: {hopper2d_step.launches} launches "
-                             f"for 3 steps")
+    if hopper2d_step.launches_by_route != {"raw": 3, "vec": 3}:
+        raise AssertionError(f"hopper2d: launches "
+                             f"{hopper2d_step.launches_by_route} for 3 "
+                             f"steps of each")
     ms = graph_ms(lambda: hopper2d_step(*x, action))
     plain_ms = graph_ms(lambda: hopper2d_step_plain(*x, action), reps=2,
                         iters=5)
-    plain_eager_ms = eager_ms(lambda: hopper2d_step_plain(*x, action),
-                              iters=5)
+    vec = lambda: hopper2d_vec_step(*v_in, action, u_pos, u_th, accounts,
+                                    400)
+    vec_plain = lambda: hopper2d_vec_step_plain(*v_in, action, u_pos, u_th,
+                                                accounts, 400)
+    vec_ms = graph_ms(vec)
+    vec_plain_ms = graph_ms(vec_plain, reps=2, iters=5)
+    vec_plain_eager_ms = eager_ms(vec_plain, iters=5)
     bound_ms, bound_by = hopper2d_bound(num)
-    # what limits it: the occupancy the launch can reach, and its time as
-    # the env count grows (the same states tiled); at a fixed time an env
-    # costs less as the card fills, when latency, not bytes, bounds it
-    from repro_torch.kernels.hopper2d import kernel_info
-    info = kernel_info()
-    props = torch.cuda.get_device_properties(0)
-    slots = props.multi_processor_count * props.max_threads_per_multi_processor
-    info["resident_threads_share"] = (info["blocks_per_sm"]
-                                      * info["threads_per_block"]
-                                      / props.max_threads_per_multi_processor)
-    scaling = {}
-    for k in h["scale"]:
-        big = [t.repeat((k,) + (1,) * (t.ndim - 1)) for t in (*x, action)]
-        t_k = graph_ms(lambda: hopper2d_step(*big)) if k > 1 else ms
-        scaling[num * k] = {"ms": t_k, "ns_per_env": t_k * 1e6 / (num * k),
-                            "bound_ms": hopper2d_bound(num * k)[0],
-                            "thread_slots_filled": min(1.0, num * k / slots)}
-        del big
-    log(f"hopper2d limiter: {info['registers']} registers a thread, "
-        f"{info['blocks_per_sm']} blocks of {info['threads_per_block']} an "
-        f"SM at most ({info['resident_threads_share']:.3f} of its thread "
-        f"slots); by envs: " + ", ".join(
-            f"{n}: {r['ms'] * 1e3:.2f} us ({r['ns_per_env']:.3f} ns an env, "
-            f"{r['ms'] / r['bound_ms']:.1f}x the bound, "
-            f"{r['thread_slots_filled']:.3f} of the card's thread slots)"
-            for n, r in scaling.items()))
-    log(f"hopper2d at {num} envs ({in_contact} with a contact active): "
-        f"kernel {ms * 1e3:.2f} us (graph replay), plain {plain_ms * 1e3:.1f}"
-        f" us (graph replay) and {plain_eager_ms:.2f} ms eager, bound "
-        f"{bound_ms * 1e3:.2f} us ({bound_by}: {HOPPER2D_BYTES} B and "
-        f"{HOPPER2D_OPS} operations an env)")
-    return {"envs": num, "in_contact": in_contact, "max_abs_err": worst,
-            "max_err_over_tolerance": share, "ms": ms, "plain_ms": plain_ms,
-            "plain_eager_ms": plain_eager_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "occupancy": info, "scaling": scaling}
+    vec_bound_ms, vec_bound_by = hopper2d_bound(num, vec=True)
+    limits = hopper2d_limits(state, action, gen, figures)
+    before = HOPPER2D_BEFORE
+    for route, k in limits["kernels"].items():
+        log(f"hopper2d {route} kernel: {k['registers']} registers a "
+            f"thread, {k['threads_per_env']} threads an env, "
+            f"{k['blocks_per_sm']} blocks of {k['threads_per_block']} an SM "
+            f"at most, stack frame {k['stack_frame_bytes']} bytes, spills "
+            f"{k['spill_store_bytes']}/{k['spill_load_bytes']} bytes, "
+            f"{k['ldl_stl']} LDL/STL in its SASS (before: "
+            f"{before['registers']} registers, 1 thread an env, stack frame "
+            f"{before['stack_frame_bytes']} bytes, {before['ldl_stl']} "
+            f"LDL/STL)")
+    for n, r in limits["sizes"].items():
+        log(f"hopper2d at {n} envs, us by graph replay (before -> after): "
+            f"raw step {before['raw_us'][n]} -> {r['raw_ms'] * 1e3:.3f} "
+            f"(bound {r['raw_bound_ms'] * 1e3:.3f}); vec step "
+            f"{r['vec_ms'] * 1e3:.3f} (bound {r['vec_bound_ms'] * 1e3:.3f}, "
+            f"{r['vec_ms'] / r['vec_bound_ms']:.1f}x); VecEnv.step "
+            f"{before['generic_step_us'][n]} -> {r['step_ms'] * 1e3:.3f}, "
+            f"on the generic path now {r['generic_step_ms'] * 1e3:.3f}; "
+            f"{r['thread_slots_filled']['vec']:.3f} of the card's thread "
+            f"slots")
+    log(f"hopper2d at {num} envs ({in_contact} with a contact active): raw "
+        f"kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by}: {HOPPER2D_BYTES} B and "
+        f"{HOPPER2D_OPS} operations an env); vec kernel "
+        f"{vec_ms * 1e3:.3f} us, plain {vec_plain_ms * 1e3:.1f} us (graph "
+        f"replay) and {vec_plain_eager_ms:.2f} ms eager, bound "
+        f"{vec_bound_ms * 1e3:.3f} us ({vec_bound_by}: "
+        f"{HOPPER2D_VEC_BYTES} B an env)")
+    return {"envs": num, "in_contact": in_contact, "ends": ends,
+            "max_abs_err": worst, "max_err_over_tolerance": share,
+            "off_the_bit": off_bit, "ms": vec_ms, "plain_ms": vec_plain_ms,
+            "plain_eager_ms": vec_plain_eager_ms, "bound_ms": vec_bound_ms,
+            "bound_by": vec_bound_by,
+            "raw": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by},
+            "limits": limits}
 
 
 def _epoch_launches(trainer):
     """Kernel launches of a trainer's fused epochs: each captured graph's
     launches times its replays, plus its warm-up's (eager) launches."""
-    out = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    out = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0, "hopper2d_vec": 0}
     for fn in trainer._epochs.values():
         for k in out:
             out[k] += (fn.warmup_launches[k]
@@ -4693,6 +4881,8 @@ def phase_fused_epochs():
             raise AssertionError(f"fused {name}: {fn.replays} replays of "
                                  f"one capture for {FUSED_SEQUENCE}")
         launches = _epoch_launches(fused)
+        if env_name == "hopper2d":
+            expect_vec_route(f"fused {name}", launches)
         rows[name] = {
             "bitwise": bitwise,
             "max_abs_err": max(c[1] for c in checks.values()),
@@ -4718,26 +4908,69 @@ def phase_fused_epochs():
 
 
 def _kernel_events(fn):
-    """(wall ms, [(stream, start us, end us, name)]) of the device kernels
-    of one synchronised ``fn()`` call, from torch.profiler's trace."""
+    """One synchronised ``fn()`` call under torch.profiler, with the
+    port's burst of throwaway launches (``profiler_burst``) at each end of
+    the session, which a late session loses in place of the window's
+    (ROADMAP §3, fault 8). Returns (wall ms, [(stream, start us, end us,
+    name)] of the window's device work: kernels, copies and fills, kept:
+    (k, n)): of the window's n launches (a kernel launch, or a graph
+    launch, counted as its kernels in the trace), k have their kernels in
+    the trace, matched by correlation id; a graph launch with none counts
+    as one lost. Logs k of n, so every share printed after it says what
+    its window kept."""
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.telemetry.run import profiler_burst
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        profiler_burst()
+        with record_function("chip_smoke_window"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        profiler_burst()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
+        trace = json.loads(path.read_text()).get("traceEvents", [])
+    (span,) = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in trace if e.get("name") == "chip_smoke_window"
+               and e.get("cat") == "user_annotation"]
+    calls = [e for e in trace
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and span[0] <= float(e["ts"]) <= span[1]]
+    mine = {e.get("args", {}).get("correlation") for e in calls}
+    device = [e for e in trace if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e.get("args", {}).get("correlation") in mine]
+    kernels = collections.Counter(e["args"]["correlation"] for e in device
+                                  if e["cat"] == "kernel")
+    kept = n = 0
+    lost = []               # the lost launches' places in the window
+    for e in sorted(calls, key=lambda e: float(e["ts"])):
+        name, corr = e.get("name", ""), e.get("args", {}).get("correlation")
+        if "LaunchKernel" in name:
+            n += 1
+            kept += bool(kernels[corr])
+        elif "GraphLaunch" in name:
+            n += max(1, kernels[corr])
+            kept += kernels[corr]
+        else:
+            continue
+        if not kernels[corr]:
+            lost.append(n - 1)
     events = [(e.get("args", {}).get("stream"), float(e["ts"]),
                float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""))
-              for e in trace.get("traceEvents", [])
-              if e.get("cat") == "kernel" and e.get("ph") == "X"]
-    return wall, events
+              for e in device]
+    log(f"profile window: {kept} of its {n} kernels kept in the trace"
+        + ("" if kept == n else f" (lost: launches {lost[0]}-{lost[-1]} "
+           f"in the window's order, {len(lost)} of them); its busy share "
+           f"is not measured"))
+    return wall, events, (kept, n)
 
 
 def _union(spans):
@@ -4757,8 +4990,8 @@ def _busy_and_overlap(fn):
     over the wall time, kernel ms, wall ms, overlap share: the part of the
     acting stream's kernel time (the stream that runs ``hopper2d``) spent
     while another stream runs a kernel, or None with one stream)."""
-    wall, events = _kernel_events(fn)
-    if not events:
+    wall, events, (kept, n) = _kernel_events(fn)
+    if not events or kept < n:
         return None, 0.0, wall, None
     busy = _union([(s, e) for _, s, e, _ in events])
     acting = {st for st, _, _, name in events if "hopper2d" in name}
@@ -4799,7 +5032,8 @@ def phase_acting_engine():
                pbt_interval=a["iters"], collect_steps=a["collect_steps"],
                eval_envs=1, eval_steps=1, batch=a["batch"])
     rows = {}
-    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0,
+                "hopper2d_vec": 0}
     for num_envs in a["envs"]:
         arms = {"eager": dict(), "fused": dict(fused=True),
                 "lag1": dict(policy_lag=1)}
@@ -4870,6 +5104,10 @@ def phase_acting_engine():
                 f"{'not measured' if share is None else f'{share:.4f}'}"
                 + (f", acting overlapped {overlap}"
                    if arm.startswith("lag1") else ""))
+        cell["fused"]["graph_nodes"] = [
+            e.node_count() for e in trainers["fused"]._epochs.values()]
+        log(f"acting {num_envs} envs/member fused: graph "
+            f"{cell['fused']['graph_nodes']} nodes")
         cell["fused_speedup"] = (cell["eager"]["ms_per_iter"]
                                  / cell["fused"]["ms_per_iter"])
         cell["lag1_speedup"] = (cell["eager"]["ms_per_iter"]
@@ -4883,6 +5121,7 @@ def phase_acting_engine():
                 e.captured_launches[k] * (e.replays - 1)
                 for e in trainers["fused"]._epochs.values())
         rows[num_envs] = cell
+    expect_vec_route("acting engine", launches)
     return rows, launches
 
 
@@ -4893,7 +5132,6 @@ def phase_acting_cli(ckpt_root):
     captured ones times the replays); then each checkpoint served through
     the serve CLI and answers held to the plain ensemble."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.kernels.hopper2d import hopper2d_step
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.rl import networks as nets
@@ -4910,13 +5148,13 @@ def phase_acting_cli(ckpt_root):
                 "--collect-steps", str(c["collect_steps"]), "--fused-adam",
                 "--fused-linear", "--ckpt-dir", ckpt_dir, "--seed",
                 str(SEED), *flags]
-        hopper2d_step.launches = 0
+        reset_hopper2d_counts()
         report, wall, mm, _, adam = _run_counted(lambda: train_main(argv))
-        launches = {"pop_matmul": mm, "pop_adam": adam,
-                    "hopper2d": hopper2d_step.launches}
+        launches = {"pop_matmul": mm, "pop_adam": adam, **hopper2d_counts()}
         for fn in report.trainer._epochs.values():
             for k in launches:
                 launches[k] += fn.captured_launches[k] * (fn.replays - 1)
+        expect_vec_route(f"acting CLI {name}", launches)
         evolved = [it for it, _ in report.evolutions]
         if evolved != list(range(c["pbt_interval"], c["steps"] + 1,
                                  c["pbt_interval"])) or \
@@ -5542,7 +5780,6 @@ def phase_resume_rl(ckpt_root):
     CLI on pendulum run twice on one --ckpt-dir against one run of twice
     the steps: the last checkpoints bit for bit."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.kernels.hopper2d import hopper2d_step
     from repro_torch.launch.train import main as train_main
     from repro_torch.tree import leaves
 
@@ -5577,13 +5814,16 @@ def phase_resume_rl(ckpt_root):
         raise AssertionError("a resume after a capture was not refused")
     launches = {k: a + b for (k, a), b in zip(
         _epoch_launches(first).items(), _epoch_launches(resumed).values())}
+    expect_vec_route("resume fused", launches)
+    nodes = [fn.node_count() for t in (whole, first, resumed)
+             for fn in t._epochs.values()]
     fused_s = time.perf_counter() - t0
     log(f"resume fused TD3 hopper2d: 2 epochs, checkpoint ({save_s:.3f} s "
         f"blocking), a fresh trainer resumed for 2 more == 4 "
         f"uninterrupted epochs bit for bit (state, hypers, strategy, "
         f"buffers, env states, generator); leaves kept their storage; a "
         f"resume after the capture refused ({refused[:60]}...); launches "
-        f"{launches}; {fused_s:.1f} s")
+        f"{launches}; graphs of {nodes} nodes; {fused_s:.1f} s")
 
     c = RESUME_CLI
     argv = ["--algo", "td3", "--env", "pendulum", "--population",
@@ -5629,8 +5869,9 @@ def phase_resume_rl(ckpt_root):
         f"(trainers and the last checkpoint's main tree, rollout, rng, "
         f"hypers); launches pop_matmul {cli['pop_matmul']}, pop_adam "
         f"{cli['pop_adam']}; {time.perf_counter() - t0:.1f} s")
-    hopper2d_step.launches = 0
+    reset_hopper2d_counts()
     return {"fused": {"bitwise": True, "launches": launches,
+                      "graph_nodes": nodes,
                       "save_blocking_s": save_s, "seconds": fused_s,
                       "refused_after_capture": True},
             "cli": cli}
@@ -5725,7 +5966,6 @@ def phase_telemetry_sink():
     set_sync_debug_mode("error"); ms per iteration (median, with min and
     max), and every iter row's metrics and stats equal to what the loop
     returned."""
-    from repro_torch.kernels.hopper2d import hopper2d_step
     from repro_torch.telemetry import JSONLSink, RunTelemetry, jsonable
 
     a = ACTING
@@ -5733,7 +5973,8 @@ def phase_telemetry_sink():
                pbt_interval=a["iters"], collect_steps=a["collect_steps"],
                eval_envs=1, eval_steps=1, batch=a["batch"])
     rows = {}
-    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0}
+    launches = {"pop_matmul": 0, "pop_adam": 0, "hopper2d": 0,
+                "hopper2d_vec": 0}
     for num_envs in a["envs"]:
         times = {"off": [], "sink": []}
         seen = []
@@ -5793,6 +6034,7 @@ def phase_telemetry_sink():
             cell[arm] = {"ms_per_iter": ts[len(ts) // 2], "min_ms": ts[0],
                          "max_ms": ts[-1]}
         cell["rows"] = len(logged)
+        cell["graph_nodes"] = [fn.node_count() for fn in tr._epochs.values()]
         cell["captures_with_the_sink_live"] = [x["secs"] for x in captures]
         cell["sink_cost"] = (cell["sink"]["ms_per_iter"]
                              / cell["off"]["ms_per_iter"])
@@ -5802,10 +6044,12 @@ def phase_telemetry_sink():
             f"telemetry, {cell['sink']['ms_per_iter']:.3f} with a strict "
             f"JSONL sink (x{cell['sink_cost']:.3f}; min/max "
             f"{cell['sink']['min_ms']:.3f}/{cell['sink']['max_ms']:.3f}); "
-            f"2 captures with the sink live ({len(captures)} compile rows), "
+            f"2 captures with the sink live ({len(captures)} compile rows, "
+            f"graphs of {cell['graph_nodes']} nodes), "
             f"every replay under sync debug 'error', {len(iters)} iter rows "
             f"== the loop's metrics and stats")
-    hopper2d_step.launches = 0
+    expect_vec_route("sink", launches)
+    reset_hopper2d_counts()
     return rows, launches
 
 
@@ -5842,7 +6086,7 @@ def phase_serve_telemetry_rl(ckpt_dir):
     --log-dir and --profile over SERVE_TELEMETRY["profile_iters"]
     batches: the rows schema-valid, serve and promotion rows present, the
     p50 beside the run without, and every pop_matmul launch of the window
-    in the trace. It runs early in the process (ROADMAP §3 fault 8)."""
+    in the trace."""
     from repro_torch.kernels.pop_matmul import pop_matmul
     from repro_torch.launch.serve import main as serve_main
 
@@ -6142,7 +6386,6 @@ def phase_elastic_fused(root):
     fitness, lineage). Launches: the graph's captured launches times its
     replays plus its warm-up's, and the eager loop's counts."""
     from repro_torch.elastic import restore_elastic
-    from repro_torch.kernels.hopper2d import hopper2d_step
     from repro_torch.kernels.pop_adam import pop_adam
     from repro_torch.kernels.pop_matmul import pop_matmul
 
@@ -6175,7 +6418,7 @@ def phase_elastic_fused(root):
                                      f"{step}, lineage {lineage.tolist()} "
                                      f"(want {want})")
             reset_counts(pop_matmul, pop_adam)
-            hopper2d_step.launches = 0
+            reset_hopper2d_counts()
             lin, secs = [], []
             for i in range(2):
                 t1 = time.perf_counter()
@@ -6192,8 +6435,7 @@ def phase_elastic_fused(root):
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t1)
             counted = ({"pop_matmul": pop_matmul.launches,
-                        "pop_adam": pop_adam.launches,
-                        "hopper2d": hopper2d_step.launches}
+                        "pop_adam": pop_adam.launches, **hopper2d_counts()}
                        if kind == "eager" else _epoch_launches(tr))
             runs[kind] = (tr, lin, {"restore_s": restore_s,
                                     "epoch_s": secs, "launches": counted})
@@ -6212,8 +6454,10 @@ def phase_elastic_fused(root):
             "lineage": _tree_err(lin_e, lin_f)}
         (fn,) = fused._epochs.values()
         bitwise = all(c[0] for c in checks.values())
-        if not bitwise or len(lin_f) != 2 or fn.replays != 2 or \
-                row_f["launches"]["hopper2d"] == 0:
+        for kind, row in (("fused", row_f), ("eager", row_e)):
+            expect_vec_route(f"elastic {kind} {old_n} -> {n}",
+                             row["launches"])
+        if not bitwise or len(lin_f) != 2 or fn.replays != 2:
             raise AssertionError(f"elastic fused {old_n} -> {n}: captured "
                                  f"vs eager {checks}, {len(lin_f)} evolves, "
                                  f"{fn.replays} replays, launches "
@@ -6234,7 +6478,7 @@ def phase_elastic_fused(root):
             f"launches fused {row_f['launches']}, eager "
             f"{row_e['launches']}")
         del runs, fused, eager
-    hopper2d_step.launches = 0
+    reset_hopper2d_counts()
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -6601,12 +6845,14 @@ def main() -> int:
                           + list(hmma) + list(ssd_hmma) + list(wkv6_hmma))
     ptxas = {}
     for src, kernels in figures.items():
-        for kernel, (regs, st, ld) in kernels.items():
+        for kernel, (regs, st, ld, frame) in kernels.items():
             ptxas[label[kernel]] = {"registers": regs,
                                     "spill_store_bytes": st,
-                                    "spill_load_bytes": ld}
+                                    "spill_load_bytes": ld,
+                                    "stack_frame_bytes": frame}
             log(f"{src}: {label[kernel]} {regs} registers, spill stores "
-                f"{st} bytes, spill loads {ld} bytes")
+                f"{st} bytes, spill loads {ld} bytes, stack frame {frame} "
+                f"bytes")
     hmma = {label[k]: c for k, c in hmma.items()}
     from repro_torch.kernels.flash_attention import DIMS
     if len(hmma) != len(DIMS) or min(hmma.values()) == 0:
@@ -6651,12 +6897,11 @@ def main() -> int:
     serve, serve_err = phase_serve()
 
     # 6. train through the port's entry point, 7. serve what it trained
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        train = phase_train(ckpt_dir)
-        trained_serve_err = phase_train_serve(ckpt_dir,
-                                              train["saved_fitness"])
-        # 42 (RL half): the serve CLI with telemetry, early in the process
-        serve_telemetry = {"rl": phase_serve_telemetry_rl(ckpt_dir)}
+    # (the checkpoint stays for phase 42)
+    train_dir = tempfile.TemporaryDirectory()
+    train = phase_train(train_dir.name)
+    trained_serve_err = phase_train_serve(train_dir.name,
+                                          train["saved_fitness"])
     lap("3-7 TD3 kernels, update, serve, train")
 
     # 8. wkv6, ssd and flash_attention vs plain, timing; 9. the LM path,
@@ -6666,8 +6911,6 @@ def main() -> int:
     flash_err, flash_share, flash_rows = phase_flash_kernel()
     lm_parity = phase_lm_parity()
     lm_serve = phase_lm_serve()
-    # 42 (LM half): the LM serve CLI with telemetry
-    serve_telemetry["lm"] = phase_serve_telemetry_lm()
     lap("8-10 LM kernels, parity, serve")
 
     # 11. pop_adam at the LM's size; 12. the LM update, card vs CPU; 13.
@@ -6732,7 +6975,8 @@ def main() -> int:
     # 33. the acting engine at GPU-sim scale; 34. the train CLI's
     # acting-engine flags on hopper2d, each run served
     torch.cuda.empty_cache()
-    acting = {"hopper2d": phase_hopper2d_kernel()}
+    acting = {"hopper2d": phase_hopper2d_kernel(
+        {k: v for k, v in ptxas.items() if k.startswith("hopper2d")})}
     lap("31 hopper2d kernel")
     acting["fused"] = phase_fused_epochs()
     lap("32 fused epochs")
@@ -6758,11 +7002,11 @@ def main() -> int:
     lap("38 acting update kernels")
 
     # 39. RL resume, fused and through the CLI; 40. LM resume through the
-    # CLI at full width; 41. the fused epoch with a live sink (42, the
-    # serve CLIs with --log-dir and --profile, ran after 7 and 10)
+    # CLI at full width; 41. the fused epoch with a live sink; 42. the
+    # serve CLIs with --log-dir and --profile
     gc.collect()
     torch.cuda.empty_cache()
-    slice15 = {"serve": serve_telemetry}
+    slice15 = {}
     with tempfile.TemporaryDirectory() as ckpt_root:
         slice15["resume_rl"] = phase_resume_rl(ckpt_root)
     lap("39 RL resume")
@@ -6773,6 +7017,12 @@ def main() -> int:
         lap("40 LM resume")
         slice15["sink"], sink_launches = phase_telemetry_sink()
         lap("41 telemetry sink")
+        gc.collect()
+        torch.cuda.empty_cache()
+        slice15["serve"] = {"rl": phase_serve_telemetry_rl(train_dir.name),
+                            "lm": phase_serve_telemetry_lm()}
+        train_dir.cleanup()
+        lap("42 serve telemetry")
 
         # 43. RL elastic resize, the trainer and the CLI; 44. the fused
         # engine resized; 45. the LM resized, from phase 40's checkpoint;
@@ -7074,17 +7324,24 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/hopper2d.cu",
         "replaces": "none: src/repro/envs/hopper2d.py:161 (_hopper2d_step) "
                     "has no pallas_call; XLA fuses the control step",
+        "redesigned_in": REDESIGNED_IN["hopper2d"],
         "launches": sum(hopper2d_paths.values()),
         "launches_by_path": hopper2d_paths,
+        "launches_by_route": {
+            "vec": sum(acting_paths("hopper2d_vec").values()),
+            "raw": sum(hopper2d_paths.values())
+            - sum(acting_paths("hopper2d_vec").values())},
         "launches_counted": "the wrapper's count for eager launches; a "
                             "captured graph's as its captured launches "
                             "times its replays",
         "max_abs_err": hop["max_abs_err"],
         "tolerance": "rtol=atol=2e-4",
         "max_err_over_tolerance": hop["max_err_over_tolerance"],
-        "work": f"one launch over {hop['envs']} envs (8 members x 4,096 "
-                f"envs, {hop['in_contact']} with a contact active); device "
-                f"times, CUDA graph replay, L2-warm",
+        "off_the_bit": hop["off_the_bit"],
+        "work": f"one launch of the vector env's whole step over "
+                f"{hop['envs']} envs (8 members x 4,096 envs, "
+                f"{hop['in_contact']} with a contact active), the main "
+                f"paths' route; device times, CUDA graph replay, L2-warm",
         "ms": hop["ms"],
         "plain_ms": hop["plain_ms"],
         "plain_eager_ms": hop["plain_eager_ms"],
@@ -7092,8 +7349,8 @@ def main() -> int:
         "bound_by": hop["bound_by"],
         "library_ms": None,
         "library_call": "none: no PyTorch call computes this function",
-        "ptxas": {k: v for k, v in ptxas.items()
-                  if k.startswith("hopper2d")},
+        "raw": hop["raw"],
+        "limits": hop["limits"],
     })
     for mode, r in serve.items():
         log(f"serve {mode}: {r['req_per_s']:.1f} req/s, p50 "

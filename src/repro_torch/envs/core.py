@@ -18,6 +18,7 @@ contract.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -25,7 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.envs.hopper2d import (hopper2d_observe, hopper2d_reset,
-                                       hopper2d_step)
+                                       hopper2d_step, hopper2d_vec_step)
 
 
 @dataclass(frozen=True)
@@ -45,6 +46,11 @@ class Env:
     step: Callable          # (state, action, generator) ->
                             #   (state, obs, reward, done, truncated)
     observe: Callable       # state -> obs (post-auto-reset policy input)
+    # VecEnv.step's route where the env has one launch for its whole step
+    # (hopper2d): (state, action, accounts, generator) -> (state, obs,
+    # terminal_obs, reward, done_f, truncated_f, accounts), every tensor
+    # with a leading (num,) axis; None takes the generic path
+    vec_step: Callable | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +296,9 @@ _REGISTRY = {
     "hopper2d": (EnvSpec("hopper2d", 11, 3, False, 400, 1.0),
                  hopper2d_reset, hopper2d_step, hopper2d_observe),
 }
+# the envs whose vector step is one kernel launch: the raw step, time
+# limit, auto-reset and episode accounting together
+_VEC_STEPS = {"hopper2d": hopper2d_vec_step}
 
 
 def make(name: str) -> Env:
@@ -297,6 +306,9 @@ def make(name: str) -> Env:
         raise ValueError(f"unknown env {name!r}; registered: "
                          f"{sorted(_REGISTRY)}")
     spec, reset, raw_step, observe = _REGISTRY[name]
+    vec_step = _VEC_STEPS.get(name)
     return Env(spec=spec, reset=reset,
                step=_with_auto_reset(reset, raw_step, spec.episode_length),
-               observe=observe)
+               observe=observe,
+               vec_step=None if vec_step is None else functools.partial(
+                   vec_step, episode_length=spec.episode_length))

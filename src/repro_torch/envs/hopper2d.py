@@ -18,6 +18,11 @@ order (the ``.at[c].add(fj).at[p].add(-fj)`` sequence): float32 sums then
 round as JAX's do. The env's raw step sends CPU tensors to it and CUDA
 tensors to the hand-written kernel (:mod:`repro_torch.kernels.hopper2d`),
 which runs every substep of one env in registers.
+
+:func:`hopper2d_vec_step` is ``VecEnv.step``'s route on hopper2d: the
+reset draws, then the raw step, the time limit, the auto-reset and the
+episode accounting in one launch of the kernel's second entry point;
+:func:`hopper2d_vec_step_plain` is the same composition as tensor code.
 """
 from __future__ import annotations
 
@@ -127,6 +132,9 @@ def _forces(pos, th, vel, om, a):
     return fx, fz, tau
 
 
+KEYS = ("pos", "th", "vel", "om")
+
+
 @functools.cache
 def _constants(device):
     """Masses, inertias and the rest pose on ``device``, made once: a copy
@@ -173,20 +181,32 @@ def hopper2d_observe(state):
     return hopper2d_obs(state["pos"], state["th"], state["vel"], state["om"])
 
 
-def hopper2d_reset(generator, num: int, device="cpu"):
-    """Fresh envs at the rest pose, each pose coordinate and angle moved by
-    a uniform draw in [-5e-3, 5e-3) from ``generator`` (poses first)."""
+def reset_draws(generator, num: int, device="cpu"):
+    """The uniform draws of ``num`` resets, ``(u_pos (num, 4, 2), u_th
+    (num, 4))``, from ``generator`` (poses first)."""
     draw = dict(generator=generator, device=generator.device)
     u_pos = torch.rand((num, 4, 2), **draw).to(device)
     u_th = torch.rand((num, 4), **draw).to(device)
-    rest = _constants(torch.device(device))[2]
-    state = {
-        "pos": rest + (-5e-3 + 1e-2 * u_pos),
+    return u_pos, u_th
+
+
+def fresh_state(u_pos, u_th):
+    """Envs at the rest pose, each pose coordinate and angle moved by
+    ``-5e-3 + 1e-2 u``, at rest, at t = 0."""
+    num, device = u_th.shape[0], u_th.device
+    return {
+        "pos": _constants(device)[2] + (-5e-3 + 1e-2 * u_pos),
         "th": -5e-3 + 1e-2 * u_th,
         "vel": torch.zeros((num, 4, 2), dtype=torch.float32, device=device),
         "om": torch.zeros((num, 4), dtype=torch.float32, device=device),
         "t": torch.zeros((num,), dtype=torch.int32, device=device),
     }
+
+
+def hopper2d_reset(generator, num: int, device="cpu"):
+    """Fresh envs at the rest pose, each pose coordinate and angle moved by
+    a uniform draw in [-5e-3, 5e-3) from ``generator`` (poses first)."""
+    state = fresh_state(*reset_draws(generator, num, device))
     return state, hopper2d_observe(state)
 
 
@@ -195,7 +215,57 @@ def hopper2d_step(state, action):
     for CPU ones. Returns ``(state, obs, reward, terminated)``."""
     from repro_torch.kernels.hopper2d import hopper2d_step as step
     pos, th, vel, om, obs, reward, terminated = step(
-        *(state[k].contiguous() for k in ("pos", "th", "vel", "om")),
-        action.contiguous())
+        *(state[k].contiguous() for k in KEYS), action.contiguous())
     new = dict(state, pos=pos, th=th, vel=vel, om=om, t=state["t"] + 1)
     return new, obs, reward, terminated
+
+
+def hopper2d_vec_step_plain(pos, th, vel, om, t, action, u_pos, u_th,
+                            accounts, episode_length: int):
+    """The vector env's whole step on ``num`` envs, the plain PyTorch
+    version: the raw step, the time limit and the auto-reset of
+    :func:`repro_torch.envs.core.make` (finished envs take
+    :func:`fresh_state` of the draws ``u_pos``, ``u_th``), and the episode
+    accounting and transition flags of
+    :meth:`repro_torch.rollout.vecenv.VecEnv.step`. ``accounts`` are the
+    six (num,) accounting tensors, in ``VecEnvState``'s order. Returns ``(pos, th, vel, om,
+    t, obs, terminal_obs, reward, done, truncated, done_f, truncated_f,
+    accounts)``: ``obs`` after the reset, ``terminal_obs`` before it,
+    ``done_f`` the transition's ``done & ~truncated`` as float."""
+    *new, terminal_obs, reward, terminated = hopper2d_step_plain(
+        pos, th, vel, om, action)
+    new = dict(zip(KEYS, new), t=t + 1)
+    truncated = ~terminated & (new["t"] >= episode_length)
+    done = terminated | truncated
+    fresh = fresh_state(u_pos, u_th)
+    new = {k: torch.where(done.reshape(done.shape + (1,) * (v.ndim - 1)),
+                          fresh[k], v) for k, v in new.items()}
+    ret, length, episodes, ret_sum, len_sum, last = accounts
+    ep_ret = ret + reward
+    ep_len = length + 1
+    accounts = (torch.where(done, 0.0, ep_ret), torch.where(done, 0, ep_len),
+                episodes + done.int(), ret_sum + torch.where(done, ep_ret, 0.0),
+                len_sum + torch.where(done, ep_len, 0),
+                torch.where(done, ep_ret, last))
+    return (*(new[k] for k in (*KEYS, "t")), hopper2d_observe(new),
+            terminal_obs, reward, done, truncated,
+            (done & ~truncated).float(), truncated.float(), accounts)
+
+
+def hopper2d_vec_step(state, action, accounts, generator,
+                      episode_length: int):
+    """``VecEnv.step``'s route on hopper2d: the reset draws from
+    ``generator`` (those :func:`hopper2d_reset` makes, on every step), then
+    the whole step in one launch of the CUDA kernel for CUDA tensors, the
+    plain version for CPU ones. ``state`` and ``action`` have a leading
+    (num,) axis, ``accounts`` are the six (num,) accounting tensors.
+    Returns ``(state, obs, terminal_obs, reward, done_f, truncated_f,
+    accounts)``."""
+    from repro_torch.kernels.hopper2d import hopper2d_vec_step as step
+    u_pos, u_th = reset_draws(generator, action.shape[0], action.device)
+    (*new, obs, terminal_obs, reward, _, _, done_f, truncated_f,
+     accounts) = step(*(state[k].contiguous() for k in (*KEYS, "t")),
+                      action.contiguous(), u_pos, u_th,
+                      [a.contiguous() for a in accounts], episode_length)
+    return (dict(state, **dict(zip((*KEYS, "t"), new))), obs, terminal_obs,
+            reward, done_f, truncated_f, accounts)

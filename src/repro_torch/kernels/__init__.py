@@ -28,7 +28,8 @@ def refuse_grad(name: str, *tensors):
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count (``<wrapper>.launches``), by
-    kernel name."""
+    kernel name; ``hopper2d_vec`` the hopper2d launches that took the
+    vector env's one-launch route."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hopper2d import hopper2d_step
     from repro_torch.kernels.pop_adam import pop_adam
@@ -36,5 +37,7 @@ def launch_counts() -> dict:
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     return {"pop_matmul": pop_matmul.launches, "pop_adam": pop_adam.launches,
-            "hopper2d": hopper2d_step.launches, "wkv6": wkv6.launches,
+            "hopper2d": hopper2d_step.launches,
+            "hopper2d_vec": hopper2d_step.launches_by_route["vec"],
+            "wkv6": wkv6.launches,
             "ssd": ssd.launches, "flash_attention": flash_attention.launches}

@@ -13,6 +13,10 @@ Terminal observations follow :mod:`repro_torch.envs.core`: a transition's
 counts terminations and time-limit truncations as episode ends, but the
 transition's ``done`` is termination only, so TD targets bootstrap through
 truncations; ``truncated`` rides along.
+
+An env with a ``vec_step`` (hopper2d) takes it in place of the generic
+path: its raw step, time limit, auto-reset and this accounting in one
+kernel launch on the card, from the same reset draws.
 """
 from __future__ import annotations
 
@@ -62,8 +66,12 @@ class VecEnv:
     def step(self, state: VecEnvState, actions, generator):
         """One batched step of every env; auto-reset draws come from
         ``generator``. Returns ``(state, transition)`` with transition
-        leaves (N, E, ...)."""
+        leaves (N, E, ...). An env with a ``vec_step`` (hopper2d) takes
+        it: the whole step, accounting included, in one kernel launch on
+        the card."""
         n = state.obs.shape[0]
+        if self.env.vec_step is not None:
+            return self._vec_step(state, actions, generator, n)
         env_state, terminal_obs, reward, done, truncated = self.env.step(
             {k: _merge(v) for k, v in state.env_state.items()},
             _merge(actions), generator)
@@ -89,6 +97,20 @@ class VecEnv:
                       "next_obs": terminal_obs,
                       "done": (done & ~truncated).float(),
                       "truncated": truncated.float()}
+        return new, transition
+
+    def _vec_step(self, state, actions, generator, n):
+        env_state, obs, terminal_obs, reward, done, truncated, accounts = \
+            self.env.vec_step({k: _merge(v) for k, v in
+                               state.env_state.items()}, _merge(actions),
+                              [_merge(x) for x in state[2:]], generator)
+        new = VecEnvState({k: _split(v, n) for k, v in env_state.items()},
+                          _split(obs, n), *(_split(x, n) for x in accounts))
+        transition = {"obs": state.obs, "action": actions,
+                      "reward": _split(reward, n),
+                      "next_obs": _split(terminal_obs, n),
+                      "done": _split(done, n),
+                      "truncated": _split(truncated, n)}
         return new, transition
 
 

@@ -26,12 +26,14 @@ steady state shows as a recompile does.
 
 ``start_profile``/``stop_profile``/``tick_profile`` drive
 ``torch.profiler`` (CPU and, on the card, CUDA activities) and write a
-Chrome trace into the directory given. On the card a window opened
-minutes after the process's previous one can lose kernels: in the
-probe's runs its first 19 launches' kernels (each launch itself is in the
-trace), or all of a window shorter than that; a wait after the session's
-start, a synchronisation or a warm-up step do not help.
-:mod:`repro_torch.telemetry.window_probe` measures it.
+Chrome trace into the directory given. On the card a session opened
+minutes after the process's previous one loses the kernels of its first
+launches (19 at 230 s in :mod:`repro_torch.telemetry.window_probe`'s
+runs; each launch itself is in the trace), whatever waits,
+synchronisations or warm-up steps come first. So a CUDA session starts
+with :func:`profiler_burst`, ``PROFILE_BURST`` throwaway launches the
+loss takes instead of the caller's, and ends with another, before the
+caller's last kernels; the ``profile`` rows say so (``burst``).
 """
 from __future__ import annotations
 
@@ -45,6 +47,20 @@ import torch
 from repro_torch.telemetry.sink import MetricsSink, NullSink, Snapshot, \
     has_tensor
 from repro_torch.tree import leaves
+
+
+# the throwaway launches at each end of a profile session on the card
+PROFILE_BURST = 64
+
+
+def profiler_burst(launches: int = PROFILE_BURST):
+    """``launches`` one-element kernels on the current CUDA device, then a
+    synchronisation: what a late profile session loses in place of the
+    caller's kernels."""
+    one = torch.zeros(1, device="cuda")
+    for _ in range(launches):
+        one.add_(1)
+    torch.cuda.synchronize()
 
 
 def _run_id() -> str:
@@ -106,6 +122,7 @@ class RunTelemetry:
         self._unregister = None
         self._profiler = None
         self._trace_dir = None
+        self._burst = 0
         if self.enabled:
             if device is None:
                 device = "cuda" if torch.cuda.is_available() else "cpu"
@@ -250,7 +267,8 @@ class RunTelemetry:
     # ------------------------------------------------------------ profiler
     def start_profile(self, trace_dir):
         """Begin a ``torch.profiler`` trace (CPU, and CUDA where there is
-        a card); :meth:`stop_profile` writes it into ``trace_dir``."""
+        a card, opened with :func:`profiler_burst`); :meth:`stop_profile`
+        writes it into ``trace_dir``."""
         if self._profiler is not None:
             return
         from torch.profiler import ProfilerActivity, profile
@@ -260,19 +278,27 @@ class RunTelemetry:
         self._trace_dir = Path(trace_dir)
         self._profiler = profile(activities=activities)
         self._profiler.__enter__()
-        self.record("profile", action="start", dir=str(trace_dir))
+        self._burst = PROFILE_BURST if torch.cuda.is_available() else 0
+        if self._burst:
+            profiler_burst(self._burst)
+        self.record("profile", action="start", dir=str(trace_dir),
+                    burst=self._burst)
 
     def stop_profile(self):
-        """End the trace and write it as ``<trace_dir>/<run_id>.trace.json``
-        (Chrome trace format)."""
+        """End the trace, after another :func:`profiler_burst` on the
+        card, and write it as ``<trace_dir>/<run_id>.trace.json`` (Chrome
+        trace format)."""
         if self._profiler is None:
             return
         prof, self._profiler = self._profiler, None
+        if self._burst:
+            profiler_burst(self._burst)
         prof.__exit__(None, None, None)
         self._trace_dir.mkdir(parents=True, exist_ok=True)
         path = self._trace_dir / f"{self.run_id}.trace.json"
         prof.export_chrome_trace(str(path))
-        self.record("profile", action="stop", path=str(path))
+        self.record("profile", action="stop", path=str(path),
+                    burst=self._burst)
 
     def tick_profile(self, it: int, trace_dir, *, start: int = 1,
                      iters: int = 3):

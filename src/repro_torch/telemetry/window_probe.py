@@ -10,32 +10,31 @@ prints one JSON line: ``{"arm", "early", "late", "gap_s"}``, ``early``
 and ``late`` each window's counts. A trace that loses kernels has
 ``late["kernels"]`` below ``late["launches"]``. The arms:
 
+``bare``
+    a plain ``torch.profiler`` session, the window's launches right
+    after its start: the fault.
 ``profiler``
-    :meth:`RunTelemetry.start_profile` as it is, the window's launches
-    right after the session starts.
+    :meth:`RunTelemetry.start_profile` and ``stop_profile`` as they are,
+    with their bursts of throwaway launches (:func:`repro_torch.
+    telemetry.run.profiler_burst`) at each end of the session: the cure.
 ``settle``
-    as ``profiler``, with a wait of ``SETTLE_S`` between the window's
-    start and its first launch.
+    as ``bare``, with a wait of ``SETTLE_S`` between the window's start
+    and its first launch.
 ``sync_after``
-    as ``profiler``, with ``torch.cuda.synchronize()`` between the
-    window's start and its first launch.
+    as ``bare``, with ``torch.cuda.synchronize()`` between the window's
+    start and its first launch.
 ``warmup``
     a ``torch.profiler`` schedule with one warm-up step (one small
     kernel) before the active step that holds the window.
 ``many``
-    as ``profiler``, with 64 products: whether the kernels lost are the
+    as ``bare``, with 64 products: whether the kernels lost are the
     first few launches or the first milliseconds.
 ``spread``, ``spread_long``
-    as ``profiler``, the window's products in bursts at ``SPREAD_S``
-    seconds after its start: which bursts the trace keeps says how long
-    after the session starts kernels begin to be recorded.
-``burst``
-    as ``profiler``, with ``BURST`` small launches (synchronised) between
-    the window's start and its first product: a candidate remedy if a
-    late session loses its first launches by count.
-
-Each window's counts (a ``burst`` window's include its burst's
-launches, which come first): ``launches`` (the runtime's launch events in
+    as ``bare``, the window's products in bursts at ``SPREAD_S`` seconds
+    after its start: which bursts the trace keeps says how long after the
+    session starts kernels begin to be recorded.
+Each window's counts (a ``profiler`` window's include its throwaway
+launches): ``launches`` (the runtime's launch events in
 the trace), ``kernels`` (kernel events), ``kept`` (for each launch in order,
 whether its kernel is in the trace, by correlation id), ``first_kept_ms``
 (the first kept launch's time after the window's first launch) and
@@ -55,10 +54,9 @@ from pathlib import Path
 
 import torch
 
-ARMS = ("profiler", "settle", "sync_after", "warmup", "many", "spread",
-        "spread_long", "burst")
+ARMS = ("bare", "profiler", "settle", "sync_after", "warmup", "many",
+        "spread", "spread_long")
 SETTLE_S = 0.5
-BURST = 64
 SPREAD_S = (0.0, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1, 0.15, 0.2,
             0.3, 0.5, 1.0)
 
@@ -97,10 +95,17 @@ def window(arm: str, iters: int) -> dict:
 
     x = torch.ones(256, 256, device="cuda")
     torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as d:
+        if arm == "profiler":
+            tel = RunTelemetry()
+            tel.start_profile(d)
+            _products(x, iters)
+            torch.cuda.synchronize()
+            tel.stop_profile()
+            return _counts(d)
         if arm == "warmup":
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA],
+            prof = profile(activities=activities,
                            schedule=schedule(wait=0, warmup=1, active=1))
             prof.start()
             x.add_(0)
@@ -111,16 +116,11 @@ def window(arm: str, iters: int) -> dict:
             prof.stop()
             prof.export_chrome_trace(str(Path(d) / "w.trace.json"))
             return _counts(d)
-        tel = RunTelemetry()
-        tel.start_profile(d)
+        prof = profile(activities=activities)
+        prof.__enter__()
         if arm == "settle":
             time.sleep(SETTLE_S)
         if arm == "sync_after":
-            torch.cuda.synchronize()
-        if arm == "burst":
-            one = torch.zeros(1, device="cuda")
-            for _ in range(BURST):
-                one.add_(1)
             torch.cuda.synchronize()
         if arm.startswith("spread"):
             t0 = time.perf_counter()
@@ -130,7 +130,8 @@ def window(arm: str, iters: int) -> dict:
         else:
             _products(x, 64 if arm == "many" else iters)
         torch.cuda.synchronize()
-        tel.stop_profile()
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(str(Path(d) / "w.trace.json"))
         return _counts(d)
 
 
