@@ -362,6 +362,43 @@ Phases, in order; any failure raises and the script exits non-zero:
                 gives the LM train step's model FLOPs
                 (``models.accounting``) and their share of the card's
                 dense bf16 peak.
+ 48. islands CLI — the train CLI through ``python -m
+                torch.distributed.run --standalone --nproc-per-node 1``
+                (a world of one NCCL rank): TD3 on hopper2d at the repo's
+                width, N = 8, 256 envs a member, ``--fused-adam
+                --fused-linear``, one evolve, ``--backend islands`` and
+                then ``sharded``, each against ``--backend vectorized``:
+                the layout printed as one island over NCCL, the lineage
+                and every checkpoint leaf equal (bit for bit counted, the
+                rest at rtol 1e-4, atol 1e-6);
+ 49. islands ranks — the same TD3 population on two gloo ranks sharing
+                cuda:0 (spawned; NCCL refuses two ranks on one GPU), 3
+                iterations and an evolve whose parents are on rank 0 and
+                children on rank 1, against one rank: each rank's
+                ``pop_matmul`` (by route), ``pop_adam`` and ``hopper2d``
+                launches equal to the one rank's (a launch takes all the
+                members a rank holds), the exchange bit for bit, the
+                state at rtol 1e-4, atol 1e-6, the checkpoint rank 0
+                wrote equal to the ranks' rows bit for bit; ms per
+                iteration with one and two ranks on the one card (no
+                speed-up claimed), the exchange's seconds and bytes;
+ 50. islands elastic — that checkpoint of 8 members from 2 ranks
+                restored at 6 on one rank and at 12 on two: the lineage
+                from its fitness, every rank's rows bit for bit, one more
+                iteration each;
+ 51. LM islands — qwen2-0.5b at full width, 2 layers, float32, N = 4
+                over two gloo ranks on the card: 2 steps and an evolve
+                that copies member 0 (rank 0) into member 3 (rank 1), the
+                copy bit for bit (digests), the flat buffers kept, each
+                rank's rows within the LM update rule of the one-rank run;
+                the exchange's seconds and bytes and the peak of
+                allocated memory per rank;
+ 52. DP reduction — ``make_dp_update`` over two gloo ranks on the card,
+                plain and int8, on the JAX test's problem: convergence,
+                int8 within 0.1 of plain, the wire bytes of each and the
+                ms of one reduction of a 4 Mi-element gradient (gloo goes
+                through the host). Phases 49, 50 and 52 share one spawn
+                of the two ranks.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
@@ -369,8 +406,9 @@ times its replays (the wrappers' Python counts do not see a replay).
 The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
 ``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
-``{"frontends": ...}``, ``{"lm_cem": ...}``, ``{"slice15": ...}`` and
-``{"slice16": ...}`` lines, the card's
+``{"frontends": ...}``, ``{"lm_cem": ...}``, ``{"slice15": ...}``,
+``{"slice16": ...}`` and ``{"slice18": ...}`` lines (the last with the
+whole run's seconds), the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -736,6 +774,26 @@ DOUBLE_BUFFER = dict(batches=4, floats=(256, 64))
 # the two examples on the card: quickstart's iterations; pbt_td3's
 # population and iterations (its default shape otherwise)
 EXAMPLES = dict(quickstart_iters=3, pbt_td3_population=8, pbt_td3_iters=4)
+# slice 18: population islands over ranks. TD3 on hopper2d at the repo's
+# width, N = 8, 256 envs a member, 4 acting steps and 2 updates of B = 256
+# an iteration; ISLANDS_FITNESS puts the two worst members (6 and 7, the
+# second rank's) under the two best (0 and 1, the first rank's), so the
+# evolve copies across ranks. Two gloo ranks share cuda:0 (NCCL refuses
+# two ranks on one GPU); the CLI runs a world of one NCCL rank
+ISLANDS = dict(population=8, num_envs=256, collect_steps=4, updates=2,
+               batch=256, timeout=420)
+ISLANDS_FITNESS = (8.0, 7.0, 6.0, 5.0, 4.0, 3.0, 2.0, 1.0)
+ISLANDS_CLI = dict(steps=3, pbt_interval=2, timeout=240)
+# qwen2-0.5b at full width with 2 layers, float32, N = 4 over two ranks
+# (2 members each, about 2.7 GB of parameters and moments a member)
+LM_ISLANDS = dict(arch="qwen2-0.5b", layers=2, population=4, batch=2,
+                  seq_len=128, timeout=420)
+# the data-parallel reduction on the JAX test's problem
+# (tests/test_dp_compression.py: convergence within 0.05, int8 within 0.1
+# of plain), and the wire bytes and ms of one reduction of a gradient of
+# this many fp32 elements
+DP = dict(steps=300, converge_atol=0.05, plain_atol=0.1,
+          grad_elems=1 << 22)
 
 
 def log(msg: str):
@@ -6782,6 +6840,683 @@ def phase_examples():
             "launches": {k: got_q[k] + got_p[k] for k in got_q}}
 
 
+# ------------------------------------------- slice 18: islands over ranks
+def _islands_pcfg(n, space=None):
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.rl import get_algo
+    return PopulationConfig(
+        size=n, strategy="pbt", backend="islands",
+        num_steps=ISLANDS["updates"], pbt_interval=0,
+        hyper_space=space or get_algo("td3").hyper_space)
+
+
+def _islands_trainer(n, ckpt):
+    """TD3 on hopper2d at the repo's width through the islands backend
+    (ISLANDS' shape), no evolve on its own: the phases evolve it."""
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import make_agent
+
+    env = make("hopper2d")
+    c = ISLANDS
+    tr = PopTrainer(make_agent("td3", env.spec, device="cuda"),
+                    _islands_pcfg(n), seed=SEED, checkpoint_dir=ckpt)
+    tr.attach_rollout(env, num_envs=c["num_envs"],
+                      collect_steps=c["collect_steps"],
+                      batch_size=c["batch"])
+    return tr
+
+
+def _cpu_leaves(tree):
+    from repro_torch.tree import leaves
+    return [x.detach().cpu() for x in leaves(tree)]
+
+
+def _island_counts():
+    """The launch counts the islands phases read: pop_matmul by route,
+    pop_adam, hopper2d and its vec route."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    counts = launch_counts()
+    return {"pop_matmul": counts["pop_matmul"],
+            "pop_matmul_by_route": dict(pop_matmul.launches_by_route),
+            "pop_adam": counts["pop_adam"], "hopper2d": counts["hopper2d"],
+            "hopper2d_vec": counts["hopper2d_vec"]}
+
+
+def _reset_island_counts():
+    from repro_torch.kernels.hopper2d import hopper2d_step
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    reset_counts(pop_matmul, pop_adam, hopper2d_step)
+
+
+def _td3_islands(rank, world, job):
+    """ISLANDS' TD3 run on this rank (or alone, world 1): 2 iterations, an
+    evolve on ISLANDS_FITNESS (its parents on rank 0, its children on rank
+    1), 1 iteration with an evaluation, a blocking checkpoint. Returns the
+    rows, the state before and after the evolve, the final state and
+    engine state, the lineage, the exchange's seconds and bytes, the
+    iterations' ms and the launch counts of the run."""
+    tr = _islands_trainer(ISLANDS["population"], job["ckpt"])
+    _reset_island_counts()
+    iter_ms = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(2):
+        timed(tr.env_iteration)
+    pre = _cpu_leaves(tr.state)
+    tr.report_fitness(torch.tensor(ISLANDS_FITNESS, device="cuda"))
+    lineage = tr.evolve().tolist()
+    post = _cpu_leaves(tr.state)
+    exchange = dict(getattr(tr.strategy.gather, "last", {}))
+    timed(lambda: tr.run_env_loop(1, eval_every=1))
+    counts = _island_counts()
+    tr.save(blocking=True)
+    return {"rows": tuple(tr.rows), "islands": tr.layout.islands,
+            "pre": pre, "post": post, "lineage": lineage,
+            "final": _cpu_leaves(tr.state),
+            "rollout": _cpu_leaves(tr.rollout.export_state()),
+            "hypers": _cpu_leaves(tr.hypers), "exchange": exchange,
+            "iter_ms": iter_ms, "counts": counts}
+
+
+def _elastic_grow_rank(rank, world, job):
+    """The checkpoint of ISLANDS' 8 members restored at job["n"] members
+    on this rank's island: the lineage, this rank's rows against the
+    saved ones gathered by it, bit for bit, and one more iteration."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.elastic import restore_elastic
+    from repro_torch.tree import leaves
+
+    tr = _islands_trainer(job["n"], job["ckpt"])
+    mgr = CheckpointManager(job["ckpt"])
+    old_n = ISLANDS["population"]
+    (state, _), extra = mgr.restore((tr.state,
+                                     tr.strategy.export_state()))
+    saved = {"state": state, "hypers": mgr.restore_aux("hypers", tr.hypers),
+             "rollout": mgr.restore_aux("rollout",
+                                        tr.rollout.export_state())}
+    t0 = time.perf_counter()
+    step, lineage = restore_elastic(tr)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    rows = tr.rows
+    mine = lineage[rows.lo:rows.hi]
+    compared = 0
+    for name, tree, full in (("state", tr.state, False),
+                             ("hypers", tr.hypers, True),
+                             ("rollout", tr.rollout.export_state(), False)):
+        take = lineage if full else mine
+        for got, x in zip(leaves(tree), leaves(saved[name])):
+            x = torch.from_numpy(np.asarray(x))
+            want = x[torch.as_tensor(take)] if x.ndim and \
+                x.shape[0] == old_n else x
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"elastic {old_n} -> {job['n']} on "
+                                     f"rank {rank}: a {name} leaf of shape "
+                                     f"{tuple(got.shape)} is not the saved "
+                                     f"one gathered by the lineage")
+            compared += 1
+    _reset_island_counts()
+    _, _, did = tr.env_iteration()
+    torch.cuda.synchronize()
+    return {"rows": tuple(rows), "step": step, "lineage": lineage.tolist(),
+            "fitness": extra.get("fitness"), "leaves": compared,
+            "restore_s": restore_s, "did_update": did,
+            "counts": _island_counts()}
+
+
+def _dp_rank(rank, world, job):
+    """``make_dp_update`` on the card over this gloo group, on the JAX
+    test's problem (a linear fit, Adam at lr 0.05; tests/
+    test_dp_compression.py), plain and int8: the parameters, the wire bytes
+    each rank puts on the wire per reduction, and the ms of one reduction
+    of a DP["grad_elems"]-element gradient by each."""
+    from repro_torch.optim import adam
+    from repro_torch.optim.dp import (compressed_psum_tree, make_dp_update,
+                                      plain_psum_tree, wire_bytes)
+    target = torch.arange(8.0, device="cuda") / 4 - 1.0
+    rng = np.random.default_rng(SEED)
+    batches = torch.from_numpy(rng.standard_normal(
+        (DP["steps"], 8 * world, 8)).astype(np.float32)).cuda()
+
+    def grad_fn(params, batch):
+        w = params["w"].detach().requires_grad_(True)
+        loss = torch.mean((batch @ w - batch @ target) ** 2)
+        (g,) = torch.autograd.grad(loss, w)
+        return loss.detach(), {"w": g}
+
+    out = {}
+    for compression in ("none", "int8"):
+        params = {"w": torch.zeros(8, device="cuda")}
+        opt_init, opt_update = adam(lr=0.05)
+        opt_state = opt_init(params)
+        error = {"w": torch.zeros(8, device="cuda")}
+        update = make_dp_update(grad_fn, opt_update, compression=compression)
+        for i in range(DP["steps"]):
+            params, opt_state, error, loss = update(
+                params, opt_state, error, batches[i, 8 * rank:8 * (rank + 1)])
+        out[compression] = params["w"].cpu()
+        out[compression + "_loss"] = float(loss)
+    grads = {"g": torch.randn(DP["grad_elems"], device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(
+                                  rank))}
+    zeros = {"g": torch.zeros_like(grads["g"])}
+    out["reduction_ms"] = {
+        "none": _sync_ms(lambda: plain_psum_tree(grads), reps=5),
+        "int8": _sync_ms(lambda: compressed_psum_tree(grads, zeros), reps=5)}
+    out["wire_bytes"] = {c: wire_bytes(grads, world, c)
+                         for c in ("none", "int8")}
+    out["problem_wire_bytes"] = {c: wire_bytes(params, world, c)
+                                 for c in ("none", "int8")}
+    return out
+
+
+def _session_rank(rank, world, store, out, jobs):
+    """One spawned gloo rank on cuda:0: joins the group through a
+    FileStore and runs each job in turn (the name of a module-level
+    function of this script and its arguments); writes the results, or
+    the traceback, beside ``out``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=600))
+        results = {}
+        for name, fn, job in jobs:
+            results[name] = globals()[fn](rank, world, job)
+            dist.barrier()
+        dist.destroy_process_group()
+        torch.save(results, out)
+    except BaseException:
+        Path(out + ".err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _spawn_session(jobs, world, tmp, timeout):
+    """``jobs`` on ``world`` spawned gloo ranks sharing cuda:0; each
+    rank's results, in rank order. A rank that raises fails the phase
+    with its traceback; ranks alive at ``timeout`` are killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    store = str(Path(tmp) / "store")
+    outs = [str(Path(tmp) / f"rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_session_rank,
+                         args=(r, world, store, outs[r], jobs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [Path(o + ".err").read_text() for o in outs
+              if Path(o + ".err").exists()]
+    if errors or alive or any(p.exitcode for p in procs):
+        raise AssertionError(f"islands ranks failed (alive after {timeout} "
+                             f"s: {alive}; exit codes "
+                             f"{[p.exitcode for p in procs]}):\n"
+                             + "\n".join(errors))
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _npz_leaves(path):
+    with np.load(path) as data:
+        return [data[f"leaf_{i}"] for i in range(len(data.files))]
+
+
+def phase_islands_cli(root):
+    """48. The train CLI through ``torch.distributed.run --nproc-per-node
+    1`` (a world of one NCCL rank): TD3 on hopper2d at the repo's width,
+    N = 8, 256 envs a member, one evolve, ``--backend islands`` and
+    ``sharded``, each against the same command with ``--backend
+    vectorized`` (plain ``python``), the three side by side on the card
+    (each its own process): exit 0, the layout printed as one
+    island over an NCCL group, and every leaf of the last checkpoint
+    equal, bit for bit where no arithmetic happens and at the update
+    tolerance otherwise (counted). Returns the runs' seconds and
+    counts."""
+    c = ISLANDS_CLI
+    argv = ["--algo", "td3", "--env", "hopper2d", "--population",
+            str(ISLANDS["population"]), "--fused-adam", "--fused-linear",
+            "--num-envs", str(ISLANDS["num_envs"]), "--collect-steps",
+            str(ISLANDS["collect_steps"]), "--updates-per-iter",
+            str(ISLANDS["updates"]), "--batch", str(ISLANDS["batch"]),
+            "--steps", str(c["steps"]), "--pbt-interval",
+            str(c["pbt_interval"]), "--eval-every", "1", "--seed",
+            str(SEED)]
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    out = {}
+    # the three runs side by side on the card, each its own process
+    runs = {}
+    for backend in ("vectorized", "islands", "sharded"):
+        launch = [sys.executable] if backend == "vectorized" else [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1"]
+        runs[backend] = (time.perf_counter(), subprocess.Popen(
+            launch + ["-m", "repro_torch.launch.train", *argv, "--backend",
+                      backend, "--ckpt-dir", str(Path(root) / backend)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    for backend, (t0, proc) in runs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=c["timeout"])
+        except subprocess.TimeoutExpired:
+            for _, p in runs.values():
+                p.kill()
+            raise
+        secs = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"islands CLI --backend {backend} exited "
+                                 f"{proc.returncode}:\n{stdout[-2000:]}\n"
+                                 f"{stderr[-3000:]}")
+        if backend != "vectorized" and (
+                "1 island, rank 0 holds members 0..7" not in stdout
+                or "process group nccl over 1 rank" not in stdout):
+            raise AssertionError(f"islands CLI --backend {backend}: no "
+                                 f"one-island NCCL layout printed:\n"
+                                 f"{stdout[-1500:]}")
+        evolves = re.findall(r"evolve at iter \d+: lineage=(\[[\d, ]*\])",
+                             stdout)
+        if len(evolves) != 1:
+            raise AssertionError(f"islands CLI --backend {backend}: "
+                                 f"{len(evolves)} evolves printed, want 1")
+        out[backend] = {"seconds": secs, "lineage": json.loads(evolves[0])}
+    want_dir = Path(root) / "vectorized"
+    (step,) = sorted(p.name for p in want_dir.iterdir())
+    for backend in ("islands", "sharded"):
+        exact = close = 0
+        for f in sorted((want_dir / step).glob("*.npz")):
+            got = _npz_leaves(Path(root) / backend / step / f.name)
+            want = _npz_leaves(f)
+            if len(got) != len(want):
+                raise AssertionError(f"islands CLI {backend}: {f.name} "
+                                     f"holds {len(got)} leaves, want "
+                                     f"{len(want)}")
+            for g, w in zip(got, want):
+                if np.array_equal(g, w):
+                    exact += 1
+                    continue
+                np.testing.assert_allclose(
+                    g, w, **STEP1_GRAD_TOL,
+                    err_msg=f"islands CLI {backend}: {f.name}")
+                close += 1
+        out[backend].update(leaves_bit_for_bit=exact, leaves_close=close)
+        if out[backend]["lineage"] != out["vectorized"]["lineage"]:
+            raise AssertionError(f"islands CLI {backend}: lineage "
+                                 f"{out[backend]['lineage']}, vectorized "
+                                 f"{out['vectorized']['lineage']}")
+        log(f"islands CLI --backend {backend} (torch.distributed.run, one "
+            f"NCCL rank; the three runs side by side on the card): "
+            f"{out[backend]['seconds']:.1f} s, checkpoint "
+            f"{exact} leaves bit for bit and {close} within rtol 1e-4, atol "
+            f"1e-6 of --backend vectorized "
+            f"({out['vectorized']['seconds']:.1f} s)")
+    return out
+
+
+def phase_islands_ranks(root):
+    """49, 50 and 52. Two gloo ranks sharing cuda:0 (spawned) run
+    ISLANDS' TD3 (``_td3_islands``: 3 iterations and an evolve whose
+    parents are on rank 0 and children on rank 1), then restore its
+    checkpoint at 12 members over both ranks, then the DP reduction;
+    against the same TD3 run on one rank in this process. Held: each
+    rank's launch counts (pop_matmul by route, pop_adam, hopper2d on its
+    vec route) equal to the one-rank run's, since a launch takes all the
+    members a rank holds; the lineage equal; the exchange bit for bit
+    (every member's row after the evolve is its parent's before it); the
+    state and engine state at the update tolerance of the one-rank run's
+    (bit for bit counted); the checkpoint rank 0 wrote equal, bit for bit,
+    to the ranks' rows. Then 50: that checkpoint restored at 6 members in
+    this process and at 12 over the two ranks, every rank's rows the saved
+    ones gathered by the lineage (from the checkpoint's fitness), and one
+    more iteration each; 52: ``make_dp_update`` plain and int8 (the JAX
+    test's tolerance, 0.1, and convergence, 0.05) and the wire bytes.
+    Prints ms per iteration with one rank and with two on the one card,
+    which share it: no speed-up is claimed."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.elastic import restore_elastic
+
+    n = ISLANDS["population"]
+    one_dir = Path(root) / "one"
+    two_dir = Path(root) / "two"
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = _td3_islands(0, 1, {"ckpt": str(one_dir)})
+    t0 = time.perf_counter()
+    ranks = _spawn_session(
+        [("td3", "_td3_islands", {"ckpt": str(two_dir)}),
+         ("grow", "_elastic_grow_rank", {"ckpt": str(two_dir),
+                                          "n": ELASTIC["sizes"][1]}),
+         ("dp", "_dp_rank", {})],
+        2, root, ISLANDS["timeout"])
+    session_s = time.perf_counter() - t0
+    out = {"session_s": session_s}
+
+    # 49: launches, lineage, exchange, update, checkpoint
+    two = [r["td3"] for r in ranks]
+    for r, res in enumerate(two):
+        if res["counts"] != one["counts"]:
+            raise AssertionError(f"islands rank {r}: launches "
+                                 f"{res['counts']}, one rank's "
+                                 f"{one['counts']}")
+        if res["lineage"] != one["lineage"]:
+            raise AssertionError(f"islands rank {r}: lineage "
+                                 f"{res['lineage']}, one rank's "
+                                 f"{one['lineage']}")
+    lineage = one["lineage"]
+    crossing = [i for i, p in enumerate(lineage) if p // 4 != i // 4]
+    if not crossing:
+        raise AssertionError(f"islands: the evolve's lineage {lineage} "
+                             f"crosses no rank")
+    pre = [torch.cat([res["pre"][i] for res in two]) for i in
+           range(len(two[0]["pre"]))]
+    idx = torch.tensor(lineage)
+    for res in two:
+        lo, hi, _ = res["rows"]
+        for i, (post, full) in enumerate(zip(res["post"], pre)):
+            if not torch.equal(post, full[idx[lo:hi]]):
+                raise AssertionError(f"islands exchange: leaf {i} of rows "
+                                     f"{lo}..{hi - 1} is not the parents' "
+                                     f"rows before the evolve")
+    exact = close = 0
+    worst = 0.0
+    for res in two:
+        lo, hi, _ = res["rows"]
+        for got, want in zip(res["final"] + res["rollout"],
+                             one["final"] + one["rollout"]):
+            want = want[lo:hi]
+            if torch.equal(got, want):
+                exact += 1
+                continue
+            worst = max(worst, tol_share(got.double(), want.double(),
+                                         STEP1_GRAD_TOL))
+            close += 1
+    if worst > 1:
+        raise AssertionError(f"islands: two ranks' state {worst:.3g} of "
+                             f"rtol 1e-4, atol 1e-6 from one rank's")
+    (step,) = sorted(p.name for p in two_dir.iterdir())
+    saved = _npz_leaves(two_dir / step / "arrays.npz")
+    rows = [torch.cat([res["final"][i] for res in two]) for i in
+            range(len(two[0]["final"]))]
+    saved_roll = _npz_leaves(two_dir / step / "aux_rollout.npz")
+    roll = [torch.cat([res["rollout"][i] for res in two]) for i in
+            range(len(two[0]["rollout"]))]
+    if len(saved) != len(rows) or not all(
+            np.array_equal(s, r.numpy()) for s, r in
+            zip(saved + saved_roll, rows + roll)):
+        raise AssertionError("islands: the checkpoint rank 0 wrote is not "
+                             "the ranks' rows, bit for bit")
+    ms_one = one["iter_ms"]
+    ms_two = [max(res["iter_ms"][k] for res in two)
+              for k in range(len(ms_one))]
+    ex = two[1]["exchange"]
+    out["td3"] = {
+        "launches_per_rank": two[0]["counts"],
+        "launches_by_rank": [res["counts"] for res in two],
+        "launches_one_rank": one["counts"], "lineage": lineage,
+        "crossing_members": crossing,
+        "exchange": {r: res["exchange"] for r, res in enumerate(two)},
+        "state_leaves_bit_for_bit": exact, "state_leaves_close": close,
+        "state_worst_share": worst, "iter_ms_one_rank": ms_one,
+        "iter_ms_two_ranks_one_card": ms_two,
+        "checkpoint_leaves": len(saved) + len(saved_roll)}
+    log(f"islands, 2 gloo ranks sharing cuda:0, TD3 hopper2d N={n} x "
+        f"{ISLANDS['num_envs']} envs: launches per rank {two[0]['counts']} "
+        f"= one rank's; lineage {lineage} (members {crossing} take a parent "
+        f"from the other rank); exchange {ex['members']} member rows, "
+        f"{ex['bytes']:,} bytes in {ex['seconds'] * 1e3:.2f} ms (gloo via "
+        f"the host); state {exact} leaves bit for bit, {close} within rtol "
+        f"1e-4, atol 1e-6 (worst {worst:.3g}); checkpoint = the ranks' rows "
+        f"bit for bit; ms per iteration one rank "
+        f"{[round(x, 2) for x in ms_one]}, two ranks on one card "
+        f"{[round(x, 2) for x in ms_two]} (one card shared: no speed-up "
+        f"claimed)")
+
+    # 50: elastic across world sizes, 8 on 2 ranks -> 6 on 1, 12 on 2
+    fitness = CheckpointManager(two_dir).peek_extra()["fitness"]
+    elastic = {}
+    for new_n in ELASTIC["sizes"]:
+        want = _elastic_lineage(fitness, new_n)
+        if new_n == ELASTIC["sizes"][1]:
+            grown = [r["grow"] for r in ranks]
+            for r, res in enumerate(grown):
+                if res["lineage"] != want or not res["did_update"]:
+                    raise AssertionError(f"elastic 8 -> {new_n} rank {r}: "
+                                         f"lineage {res['lineage']}, want "
+                                         f"{want}; updated "
+                                         f"{res['did_update']}")
+            elastic[new_n] = {"world": 2, "lineage": want,
+                              "leaves_bit_for_bit": sum(
+                                  res["leaves"] for res in grown),
+                              "restore_s": max(res["restore_s"]
+                                               for res in grown),
+                              "counts": grown[0]["counts"]}
+            continue
+        tr = _islands_trainer(new_n, str(Path(root) / "six"))
+        t0 = time.perf_counter()
+        _, got = restore_elastic(tr, directory=two_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved_all = [torch.from_numpy(x).cuda() for x in (
+            saved + _npz_leaves(two_dir / step / "aux_hypers.npz")
+            + saved_roll)]
+        compared = _check_gathered(f"elastic 8 -> {new_n} on one rank", tr,
+                                   saved_all, want, n)
+        if got.tolist() != want:
+            raise AssertionError(f"elastic 8 -> {new_n}: lineage "
+                                 f"{got.tolist()}, want {want}")
+        _, _, did = tr.env_iteration()
+        if not did:
+            raise AssertionError(f"elastic 8 -> {new_n}: no update after "
+                                 f"the restore")
+        elastic[new_n] = {"world": 1, "lineage": want,
+                          "leaves_bit_for_bit": compared,
+                          "restore_s": restore_s}
+        del tr
+    out["elastic"] = elastic
+    log(f"islands elastic: 8 members saved on 2 ranks, restored at 6 on "
+        f"one rank (lineage {elastic[6]['lineage']}, {elastic[6]['leaves_bit_for_bit']} "
+        f"leaves bit for bit, {elastic[6]['restore_s']:.2f} s) and at 12 on "
+        f"two (lineage {elastic[12]['lineage']}, "
+        f"{elastic[12]['leaves_bit_for_bit']} leaves bit for bit over both "
+        f"ranks, {elastic[12]['restore_s']:.2f} s); training went on")
+
+    # 52: the DP reduction
+    dp = [r["dp"] for r in ranks]
+    target = np.arange(8.0, dtype=np.float32) / 4 - 1.0
+    for c in ("none", "int8"):
+        if not torch.equal(dp[0][c], dp[1][c]):
+            raise AssertionError(f"DP {c}: the ranks' parameters differ")
+        err = float(np.abs(dp[0][c].numpy() - target).max())
+        if err > DP["converge_atol"]:
+            raise AssertionError(f"DP {c}: {err:.3g} from the target after "
+                                 f"{DP['steps']} steps")
+    gap = float((dp[0]["int8"] - dp[0]["none"]).abs().max())
+    if gap > DP["plain_atol"]:
+        raise AssertionError(f"DP: int8 {gap:.3g} from plain, beyond "
+                             f"{DP['plain_atol']}")
+    out["dp"] = {"steps": DP["steps"], "int8_vs_plain_max_abs": gap,
+                 "wire_bytes": dp[0]["wire_bytes"],
+                 "grad_elems": DP["grad_elems"],
+                 "problem_wire_bytes": dp[0]["problem_wire_bytes"],
+                 "reduction_ms": {r: d["reduction_ms"]
+                                  for r, d in enumerate(dp)}}
+    log(f"DP reduction, 2 gloo ranks on cuda:0: int8 {gap:.3g} from plain "
+        f"after {DP['steps']} steps (tolerance {DP['plain_atol']}), both "
+        f"within {DP['converge_atol']} of the target; wire bytes a rank for "
+        f"{DP['grad_elems']:,} fp32 gradients: plain "
+        f"{dp[0]['wire_bytes']['none']:,}, int8 "
+        f"{dp[0]['wire_bytes']['int8']:,}; ms a reduction (gloo via the "
+        f"host) {dp[0]['reduction_ms']}")
+    return out
+
+
+def _digest(t):
+    """A bit-level digest of a tensor on the card: the sum of its 32-bit
+    words and their sum weighted by position (mod 65521)."""
+    v = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return (int(v.sum()), int((v * w).sum()))
+
+
+def _lm_islands_rank(rank, world, job):
+    """qwen2-0.5b at full width, 2 layers, float32, N = 4 over this rank's
+    island: 2 steps (the first at lr 0 under warmup), then an evolve on
+    fitness [4, 3, 2, 1] whose child (member 3) is on the last rank and
+    parent (member 0) on the first. Then, on this rank alone, the same 2
+    steps of the 4 members on one rank (the vectorized backend, no
+    group), and this rank's rows held to it by the LM update rule (the
+    parameters after step 1 bit for bit; the gradients from Adam's first
+    moment at rtol 1e-4, atol 1e-6; the step p - p' of step 2 on the
+    elements whose reference gradients exceed 1e-6 in both steps). The
+    exchanged rows are digested before and after the evolve."""
+    from repro_torch.configs import HyperSpace, TrainConfig
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.pop import LMAgent, PopTrainer
+    from repro_torch.tree import flat_buffer, leaves
+
+    c = LM_ISLANDS
+    cfg = _lm_config(c["arch"], num_layers=c["layers"], dtype="float32")
+    tcfg = TrainConfig(total_steps=2, warmup_steps=1)
+    n = c["population"]
+    stream = host_batches(cfg.vocab_size, n * c["batch"], c["seq_len"],
+                          seed=SEED)
+    batches = [{"tokens": torch.from_numpy(next(stream)).reshape(
+        n, c["batch"], c["seq_len"]).cuda()} for _ in range(2)]
+    space = HyperSpace(**LM_HYPER_SPACE)
+
+    def trainer(backend):
+        pcfg = PopulationConfig(size=n, strategy="pbt", backend=backend,
+                                pbt_interval=0, hyper_space=space)
+        return PopTrainer(LMAgent(cfg, tcfg, device="cuda"), pcfg,
+                          seed=SEED)
+
+    def bufs(state):
+        return (flat_buffer(state.params), flat_buffer(state.opt_state.mu),
+                flat_buffer(state.opt_state.nu))
+
+    def two_steps(tr, rows):
+        sl = slice(rows[0], rows[1])
+        tr.step(batches[0])
+        mu1 = bufs(tr.state)[1][sl].clone()
+        p1 = bufs(tr.state)[0][sl].clone()
+        tr.step(batches[1])
+        return p1, mu1, bufs(tr.state)[0][sl].clone(), \
+            bufs(tr.state)[1][sl].clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = trainer("islands")
+    rows = tr.rows
+    local = (0, rows.count)
+    p1, mu1, p2, mu2 = two_steps(tr, local)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    parent, child = 0, n - 1
+    sent = [_digest(b[parent - rows.lo]) for b in bufs(tr.state)] \
+        if rows.lo <= parent < rows.hi else None
+    tr.report_fitness(torch.tensor([4.0, 3.0, 2.0, 1.0], device="cuda"))
+    lineage = tr.evolve().tolist()
+    got = [_digest(b[child - rows.lo]) for b in bufs(tr.state)] \
+        if rows.lo <= child < rows.hi else None
+    exchange = dict(tr.strategy.gather.last)
+    peak = torch.cuda.max_memory_allocated()
+    views = all(x._base is flat_buffer(tr.state.params)
+                for x in leaves(tr.state.params))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = trainer("vectorized")
+    q1, nu1, q2, nu2 = two_steps(ref, (rows.lo, rows.hi))
+    del ref
+    if not torch.equal(p1, q1):
+        raise AssertionError(f"LM islands rank {rank}: the parameters after "
+                             f"step 1 (lr 0) moved apart")
+    g_isl = (mu1 / 0.1, (mu2 - 0.9 * mu1) / 0.1)
+    g_ref = (nu1 / 0.1, (nu2 - 0.9 * nu1) / 0.1)
+    grad_share = max(tol_share(a, b, STEP1_GRAD_TOL)
+                     for a, b in zip(g_isl, g_ref))
+    keep = ((g_ref[0].abs() > LM_STEP_GRAD_FLOOR)
+            & (g_ref[1].abs() > LM_STEP_GRAD_FLOOR))
+    step_share = tol_share((p1 - p2)[keep], (q1 - q2)[keep], STEP1_GRAD_TOL)
+    exact = bool(torch.equal(p2, q2))
+    return {"rows": tuple(rows), "lineage": lineage, "sent": sent,
+            "got": got, "exchange": exchange, "peak_bytes": peak,
+            "steps_s": steps_s, "views_kept": views,
+            "grad_share": grad_share, "step_share": step_share,
+            "step_elements_held": int(keep.sum()),
+            "elements": keep.numel(), "bit_for_bit": exact}
+
+
+def phase_islands_lm(root):
+    """51. LM islands: ``_lm_islands_rank`` on two gloo ranks sharing
+    cuda:0. Held: the lineage copies member 0 (rank 0) into member 3
+    (rank 1); the rows rank 1 received equal, bit for bit (digests), the
+    rows rank 0 sent; the flat buffers kept as the leaves' base; each
+    rank's rows within the LM update rule of the one-rank run. Prints the
+    exchange's seconds and bytes and each rank's peak of allocated
+    memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [r["lm"] for r in _spawn_session(
+        [("lm", "_lm_islands_rank", {})], 2, root, LM_ISLANDS["timeout"])]
+    seconds = time.perf_counter() - t0
+    want = [0, 1, 2, 0]
+    for r, res in enumerate(ranks):
+        if res["lineage"] != want:
+            raise AssertionError(f"LM islands rank {r}: lineage "
+                                 f"{res['lineage']}, want {want}")
+        if not res["views_kept"]:
+            raise AssertionError(f"LM islands rank {r}: the parameters are "
+                                 f"no longer views of the flat buffer")
+        for what in ("grad_share", "step_share"):
+            if res[what] > 1:
+                raise AssertionError(f"LM islands rank {r}: {what} "
+                                     f"{res[what]:.3g} of rtol 1e-4, atol "
+                                     f"1e-6 from the one-rank run")
+    if ranks[0]["sent"] != ranks[1]["got"] or ranks[0]["sent"] is None:
+        raise AssertionError("LM islands: member 3's rows after the evolve "
+                             "are not member 0's before it")
+    ex = ranks[1]["exchange"]
+    out = {"arch": LM_ISLANDS["arch"], "layers": LM_ISLANDS["layers"],
+           "population": LM_ISLANDS["population"], "seconds": seconds,
+           "lineage": want, "exchange": ex,
+           "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+           "grad_share": [r["grad_share"] for r in ranks],
+           "step_share": [r["step_share"] for r in ranks],
+           "bit_for_bit": [r["bit_for_bit"] for r in ranks],
+           "steps_s": [r["steps_s"] for r in ranks]}
+    log(f"LM islands, {LM_ISLANDS['arch']} full width {LM_ISLANDS['layers']}"
+        f" layers fp32, N={LM_ISLANDS['population']} over 2 gloo ranks on "
+        f"cuda:0: lineage {want}, member 0's rows (rank 0) in member 3's "
+        f"slot (rank 1) bit for bit: {ex['bytes']:,} bytes in "
+        f"{ex['seconds']:.2f} s (gloo via the host); peak allocated per "
+        f"rank {[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; "
+        f"vs one rank: gradients {out['grad_share']}, step "
+        f"{out['step_share']} of rtol 1e-4, atol 1e-6 (bit for bit "
+        f"{out['bit_for_bit']}); {seconds:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -7041,9 +7776,33 @@ def main() -> int:
         slice16["double_buffer"] = phase_double_buffer()
         slice16["examples"] = phase_examples()
         lap("46-47 DoubleBuffer, examples")
+
+    # 48. the islands CLI, a world of one NCCL rank; 49, 50, 52. two gloo
+    # ranks sharing the card: TD3 islands, elastic across world sizes, the
+    # DP reduction; 51. LM islands
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice18 = {}
+    with tempfile.TemporaryDirectory() as root:
+        slice18["cli"] = phase_islands_cli(root)
+    lap("48 islands CLI, one NCCL rank")
+    with tempfile.TemporaryDirectory() as root:
+        slice18["ranks"] = phase_islands_ranks(root)
+    lap("49-50, 52 islands, elastic and DP over two gloo ranks")
+    with tempfile.TemporaryDirectory() as root:
+        slice18["lm"] = phase_islands_lm(root)
+    lap("51 LM islands")
+    slice18["card"] = smi
     slice15["card"] = smi
     slice16["card"] = smi
     log(f"seconds at the end of each group of phases: {seconds}")
+    # the islands runs: the one-rank run in this process and each of the
+    # two gloo ranks' (a rank launches for the members it holds)
+    isl = slice18["ranks"]["td3"]
+    islands_paths = lambda name: {
+        "islands_one_rank": isl["launches_one_rank"][name],
+        **{f"islands_rank{r}": counts[name]
+           for r, counts in enumerate(isl["launches_by_rank"])}}
     # a captured graph's launches are its captured launches times its
     # replays (plus the eager warm-up's before the capture)
     acting_paths = lambda name: {
@@ -7054,7 +7813,8 @@ def main() -> int:
            for k, r in acting["cli"].items()},
         "resume_fused": slice15["resume_rl"]["fused"]["launches"][name],
         "fused_sink": sink_launches[name],
-        "elastic_fused": slice16["elastic_fused"]["launches"][name]}
+        "elastic_fused": slice16["elastic_fused"]["launches"][name],
+        **islands_paths(name)}
     resume_cli = slice15["resume_rl"]["cli"]
     by_path = lambda name: {"td3_train": train["launches"][name],
                             "cemrl": shared["cemrl"]["launches"][name],
@@ -7379,6 +8139,9 @@ def main() -> int:
     print(json.dumps({"lm_cem": lm_cem}))
     print(json.dumps({"slice15": slice15}))
     print(json.dumps({"slice16": slice16}))
+    slice18["seconds_total"] = round(time.perf_counter() - T_START, 1)
+    print(json.dumps({"slice18": slice18}))
+    log(f"the whole run took {slice18['seconds_total']} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

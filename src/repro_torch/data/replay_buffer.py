@@ -13,6 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.tree import leaves, tree_map
 
 
@@ -69,8 +70,8 @@ def sample_indices(buf: ReplayBuffer, generator, batch_size: int,
     fill, not the capture's."""
     n, capacity = leaves(buf.data)[0].shape[:2]
     count = torch.clamp(buf.total, max=capacity)[None, :, None]
-    u = torch.rand((steps, n, batch_size), generator=generator,
-                   device=generator.device).to(count.device)
+    u = member_draw(torch.rand, (steps, n, batch_size), generator,
+                    axis=1).to(count.device)
     idx = torch.floor(u * count.float()).long()
     # u * count can round up to count in float32 for large counts
     return torch.minimum(idx, (count - 1).long())

@@ -1,15 +1,18 @@
-"""Resume a checkpointed trainer at another population size
-(``repro.elastic.relayout``).
+"""Resume a checkpointed trainer at another population size, on another
+number of ranks (``repro.elastic.relayout``).
 
-Checkpoints hold host numpy trees, so an elastic resume is: restore ->
-resize the population -> write into the new trainer's tensors. The resize
-is PBT's mechanics (:mod:`repro_torch.elastic.resize`): a shrink drops the
-least fit members, a grow refills with clones of the fittest, and the
-attached engine's replay buffers and env states ride along, gathered by
-the same member map, so survivors keep their collected experience bit for
-bit. On one card there is no layout to plan: the members live on the
-trainer's device. The JAX package's ``relayout`` (placement by the
-sharding rules over a mesh) is not ported.
+Checkpoints hold host numpy trees of the whole population (rank 0 writes
+every island's rows), so an elastic resume is: restore -> plan the resize
+on the full tree -> take this rank's rows -> write them into the new
+trainer's tensors. Every rank plans the same resize, so a checkpoint
+written on K ranks resumes on K' ranks, at the same or another size. The
+resize is PBT's mechanics (:mod:`repro_torch.elastic.resize`): a shrink
+drops the least fit members, a grow refills with clones of the fittest,
+and the attached engine's replay buffers and env states ride along,
+gathered by the same member map, so survivors keep their collected
+experience bit for bit. The JAX package's ``relayout`` (placement of one
+large member by the sharding rules over a mesh) is not ported: it waits
+for model-sharded members.
 
     trainer = PopTrainer(agent, PopulationConfig(size=8, ...),
                          checkpoint_dir=DIR)
@@ -35,7 +38,7 @@ from repro_torch.elastic.resize import plan_resize, resize_into, resize_tree
 from repro_torch.tree import copy_into, leaves
 
 
-def restore_elastic(trainer, directory=None, *, step=None):
+def restore_elastic(trainer, directory=None, *, step=None, layout=None):
     """Restore ``trainer`` (and its attached engine, if any) from a
     checkpoint written by a trainer of a possibly different population
     size.
@@ -43,7 +46,10 @@ def restore_elastic(trainer, directory=None, *, step=None):
     The trainer must be freshly built at the NEW size (``pcfg.size``),
     with the checkpointed run's strategy and hyper space so the trees line
     up. Returns ``(saved_step, lineage)``: ``lineage[i]`` is the
-    checkpointed member whose state member ``i`` now holds. Raises
+    checkpointed member whose state member ``i`` now holds (every member,
+    on every rank). ``layout`` (an
+    :class:`~repro_torch.elastic.IslandLayout`) defaults to the trainer's;
+    the rank writes that layout's rows of the resized population. Raises
     ``FileNotFoundError`` when no checkpoint exists (callers deciding
     between a fresh start and an elastic resume check
     ``manager.peek_extra()`` first, as ``launch.train --resize auto``
@@ -98,7 +104,9 @@ def restore_elastic(trainer, directory=None, *, step=None):
                 f"fitness", stacklevel=2)
         parents, lineage = plan_resize(old_n, trainer.n, fitness)
 
-        resize_into(trainer.state, state, old_n, parents)
+        rows = layout.rows() if layout is not None else trainer.rows
+        mine = parents[rows.lo:rows.hi]
+        resize_into(trainer.state, state, old_n, mine)
         del state
         if trainer.hypers is not None:   # fresh hypers stay when the
             hypers = mgr.restore_aux("hypers", trainer.hypers, step)
@@ -113,7 +121,7 @@ def restore_elastic(trainer, directory=None, *, step=None):
                                      trainer._rollout.export_state(), step)
             if rstate is not None:
                 trainer._rollout.import_state(
-                    resize_tree(rstate, old_n, parents))
+                    resize_tree(rstate, old_n, mine))
                 # an RL trainer step is one engine iteration
                 trainer._rollout.iterations = extra["step"] + 1
         trainer.restore_generator(mgr, step)

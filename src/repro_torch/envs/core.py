@@ -25,6 +25,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.envs.hopper2d import (hopper2d_observe, hopper2d_reset,
                                        hopper2d_step, hopper2d_vec_step)
 
@@ -61,7 +62,7 @@ _PEND = dict(max_speed=8.0, max_torque=2.0, dt=0.05, g=10.0, m=1.0, l=1.0)
 
 
 def _uniform(generator, num, lo, hi, device):
-    u = torch.rand((num,), generator=generator, device=generator.device)
+    u = member_draw(torch.rand, (num,), generator)
     return (lo + (hi - lo) * u).to(device)
 
 
@@ -113,7 +114,7 @@ def _reacher_obs(s):
 
 
 def _reacher_reset(generator, num: int, device="cpu"):
-    u = torch.rand((num, 2), generator=generator, device=generator.device)
+    u = member_draw(torch.rand, (num, 2), generator)
     zeros = torch.zeros((num, 2), dtype=torch.float32, device=device)
     state = {
         "pos": zeros, "vel": zeros.clone(),
@@ -144,7 +145,7 @@ def _cartpole_obs(s):
 
 
 def _cartpole_reset(generator, num: int, device="cpu"):
-    u = torch.rand((num, 4), generator=generator, device=generator.device)
+    u = member_draw(torch.rand, (num, 4), generator)
     state = {"x": (-0.05 + 0.1 * u).to(device),
              "t": torch.zeros((num,), dtype=torch.int32, device=device)}
     return state, _cartpole_obs(state)
@@ -215,7 +216,7 @@ def _acrobot_obs(s):
 
 
 def _acrobot_reset(generator, num: int, device="cpu"):
-    u = torch.rand((num, 4), generator=generator, device=generator.device)
+    u = member_draw(torch.rand, (num, 4), generator)
     state = {"q": (-0.1 + 0.2 * u).to(device),
              "t": torch.zeros((num,), dtype=torch.int32, device=device)}
     return state, _acrobot_obs(state)

@@ -30,6 +30,8 @@ import functools
 
 import torch
 
+from repro_torch.core.distributed import member_draw
+
 # body order: 0 torso, 1 thigh, 2 leg, 3 foot
 H2D = dict(
     dt=0.002,            # integrator substep
@@ -184,9 +186,8 @@ def hopper2d_observe(state):
 def reset_draws(generator, num: int, device="cpu"):
     """The uniform draws of ``num`` resets, ``(u_pos (num, 4, 2), u_th
     (num, 4))``, from ``generator`` (poses first)."""
-    draw = dict(generator=generator, device=generator.device)
-    u_pos = torch.rand((num, 4, 2), **draw).to(device)
-    u_th = torch.rand((num, 4), **draw).to(device)
+    u_pos = member_draw(torch.rand, (num, 4, 2), generator).to(device)
+    u_th = member_draw(torch.rand, (num, 4), generator).to(device)
     return u_pos, u_th
 
 

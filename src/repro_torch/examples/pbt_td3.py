@@ -12,10 +12,15 @@ exploration noise comes from each member's PBT-tuned ``explore_noise``
 hyperparameter; fitness comes from the deterministic evaluator. The
 same script trains a single-seed baseline with ``--population 1``; no
 separate code path. Checkpoints are written every 10 iterations when
-``--ckpt-dir`` is given (asynchronous saves).
+``--ckpt-dir`` is given (asynchronous saves). ``--backend islands`` (or
+``sharded``) splits the population over the ranks that
+``torch.distributed.run`` starts, one per GPU, as the paper's §5.1 islands
+(a plain run is a world of one); rank 0 logs.
 
     python -m repro_torch.examples.pbt_td3 [--population 8] [--iters 30] \\
         [--device cuda]
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.examples.pbt_td3 --population 80 --backend islands
 """
 from __future__ import annotations
 
@@ -44,6 +49,12 @@ def run(population=8, iters=30, num_envs=4, collect_steps=32,
         device=DEFAULT_DEVICE):
     """Train for ``iters`` iterations; returns the best member's fitness
     at the last evaluation."""
+    if backend in ("islands", "sharded"):
+        from repro_torch.core.distributed import world
+        from repro_torch.launch.mesh import init_distributed
+        device = init_distributed(device)
+        if world()[0] != 0:          # rank 0 logs the run
+            log_dir = None
     env = make("pendulum")
     n = population
     pcfg = PopulationConfig(
@@ -93,7 +104,8 @@ def main(argv=None):
     ap.add_argument("--population", type=int, default=8)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--backend", default="vectorized",
-                    choices=["vectorized", "sequential"])
+                    choices=["vectorized", "sequential", "sharded",
+                             "islands"])
     ap.add_argument("--ckpt-dir", default=None,
                     help="write a checkpoint every 10 iterations into DIR")
     ap.add_argument("--log-dir", default=None,

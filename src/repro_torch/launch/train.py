@@ -102,10 +102,29 @@ captures, checkpoint times), which ``tools/report.py`` replays;
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
 ``--profile-iters`` iterations after the first into DIR. Flags of the JAX training CLI whose subsystems are
 not ported are refused, not accepted as no-ops.
+
+``--backend islands`` (the paper's §5.1 islands) and ``--backend sharded``
+run one process per GPU under ``torch.distributed.run``: each rank holds
+its island's members (their envs, buffers and update), PBT exchanges the
+rows it copies across ranks, rank 0 writes the checkpoints and the
+telemetry, and the run computes what one rank computes. The group is
+NCCL on the card and gloo with ``--device cpu``; a plain ``python`` run
+is a world of one::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --algo td3 --env hopper2d \
+        --population 80 --backend islands --ckpt-dir DIR
+
+``--devices`` is 0 or the world size (the ranks are the devices; any
+other value raises, naming ``--nproc-per-node``); ``--model-axis`` above
+1 (model-sharded members), and ``--fused-epoch``, ``--policy-lag 1`` and
+``--strategy cem`` over more than one island are refused by name. Any
+other backend refuses a world of more than one rank.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -115,12 +134,10 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 DEFAULT_EPOCHS = 4
 # flag -> why it is refused
 _REFUSED = {
-    "devices": "multi-device islands (the elastic island layouts over "
-               "several cards) are not ported yet",
-    "model_axis": "model-sharded members (the elastic island layouts over "
-                  "several cards) are not ported yet",
     "compile_cache": "the port compiles no programs to cache",
 }
+# the backends that run one process per GPU
+_MULTI_RANK = ("islands", "sharded")
 
 
 @dataclass
@@ -134,11 +151,51 @@ class TrainReport:
     final_loss: float | None = None                 # LM: the members' mean
 
 
+def _rank() -> int:
+    from repro_torch.core.distributed import world
+    return world()[0]
+
+
+def say(*parts):
+    """Print a ``[train]`` line, from rank 0 only."""
+    if _rank() == 0:
+        print(*parts, flush=True)
+
+
+def _device(args):
+    """This rank's device: joined to the process group that
+    ``torch.distributed.run`` describes under a multi-rank backend."""
+    if args.backend in _MULTI_RANK:
+        from repro_torch.launch.mesh import init_distributed
+        device = init_distributed(args.device)
+        if _rank() != 0:          # rank 0 traces and logs the run
+            args.profile = None
+        return device
+    return resolve_device(args.device)
+
+
+def _say_layout(trainer):
+    """The layout line: the islands, rank 0's members and the group."""
+    import torch.distributed as dist
+    if trainer.layout is None:
+        return
+    rows = trainer.rows
+    group = (f", process group {dist.get_backend()} over "
+             f"{dist.get_world_size()} rank"
+             f"{'s' if dist.get_world_size() > 1 else ''}"
+             if dist.is_initialized() else ", no process group")
+    say(f"[train] layout {trainer.layout}: {trainer.layout.islands} "
+        f"island{'s' if trainer.layout.islands > 1 else ''}, rank 0 "
+        f"holds members {rows.lo}..{rows.hi - 1}{group}")
+
+
 def _telemetry(args, device, **meta):
-    """One telemetry object a run: JSONL into ``--log-dir`` when given.
-    The ``[train]`` lines are this CLI's console, so no console sink."""
+    """One telemetry object a run: JSONL into ``--log-dir`` when given,
+    written by rank 0. The ``[train]`` lines are this CLI's console, so
+    no console sink."""
     from repro_torch.telemetry import make_telemetry
-    return make_telemetry(args.log_dir, console=False, device=device,
+    log_dir = args.log_dir if _rank() == 0 else None
+    return make_telemetry(log_dir, console=False, device=device,
                           meta=dict(meta, seed=args.seed,
                                     population=args.population,
                                     strategy=args.strategy,
@@ -165,13 +222,13 @@ def _resume(args, trainer):
             meta["size"] != trainer.n:
         from repro_torch.elastic import restore_elastic
         resumed, lineage = restore_elastic(trainer)
-        print(f"[train] elastic resume from step {resumed}: population "
-              f"{meta['size']} -> {trainer.n}, lineage={lineage.tolist()}")
+        say(f"[train] elastic resume from step {resumed}: population "
+            f"{meta['size']} -> {trainer.n}, lineage={lineage.tolist()}")
         return resumed
     resumed = trainer.resume()
     if resumed is not None:
-        print(f"[train] resumed from step {resumed}" if args.arch else
-              f"[train] resumed at trainer step {trainer.step_count}")
+        say(f"[train] resumed from step {resumed}" if args.arch else
+            f"[train] resumed at trainer step {trainer.step_count}")
     return resumed
 
 
@@ -184,7 +241,7 @@ def _run_lm(args) -> TrainReport:
     from repro_torch.models.lm import frontend_inputs
     from repro_torch.pop import LMAgent, PopTrainer
 
-    device = resolve_device(args.device)
+    device = _device(args)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -193,8 +250,8 @@ def _run_lm(args) -> TrainReport:
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1), seed=args.seed)
     n = args.population
-    print(f"[train] arch={cfg.name} pop={n} strategy={args.strategy} "
-          f"backend={args.backend} device={device}")
+    say(f"[train] arch={cfg.name} pop={n} strategy={args.strategy} "
+        f"backend={args.backend} device={device}")
     pcfg = PopulationConfig(
         size=n, strategy=args.strategy, backend=args.backend,
         pbt_interval=args.pbt_interval,
@@ -206,6 +263,7 @@ def _run_lm(args) -> TrainReport:
     trainer = PopTrainer(LMAgent(cfg, tcfg, device=device), pcfg,
                          seed=args.seed, checkpoint_dir=args.ckpt_dir,
                          telemetry=telemetry)
+    _say_layout(trainer)
     trainer.tokens_per_step = args.batch * args.seq_len
     start_step = 0
     if args.resume == "auto":
@@ -231,14 +289,15 @@ def _run_lm(args) -> TrainReport:
         report.metrics = metrics
         if lineage is not None:
             report.evolutions.append((step + 1, lineage.tolist()))
-            print(f"[train] evolve at step {step + 1}: "
-                  f"lineage={lineage.tolist()} strategy="
-                  f"{type(trainer.strategy).__name__}")
+            say(f"[train] evolve at step {step + 1}: "
+                f"lineage={lineage.tolist()} strategy="
+                f"{type(trainer.strategy).__name__}")
         due = args.ckpt_every and (step + 1) % args.ckpt_every == 0
         if due or step == args.steps - 1:
-            report.final_loss = float(metrics["loss"].mean())
-            print(f"[train] step {step + 1}: loss by member "
-                  f"{[round(x, 4) for x in metrics['loss'].tolist()]}")
+            loss = trainer.all_members(metrics["loss"])
+            report.final_loss = float(loss.mean())
+            say(f"[train] step {step + 1}: loss by member "
+                f"{[round(x, 4) for x in loss.tolist()]}")
             if args.ckpt_every:
                 trainer.save({"loss": report.final_loss})
 
@@ -246,10 +305,10 @@ def _run_lm(args) -> TrainReport:
     _finish(args, trainer, telemetry, final_loss=report.final_loss)
     report.seconds = time.time() - t0
     if report.metrics is not None:
-        report.best_fitness = float(
-            trainer.agent.fitness_from_metrics(report.metrics).max())
+        report.best_fitness = float(trainer.all_members(
+            trainer.agent.fitness_from_metrics(report.metrics)).max())
     loss = float("nan") if report.final_loss is None else report.final_loss
-    print(f"[train] done in {report.seconds:.1f}s, final loss {loss:.4f}")
+    say(f"[train] done in {report.seconds:.1f}s, final loss {loss:.4f}")
     return report
 
 
@@ -259,14 +318,14 @@ def _run_rl(args) -> TrainReport:
     from repro_torch.pop import PopTrainer
     from repro_torch.rl import get_algo, make_agent
 
-    device = resolve_device(args.device)
+    device = _device(args)
     algo = get_algo(args.algo)
     env = make(args.env)
     agent = make_agent(args.algo, env.spec, device=device)
     n = args.population
-    print(f"[train] algo={algo.name} env={args.env} pop={n} "
-          f"strategy={args.strategy} backend={args.backend} "
-          f"experience={algo.experience_kind} device={device}")
+    say(f"[train] algo={algo.name} env={args.env} pop={n} "
+        f"strategy={args.strategy} backend={args.backend} "
+        f"experience={algo.experience_kind} device={device}")
 
     pcfg = PopulationConfig(
         size=n, strategy=args.strategy, backend=args.backend,
@@ -276,6 +335,7 @@ def _run_rl(args) -> TrainReport:
                            env=args.env)
     trainer = PopTrainer(agent, pcfg, seed=args.seed,
                          checkpoint_dir=args.ckpt_dir, telemetry=telemetry)
+    _say_layout(trainer)
     trainer.attach_rollout(env, num_envs=args.num_envs,
                            collect_steps=args.collect_steps,
                            batch_size=args.batch,
@@ -298,12 +358,12 @@ def _run_rl(args) -> TrainReport:
         if fitness is not None:
             best = float(fitness.max())
             report.best_fitness = max(report.best_fitness, best)
-            print(f"[train] iter {it + 1}: eval best {best:+.2f}")
+            say(f"[train] iter {it + 1}: eval best {best:+.2f}")
         if lineage is not None:
             report.evolutions.append((it + 1, lineage.tolist()))
-            print(f"[train] evolve at iter {it + 1}: "
-                  f"lineage={lineage.tolist()} strategy="
-                  f"{type(trainer.strategy).__name__}")
+            say(f"[train] evolve at iter {it + 1}: "
+                f"lineage={lineage.tolist()} strategy="
+                f"{type(trainer.strategy).__name__}")
         if args.ckpt_every and ((it + 1) % args.ckpt_every == 0
                                 or it == args.steps - 1):
             due.append(it)
@@ -319,8 +379,8 @@ def _run_rl(args) -> TrainReport:
                          on_iter=on_iter, fused=args.fused_epoch)
     _finish(args, trainer, telemetry, best_fitness=report.best_fitness)
     report.seconds = time.time() - t0
-    print(f"[train] done in {report.seconds:.1f}s, "
-          f"best fitness {report.best_fitness:+.2f}")
+    say(f"[train] done in {report.seconds:.1f}s, "
+        f"best fitness {report.best_fitness:+.2f}")
     return report
 
 
@@ -345,8 +405,15 @@ def main(argv=None):
                     choices=["vectorized", "sequential", "sharded",
                              "islands"],
                     help="update backend: vectorized (the population at "
-                    "once) or sequential (member by member); sharded and "
-                    "islands are not ported yet")
+                    "once), sequential (member by member), islands or "
+                    "sharded (one rank per GPU under torch.distributed.run, "
+                    "each holding its island's members)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="the ranks the islands span: 0 (the world) or the "
+                    "world size; launch more with --nproc-per-node")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks a member is sharded over; above 1 is not "
+                    "ported yet")
     ap.add_argument("--num-envs", type=int, default=8)
     ap.add_argument("--collect-steps", type=int, default=32)
     ap.add_argument("--policy-lag", type=int, default=None, choices=[0, 1],
@@ -438,6 +505,7 @@ def main(argv=None):
                 f"{why}")
     if (args.arch is None) == (args.algo is None):
         ap.error("pass exactly one of --arch (LM) or --algo (RL)")
+    _check_layout(args)
     if args.arch is not None and (args.fused_epoch or args.policy_lag
                                   is not None or args.chunk_steps):
         raise ValueError("--fused-epoch, --policy-lag and --chunk-steps "
@@ -456,9 +524,53 @@ def main(argv=None):
                 f"({', '.join(on_policy)}); "
                 f"{'--arch' if args.algo is None else '--algo ' + args.algo}"
                 f" would ignore it")
-    if args.arch is not None:
-        return _run_lm(args)
-    return _run_rl(args)
+    try:
+        if args.arch is not None:
+            return _run_lm(args)
+        return _run_rl(args)
+    finally:
+        import torch.distributed as dist
+        if args.backend in _MULTI_RANK and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _check_layout(args):
+    """The refusals of the multi-rank flags, before any group is joined:
+    ``--devices`` other than 0 or the world size, ``--model-axis`` above
+    1, another backend on a world of several ranks, and the fused epoch,
+    lag 1 and CEM over more than one island."""
+    from repro_torch.elastic.layout import (MODEL_REFUSAL, plan_layout,
+                                            sharded_layout)
+    size = int(os.environ.get("WORLD_SIZE", 1))
+    if args.devices not in (0, size):
+        raise ValueError(
+            f"--devices {args.devices} is neither 0 nor the world size "
+            f"{size}: the port runs one rank per GPU, so launch with "
+            f"python -m torch.distributed.run --nproc-per-node "
+            f"{args.devices} -m repro_torch.launch.train ...")
+    if args.model_axis > 1:
+        raise NotImplementedError(f"--model-axis {args.model_axis}: "
+                                  f"{MODEL_REFUSAL}")
+    if args.backend not in _MULTI_RANK:
+        if size > 1:
+            raise ValueError(
+                f"--backend {args.backend} runs on one rank; the world has "
+                f"{size}: pass --backend islands or sharded")
+        return
+    plan = plan_layout if args.backend == "islands" else sharded_layout
+    islands = plan(size, args.population).islands
+    if islands == 1:
+        return
+    refused = {"--fused-epoch": args.fused_epoch,
+               "--policy-lag 1": args.policy_lag == 1,
+               "--strategy cem": args.strategy == "cem"}
+    for flag, given in refused.items():
+        if given:
+            raise NotImplementedError(
+                f"{flag} over more than one island ({islands} here) is not "
+                f"ported yet: it would need a collective inside a captured "
+                f"graph or a second stream (the fused epoch, lag 1), or "
+                f"the elites' parameters from every rank (CEM)")
 
 
 if __name__ == "__main__":

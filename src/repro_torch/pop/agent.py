@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import take_rows
 from repro_torch.core.population import population_init
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.optim.optimizers import AdamState
@@ -68,8 +69,13 @@ class ModuleAgent:
         return self.module.init(generator, self.obs_dim, self.act_dim,
                                 device=self.device, **self.init_kwargs)
 
-    def population_init(self, generator, n: int):
-        return population_init(self.init, generator, n)
+    def population_init(self, generator, n: int, *, rows=None):
+        """``n`` members drawn from ``generator``; with ``rows`` (a
+        :class:`repro_torch.core.distributed.Rows`) only those members'
+        rows are kept (every member is drawn, so each has its one-rank
+        parameters)."""
+        state = population_init(self.init, generator, n)
+        return state if rows is None else take_rows(state, rows)
 
     def actor_init(self, generator, *, device="cpu"):
         """One member's actor parameters, without the rest of the state."""
@@ -184,20 +190,26 @@ class LMAgent:
         self._lm = lm
         _, self._train_step = lm.make_train_step(cfg, tcfg)
 
-    def _draw_params(self, generator):
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=generator.device))
+    def _member_params(self, seed: int):
         member_gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._lm.init_params(member_gen, self.cfg)
 
-    def population_init(self, generator, n: int):
+    def population_init(self, generator, n: int, *, rows=None):
         """``n`` members in flat ``(N, P)`` buffers (parameters, mu, nu),
-        drawn and written one member at a time."""
-        first = self._draw_params(generator)
+        drawn and written one member at a time. With ``rows`` (a
+        :class:`repro_torch.core.distributed.Rows`) the buffers hold only
+        those members: every member's seed is drawn, and those of the rows
+        are built, so each has its one-rank parameters."""
+        seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                   device=generator.device))
+                 for _ in range(n)]
+        keep = range(n) if rows is None else range(rows.lo, rows.hi)
+        first = self._member_params(seeds[keep[0]])
+        n = len(keep)
         like = tree_map(lambda x: x[None].expand((n,) + x.shape), first)
         _, params = flat_empty(like)
-        for i in range(n):
-            member = first if i == 0 else self._draw_params(generator)
+        for i, m in enumerate(keep):
+            member = first if i == 0 else self._member_params(seeds[m])
             tree_map(lambda d, x: d[i].copy_(x), params, member)
             del member
         del first

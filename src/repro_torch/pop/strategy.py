@@ -90,11 +90,15 @@ class NoEvolution(EvolutionStrategy):
 
 
 class PBT(EvolutionStrategy):
-    """Truncation-selection PBT over training state + hyperparameters."""
+    """Truncation-selection PBT over training state + hyperparameters.
+    ``gather`` is the exploit's member copy: the agent's
+    ``gather_members`` from ``bind``, which a trainer over several islands
+    wraps in the cross-rank exchange
+    (:class:`repro_torch.core.distributed.MemberExchange`)."""
 
     def __init__(self, pcfg: PopulationConfig):
         self.pcfg = pcfg
-        self._gather = None
+        self.gather = None
 
     def init_hypers(self, generator, n: int):
         space = self.pcfg.hyper_space
@@ -103,11 +107,11 @@ class PBT(EvolutionStrategy):
         return sample_hypers(generator, space, n)
 
     def bind(self, generator, agent, pop_state):
-        self._gather = agent.gather_members
+        self.gather = agent.gather_members
         return pop_state
 
     def evolve_fn(self):
-        pcfg, gather = self.pcfg, self._gather
+        pcfg, gather = self.pcfg, self.gather
 
         def fn(generator, pop_state, hypers, fitness, strat_state):
             state, new_hypers, parents = pbt_step(

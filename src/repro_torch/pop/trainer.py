@@ -57,6 +57,23 @@ one by default) gets the phases ``update``, ``iterate``, ``eval``,
 tensors are snapshotted once an iteration (once an epoch in fused
 epochs), never read on this thread.
 
+Over several processes (``backend="islands"`` or ``"sharded"``, one rank
+per GPU under ``torch.distributed.run``), the trainer holds its island's
+rows of the population (``layout``, an
+:class:`repro_torch.elastic.IslandLayout`, planned from the world's size
+unless given; ``mesh`` its ``DeviceMesh``): the state, the engine's envs
+and buffers, and the update over them. Hypers and the fitness window stay
+whole ``(N,)`` on every rank (each rank scores its members and one
+collective puts the rows in member order), so PBT's ranking, parent picks
+and explore draws come out the same everywhere; its member copy is the
+cross-rank :class:`repro_torch.core.distributed.MemberExchange`. The
+generator is a :func:`~repro_torch.core.distributed.member_generator`,
+whose member-axis draws are made at the whole population's shape, so a
+run on K ranks computes what a run on one computes. Rank 0 gathers the
+rows of every island and writes the checkpoints (in the one-rank format);
+every rank reads them and takes its rows. CEM and DvD, a fused epoch and
+``policy_lag=1`` over more than one island are refused by name.
+
 ``run_env_loop(fused=True)`` runs whole train-evolve epochs
 (``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
 one CUDA graph per epoch shape, captured at first use and replayed
@@ -73,8 +90,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import PopulationConfig
+from repro_torch.core.distributed import (MemberExchange, Rows, all_members,
+                                          gather_to_root, member_generator,
+                                          take_rows, world)
 from repro_torch.pop.backend import make_update
-from repro_torch.pop.strategy import make_strategy
+from repro_torch.pop.strategy import CEM, DvD, make_strategy
 from repro_torch.telemetry import RunTelemetry
 from repro_torch.tree import copy_into, leaves, tree_map
 
@@ -84,28 +104,48 @@ def _part(snap, key):
     return None if snap is None else snap.map(lambda tree: tree[key])
 
 
+# sources the RL path launches; rank 0 builds them before the others
+# load them
+_PATH_SOURCES = ("pop_matmul", "hopper2d")
+
+
 class PopTrainer:
     def __init__(self, agent, pcfg: PopulationConfig | None = None, *,
                  seed: int = 0, checkpoint_dir=None, keep: int = 2,
-                 telemetry: RunTelemetry | None = None):
+                 telemetry: RunTelemetry | None = None, layout=None,
+                 mesh=None):
         self.agent = agent
         self.telemetry = telemetry if telemetry is not None \
             else RunTelemetry(None)
         self.pcfg = pcfg = pcfg if pcfg is not None else PopulationConfig()
         self.n = pcfg.size
-        self.generator = torch.Generator(device=agent.device).manual_seed(
-            seed)
         self.strategy = make_strategy(pcfg)
+        self.layout, self.mesh = self._plan(layout, mesh)
+        self.rows = (self.layout.rows() if self.layout is not None
+                     else Rows(0, self.n, self.n))
+        self.generator = member_generator(agent.device,
+                                          self.rows).manual_seed(seed)
 
-        self.state = agent.population_init(
-            torch.Generator().manual_seed(seed), self.n)
+        init_gen = torch.Generator().manual_seed(seed)
+        self.state = (agent.population_init(init_gen, self.n)
+                      if not self.split else
+                      agent.population_init(init_gen, self.n,
+                                            rows=self.rows))
         self.strategy.configure_agent(agent)
         self.state = self.strategy.bind(self.generator, agent, self.state)
+        if self.split and hasattr(self.strategy, "gather"):
+            self.strategy.gather = MemberExchange(self.strategy.gather,
+                                                  self.layout)
         self.hypers = self.strategy.init_hypers(self.generator, self.n)
         # ``pcfg.num_steps`` chained update steps per call, shared with the
         # acting engine
         self.update = make_update(agent, pcfg.backend,
-                                  num_steps=max(1, pcfg.num_steps))
+                                  num_steps=max(1, pcfg.num_steps),
+                                  mesh=self.mesh)
+        self._host_group = None
+        self._log_rows = False
+        if self.distributed:
+            self._join_ranks()
 
         self._window: deque = deque(maxlen=pcfg.fitness_window)
         self.last_fitness = None  # the (N,) fitness used at the last evolve
@@ -126,6 +166,110 @@ class PopTrainer:
         # the step-0 snapshot anchors the hyper trajectories
         self.telemetry.record_members(0, hypers=self.hypers)
 
+    # ------------------------------------------------------------ placement
+    def _plan(self, layout, mesh):
+        """``(layout, mesh)`` of the backend: the islands layout planned
+        over the world's ranks (or given), the sharded backend's layout
+        (:func:`repro_torch.elastic.layout.sharded_layout`), else none."""
+        backend = self.pcfg.backend
+        if backend not in ("islands", "sharded"):
+            return None, mesh
+        from repro_torch.elastic.layout import (MODEL_REFUSAL, plan_layout,
+                                                sharded_layout)
+        _, size = world()
+        if backend == "islands":
+            layout = layout if layout is not None else plan_layout(size,
+                                                                   self.n)
+        else:
+            from repro_torch.launch.mesh import make_host_mesh, mesh_size
+            if mesh is None and size > 1:
+                mesh = make_host_mesh(model=1)
+            if mesh_size(mesh, "model") > 1:
+                raise NotImplementedError(MODEL_REFUSAL)
+            layout = layout if layout is not None else sharded_layout(
+                size, self.n)
+        if layout.model > 1:
+            raise NotImplementedError(MODEL_REFUSAL)
+        if layout.population != self.n:
+            raise ValueError(f"{layout} is planned for another population "
+                             f"than size={self.n}")
+        if layout.islands > 1 and isinstance(self.strategy, (CEM, DvD)):
+            raise NotImplementedError(
+                f"{type(self.strategy).__name__} over more than one island "
+                f"is not ported yet: it needs the elites' parameters (or "
+                f"the whole population's policies) from every rank")
+        if mesh is None and backend == "islands":
+            mesh = layout.mesh
+        return layout, mesh
+
+    @property
+    def split(self) -> bool:
+        """Whether this rank holds only some members (more than one
+        island)."""
+        return self.layout is not None and self.layout.islands > 1
+
+    @property
+    def distributed(self) -> bool:
+        return world()[1] > 1 and self.layout is not None
+
+    @property
+    def _pop_group(self):
+        """The group of one rank per island in this rank's column."""
+        if self.mesh is None:
+            return None
+        name = "pop" if "pop" in self.mesh.mesh_dim_names else "data"
+        return self.mesh.get_group(name)
+
+    def _join_ranks(self):
+        """Collective set-up: a gloo group for the host traffic
+        (checkpoints) beside an NCCL one, whether any rank logs (then
+        every rank gathers the rows its telemetry rows need), and the
+        kernels built by rank 0 before any rank launches one."""
+        import torch.distributed as dist
+        if dist.get_backend() != "gloo":
+            self._host_group = dist.new_group(backend="gloo")
+        flag = torch.tensor([int(self.telemetry.enabled)])
+        dist.all_reduce(flag, group=self._host_group)
+        self._log_rows = bool(flag.item())
+        if self.agent.device.type == "cuda":
+            if world()[0] == 0:
+                from repro_torch.kernels.build import build
+                build(_PATH_SOURCES)
+            dist.barrier(group=self._host_group)
+
+    def local(self, tree):
+        """This rank's rows of a whole-population tree (the hypers)."""
+        return tree if tree is None else take_rows(tree, self.rows)
+
+    def _placement(self):
+        """How this trainer places a whole-population host tree (a
+        restored checkpoint): its rows, the same choice ``__init__`` made
+        for the fresh state (``repro.pop.trainer``'s ``_placement``)."""
+        return self.local
+
+    def all_members(self, tree):
+        """Every member's rows of a tree of this rank's rows (metrics,
+        episode stats, fitness): a collective that every rank calls; the
+        tree itself when the rank holds every member."""
+        if tree is None or not self.split:
+            return tree
+        return all_members(tree, self.rows, self._pop_group)
+
+    def _all_rows(self, tree):
+        """:meth:`all_members` for the telemetry rows: the tree itself
+        when no rank logs."""
+        return self.all_members(tree) if self._log_rows else tree
+
+    def _batch_rows(self, batch):
+        """This rank's rows of a whole-population batch (leaves (N, ...),
+        or (num_steps, N, ...))."""
+        if not self.split:
+            return batch
+        axis = 0 if max(1, self.pcfg.num_steps) == 1 else 1
+        lo, hi = self.rows.lo, self.rows.hi
+        return tree_map(lambda x: x.narrow(axis, lo, hi - lo)
+                        if x.shape[axis] == self.n else x, batch)
+
     # ------------------------------------------------------------------ run
     def step(self, batch, fitness=None):
         """One update call (``pcfg.num_steps`` chained member-steps), then,
@@ -133,8 +277,9 @@ class PopTrainer:
         agent's from the update's metrics (None for an RL agent). Returns
         ``(metrics, lineage)``; lineage is None unless evolution ran."""
         with self.telemetry.phase("update"):
-            self.state, metrics = self.update(self.state, batch, self.hypers,
-                                              self.generator)
+            self.state, metrics = self.update(
+                self.state, self._batch_rows(batch), self.local(self.hypers),
+                self.generator)
         self.step_count += 1
         fit = (fitness if fitness is not None
                else self.agent.fitness_from_metrics(metrics))
@@ -148,7 +293,8 @@ class PopTrainer:
                 extra["tokens_per_sec_per_member"] = \
                     self.tokens_per_step / (now - self._iter_t)
             self._iter_t = now
-        self.telemetry.record_iteration(self.step_count - 1, metrics=metrics,
+        self.telemetry.record_iteration(self.step_count - 1,
+                                        metrics=self._all_rows(metrics),
                                         **extra)
         return metrics, lineage
 
@@ -174,13 +320,18 @@ class PopTrainer:
         from repro_torch.rollout.engine import RolloutEngine
         from repro_torch.rollout.overlap import OverlapEngine
         engine = OverlapEngine
+        if self.split and engine_kwargs.get("policy_lag") == 1:
+            raise NotImplementedError(
+                "policy_lag=1 over more than one island is not ported yet: "
+                "its second stream would hold the islands' collectives")
         if engine_kwargs.get("policy_lag") is None:
             engine_kwargs.pop("policy_lag", None)
             engine = RolloutEngine
         engine_kwargs.setdefault("telemetry", self.telemetry)
         self._rollout = engine(self.agent, self.pcfg, env,
                                update=self.update, generator=self.generator,
-                               init_state=self.state, **engine_kwargs)
+                               init_state=self.state, mesh=self.mesh,
+                               **engine_kwargs)
         self._epochs = {}
         return self._rollout
 
@@ -197,16 +348,17 @@ class PopTrainer:
         Returns ``(metrics, episode_stats, did_update)``."""
         with self.telemetry.phase("iterate"):
             self.state, metrics, stats, did = self.rollout.iterate(
-                self.state, self.hypers, self.generator)
+                self.state, self.local(self.hypers), self.generator)
         self.step_count += 1
         return metrics, stats, did
 
     def evaluate_fitness(self):
         """Per-member fitness from deterministic evaluation episodes, an
-        (N,) device tensor; does not touch the fitness window."""
+        (N,) device tensor of every member (each rank scores its own);
+        does not touch the fitness window."""
         with self.telemetry.phase("eval"):
-            return self.rollout.evaluator.evaluate(self.actors,
-                                                   self.generator)
+            return self._all_fitness(self.rollout.evaluator.evaluate(
+                self.actors, self.generator))
 
     def run_env_loop(self, iters: int, *, eval_every: int = 1, on_iter=None,
                      fused: bool = False, block_every: int = 0):
@@ -229,6 +381,11 @@ class PopTrainer:
         results every N iterations under ``telemetry.block``, splitting the
         iter rows into dispatch time (``phases``) and wait (``blocks``)."""
         if fused:
+            if self.split:
+                raise NotImplementedError(
+                    "a fused epoch over more than one island is not ported "
+                    "yet: its captured graph would hold the PBT exchange's "
+                    "collectives")
             if block_every:
                 raise ValueError("block_every instruments the eager loop; "
                                  "a fused epoch is one device program")
@@ -244,7 +401,8 @@ class PopTrainer:
                 fitness = self.evaluate_fitness()
                 self.report_fitness(fitness)
             # one snapshot an iteration, before the evolve replaces hypers
-            snap = tel.snapshot({"metrics": metrics, "stats": stats,
+            snap = tel.snapshot({"metrics": self._all_rows(metrics),
+                                 "stats": self._all_rows(stats),
                                  "fitness": fitness, "hypers": self.hypers})
             if fitness is not None:
                 tel.record_members(self.step_count,
@@ -401,10 +559,19 @@ class PopTrainer:
         return metrics, stats
 
     # ---------------------------------------------------------------- evolve
+    def _all_fitness(self, fitness):
+        """The (N,) fitness of every member from this rank's rows (the
+        whole tensor when it already holds N)."""
+        fitness = torch.as_tensor(fitness)
+        if fitness.shape[0] != self.n:
+            return self.all_members(fitness)
+        return fitness
+
     def report_fitness(self, fitness):
         """Feed a per-member fitness row into the window (kept on the
-        device)."""
-        self._window.append(torch.as_tensor(fitness))
+        device): every member's, or this rank's rows of it, which every
+        rank then puts together."""
+        self._window.append(self._all_fitness(fitness))
 
     def fitness(self):
         """Windowed-mean per-member fitness, (N,), a device tensor."""
@@ -458,20 +625,36 @@ class PopTrainer:
         (also the ``ckpt`` row's ``secs``)."""
         if self._mgr is None:
             raise ValueError("PopTrainer built without checkpoint_dir")
+        if self.distributed and world()[0] != 0 and not self.split:
+            # every rank holds every member: rank 0's copy is written
+            if blocking:
+                self._barrier()
+            return 0.0
         t0 = time.perf_counter()
         fit = self.fitness()
         meta = dict(extra or {}, size=self.n,
                     fitness=None if fit is None else
                     fit.cpu().numpy().astype(np.float64).tolist())
-        aux = {"actors": self.actors, "rng": self.generator.get_state()}
-        if self.hypers is not None:
-            aux["hypers"] = self.hypers
+        members = {"state": self.state, "actors": self.actors}
         if self._rollout is not None:
-            aux["rollout"] = self._rollout.export_state()
-        save = self._mgr.save if blocking else self._mgr.save_async
+            members["rollout"] = self._rollout.export_state()
         with self.telemetry.phase("ckpt"):
-            save(self.step_count - 1,
-                 (self.state, self.strategy.export_state()), meta, aux=aux)
+            if self.split:     # rank 0 writes every island's rows
+                members = gather_to_root(members, self.layout,
+                                         self._host_group)
+            if members is not None:
+                aux = {"actors": members["actors"],
+                       "rng": self.generator.get_state()}
+                if self.hypers is not None:
+                    aux["hypers"] = self.hypers
+                if "rollout" in members:
+                    aux["rollout"] = members["rollout"]
+                save = self._mgr.save if blocking else self._mgr.save_async
+                save(self.step_count - 1,
+                     (members["state"], self.strategy.export_state()), meta,
+                     aux=aux)
+            if blocking:
+                self._barrier()
         secs = time.perf_counter() - t0
         self.telemetry.record_ckpt(self.step_count - 1, secs,
                                    blocking=blocking)
@@ -524,7 +707,9 @@ class PopTrainer:
                 f"size, or take the elastic resume: "
                 f"repro_torch.elastic.restore_elastic (launch.train: "
                 f"--resize auto)")
-        copy_into(self.state, state)
+        place = self._placement()
+        copy_into(self.state, place(state))
+        del state
         if self.hypers is not None:
             hypers = self._mgr.restore_aux("hypers", self.hypers)
             if hypers is not None:
@@ -536,7 +721,7 @@ class PopTrainer:
             rstate = self._mgr.restore_aux("rollout",
                                            self._rollout.export_state())
             if rstate is not None:
-                self._rollout.import_state(rstate)
+                self._rollout.import_state(place(rstate))
                 # an RL trainer step is one engine iteration
                 self._rollout.iterations = extra["step"] + 1
         self.restore_generator(self._mgr)
@@ -544,7 +729,14 @@ class PopTrainer:
         self.step_count = extra["step"] + 1
         return extra["step"]
 
+    def _barrier(self):
+        if self.distributed:
+            import torch.distributed as dist
+            dist.barrier(group=self._host_group)
+
     def wait(self):
-        """Wait for the checkpoint write in flight."""
+        """Wait for the checkpoint write in flight; over several ranks
+        every rank calls it and returns once rank 0's write is done."""
         if self._mgr is not None:
             self._mgr.wait()
+            self._barrier()

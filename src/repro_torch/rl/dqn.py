@@ -17,10 +17,12 @@ Q-networks only). DQN draws nothing in its update: ``generator`` and
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.device import device_tensor
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
@@ -69,10 +71,9 @@ def _act(qvals, generator, epsilon):
     greedy = torch.argmax(qvals, dim=-1)
     if generator is None:
         return greedy
-    draw = dict(generator=generator, device=generator.device)
-    u = torch.rand(greedy.shape, **draw).to(greedy.device)
-    rand = torch.randint(0, qvals.shape[-1], greedy.shape,
-                         **draw).to(greedy.device)
+    u = member_draw(torch.rand, greedy.shape, generator).to(greedy.device)
+    rand = member_draw(functools.partial(torch.randint, 0, qvals.shape[-1]),
+                       greedy.shape, generator).to(greedy.device)
     return epsilon_greedy(greedy, epsilon, u, rand)
 
 

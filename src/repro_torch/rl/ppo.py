@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
 from repro_torch.rl.td3 import _grad_tree, _with_grad
@@ -78,12 +79,11 @@ def init(generator, obs_dim: int, act_dim: int, discrete: bool = False,
 def _draw(generator, shape, like, discrete):
     """The acting draw: standard normal, or Gumbel(0, 1) for a categorical
     draw by argmax."""
-    draw = dict(generator=generator, device=generator.device)
     if discrete:
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(shape, **draw).clamp_(min=tiny)
+        u = member_draw(torch.rand, shape, generator).clamp_(min=tiny)
         return (-torch.log(-torch.log(u))).to(like.device)
-    return torch.randn(shape, **draw).to(like.device)
+    return member_draw(torch.randn, shape, generator).to(like.device)
 
 
 def _act(out, log_std, generator, noise):

@@ -26,6 +26,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
 from repro_torch.rl.td3 import _grad_tree, _soft_update, _with_grad
@@ -76,8 +77,7 @@ def init(generator, obs_dim: int, act_dim: int, hidden=nets.HIDDEN, *,
 def _act(mean, log_std, generator):
     if generator is None:
         return torch.tanh(mean)
-    eps = torch.randn(mean.shape, generator=generator,
-                      device=generator.device).to(mean.device)
+    eps = member_draw(torch.randn, mean.shape, generator).to(mean.device)
     return nets.sample_squashed(eps, mean, log_std)[0]
 
 
@@ -95,8 +95,9 @@ def pop_policy(actors, obs, generator=None):
 
 def _draw(generator, action, lead=()):
     """The step's two standard normal draws, stacked after ``lead``."""
-    return torch.randn(lead + (2,) + tuple(action.shape[len(lead):]),
-                       generator=generator, device=generator.device)
+    return member_draw(torch.randn,
+                       lead + (2,) + tuple(action.shape[len(lead):]),
+                       generator)
 
 
 def update(state: SACState, batch, hypers=None, generator=None, *,

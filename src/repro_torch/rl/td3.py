@@ -22,6 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.device import device_tensor
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.rl import networks as nets
@@ -89,8 +90,7 @@ def pop_policy(actors, obs, generator=None, exploration_noise=0.1):
         scale = device_tensor(exploration_noise, a.dtype, a.device)
         if scale.ndim:
             scale = scale.reshape(-1, *(1,) * (a.ndim - 1))
-        noise = torch.randn(a.shape, generator=generator,
-                            device=generator.device).to(a.device)
+        noise = member_draw(torch.randn, a.shape, generator).to(a.device)
         a = torch.clamp(a + scale * noise, -1.0, 1.0)
     return a
 
@@ -230,8 +230,8 @@ def make_population_update(*, fused_linear: bool = False, fused=None):
         n = state.step.shape[0]
         h = pop_hypers(DEFAULT_HYPERS, hypers, n, state.step.device)
         if noise is None:
-            noise = torch.randn(batch["action"].shape, generator=generator,
-                                device=generator.device)
+            noise = member_draw(torch.randn, batch["action"].shape,
+                                generator)
 
         # members are independent: the gradient of the summed per-member
         # losses IS the stacked per-member gradients

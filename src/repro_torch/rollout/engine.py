@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.data.experience import (compute_gae, experience_ops,
                                          traj_add, traj_reset)
 from repro_torch.data.replay_buffer import buffer_sample
@@ -71,7 +72,8 @@ class RolloutEngine:
                  batch_size: int = 128, buffer_capacity: int = 100_000,
                  epochs: int = 4, eval_envs: int = 4,
                  eval_steps: int | None = None,
-                 chunk_steps: int | None = None, telemetry=None):
+                 chunk_steps: int | None = None, telemetry=None,
+                 mesh=None):
         if chunk_steps is not None and collect_steps % chunk_steps:
             raise ValueError(f"chunk_steps={chunk_steps} must divide "
                              f"collect_steps={collect_steps}")
@@ -79,7 +81,9 @@ class RolloutEngine:
         self.agent = agent
         self.kind = agent.experience_kind
         self.exp = experience_ops(self.kind)
-        self.n = pcfg.size
+        # the members this rank holds: the whole population, or one
+        # island's rows of it (the trainer's layout)
+        self.n = leaves(agent.actor_params(init_state))[0].shape[0]
         self.num_envs = num_envs
         self.collect_steps = collect_steps
         self.batch_size = batch_size
@@ -105,7 +109,7 @@ class RolloutEngine:
                 "gae_lambda": defaults.get("gae_lambda", 0.95)}
             from repro_torch.pop.backend import make_update
             update = make_update(agent, pcfg.backend,
-                                 num_steps=self.num_steps)
+                                 num_steps=self.num_steps, mesh=mesh)
         else:
             self.num_steps = max(1, pcfg.num_steps)
         self.update = update
@@ -128,7 +132,7 @@ class RolloutEngine:
             # the acting side's shape, once, so a log describes itself
             telemetry.record(
                 "engine", algo=type(agent).__name__, experience=self.kind,
-                env=env.spec.name, population=self.n, num_envs=num_envs,
+                env=env.spec.name, population=pcfg.size, num_envs=num_envs,
                 collect_steps=collect_steps, batch_size=batch_size,
                 num_steps=self.num_steps, chunk_steps=chunk_steps,
                 policy_lag=getattr(self, "policy_lag", None),
@@ -304,8 +308,8 @@ class RolloutEngine:
         flat = {k: v.flatten(1, 2) for k, v in flat.items()}  # (N, D, ...)
         n, d = adv.shape[0], adv.shape[1] * adv.shape[2]
         if perms is None:
-            perms = torch.rand((n, self.epochs, d), generator=generator,
-                               device=generator.device).argsort(-1)
+            perms = member_draw(torch.rand, (n, self.epochs, d),
+                                generator).argsort(-1)
         device = adv.device
         idx = perms.to(device).reshape(n, self.num_steps,
                                        self.batch_size).transpose(0, 1)

@@ -26,6 +26,10 @@ and ``late`` each window's counts. A trace that loses kernels has
 ``warmup``
     a ``torch.profiler`` schedule with one warm-up step (one small
     kernel) before the active step that holds the window.
+``warmup_own``
+    a ``schedule(wait=0, warmup=1, active=1)`` session whose warm-up step
+    runs the window's own products once (on an H100 its late window kept
+    none of its kernels, as ``bare``: not a cure).
 ``many``
     as ``bare``, with 64 products: whether the kernels lost are the
     first few launches or the first milliseconds.
@@ -54,8 +58,8 @@ from pathlib import Path
 
 import torch
 
-ARMS = ("bare", "profiler", "settle", "sync_after", "warmup", "many",
-        "spread", "spread_long")
+ARMS = ("bare", "profiler", "settle", "sync_after", "warmup", "warmup_own",
+        "many", "spread", "spread_long")
 SETTLE_S = 0.5
 SPREAD_S = (0.0, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1, 0.15, 0.2,
             0.3, 0.5, 1.0)
@@ -104,11 +108,14 @@ def window(arm: str, iters: int) -> dict:
             torch.cuda.synchronize()
             tel.stop_profile()
             return _counts(d)
-        if arm == "warmup":
+        if arm in ("warmup", "warmup_own"):
             prof = profile(activities=activities,
                            schedule=schedule(wait=0, warmup=1, active=1))
             prof.start()
-            x.add_(0)
+            if arm == "warmup":
+                x.add_(0)
+            else:
+                _products(x, iters)
             torch.cuda.synchronize()
             prof.step()
             _products(x, iters)

@@ -5,7 +5,8 @@ that came with it, on the CPU.
 (TD3 smaller and larger; an LM population) and prints the lineage;
 ``--resize strict`` (the default) raises a message that names ``--resize
 auto``, and ``PopTrainer.resume`` one that names ``restore_elastic``;
-``--devices`` and ``--model-axis`` stay refused. ``quickstart`` and
+``--devices`` other than 0 or the world size and ``--model-axis`` above 1
+stay refused (the islands themselves are ``test_torch_islands*.py``'s). ``quickstart`` and
 ``pbt_td3`` (``repro_torch.examples``) run two iterations each. Nothing
 here calls JAX. (Under 11 tests: ROADMAP §3 on xdist's file queue.)
 """
@@ -107,9 +108,14 @@ def test_lm_cli_resize_auto(tmp_path, capsys):
 
 
 def test_multi_device_flags_stay_refused():
-    for flag in (["--devices", "4"], ["--model-axis", "2"]):
-        with pytest.raises(NotImplementedError,
-                           match="elastic island layouts"):
+    """Islands over several ranks are ported (one rank per GPU under
+    ``torch.distributed.run``): ``--devices`` must be 0 or the world size
+    (one here), and model-sharded members are not ported."""
+    for flag, error, match in (
+            (["--devices", "4"], ValueError, "--nproc-per-node 4"),
+            (["--model-axis", "2"], NotImplementedError,
+             "model-sharded members are not ported yet")):
+        with pytest.raises(error, match=match):
             train_main(RL + ["--population", "2", "--ckpt-dir", "unused"]
                        + flag)
 

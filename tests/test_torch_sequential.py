@@ -171,9 +171,15 @@ def test_sequential_update_writes_the_population_in_place():
 
 @pytest.mark.parametrize("backend", ["sharded", "islands"])
 def test_make_update_refuses_unported_backends(backend):
+    """The sharded and islands backends are ported (a rank's rows of the
+    population, ``test_torch_islands*.py``): on a world of one they build
+    the vectorized update, and they refuse a population-level agent as
+    the JAX package's do; an unknown name stays refused."""
+    from repro_torch.pop import SharedCriticAgent
     agent = make_agent("td3", make("pendulum").spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_update(agent, backend)
+    assert callable(make_update(agent, backend))
+    with pytest.raises(ValueError, match="requires per-member agents"):
+        make_update(SharedCriticAgent(3, 1, device="cpu"), backend)
     with pytest.raises(ValueError, match="unknown backend"):
         make_update(agent, "bogus")
 

@@ -9,7 +9,8 @@ wrote (``train_then_serve`` runs the same for SAC and DQN from their own
 test files). The CLI refuses to run
 without CUDA unless ``--device cpu`` is given, refuses every flag whose
 subsystem is not ported, ``--arch`` beside ``--algo``, ``--epochs`` beside
-an off-policy ``--algo``, the backends not ported, a ``--resume`` outside
+an off-policy ``--algo`` (``--backend sharded|islands`` run, as a world of
+one), a ``--resume`` outside
 ``auto|none``, and a ``--ckpt-dir`` whose checkpoint has another
 structure; ``--log-dir`` and ``--profile`` write their files.
 """
@@ -217,14 +218,17 @@ def test_train_cli_refuses_without_cuda(tmp_path):
 # JAX one does, and ``epochs`` is --epochs beside an off-policy --algo
 # (here td3), where it would do nothing. ``log_dir`` and ``profile`` are
 # taken now (error None: the file whose name ends in ``match`` is written
-# into the directory ``1``), and ``resume`` takes auto|none only.
+# into the directory ``1``), ``devices`` and ``model_axis`` too (error
+# None, match None: ``--devices 1`` is the world size here, ``--model-axis
+# 1`` no model sharding; their refusals are test_torch_islands_cli.py's),
+# and ``resume`` takes auto|none only.
 _REFUSED_CASES = (
     ("arch", SystemExit, "pass exactly one of --arch"),
     ("compile_cache", NotImplementedError, "not supported by the port"),
-    ("devices", NotImplementedError, "not supported by the port"),
+    ("devices", None, None),
     ("epochs", ValueError, "taken by the on-policy algorithms only"),
     ("log_dir", None, "telemetry.jsonl"),
-    ("model_axis", NotImplementedError, "not supported by the port"),
+    ("model_axis", None, None),
     ("profile", None, ".trace.json"),
     ("resize", SystemExit, "invalid choice: '1'"),
     ("resume", SystemExit, "invalid choice: '1'"),
@@ -236,8 +240,9 @@ def test_refused_cases_cover_every_refused_flag():
     (``--log-dir``, ``--profile``, ``--resume auto|none``, ``--resize
     strict|auto``) keep theirs."""
     assert sorted(f for f, _, _ in _REFUSED_CASES
-                  if f not in ("arch", "epochs", "log_dir", "profile",
-                               "resize", "resume")) == sorted(_REFUSED)
+                  if f not in ("arch", "devices", "epochs", "log_dir",
+                               "model_axis", "profile", "resize",
+                               "resume")) == sorted(_REFUSED)
 
 
 @pytest.mark.parametrize("flag, error, match", _REFUSED_CASES,
@@ -255,8 +260,9 @@ def test_train_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch,
                     "--" + flag.replace("_", "-"), "1"]
     if error is None:
         train_main(argv)
-        assert [p.name for p in (tmp_path / "1").iterdir()
-                if p.name.endswith(match)]
+        if match is not None:
+            assert [p.name for p in (tmp_path / "1").iterdir()
+                    if p.name.endswith(match)]
         return
     with pytest.raises(error) as raised:
         train_main(argv)
@@ -266,10 +272,14 @@ def test_train_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch,
 
 
 def test_train_cli_refuses_unported_choices(tmp_path):
-    base = SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    """``--backend sharded|islands``, refused until the islands were
+    ported, run here as a world of one (one island)."""
     for backend in ("sharded", "islands"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train_main(base + ["--backend", backend])
+        report = train_main(SMALL + ["--ckpt-dir", str(tmp_path / backend),
+                                     "--device", "cpu", "--backend",
+                                     backend])
+        assert report.trainer.layout.islands == 1
+    base = SMALL + ["--ckpt-dir", str(tmp_path), "--device", "cpu"]
     # dvd, which the JAX CLI does not offer either
     with pytest.raises(SystemExit):
         train_main(base + ["--strategy", "dvd"])
