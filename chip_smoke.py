@@ -788,6 +788,26 @@ ISLANDS_CLI = dict(steps=3, pbt_interval=2, timeout=240)
 # (2 members each, about 2.7 GB of parameters and moments a member)
 LM_ISLANDS = dict(arch="qwen2-0.5b", layers=2, population=4, batch=2,
                   seq_len=128, timeout=420)
+# slice 19: model-sharded members over an island's model axis, on gloo
+# ranks sharing cuda:0. 53: each arch at full width with 2 layers, float32,
+# (arch, N) over one island of model 2, 2 steps against the one-rank run,
+# then member 0 in bf16 forward without autograd on 4 x 512 tokens (the
+# kernels at a rank's local heads); 54: the exchange and the checkpoints
+# on 2 islands x model 2 (4 ranks) of the repo's RWKV6 test config; 55:
+# qwen3-8b at full width, 1 layer, N = 2, each rank's memory
+MP = dict(parity=(("qwen2-0.5b", 4), ("rwkv6-1.6b", 2)), layers=2,
+          batch=2, seq_len=128, forward_batch=4, forward_len=512,
+          timeout=900)
+MP_ISLANDS = dict(arch="rwkv6-test", population=4, batch=2, seq_len=64)
+MP_MEMORY = dict(arch="qwen3-8b", layers=1, population=2, batch=1,
+                 seq_len=512)
+# the bf16 forward on a rank's parts against the one-rank forward, both
+# measured from the float32 one-rank forward: a bf16 forward strays from
+# it by more than any fixed tolerance would allow between the two, and
+# each row-parallel product rounds its two partial sums to bf16 before
+# they are added (in float32). The sharded forward's RMS error may be at
+# most this multiple of the one-rank forward's (phase 53 prints both)
+BF16_TP_RMS_RATIO = 1.25
 # the data-parallel reduction on the JAX test's problem
 # (tests/test_dp_compression.py: convergence within 0.05, int8 within 0.1
 # of plain), and the wire bytes and ms of one reduction of a gradient of
@@ -7517,6 +7537,503 @@ def phase_islands_lm(root):
     return out
 
 
+# ------------------------ slice 19: model-sharded members over a model axis
+def _mp_cut(agent, tree, shard):
+    """This rank's parts of a whole population tree (leaves (N, ...)), in a
+    flat (N, P_local) buffer laid out as the rank's own."""
+    from repro_torch.models.sharding import local_tree
+    from repro_torch.tree import flat_copy
+    dims = agent.shard_dims(tree, shard)
+    return flat_copy(local_tree(tree, dims, shard))[0]
+
+
+def _mp_parity_rank(rank, world, job):
+    """53. For each of MP's archs at full width, MP["layers"] layers,
+    float32: this rank's parts of N members over one island of model 2
+    (``LMAgent.population_init(shard=...)``), 2 islands-backend steps (the
+    first at lr 0 under warmup), then the same 2 steps of the whole
+    members on this rank alone (the vectorized backend), and this rank's
+    parts held to them by the LM update rule (the parameters after step 1
+    bit for bit; the gradients from Adam's first moment at rtol 1e-4, atol
+    1e-6; the step p - p' where both steps' reference gradients exceed
+    1e-6). Then member 0's initial parameters in bf16, forward without
+    autograd on the rank's parts (its kernels launched at the rank's local
+    heads), whose RMS error from the float32 one-rank forward may be at
+    most BF16_TP_RMS_RATIO times the one-rank bf16 forward's."""
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.elastic import plan_layout
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import model_shard
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import model_parallel
+    from repro_torch.pop import LMAgent
+    from repro_torch.pop.backend import make_update
+    from repro_torch.tree import flat_buffer, tree_map
+
+    out = {}
+    for arch, n in MP["parity"]:
+        cfg = _lm_config(arch, num_layers=MP["layers"], dtype="float32")
+        agent = LMAgent(cfg, TrainConfig(total_steps=2, warmup_steps=1),
+                        device="cuda")
+        layout = plan_layout(world, n, preferred_model=world)
+        shard = model_shard(layout.mesh)
+        stream = host_batches(cfg.vocab_size, n * MP["batch"],
+                              MP["seq_len"], seed=SEED)
+        batches = [{"tokens": torch.from_numpy(next(stream)).reshape(
+            n, MP["batch"], MP["seq_len"]).cuda()} for _ in range(2)]
+        h = _lm_hypers(n, "cuda")
+        bufs = lambda s: (flat_buffer(s.params), flat_buffer(s.opt_state.mu))
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = agent.population_init(torch.Generator().manual_seed(SEED), n,
+                                      shard=shard)
+        member = tree_map(lambda x: x[0].clone(), state.params)
+        update = make_update(agent, "islands", mesh=layout.mesh)
+        reset_counts(pop_adam)
+        state, _ = update(state, batches[0], h)
+        p1, mu1 = (b.clone() for b in bufs(state))
+        state, metrics = update(state, batches[1], h)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        adam = pop_adam.launches
+        p2, mu2 = bufs(state)
+        peak = torch.cuda.max_memory_allocated() - base
+        p_local = p1.shape[1]
+        loss = metrics["loss"].cpu()
+        del state, update
+        bf16 = cfg.replace(dtype="bfloat16")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (MP["forward_batch"], MP["forward_len"]),
+                               generator=gen, device="cuda")
+        reset_counts(flash_attention, wkv6)
+        with torch.no_grad(), model_parallel(shard):
+            got, _ = lm.forward(lm.cast_params(member, bf16), bf16,
+                                {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_by_route": dict(
+                        flash_attention.launches_by_route),
+                    "wkv6": wkv6.launches}
+        del member
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ref = agent.population_init(torch.Generator().manual_seed(SEED), n)
+        whole = tree_map(lambda x: x[0].clone(), ref.params)
+        p_whole = flat_buffer(ref.params).shape[1]
+        ref_update = make_update(agent, "vectorized")
+        ref, _ = ref_update(ref, batches[0], h)
+        q1 = _mp_cut(agent, ref.params, shard)
+        nu1 = _mp_cut(agent, ref.opt_state.mu, shard)
+        ref, ref_metrics = ref_update(ref, batches[1], h)
+        q2 = _mp_cut(agent, ref.params, shard)
+        nu2 = _mp_cut(agent, ref.opt_state.mu, shard)
+        del ref, ref_update
+        with torch.no_grad():
+            want, _ = lm.forward(lm.cast_params(whole, bf16), bf16,
+                                 {"tokens": tokens})
+            exact, _ = lm.forward(whole, cfg, {"tokens": tokens})
+        del whole
+        if not torch.equal(p1, q1):
+            raise AssertionError(f"model-sharded {arch} rank {rank}: the "
+                                 f"parameters after step 1 (lr 0) moved "
+                                 f"apart from the one-rank run's")
+        g_mp = (mu1 / 0.1, (mu2 - 0.9 * mu1) / 0.1)
+        g_ref = (nu1 / 0.1, (nu2 - 0.9 * nu1) / 0.1)
+        grad_share = max(tol_share(a, b, STEP1_GRAD_TOL)
+                         for a, b in zip(g_mp, g_ref))
+        keep = ((g_ref[0].abs() > LM_STEP_GRAD_FLOOR)
+                & (g_ref[1].abs() > LM_STEP_GRAD_FLOOR))
+        step_share = tol_share((p1 - p2)[keep], (q1 - q2)[keep],
+                               STEP1_GRAD_TOL)
+        rms = lambda a: a.float().sub(exact).square().mean().sqrt().item()
+        rms_ratio = rms(got) / rms(want)
+        out[arch] = {
+            "population": n, "p_local": p_local, "p_whole": p_whole,
+            "member_bytes_local": 3 * 4 * p_local,
+            "member_bytes_whole": 3 * 4 * p_whole,
+            "pop_adam_launches": adam, "steps_s": steps_s,
+            "peak_bytes": peak,
+            "loss": loss.tolist(), "loss_one_rank":
+                ref_metrics["loss"].cpu().tolist(),
+            "grad_share": grad_share, "step_share": step_share,
+            "step_elements_held": int(keep.sum()),
+            "elements": keep.numel(),
+            "logits_share": rms_ratio / BF16_TP_RMS_RATIO,
+            "logits_rms_err": rms(got), "logits_rms_err_one_rank": rms(want),
+            "logits_max_abs_err": (got.float() - want.float()).abs()
+            .max().item(),
+            "forward_shape": (MP["forward_batch"], MP["forward_len"]),
+            "launches": launches}
+        del got, want, exact, p1, p2, mu1, mu2, q1, q2, nu1, nu2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+
+
+def _mp_trainer(layout, ckpt, n=None):
+    """MP_ISLANDS' LM population on the islands backend over ``layout``
+    (None: a world of one), checkpointing into ``ckpt``."""
+    from repro_torch.configs import HyperSpace, TrainConfig
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.pop import LMAgent, PopTrainer
+    c = MP_ISLANDS
+    n = n or c["population"]
+    cfg = _lm_config(c["arch"])
+    pcfg = PopulationConfig(size=n, strategy="pbt", backend="islands",
+                            pbt_interval=0,
+                            hyper_space=HyperSpace(**LM_HYPER_SPACE))
+    return PopTrainer(LMAgent(cfg, TrainConfig(total_steps=4,
+                                               warmup_steps=1),
+                              device="cuda"),
+                      pcfg, seed=SEED, layout=layout, checkpoint_dir=ckpt)
+
+
+def _mp_islands_rank(rank, world, job):
+    """54. MP_ISLANDS over 4 ranks, 2 islands x model 2: 2 steps, then an
+    evolve on fitness [4, 3, 2, 1] (member 3, island 1, adopts member 0,
+    island 0) and a blocking checkpoint. Returns the rank's model
+    coordinate, the digests of member 0's parts before the evolve (island
+    0) and of member 3's after it (island 1), the lineage and the
+    exchange's numbers."""
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.elastic import plan_layout
+    from repro_torch.tree import flat_buffer
+    c = MP_ISLANDS
+    n = c["population"]
+    layout = plan_layout(world, n, preferred_model=2)
+    tr = _mp_trainer(layout, job["ckpt"])
+    stream = host_batches(tr.agent.cfg.vocab_size, n * c["batch"],
+                          c["seq_len"], seed=SEED)
+    for _ in range(2):
+        tr.step({"tokens": torch.from_numpy(next(stream)).reshape(
+            n, c["batch"], c["seq_len"]).cuda()})
+    bufs = lambda: (flat_buffer(tr.state.params),
+                    flat_buffer(tr.state.opt_state.mu),
+                    flat_buffer(tr.state.opt_state.nu))
+    rows = tr.rows
+    sent = [_digest(b[0]) for b in bufs()] if rows.lo == 0 else None
+    tr.report_fitness(torch.tensor([4.0, 3.0, 2.0, 1.0], device="cuda"))
+    lineage = tr.evolve().tolist()
+    got = [_digest(b[n - 1 - rows.lo]) for b in bufs()] \
+        if rows.hi == n else None
+    exchange = dict(tr.strategy.gather.last)
+    tr.save(blocking=True)
+    return {"coord": layout.model_coord(), "island": layout.island_of(),
+            "p_local": bufs()[0].shape[1], "sent": sent, "got": got,
+            "lineage": lineage, "exchange": exchange}
+
+
+def _mp_restore_rank(rank, world, job):
+    """54, the other way: the one-rank checkpoint restored onto 2 ranks at
+    model 2 by ``restore_elastic``; this rank's state leaves, on the
+    host."""
+    from repro_torch.elastic import plan_layout, restore_elastic
+    from repro_torch.tree import leaves
+    layout = plan_layout(world, MP_ISLANDS["population"], preferred_model=2)
+    tr = _mp_trainer(layout, job["ckpt"])
+    step, _ = restore_elastic(tr)
+    return {"coord": layout.model_coord(), "step": step,
+            "leaves": [x.cpu() for x in leaves(tr.state)],
+            "dims": tr.agent.shard_dims(tr.state, tr.shard)}
+
+
+def _mp_memory_run(n, shard=None, mesh=None):
+    """55's population: MP_MEMORY's arch at full width, its layers,
+    float32, one update step of the islands backend over ``mesh`` (or the
+    vectorized one). Returns the bytes of the rank's parameters and
+    moments, its peak of allocated memory over the run (above what was
+    allocated before), its pop_adam launches and seconds."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.pop import LMAgent
+    from repro_torch.pop.backend import make_update
+    from repro_torch.tree import flat_buffer
+    c = MP_MEMORY
+    cfg = _lm_config(c["arch"], num_layers=c["layers"], dtype="float32")
+    agent = LMAgent(cfg, TrainConfig(total_steps=2, warmup_steps=1),
+                    device="cuda")
+    stream = host_batches(cfg.vocab_size, n * c["batch"], c["seq_len"],
+                          seed=SEED)
+    batch = {"tokens": torch.from_numpy(next(stream)).reshape(
+        n, c["batch"], c["seq_len"]).cuda()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    where = {} if shard is None else {"shard": shard}
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n,
+                                  **where)
+    update = (make_update(agent, "islands", mesh=mesh) if mesh is not None
+              else make_update(agent, "vectorized"))
+    reset_counts(pop_adam)
+    state, metrics = update(state, batch, _lm_hypers(n, "cuda"))
+    torch.cuda.synchronize()
+    out = {"state_bytes": 3 * 4 * flat_buffer(state.params).numel(),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "pop_adam_launches": pop_adam.launches,
+           "seconds": time.perf_counter() - t0,
+           "loss": metrics["loss"].cpu().tolist()}
+    del state, update, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_memory_rank(rank, world, job):
+    """55. MP_MEMORY's population over one island of model 2: this rank's
+    bytes of parameters and moments and its peak of allocated memory."""
+    from repro_torch.elastic import plan_layout
+    from repro_torch.launch.mesh import model_shard
+    layout = plan_layout(world, MP_MEMORY["population"],
+                         preferred_model=world)
+    return _mp_memory_run(MP_MEMORY["population"], model_shard(layout.mesh),
+                          layout.mesh)
+
+
+def _mp_kernel_rows():
+    """flash_attention and wkv6 against their plain versions at the shapes
+    a rank of model 2 gives them in phase 53's forward (qwen2-0.5b: 7 of
+    14 heads over 1 of 2 kv heads, a GQA group of 7; rwkv6-1.6b: 16 of 32
+    heads), timed beside their bounds (and SDPA for the attention); and
+    pop_adam at a rank's (N, P_local) of phase 53's qwen2-0.5b."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 55)
+    b, s = MP["forward_batch"], MP["forward_len"]
+    rows = {}
+    q, k, v = _flash_inputs(gen, b, 7, 1, s, 64, torch.bfloat16,
+                            model_layout=True)
+    got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    bound, bound_by = flash_bound(b, 7, 1, s, 64)
+    rows["flash_attention"] = {
+        "shape": (b, 7, 1, s, 64), "dtype": "bfloat16", "route": "bf16_mma",
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "max_err_over_tolerance": tol_share(got.float(), want.float(), tol),
+        "tolerance": "rtol=atol=2e-2 (bf16)",
+        "ms": graph_ms(lambda: flash_attention(q, k, v)),
+        "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v),
+                             reps=5, iters=5),
+        "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                            enable_gqa=True)),
+        "bound_ms": bound, "bound_by": bound_by}
+    r, kk, vv, lw, u, state = _wkv6_inputs(gen, b, 16, s, 64,
+                                           model_layout=True)
+    got, got_state = wkv6(r, kk, vv, lw, u, state, chunk=64)
+    want, want_state = wkv6_plain(r, kk, vv, lw, u, state, chunk=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **SCAN_TOL)
+    torch.testing.assert_close(got_state, want_state, **SCAN_TOL)
+    bound, bound_by = wkv6_bound(b, 16, s, 64)
+    rows["wkv6"] = {
+        "shape": (b, 16, s, 64), "chunk": 64,
+        "max_abs_err": max((got - want).abs().max().item(),
+                           (got_state - want_state).abs().max().item()),
+        "max_err_over_tolerance": max(tol_share(got, want, SCAN_TOL),
+                                      tol_share(got_state, want_state,
+                                                SCAN_TOL)),
+        "tolerance": "rtol=atol=2e-4",
+        "ms": graph_ms(lambda: wkv6(r, kk, vv, lw, u, state, chunk=64)),
+        "plain_ms": graph_ms(lambda: wkv6_plain(r, kk, vv, lw, u, state,
+                                                chunk=64), reps=5, iters=5),
+        "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+    # pop_adam at a rank's (N, P_local) of phase 53's qwen2-0.5b
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import tree_paths
+    from repro_torch.tree import leaves
+    arch, n = MP["parity"][0]
+    cfg = _lm_config(arch, num_layers=MP["layers"])
+    table, shapes = lm.shard_table(cfg, 2), lm.param_shapes(cfg)
+    p_local = sum(x.numel() // (1 if table[path] is None else 2)
+                  for path, x in zip(tree_paths(shapes), leaves(shapes)))
+    adam = pop_adam_inplace_row(gen, n, p_local, f"{arch} model-2 rank")
+    for name, row in rows.items():
+        log(f"{name} at a model-2 rank's shape {row['shape']}: == plain "
+            f"(max abs err {row['max_abs_err']:.3g}, "
+            f"{row['max_err_over_tolerance']:.3g} of {row['tolerance']}); "
+            f"kernel {row['ms'] * 1e3:.3f} us, plain "
+            f"{row['plain_ms'] * 1e3:.3f} us, library "
+            f"{'none' if row['library_ms'] is None else '%.3f us' % (row['library_ms'] * 1e3)}"
+            f", bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    rows["pop_adam"] = adam
+    return rows
+
+
+def phase_model_sharded(root):
+    """53-55. Model-sharded LM members on gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one GPU, so the model group's collectives go
+    through the host; this checks correctness, launches and memory per
+    rank, not speed across cards). 54 first: 4 ranks (2 islands x model
+    2) exchange a member part by part and write a checkpoint, which this
+    process restores at model 1 (every leaf bit for bit) and saves again;
+    then one session of 2 ranks restores that onto model 2 (54's other
+    way), runs 53's parity and 55's memory; then this process runs 55's
+    one-rank reference and the kernels against their plain versions at
+    the ranks' shapes."""
+    from repro_torch.elastic import restore_elastic
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import tree_paths
+    from repro_torch.tree import leaves
+    out = {}
+    t0 = time.perf_counter()
+    ckpt, ckpt1 = str(Path(root) / "m2"), str(Path(root) / "m1")
+    isl = [r["islands"] for r in _spawn_session(
+        [("islands", "_mp_islands_rank", {"ckpt": ckpt})], 4,
+        Path(root) / "s4", MP["timeout"])]
+    want = [0, 1, 2, 0]
+    for r, res in enumerate(isl):
+        if res["lineage"] != want:
+            raise AssertionError(f"model-sharded islands rank {r}: lineage "
+                                 f"{res['lineage']}, want {want}")
+    for c in range(2):
+        src = next(r for r in isl if r["island"] == 0 and r["coord"] == c)
+        dst = next(r for r in isl if r["island"] == 1 and r["coord"] == c)
+        if src["sent"] is None or src["sent"] != dst["got"]:
+            raise AssertionError(f"model-sharded islands: member 3's parts "
+                                 f"at model coordinate {c} after the evolve "
+                                 f"are not member 0's before it")
+    saved = _npz_leaves(sorted(Path(ckpt).glob("step_*"))[-1]
+                        / "arrays.npz")
+    one = _mp_trainer(None, ckpt1)
+    template = [tuple(x.shape) for x in leaves(one.state)]
+    if [x.shape for x in saved] != template:
+        raise AssertionError("model-sharded islands: the checkpoint's "
+                             "leaves are not the one-rank trainer's")
+    restore_elastic(one, directory=ckpt)
+    off = [i for i, (x, y) in enumerate(zip(leaves(one.state), saved))
+           if not np.array_equal(x.cpu().numpy(), y)]
+    if off:
+        raise AssertionError(f"model-sharded: the model-2 checkpoint "
+                             f"restored at model 1 differs in leaves {off}")
+    one.save(blocking=True)
+    saved1 = _npz_leaves(sorted(Path(ckpt1).glob("step_*"))[-1]
+                         / "arrays.npz")
+    del one
+    out["islands"] = {"arch": MP_ISLANDS["arch"],
+                      "population": MP_ISLANDS["population"],
+                      "lineage": want, "exchange": [r["exchange"]
+                                                    for r in isl],
+                      "p_local": isl[0]["p_local"],
+                      "checkpoint_leaves": len(saved),
+                      "restored_model1_bit_for_bit": True}
+    lap_s = time.perf_counter() - t0
+    ranks = _spawn_session(
+        [("restore", "_mp_restore_rank", {"ckpt": ckpt1}),
+         ("parity", "_mp_parity_rank", {}),
+         ("memory", "_mp_memory_rank", {})], 2, Path(root) / "s2",
+        MP["timeout"])
+    for r in ranks:
+        res = r["restore"]
+        for got, whole, dim in zip(res["leaves"], saved1, res["dims"]):
+            if dim is not None:
+                per = whole.shape[dim] // 2
+                whole = np.take(whole, range(res["coord"] * per,
+                                             (res["coord"] + 1) * per),
+                                axis=dim)
+            if not np.array_equal(got.numpy(), whole):
+                raise AssertionError("model-sharded: the model-1 checkpoint "
+                                     "restored at model 2 is not its parts")
+    out["islands"]["restored_model2_bit_for_bit"] = True
+    out["parity"] = {arch: [r["parity"][arch] for r in ranks]
+                     for arch, _ in MP["parity"]}
+    for arch, per_rank in out["parity"].items():
+        for r, res in enumerate(per_rank):
+            for what in ("grad_share", "step_share", "logits_share"):
+                if not res[what] <= 1:
+                    raise AssertionError(
+                        f"model-sharded {arch} rank {r}: {what} "
+                        f"{res[what]:.3g} of its tolerance from the "
+                        f"one-rank run")
+            if res["pop_adam_launches"] != 2:
+                raise AssertionError(
+                    f"model-sharded {arch} rank {r}: "
+                    f"{res['pop_adam_launches']} pop_adam launches in 2 "
+                    f"steps, want 1 a step")
+            kernel = "wkv6" if arch.startswith("rwkv6") else \
+                "flash_attention"
+            if res["launches"][kernel] != MP["layers"]:
+                raise AssertionError(
+                    f"model-sharded {arch} rank {r}: "
+                    f"{res['launches'][kernel]} {kernel} launches in the "
+                    f"no-grad forward, want one a layer")
+    mem = [r["memory"] for r in ranks]
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_rank = _mp_memory_run(MP_MEMORY["population"])
+    # a rank's parameters and moments: half of every leaf the rules shard,
+    # the whole of the rest
+    cfg = _lm_config(MP_MEMORY["arch"], num_layers=MP_MEMORY["layers"])
+    table = lm.shard_table(cfg, 2)
+    want_bytes = 3 * 4 * MP_MEMORY["population"] * sum(
+        x.numel() // (1 if table[p] is None else 2)
+        for p, x in zip(tree_paths(lm.param_shapes(cfg)),
+                        leaves(lm.param_shapes(cfg))))
+    for r, res in enumerate(mem):
+        if res["pop_adam_launches"] != 1:
+            raise AssertionError(f"model-sharded memory rank {r}: "
+                                 f"{res['pop_adam_launches']} pop_adam "
+                                 f"launches in one step")
+        if res["state_bytes"] != want_bytes:
+            raise AssertionError(f"model-sharded memory rank {r}: "
+                                 f"{res['state_bytes']} bytes of parameters "
+                                 f"and moments, want {want_bytes} (the "
+                                 f"one-rank run's {one_rank['state_bytes']})")
+    out["memory"] = {"arch": MP_MEMORY["arch"], "layers": MP_MEMORY["layers"],
+                     "population": MP_MEMORY["population"],
+                     "ranks": mem, "one_rank": one_rank}
+    out["kernels"] = _mp_kernel_rows()
+    out["seconds"] = time.perf_counter() - t0
+    out["islands_seconds"] = lap_s
+    gb = lambda x: round(x / 1e9, 2)
+    for arch, per_rank in out["parity"].items():
+        a = per_rank[0]
+        log(f"model-sharded {arch} ({MP['layers']} layers, fp32, "
+            f"N={a['population']}) over 2 gloo ranks on cuda:0 at model 2: "
+            f"P_local {[r['p_local'] for r in per_rank]} of "
+            f"{a['p_whole']:,} a member ({gb(a['member_bytes_local'])} GB of "
+            f"parameters and moments a member and rank against "
+            f"{gb(a['member_bytes_whole'])}); pop_adam "
+            f"{[r['pop_adam_launches'] for r in per_rank]} in 2 steps; vs "
+            f"one rank: gradients {[r['grad_share'] for r in per_rank]}, "
+            f"step {[r['step_share'] for r in per_rank]} of rtol 1e-4, atol "
+            f"1e-6; bf16 forward {a['forward_shape']} launches "
+            f"{a['launches']}, logits' RMS error from the float32 forward "
+            f"{[round(r['logits_rms_err'], 5) for r in per_rank]} against "
+            f"the one-rank bf16's {round(a['logits_rms_err_one_rank'], 5)} "
+            f"(at most x{BF16_TP_RMS_RATIO}; max abs err against the "
+            f"one-rank bf16 "
+            f"{max(r['logits_max_abs_err'] for r in per_rank):.3g}); peak "
+            f"allocated {[gb(r['peak_bytes']) for r in per_rank]} GB")
+    log(f"model-sharded islands ({MP_ISLANDS['arch']}, 2 islands x model 2 "
+        f"over 4 ranks): lineage {want}, member 0's parts in member 3's "
+        f"slot bit for bit at both model coordinates; exchange "
+        f"{[r['exchange'] for r in isl]}; the checkpoint restored at model "
+        f"1 and back at model 2 bit for bit")
+    log(f"model-sharded memory ({MP_MEMORY['arch']}, {MP_MEMORY['layers']} "
+        f"layer, N={MP_MEMORY['population']}): parameters and moments "
+        f"{[gb(r['state_bytes']) for r in mem]} GB a rank against "
+        f"{gb(one_rank['state_bytes'])} on one; peak allocated "
+        f"{[gb(r['peak_bytes']) for r in mem]} GB a rank against "
+        f"{gb(one_rank['peak_bytes'])}; {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -7792,6 +8309,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         slice18["lm"] = phase_islands_lm(root)
     lap("51 LM islands")
+    # 53-55. model-sharded LM members over an island's model axis: gloo
+    # ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        for sub in ("s4", "s2"):
+            (Path(root) / sub).mkdir()
+        slice19 = phase_model_sharded(root)
+    lap("53-55 model-sharded members")
+    slice19["card"] = smi
     slice18["card"] = smi
     slice15["card"] = smi
     slice16["card"] = smi
@@ -7848,7 +8375,19 @@ def main() -> int:
             "train_launches": ppo[e]["launches"][kernel]}
         for e in PPO}
 
+    mp_parity = slice19["parity"]
+    mp_paths = lambda name: {
+        f"model_sharded_{arch}_rank{r}": res["launches"][name]
+        for arch, per_rank in mp_parity.items()
+        for r, res in enumerate(per_rank)}
     adam_paths = {**by_path("pop_adam"),
+                  **{f"model_sharded_{arch}_rank{r}": res[
+                      "pop_adam_launches"]
+                     for arch, per_rank in mp_parity.items()
+                     for r, res in enumerate(per_rank)},
+                  **{f"model_sharded_memory_rank{r}": res[
+                      "pop_adam_launches"]
+                     for r, res in enumerate(slice19["memory"]["ranks"])},
                   "lm_train": lm_train["launches"]["pop_adam"],
                   **{f"{a}_train": r["launches"]["pop_adam"]
                      for a, r in frontends["train"].items()},
@@ -7866,6 +8405,7 @@ def main() -> int:
         "serve"]["rl"]["launches"]["pop_matmul"]}
     flash_paths = {**{f"serve_{arch}": r["launches"]["flash_attention"]
                       for arch, r in lm_serve.items()},
+                   **mp_paths("flash_attention"),
                    "serve_qwen2-0.5b_telemetry": slice15["serve"]["lm"][
                        "launches"]["flash_attention"]}
     kernels = [{
@@ -7958,13 +8498,15 @@ def main() -> int:
         "launches_by_path": adam_paths,
         "max_abs_err": max([adam_err, adam_lm_err,
                             sac_dqn["kernels"]["adam_max_abs_err"],
-                            ppo["kernels"]["adam_max_abs_err"]]
+                            ppo["kernels"]["adam_max_abs_err"],
+                            slice19["kernels"]["pop_adam"]["max_abs_err"]]
                            + [r["pop_adam"]["max_abs_err"]
                               for r in frontends["train"].values()]),
         "tolerance": "rtol=1e-5, atol=1e-6",
         "max_err_over_tolerance": max(
             [adam_share, adam_lm_share, sac_dqn["kernels"]["adam_share"],
-             ppo["kernels"]["adam_share"]]
+             ppo["kernels"]["adam_share"],
+             slice19["kernels"]["pop_adam"]["max_err_over_tolerance"]]
             + [r["pop_adam"]["max_err_over_tolerance"]
                for r in frontends["train"].values()]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
@@ -8002,6 +8544,12 @@ def main() -> int:
                            f"device times of eager launches, cold",
                    **r["pop_adam"]}
             for arch, r in frontends["train"].items()},
+        "model_sharded": {"work": "one launch of a model-2 rank's step "
+                                  "over its parts of qwen2-0.5b's 4 "
+                                  "members (2 layers), decay and clip "
+                                  "scale, in place; device times of eager "
+                                  "launches, cold",
+                          **slice19["kernels"]["pop_adam"]},
         "lm_cem": {"work": "qwen2-0.5b's population step under CEM, N=4: "
                            "the LM row's shape (lm above)",
                    "launches": lm_cem["launches"]["pop_adam"]},
@@ -8013,6 +8561,9 @@ def main() -> int:
     for name, arch, per_prefill in (("wkv6", "rwkv6-1.6b", 24),
                                     ("ssd", "zamba2-7b", 81)):
         err, share, row = scans[name]
+        paths = {f"serve_{arch}": lm_serve[arch]["launches"][name],
+                 **(mp_paths(name) if name == "wkv6" else {})}
+        sharded = slice19["kernels"].get(name)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -8020,11 +8571,17 @@ def main() -> int:
             "replaces": ("src/repro/kernels/wkv6.py:74" if name == "wkv6"
                          else "src/repro/kernels/ssd.py:71"),
             "redesigned_in": REDESIGNED_IN[name],
-            "launches": lm_serve[arch]["launches"][name],
-            "max_abs_err": max(err, lm_parity[arch][0]),
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": max([err, lm_parity[arch][0]]
+                               + ([sharded["max_abs_err"]] if sharded
+                                  else [])),
             "tolerance": "rtol=atol=2e-4 (kernel vs plain); 1e-3 (the "
                          "path, card vs CPU)",
-            "max_err_over_tolerance": max(share, lm_parity[arch][1]),
+            "max_err_over_tolerance": max(
+                [share, lm_parity[arch][1]]
+                + ([sharded["max_err_over_tolerance"]] if sharded else [])),
+            "model_sharded": sharded,
             "work": f"one launch at the {arch} prefill's shape "
                     f"{row['shape']} (chunk {row['chunk']}), "
                     f"{per_prefill} per served prefill; device times, CUDA "
@@ -8054,14 +8611,20 @@ def main() -> int:
             "flash_attention_by_route"],
         "max_abs_err": max([flash_err] + [lm_parity[a][0] for a in DENSE]
                            + [lm_parity["qwen3-moe-30b-a3b"][0]]
-                           + [e for e, _ in frontends["parity"].values()]),
+                           + [e for e, _ in frontends["parity"].values()]
+                           + [slice19["kernels"]["flash_attention"][
+                               "max_abs_err"]]),
         "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
                      "1e-3 (the path, card vs CPU)",
         "max_err_over_tolerance": max([flash_share]
                                       + [lm_parity[a][1] for a in DENSE]
                                       + [lm_parity["qwen3-moe-30b-a3b"][1]]
                                       + [s for _, s in
-                                         frontends["parity"].values()]),
+                                         frontends["parity"].values()]
+                                      + [slice19["kernels"][
+                                          "flash_attention"][
+                                          "max_err_over_tolerance"]]),
+        "model_sharded": slice19["kernels"]["flash_attention"],
         "work": "one causal launch at the qwen3-8b prefill's shape "
                 f"(B,H,Hkv,S,D)={head['shape']} bf16, 36 per served "
                 "prefill; device times, CUDA graph replay, L2-warm",
@@ -8141,6 +8704,7 @@ def main() -> int:
     print(json.dumps({"slice16": slice16}))
     slice18["seconds_total"] = round(time.perf_counter() - T_START, 1)
     print(json.dumps({"slice18": slice18}))
+    print(json.dumps({"slice19": slice19}))
     log(f"the whole run took {slice18['seconds_total']} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

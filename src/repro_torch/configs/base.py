@@ -18,13 +18,14 @@ Where the JAX package scales gemma's embeddings by testing the config's
 ``family`` and name, the port has the field ``scale_embeddings``, set by
 the gemma config; it has no ``family``.
 
-``TrainConfig`` has no ``grad_compression``: data-parallel gradient
-compression (``optim/compress.py``) is not ported.
+``TrainConfig.grad_compression`` (``"none"`` or ``"int8"``) selects the
+data-parallel gradient reduction of :func:`repro_torch.optim.dp.
+make_dp_update` (the int8 error-feedback one is ``optim/compress.py``).
 
-Of ``PopulationConfig``'s fields, those of the strategies not ported yet
-(CEM's, DvD's) come with it; ``donate`` has no counterpart in the eager
-port, nor have ``fused_adam`` and ``fused_linear``: the port's update
-always runs the kernels on the card."""
+``PopulationConfig`` has every field of the JAX package's but three:
+``donate`` has no counterpart in the eager port, nor have ``fused_adam``
+and ``fused_linear``: the port's update always runs the kernels on the
+card."""
 from __future__ import annotations
 
 import dataclasses
@@ -167,8 +168,8 @@ class PopulationConfig:
     ``strategy`` picks the outer evolution loop (size 1 always degrades to
     none); ``backend`` picks how the update executes. The port has the
     strategies ``pbt``, ``cem``, ``dvd`` and ``none`` and the backends
-    ``vectorized`` and ``sequential``; ``sharded`` and ``islands`` raise
-    "not ported yet" where they are resolved.
+    ``vectorized``, ``sequential``, ``sharded`` and ``islands`` (the last
+    two one rank per GPU under ``torch.distributed.run``).
     """
     size: int = 1
     strategy: str = "pbt"
@@ -200,6 +201,7 @@ class TrainConfig:
     total_steps: int = 10_000
     seed: int = 0
     population: PopulationConfig = field(default_factory=PopulationConfig)
+    grad_compression: str = "none"       # none | int8
     grad_accum: int = 1                  # microbatches per optimizer step
 
     def replace(self, **kw) -> "TrainConfig":

@@ -21,6 +21,10 @@ population-wide values cross ranks by explicit collectives.
     makes it at the whole population's shape and keeps the rank's rows.
     Every rank therefore consumes the generator as a one-rank run does,
     and its members see the numbers they would see there.
+  * :func:`copy_to_region`, :func:`reduce_from_region`,
+    :func:`gather_from_region`, :func:`scatter_to_region` — the
+    tensor-parallel collectives of a member sharded over an island's model
+    axis, as autograd Functions.
 
 Collectives on a gloo group go through the host when the tensor is on the
 card (gloo's CUDA support covers few of them); NCCL takes device tensors.
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 POPULATION_AXES = ("pod", "data")
 
@@ -188,15 +192,16 @@ def _via_host(tensor, group) -> bool:
     return tensor.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(tensor, group=None):
-    """Sum ``tensor`` in place over ``group`` (through the host on a gloo
-    group)."""
+def all_reduce(tensor, group=None, op: str = "sum"):
+    """Reduce ``tensor`` in place over ``group`` by ``op`` ("sum" or
+    "max"; through the host on a gloo group)."""
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if _via_host(tensor, group):
         host = tensor.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=rop, group=group)
         tensor.copy_(host)
     else:
-        dist.all_reduce(tensor, group=group)
+        dist.all_reduce(tensor, op=rop, group=group)
     return tensor
 
 
@@ -226,6 +231,115 @@ def all_gather(tensor, group=None) -> list:
     return out
 
 
+# ------------------------------------------- tensor parallelism (TP)
+# The collectives of a forward whose member is sharded over an island's
+# model axis (``repro_torch.models.sharding.ModelShard``), as autograd
+# Functions over this module's all_reduce and all_gather (on gloo they go
+# through the host, which DTensor's redistribute would not). "Region" is
+# the computation between a column-parallel and a row-parallel matmul, in
+# which each rank holds its part. A value crosses the group in float32
+# (a bf16 activation is widened for the collective and narrowed after),
+# so a sum of partial products rounds once more than the one-rank matmul
+# and no further.
+def _wide(x):
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def _summed(x, shard):
+    out = _wide(x).clone().contiguous()
+    return all_reduce(out, shard.group).to(x.dtype)
+
+
+def _gathered(x, dim: int, shard):
+    parts = all_gather(_wide(x).contiguous(), shard.group)
+    return torch.cat(parts, dim=dim).to(x.dtype)
+
+
+def _part(x, dim: int, shard):
+    lo, hi = shard.bounds(x.shape[dim])
+    return x.narrow(dim, lo, hi - lo).contiguous()
+
+
+class _CopyToRegion(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group
+    (each rank's covers only its part of the region)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.shard), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """All-reduce (sum) forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        return _summed(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the backward keeps this rank's
+    part of the gradient (the gathered value is used whole, the same on
+    every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, shard):
+        ctx.dim, ctx.shard = dim, shard
+        return _gathered(x, dim, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _part(g, ctx.dim, ctx.shard), None, None
+
+
+class _ScatterToRegion(torch.autograd.Function):
+    """This rank's part along ``dim`` of a value every rank holds whole;
+    the backward all-gathers the gradient, so the whole value's gradient
+    is complete on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, shard):
+        ctx.dim, ctx.shard = dim, shard
+        return _part(x, dim, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.dim, ctx.shard), None, None
+
+
+def copy_to_region(x, shard):
+    """``x`` entering a column-parallel region: identity forward,
+    all-reduce backward."""
+    return _CopyToRegion.apply(x, shard)
+
+
+def reduce_from_region(x, shard):
+    """The partial sums of a row-parallel matmul, summed over the group
+    (identity backward)."""
+    return _ReduceFromRegion.apply(x, shard)
+
+
+def gather_from_region(x, dim: int, shard):
+    """Every rank's part of ``x`` along ``dim``, put together (the
+    backward keeps this rank's part)."""
+    return _GatherFromRegion.apply(x, dim, shard)
+
+
+def scatter_to_region(x, dim: int, shard):
+    """This rank's part of a whole ``x`` along ``dim`` (the backward
+    all-gathers)."""
+    return _ScatterToRegion.apply(x, dim, shard)
+
+
 def all_members(tree, rows: Rows, group=None):
     """Every leaf's rows of all members, ``(rows.n, ...)`` on every rank:
     each rank writes its rows into zeros and ``group`` (one rank per
@@ -252,24 +366,38 @@ def all_members_fitness(fitness, rows: Rows, group=None):
     return all_members(fitness, rows, group)
 
 
-def gather_to_root(tree, layout, group=None):
+def gather_to_root(tree, layout, group=None, dims=None):
     """On rank 0, every leaf's rows of all the layout's members, from the
     first rank of each island (host tensors); None on the other ranks.
     Every leaf of ``tree`` carries this rank's member rows. ``group`` is a
     group over the whole world whose ranks are the global ranks (gloo:
-    the leaves go through the host)."""
+    the leaves go through the host). ``dims`` (one entry a leaf, in
+    flatten order) names the dimension along which a leaf is this rank's
+    part of a model-sharded member: it is put together whole from the
+    island's model ranks (its first data rank's), so the result is the
+    one-rank tree."""
     from repro_torch.device import to_host
     host = to_host(tree)
     rank, size = world()
-    firsts = [layout.rank_of(j) for j in range(layout.islands)]
+    flat, treedef = flatten(host)
+    dims = [None] * len(flat) if dims is None else list(dims)
+    if len(dims) != len(flat):
+        raise ValueError(f"{len(dims)} shard dims for {len(flat)} leaves")
 
-    def gather(x):
+    def island(parts, j, dim):
+        if dim is None:
+            return parts[layout.rank_of(j)]
+        return torch.cat([parts[layout.rank_of(j, c)]
+                          for c in range(layout.model)], dim=dim)
+
+    def gather(x, dim):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(size)] \
             if rank == 0 else None
         dist.gather(x, parts, dst=0, group=group)
-        return None if rank != 0 else torch.cat([parts[r] for r in firsts])
-    out = tree_map(gather, host)
+        return None if rank != 0 else torch.cat(
+            [island(parts, j, dim) for j in range(layout.islands)])
+    out = unflatten(treedef, [gather(x, d) for x, d in zip(flat, dims)])
     return out if rank == 0 else None
 
 

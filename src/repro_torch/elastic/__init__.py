@@ -29,13 +29,13 @@ resume with 6 on however many there are::
     step, lineage = restore_elastic(trainer)  # 2 least-fit members dropped
     trainer.run_env_loop(50)                  # buffers and env states kept
 
-The JAX package's ``relayout`` (placement of one large member over a
-mesh by the sharding rules) waits for model-sharded members.
+``relayout`` places one large member's host tree over a mesh by the
+sharding rules (this rank's part of every leaf).
 """
 from repro_torch.elastic.layout import (  # noqa: F401
     IslandLayout, plan_layout, plan_mesh,
 )
-from repro_torch.elastic.relayout import restore_elastic  # noqa: F401
+from repro_torch.elastic.relayout import relayout, restore_elastic  # noqa: F401
 from repro_torch.elastic.resize import (  # noqa: F401
     grow_population, plan_resize, resize_tree, shrink_population,
 )

@@ -20,13 +20,19 @@ what it computes: on a mesh of more than one island the generator must
 be the trainer's :func:`~repro_torch.core.distributed.member_generator`,
 whose member-axis draws are made at the whole population's shape and
 sliced, and the call refuses a plain one.
+
+On a mesh whose ``model`` axis is above 1, an agent with
+``model_sharded_params`` (the LM) updates this rank's parts of its
+island's members (``agent.fused_update(shard=...)``, the shard over the
+mesh's ``model`` group: :func:`repro_torch.launch.mesh.model_shard`);
+any other agent's members are whole on every model rank, which all run
+the same update on them, as the JAX package places them.
 """
 from __future__ import annotations
 
 from repro_torch.core.distributed import member_rows
 from repro_torch.core.vectorize import chain_steps
-from repro_torch.elastic.layout import MODEL_REFUSAL
-from repro_torch.launch.mesh import mesh_size
+from repro_torch.launch.mesh import mesh_size, model_shard
 from repro_torch.pop.backend import register_backend
 from repro_torch.tree import leaves
 
@@ -36,9 +42,11 @@ def _build_islands(agent, num_steps: int, mesh=None):
         raise ValueError("islands backend requires per-member agents (a "
                          "shared critic is replicated, not split over "
                          "islands)")
-    if mesh_size(mesh, "model") > 1:
-        raise NotImplementedError(MODEL_REFUSAL)
-    fn = agent.fused_update()
+    shard = model_shard(mesh)
+    if shard is not None and getattr(agent, "model_sharded_params", False):
+        fn = agent.fused_update(shard=shard)
+    else:
+        fn = agent.fused_update()
     inner = fn if num_steps == 1 else chain_steps(fn, num_steps)
     islands = mesh_size(mesh, "pop")
 

@@ -19,9 +19,12 @@ The port runs one process per GPU, so a "device" is a rank. Rank ``r``
 consecutive members: placement is slicing (:meth:`IslandLayout.place`).
 An island with ``data > 1`` holds its members on each of its data ranks,
 which all run the island's update on the same rows (where the JAX
-package's GSPMD branch puts them: split over ``"pop"`` only). A
-``model`` axis above 1 plans, but placing members over it is refused:
-model-sharded members are not ported yet.
+package's GSPMD branch puts them: split over ``"pop"`` only). Over a
+``model`` axis above 1, ``place(model_rules=True)`` (the LM population)
+also cuts each member leaf to this rank's part by the rules of
+:mod:`repro_torch.models.sharding`; without the rules (the RL members)
+every model rank holds its island's members whole, as the JAX package
+places them. A rank's model coordinate is its position modulo ``model``.
 """
 from __future__ import annotations
 
@@ -30,10 +33,7 @@ import warnings
 from dataclasses import dataclass
 
 from repro_torch.core.distributed import Rows, take_rows, world
-
-MODEL_REFUSAL = ("model-sharded members are not ported yet (a layout's "
-                 "model axis above 1 needs tensor parallelism inside an "
-                 "island)")
+from repro_torch.tree import leaves, tree_map
 
 
 def _fit_model_axis(num_devices: int, preferred_model: int) -> int:
@@ -160,13 +160,45 @@ class IslandLayout:
             cached = _MESH_CACHE[self] = (group, _build_mesh(self))
         return cached[1]
 
-    def place(self, tree, rank: int | None = None):
+    def model_coord(self, rank: int | None = None) -> int:
+        """``rank``'s coordinate on its island's model axis."""
+        return self.position(rank) % self.model
+
+    def model_shard(self, rank: int | None = None):
+        """``rank``'s :class:`~repro_torch.models.sharding.ModelShard`
+        without a group (placement; the collectives take
+        :func:`repro_torch.launch.mesh.model_shard`'s), or None when the
+        model axis is 1."""
+        from repro_torch.models.sharding import ModelShard
+        if self.model == 1:
+            return None
+        return ModelShard(self.model_coord(rank), self.model)
+
+    def place(self, tree, rank: int | None = None, *,
+              model_rules: bool = False):
         """A population tree placed onto the layout: ``rank``'s island's
         rows of every leaf whose leading dimension is the population (each
-        its own tensor), every other leaf as it is (replicated)."""
-        if self.model > 1:
-            raise NotImplementedError(MODEL_REFUSAL)
-        return take_rows(tree, self.rows(rank))
+        its own tensor), every other leaf as it is (replicated).
+
+        ``model_rules=True`` with a model axis above 1 also cuts each such
+        leaf to ``rank``'s part along the dimension its rule shards
+        (``spec_for(path, leaf.shape[1:])`` under ``population_mode``: the
+        "F" axes resolve to None), each part its own contiguous tensor:
+        the LM population's placement, where every member is sharded over
+        its island's model ranks so that members larger than one card
+        fit."""
+        rows = self.rows(rank)
+        placed = take_rows(tree, rows)
+        if not model_rules or self.model == 1:
+            return placed
+        from repro_torch.models.sharding import local_tree, member_dims
+        shard = self.model_shard(rank)
+        dims = [d if getattr(x, "ndim", 0) >= 1
+                and x.shape[0] == self.population else None
+                for d, x in zip(member_dims(tree, shard), leaves(tree))]
+        cut = local_tree(placed, dims, shard)
+        return tree_map(lambda old, new: new if new is old
+                        else new.contiguous().clone(), placed, cut)
 
 
 _MESH_CACHE: dict = {}

@@ -10,9 +10,14 @@ resize is PBT's mechanics (:mod:`repro_torch.elastic.resize`): a shrink
 drops the least fit members, a grow refills with clones of the fittest,
 and the attached engine's replay buffers and env states ride along,
 gathered by the same member map, so survivors keep their collected
-experience bit for bit. The JAX package's ``relayout`` (placement of one
-large member by the sharding rules over a mesh) is not ported: it waits
-for model-sharded members.
+experience bit for bit. A checkpoint holds every leaf whole (rank 0
+gathers model-sharded members along their sharded dimensions), so the
+resume also crosses model widths: each rank cuts its parts of the resized
+members by the rules (``PopTrainer.model_part``).
+
+:func:`relayout` is the placement of one large member's host tree by the
+rules of :mod:`repro_torch.models.sharding` over a mesh: this rank's part
+of every leaf.
 
     trainer = PopTrainer(agent, PopulationConfig(size=8, ...),
                          checkpoint_dir=DIR)
@@ -35,7 +40,42 @@ import numpy as np
 import torch
 
 from repro_torch.elastic.resize import plan_resize, resize_into, resize_tree
-from repro_torch.tree import copy_into, leaves
+from repro_torch.models.sharding import _axes, _size_of, spec_for, tree_paths
+from repro_torch.tree import copy_into, flatten, leaves, unflatten
+
+
+def relayout(tree, mesh, *, coords=None, device=None):
+    """This rank's part of a host (whole) parameter tree placed onto
+    ``mesh`` by the rules (:func:`~repro_torch.models.sharding.spec_for`,
+    as ``param_specs`` gives them): each
+    leaf cut along every dimension its spec shards, by this rank's
+    coordinates on the spec's axes (a tuple of axes in mesh order), each
+    part its own contiguous tensor on ``device`` (the leaf's, by default).
+    ``coords`` ({axis name: coordinate}) places for another rank, or on a
+    :class:`~repro_torch.models.sharding.MeshShape`; by default they are
+    ``mesh.get_coordinate()``'s."""
+    names = _axes(mesh)
+    if coords is None:
+        coords = dict(zip(names, mesh.get_coordinate()))
+    flat, treedef = flatten(tree)
+    specs = [spec_for(p, tuple(x.shape), mesh)
+             for p, x in zip(tree_paths(tree), flat)]
+
+    def place(x, spec):
+        x = torch.as_tensor(x)
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            axes = axis if isinstance(axis, tuple) else (axis,)
+            size, index = 1, 0
+            for a in axes:
+                size *= _size_of(mesh, a)
+                index = index * _size_of(mesh, a) + coords[a]
+            per = x.shape[dim] // size
+            x = x.narrow(dim, index * per, per)
+        return x.to(device=device).contiguous().clone() if device \
+            is not None else x.contiguous().clone()
+    return unflatten(treedef, [place(x, s) for x, s in zip(flat, specs)])
 
 
 def restore_elastic(trainer, directory=None, *, step=None, layout=None):
@@ -106,7 +146,7 @@ def restore_elastic(trainer, directory=None, *, step=None, layout=None):
 
         rows = layout.rows() if layout is not None else trainer.rows
         mine = parents[rows.lo:rows.hi]
-        resize_into(trainer.state, state, old_n, mine)
+        resize_into(trainer.state, trainer.model_part(state), old_n, mine)
         del state
         if trainer.hypers is not None:   # fresh hypers stay when the
             hypers = mgr.restore_aux("hypers", trainer.hypers, step)

@@ -12,8 +12,10 @@ one ``pop_adam`` launch for the whole population.
 
 PBT tunes the per-member ``lr``, ``clip_eps`` and ``entropy_coef`` (the
 update side) and ``gae_lambda`` (the advantage side). Checkpoints are
-written every 10 iterations when ``ckpt_dir`` is given (blocking saves;
-the JAX example's asynchronous ones and its telemetry are not ported).
+written every 10 iterations when ``ckpt_dir`` is given (asynchronously:
+``trainer.save()`` returns once the state is on the host, and the run
+waits for the last write before it returns), and ``--log-dir`` writes the
+run's telemetry, as in the JAX example.
 
     python -m repro_torch.examples.pbt_ppo [--population 8] [--iters 40] \\
         [--env pendulum] [--device cuda]

@@ -58,6 +58,20 @@ def mesh_size(mesh, name: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(name))
 
 
+def model_shard(mesh):
+    """This rank's :class:`~repro_torch.models.sharding.ModelShard` on
+    ``mesh``'s ``model`` dimension: its coordinate there and the
+    dimension's process group (``mesh.get_group("model")``), over which
+    the tensor-parallel collectives of a model-sharded member run; None
+    without a mesh or on a model dimension of 1."""
+    from repro_torch.models.sharding import ModelShard
+    size = mesh_size(mesh, "model")
+    if size == 1:
+        return None
+    group = mesh.get_group("model")
+    return ModelShard(dist.get_rank(group), size, group)
+
+
 def mesh_device_type() -> str:
     """``"cuda"`` on an NCCL group, ``"cpu"`` on gloo (gloo ranks may share
     one card; their mesh sets no device)."""

@@ -115,10 +115,27 @@ is a world of one::
         -m repro_torch.launch.train --algo td3 --env hopper2d \
         --population 80 --backend islands --ckpt-dir DIR
 
+``--model-axis N`` (``--backend islands``) plans the layout with a model
+axis of N ranks inside each island (``plan_layout(...,
+preferred_model=N)``: halved, with a warning, until it divides the
+world). An ``--arch`` member is then sharded over its island's model
+ranks by the rules of ``repro_torch.models.sharding`` (tensor-parallel
+attention, MLP, RWKV6 and vocabulary; a rank's Adam step is one
+``pop_adam`` launch over its parts), so a member larger than one card
+trains; the checkpoint holds whole leaves and resumes at any model width.
+An ``--algo`` member stays whole on every model rank, as in the JAX
+package. The dense attention and RWKV6 configs shard; the MoE, MLA and
+Mamba2 ones are refused by name::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen2-0.5b --population 2 \
+        --backend islands --model-axis 2 --ckpt-dir DIR
+
 ``--devices`` is 0 or the world size (the ranks are the devices; any
 other value raises, naming ``--nproc-per-node``); ``--model-axis`` above
-1 (model-sharded members), and ``--fused-epoch``, ``--policy-lag 1`` and
-``--strategy cem`` over more than one island are refused by name. Any
+1 beside another backend, on a family without a sharded forward, and
+``--fused-epoch``, ``--policy-lag 1`` and ``--strategy cem`` over more
+than one island are refused by name before any group is joined. Any
 other backend refuses a world of more than one rank.
 """
 from __future__ import annotations
@@ -184,9 +201,14 @@ def _say_layout(trainer):
              f"{dist.get_world_size()} rank"
              f"{'s' if dist.get_world_size() > 1 else ''}"
              if dist.is_initialized() else ", no process group")
+    model = trainer.layout.model
+    axis = ("" if model == 1 else
+            f", model axis {model}: each member sharded over {model} ranks"
+            if trainer.shard is not None else
+            f", model axis {model}: members whole on each model rank")
     say(f"[train] layout {trainer.layout}: {trainer.layout.islands} "
         f"island{'s' if trainer.layout.islands > 1 else ''}, rank 0 "
-        f"holds members {rows.lo}..{rows.hi - 1}{group}")
+        f"holds members {rows.lo}..{rows.hi - 1}{axis}{group}")
 
 
 def _telemetry(args, device, **meta):
@@ -262,7 +284,7 @@ def _run_lm(args) -> TrainReport:
     telemetry = _telemetry(args, device, workload="lm", arch=cfg.name)
     trainer = PopTrainer(LMAgent(cfg, tcfg, device=device), pcfg,
                          seed=args.seed, checkpoint_dir=args.ckpt_dir,
-                         telemetry=telemetry)
+                         telemetry=telemetry, layout=args.layout)
     _say_layout(trainer)
     trainer.tokens_per_step = args.batch * args.seq_len
     start_step = 0
@@ -334,7 +356,8 @@ def _run_rl(args) -> TrainReport:
     telemetry = _telemetry(args, device, workload="rl", algo=algo.name,
                            env=args.env)
     trainer = PopTrainer(agent, pcfg, seed=args.seed,
-                         checkpoint_dir=args.ckpt_dir, telemetry=telemetry)
+                         checkpoint_dir=args.ckpt_dir, telemetry=telemetry,
+                         layout=args.layout)
     _say_layout(trainer)
     trainer.attach_rollout(env, num_envs=args.num_envs,
                            collect_steps=args.collect_steps,
@@ -412,8 +435,10 @@ def main(argv=None):
                     help="the ranks the islands span: 0 (the world) or the "
                     "world size; launch more with --nproc-per-node")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="ranks a member is sharded over; above 1 is not "
-                    "ported yet")
+                    help="--backend islands: the preferred model-parallel "
+                    "width inside each island (halved until it divides the "
+                    "world); an --arch member is sharded over it by the "
+                    "models/sharding rules, an --algo member stays whole")
     ap.add_argument("--num-envs", type=int, default=8)
     ap.add_argument("--collect-steps", type=int, default=32)
     ap.add_argument("--policy-lag", type=int, default=None, choices=[0, 1],
@@ -536,11 +561,12 @@ def main(argv=None):
 
 def _check_layout(args):
     """The refusals of the multi-rank flags, before any group is joined:
-    ``--devices`` other than 0 or the world size, ``--model-axis`` above
-    1, another backend on a world of several ranks, and the fused epoch,
-    lag 1 and CEM over more than one island."""
-    from repro_torch.elastic.layout import (MODEL_REFUSAL, plan_layout,
-                                            sharded_layout)
+    ``--devices`` other than 0 or the world size, ``--model-axis`` above 1
+    beside another backend than islands or on an ``--arch`` family with
+    no sharded forward, another backend on a world of several ranks, and
+    the fused epoch, lag 1 and CEM over more than one island."""
+    from repro_torch.elastic.layout import plan_layout, sharded_layout
+    args.layout = None
     size = int(os.environ.get("WORLD_SIZE", 1))
     if args.devices not in (0, size):
         raise ValueError(
@@ -548,17 +574,37 @@ def _check_layout(args):
             f"{size}: the port runs one rank per GPU, so launch with "
             f"python -m torch.distributed.run --nproc-per-node "
             f"{args.devices} -m repro_torch.launch.train ...")
-    if args.model_axis > 1:
-        raise NotImplementedError(f"--model-axis {args.model_axis}: "
-                                  f"{MODEL_REFUSAL}")
+    if args.model_axis > 1 and args.backend != "islands":
+        raise ValueError(
+            f"--model-axis {args.model_axis} is taken by --backend islands "
+            f"only: it plans each island's model axis (--backend "
+            f"{args.backend} has none)")
     if args.backend not in _MULTI_RANK:
         if size > 1:
             raise ValueError(
                 f"--backend {args.backend} runs on one rank; the world has "
                 f"{size}: pass --backend islands or sharded")
         return
-    plan = plan_layout if args.backend == "islands" else sharded_layout
-    islands = plan(size, args.population).islands
+    layout = sharded_layout(size, args.population)
+    if args.backend == "islands":
+        # --model-axis is the preferred width: JAX's warning and halving
+        # when it does not divide the world
+        import warnings
+        with warnings.catch_warnings():
+            if int(os.environ.get("RANK", 0)) != 0:
+                warnings.simplefilter("ignore")
+            layout = args.layout = plan_layout(
+                size, args.population, preferred_model=args.model_axis)
+    if args.arch is not None and layout.model > 1:
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import refuse_model_axis
+        refuse_model_axis(get_config(args.arch), layout.model)
+        if args.strategy == "cem":
+            raise NotImplementedError(
+                f"--strategy cem over model-sharded members (model axis "
+                f"{layout.model}) is not ported yet: its draws would be "
+                f"made at each rank's part of the parameters")
+    islands = layout.islands
     if islands == 1:
         return
     refused = {"--fused-epoch": args.fused_epoch,

@@ -64,6 +64,18 @@ so it is told apart by having no state), and ``lm_loss`` masks the labels
 of the first ``num_frontend_positions`` positions. The serve step, prefill
 included, ignores the patches, as the JAX package's does.
 
+Model-sharded members (the tensor parallelism inside an island that the
+JAX package gets from GSPMD): inside :func:`repro_torch.models.sharding.
+model_parallel` the stateless forward, ``lm_loss`` and the population
+update run on this rank's parts of a member placed by the rules of
+:mod:`repro_torch.models.sharding`: the dense attention blocks and RWKV6
+(:mod:`repro_torch.nn.attention`, :mod:`repro_torch.nn.rwkv6`), the
+embedding and the head vocab-parallel, the cross-entropy's log-sum-exp
+and gold logit reduced over the group in float32. The result is the
+one-rank one's up to rounding: sharding decides where, never what. The
+MoE and MLA configs and the Mamba2 stacks are refused at a model axis
+above 1 (:func:`refuse_model_axis`), and so is a decode state.
+
 Not ported: a Mamba2 stack without the shared attention (no config has
 one), and ``input_specs``.
 """
@@ -76,7 +88,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig, TrainConfig
+from repro_torch.core.distributed import (all_reduce, copy_to_region,
+                                          gather_from_region,
+                                          reduce_from_region)
 from repro_torch.kernels.ops import attention
+from repro_torch.models.sharding import (ModelShard, active, member_dims,
+                                         model_parallel)
 from repro_torch.nn.attention import (gqa_apply, gqa_init, mla_apply,
                                       mla_init)
 from repro_torch.nn.basic import (cast, embedding_init, glu_mlp_apply,
@@ -90,7 +107,7 @@ from repro_torch.nn.rwkv6 import (channel_mix_apply, rwkv6_block_init,
 from repro_torch.optim.optimizers import (adam, apply_updates,
                                           dynamic_warmup_cosine,
                                           warmup_cosine)
-from repro_torch.optim.pop_adam import population_adam
+from repro_torch.optim.pop_adam import model_square_sums, population_adam
 from repro_torch.tree import flat_empty, flatten, stack, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
@@ -197,7 +214,8 @@ def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index,
     h = h + y
     y = rmsnorm_apply(p["mlp_norm"], h)
     if not moe_layer:
-        return h + glu_mlp_apply(p["mlp"], y, activation=cfg.activation), None
+        return h + glu_mlp_apply(p["mlp"], y, activation=cfg.activation,
+                                 d_ff=cfg.d_ff), None
     m = cfg.moe
     y, aux = moe_apply(p["mlp"], y, num_experts=m.num_experts,
                        top_k=m.top_k, capacity_factor=m.capacity_factor,
@@ -357,6 +375,11 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
                         f"{cfg.name} computes in {cfg.dtype}: pass them "
                         f"through cast_params first")
     keep = state is not None
+    shard = active()
+    if keep and shard is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a decode state over a model axis (serving a "
+            f"model-sharded member) is not ported yet")
     if not keep:
         # fresh zero recurrent states, as the JAX package's blocks make
         # without one; max_len 0: no KV cache, attention is cache-less
@@ -390,7 +413,7 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
     if cfg.frontend == "audio_frames":
         h = batch["embeds"].to(dtype)
     else:
-        h = params["embed"]["embedding"][tokens]
+        h = _embed(params["embed"]["embedding"], tokens, cfg, shard)
         if (cfg.frontend == "vision_patches" and "patch_embeds" in batch
                 and not keep):
             patches = batch["patch_embeds"]
@@ -415,8 +438,34 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
 
     h = rmsnorm_apply(params["final_norm"], h)
     if not return_hidden:
-        h = h @ head
+        vocab_part = _vocab_part(head, cfg, shard)
+        if vocab_part:
+            h = gather_from_region(copy_to_region(h, shard) @ head, -1,
+                                   shard)
+        else:
+            h = h @ head
     return h, (state if keep else None), aux_total
+
+
+def _vocab_part(head, cfg: LMConfig, shard) -> bool:
+    """Whether the head (d, V) holds this rank's part of the vocabulary."""
+    return shard is not None and shard.is_part(head.shape[-1],
+                                               cfg.vocab_size)
+
+
+def _embed(table, tokens, cfg: LMConfig, shard):
+    """The embedding lookup; vocab-parallel when the table holds this
+    rank's rows: the ids in its range looked up, the rest zero, summed
+    over the group."""
+    if shard is None or not shard.is_part(table.shape[0], cfg.vocab_size):
+        return table[tokens]
+    lo, hi = shard.bounds(cfg.vocab_size)
+    inside = (tokens >= lo) & (tokens < hi)
+    rows = table[(tokens - lo).clamp(0, hi - lo - 1)]
+    return reduce_from_region(
+        torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device)),
+        shard)
 
 
 def frontend_inputs(cfg: LMConfig, tokens, *, patches: bool = True):
@@ -447,12 +496,26 @@ def _head_weight(params, cfg: LMConfig):
 # ---------------------------------------------------------------------------
 
 
-def _token_ce(logits, labels, mask):
+def _token_ce(logits, labels, mask, shard=None):
     """(summed cross-entropy of the masked tokens, their count), in
-    float32."""
+    float32. With ``shard`` the logits are this rank's part of the
+    vocabulary: the max, the sum of exponentials and the gold logit are
+    reduced over the group."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if shard is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        v = logits.shape[-1]
+        lo = shard.coord * v
+        top = all_reduce(logits.detach().amax(-1), shard.group, op="max")
+        total = reduce_from_region(
+            torch.exp(logits - top[..., None]).sum(-1), shard)
+        logz = torch.log(total) + top
+        inside = (labels >= lo) & (labels < lo + v)
+        mine = torch.gather(logits, -1, (labels.long() - lo).clamp(
+            0, v - 1)[..., None])[..., 0]
+        gold = reduce_from_region(torch.where(inside, mine, 0.0), shard)
     ce = (logz - gold) * mask
     return ce.sum(), mask.sum()
 
@@ -476,16 +539,21 @@ def lm_loss(params, cfg: LMConfig, batch):
     if cfg.frontend == "vision_patches":
         mask[:, :cfg.num_frontend_positions] = 0.0
     w = _head_weight(cparams, cfg)
+    shard = active()
+    if _vocab_part(w, cfg, shard):
+        hidden = copy_to_region(hidden, shard)
+    else:
+        shard = None
     chunk = cfg.logits_chunk
     if chunk and hidden.shape[1] % chunk == 0:
         ce = n = torch.zeros((), device=hidden.device)
         for c in range(0, hidden.shape[1], chunk):
             ce_c, n_c = _token_ce(hidden[:, c:c + chunk] @ w,
                                   labels[:, c:c + chunk],
-                                  mask[:, c:c + chunk])
+                                  mask[:, c:c + chunk], shard)
             ce, n = ce + ce_c, n + n_c
     else:
-        ce, n = _token_ce(hidden @ w, labels, mask)
+        ce, n = _token_ce(hidden @ w, labels, mask, shard)
     ce = ce / torch.clamp(n, min=1.0)
     loss = ce
     if cfg.moe is not None:
@@ -570,7 +638,8 @@ def make_train_step(cfg: LMConfig, tcfg: TrainConfig):
     return opt_init, train_step
 
 
-def make_population_update(cfg: LMConfig, tcfg: TrainConfig):
+def make_population_update(cfg: LMConfig, tcfg: TrainConfig,
+                           shard: ModelShard | None = None):
     """The population-level LM update: each member's gradients (a loop over
     the members, see the module's docstring) into one flat ``(N, P)``
     buffer, then ONE ``population_adam`` step for the whole population
@@ -583,10 +652,24 @@ def make_population_update(cfg: LMConfig, tcfg: TrainConfig):
     ``lr_scale`` / ``weight_decay`` / ``warmup_frac`` vectors (absent keys
     take ``tcfg``'s values), metrics (N,) vectors. ``generator`` and
     ``noise`` are taken for the backends' signature; the update draws
-    nothing."""
+    nothing.
+
+    With ``shard`` (a :class:`~repro_torch.models.sharding.ModelShard` of
+    size above 1) the state holds this rank's parts of the members
+    (``LMAgent.population_init(shard=...)``): the gradients are taken
+    inside :func:`~repro_torch.models.sharding.model_parallel`, and the
+    clip's per-member square-sums are summed over the group, a sharded
+    leaf's from every rank and a whole leaf's (the same on every rank)
+    from the first only, so every rank applies the one-rank clip scale;
+    still one ``pop_adam`` launch a rank and step."""
+    reduce = None
+    if shard is not None and shard.size > 1:
+        reduce = model_square_sums(
+            [d is not None for d in shard_table(cfg, shard.size).values()],
+            shard)
     _, pop_apply = population_adam(tcfg.lr, weight_decay=tcfg.weight_decay,
                                    max_grad_norm=tcfg.max_grad_norm,
-                                   flat=True)
+                                   flat=True, reduce_square_sums=reduce)
     grads_of = _make_grads_fn(cfg, tcfg)
     lr_at = _make_lr_fn(tcfg)
 
@@ -597,9 +680,10 @@ def make_population_update(cfg: LMConfig, tcfg: TrainConfig):
         _, grads = flat_empty(state.params)
         rows = []
         for i in range(state.step.shape[0]):
-            g, loss, metrics = grads_of(tree_map(lambda x: x[i],
-                                                 state.params),
-                                        tree_map(lambda x: x[i], batch))
+            with model_parallel(shard):
+                g, loss, metrics = grads_of(
+                    tree_map(lambda x: x[i], state.params),
+                    tree_map(lambda x: x[i], batch))
             tree_map(lambda d, x: d[i].copy_(x), grads, g)
             del g
             rows.append(dict(metrics, loss=loss))
@@ -612,6 +696,60 @@ def make_population_update(cfg: LMConfig, tcfg: TrainConfig):
                        step=state.step + 1), metrics
 
     return pop_update
+
+
+# ---------------------------------------------------------------------------
+# model-sharded members: shapes, the rules' dims, the families refused
+# ---------------------------------------------------------------------------
+
+
+class _ShapeGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device: the
+    parameters' shapes and dtypes without their memory."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: LMConfig):
+    """One member's parameter tree on the ``meta`` device (shapes and
+    dtypes only, at any size)."""
+    return init_params(_ShapeGenerator(), cfg)
+
+
+_SHARD_TABLES: dict = {}
+
+
+def shard_table(cfg: LMConfig, size: int) -> dict:
+    """{parameter path: the dimension of one member's leaf that the rules
+    shard over a model axis of ``size`` ranks, or None}, in flatten
+    order."""
+    key = (cfg, size)
+    table = _SHARD_TABLES.get(key)
+    if table is None:
+        from repro_torch.models.sharding import tree_paths
+        shapes = param_shapes(cfg)
+        dims = member_dims(shapes, ModelShard(0, size), lead=0)
+        table = _SHARD_TABLES[key] = dict(zip(tree_paths(shapes), dims))
+    return table
+
+
+def refuse_model_axis(cfg: LMConfig, model: int):
+    """Raise ``NotImplementedError`` naming the config when its family has
+    no model-sharded forward yet (a model axis above 1): the MoE configs
+    (expert parallelism over ``model``), MLA and the Mamba2 stacks."""
+    if model <= 1:
+        return
+    family, needs = (
+        ("mixture of experts", "experts over the model axis")
+        if cfg.moe is not None else
+        ("multi-head latent attention", "the latent's heads over it")
+        if cfg.mla is not None else
+        ("Mamba2", "the SSD heads over it")
+        if cfg.block_type == "mamba2" else (None, None))
+    if family is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: model-sharded members of the {family} family are "
+            f"not ported yet (model axis {model}: {needs}); the dense "
+            f"attention and RWKV6 configs shard over it")
 
 
 def make_serve_step(cfg: LMConfig):

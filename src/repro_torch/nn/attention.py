@@ -27,11 +27,23 @@ the absorbed form, ``w_ukv`` folded into the query and the output.
 Caches are plain dicts of tensors: GQA's k and v of shape (B, max_len,
 H_kv, D), MLA's compressed ``c_kv`` (B, max_len, kv_lora) and ``k_rope``
 (B, max_len, rope).
+
+Inside a model-parallel context (:func:`repro_torch.models.sharding.
+model_parallel`) GQA's stateless form runs on this rank's parts of a
+member sharded by the rules: ``wq``/``wk``/``wv`` column-parallel,
+``wo`` row-parallel, its partial sums reduced over the group. The rules
+shard columns, not heads, so where a rank's columns are not whole heads,
+or its kv heads are not those its q heads read, the projections are
+gathered and every rank computes every head (the output then takes this
+rank's rows of ``wo``). MLA is not sharded.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distributed import (copy_to_region, gather_from_region,
+                                          reduce_from_region)
+from repro_torch.models.sharding import active, constrain
 from repro_torch.nn.basic import lecun_normal, rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rotary import apply_rope
 
@@ -87,6 +99,15 @@ def gqa_apply(p, x, positions, *, num_heads: int, num_kv_heads: int,
     (the cache is the decode state the caller threads through) and
     (out, cache) is returned."""
     b, s, _ = x.shape
+    shard = active()
+    if shard is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "attention with a KV cache over a model axis (serving a "
+                "model-sharded member) is not ported yet")
+        return _gqa_sharded(p, x, positions, shard, num_heads=num_heads,
+                            num_kv_heads=num_kv_heads, head_dim=head_dim,
+                            rope_theta=rope_theta, attn_fn=attn_fn), None
 
     def proj(name, heads):
         y = x @ p[name]["w"]
@@ -121,6 +142,62 @@ def gqa_apply(p, x, positions, *, num_heads: int, num_kv_heads: int,
     out = sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), positions,
                kv_positions, causal=True, scale=scale)
     return out @ p["wo"]["w"], cache
+
+
+def _gqa_sharded(p, x, positions, shard, *, num_heads, num_kv_heads,
+                 head_dim, rope_theta, attn_fn):
+    """The stateless GQA forward on this rank's parts (see the module's
+    docstring). x (B,S,Dm) is the same on every rank of the group, and so
+    is the (B,S,Dm) result."""
+    b, s, _ = x.shape
+    hd = head_dim
+    width = {"wq": num_heads * hd, "wk": num_kv_heads * hd,
+             "wv": num_kv_heads * hd}
+    part = {n: shard.is_part(p[n]["w"].shape[-1], w)
+            for n, w in width.items()}
+    o_part = shard.is_part(p["wo"]["w"].shape[0], width["wq"])
+    # one copy into the region for every column-parallel projection
+    x_in = copy_to_region(x, shard) if any(part.values()) else x
+
+    def proj(name):
+        y = (x_in if part[name] else x) @ p[name]["w"]
+        if "b" in p[name]:
+            bias = p[name]["b"]
+            if part[name] and bias.shape[-1] == width[name]:
+                bias = constrain(bias, "M")   # a whole bias, sliced
+            y = y + bias.to(y.dtype)
+        return y
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    m = shard.size
+    aligned = (all(part.values()) and o_part and num_heads % m == 0
+               and num_kv_heads % m == 0)
+    if aligned:
+        # each rank's whole q heads and the kv heads they read
+        hq, hk = num_heads // m, num_kv_heads // m
+        norm = lambda name: {"scale": copy_to_region(p[name]["scale"],
+                                                     shard)}
+    else:
+        # every rank computes every head
+        q, k, v = (gather_from_region(t, -1, shard) if part[n] else t
+                   for t, n in ((q, "wq"), (k, "wk"), (v, "wv")))
+        hq, hk = num_heads, num_kv_heads
+        norm = lambda name: p[name]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hk, hd)
+    v = v.reshape(b, s, hk, hd)
+    if "q_norm" in p:
+        q = rmsnorm_apply(norm("q_norm"), q)
+        k = rmsnorm_apply(norm("k_norm"), k)
+    q = apply_rope(q, positions, theta=rope_theta)
+    k = apply_rope(k, positions, theta=rope_theta)
+    out = (attn_fn or sdpa)(q, k, v, positions, positions, causal=True,
+                            scale=hd ** -0.5)
+    if not o_part:
+        return out @ p["wo"]["w"]
+    if not aligned:
+        out = constrain(out, None, None, "M")   # this rank's rows of wo
+    return reduce_from_region(out @ p["wo"]["w"], shard)
 
 
 # ---------------------------------------------------------------------------

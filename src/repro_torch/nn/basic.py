@@ -137,9 +137,24 @@ def glu_mlp_init(generator, d_model: int, d_ff: int, *, dtype=torch.float32):
             "w_down": w((d_ff, d_model))}
 
 
-def glu_mlp_apply(p, x, *, activation: str = "silu"):
+def glu_mlp_apply(p, x, *, activation: str = "silu", d_ff: int | None = None):
+    """Inside a model-parallel context, on this rank's columns of
+    ``w_gate``/``w_up`` and rows of ``w_down`` when the rules shard them
+    (``d_ff``, the whole width, tells), the partial sums reduced over the
+    group."""
+    from repro_torch.models.sharding import active
+    shard = active()
+    sharded = shard is not None and shard.is_part(
+        p["w_gate"]["w"].shape[-1], d_ff)
+    if sharded:
+        from repro_torch.core.distributed import copy_to_region
+        x = copy_to_region(x, shard)
     g = _ACTS[activation](x @ p["w_gate"]["w"])
-    return (g * (x @ p["w_up"]["w"])) @ p["w_down"]["w"]
+    y = (g * (x @ p["w_up"]["w"])) @ p["w_down"]["w"]
+    if sharded:
+        from repro_torch.core.distributed import reduce_from_region
+        y = reduce_from_region(y, shard)
+    return y
 
 
 def rmsnorm_init(dim: int, *, device="cpu", dtype=torch.float32):

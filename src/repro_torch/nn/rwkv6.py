@@ -16,14 +16,30 @@ Recurrence per head (k-dim = v-dim = head_dim)::
 
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T          w_t = exp(-exp(ww_t)) in (0,1)
+
+Inside a model-parallel context (:func:`repro_torch.models.sharding.
+model_parallel`) the blocks run on this rank's parts of a member sharded
+by the rules. The time mix: ``wr``/``wk``/``wv``/``wg`` column-parallel
+by heads, ``wo`` row-parallel; the token shift and its LoRA mixes and the
+decay's LoRA stay whole (the rules shard none of them), and what is used
+per head (the decay, ``bonus``, ``ln_x``) is sliced at use by
+:func:`~repro_torch.models.sharding.constrain`, whose backward gathers
+the slices' gradients. Where a rank's columns are not whole heads, r, k,
+v and g are gathered and every rank computes every head. The channel mix
+follows the rules as placed: ``wk`` and ``wr`` column-parallel, and
+``wv`` sharded on its output (the ``"wv"`` rule), so the ``d_ff``
+activation is gathered before it and its output after.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import (copy_to_region, gather_from_region,
+                                          reduce_from_region)
 from repro_torch.kernels.ops import wkv6_apply
 from repro_torch.kernels.wkv6 import wkv6_plain
+from repro_torch.models.sharding import active, constrain
 from repro_torch.nn.basic import layernorm_init, lecun_normal, normal_init
 
 
@@ -111,6 +127,10 @@ def time_mix_apply(p, x, x_prev, wkv_state, *, head_dim: int = 64,
     lora = torch.tanh(xxx @ p["mix_w1"]).reshape(b, s, 5, -1)
     deltas = torch.einsum("bsli,lid->bsld", lora, p["mix_w2"])
     mixed = x[:, :, None] + dx[:, :, None] * (p["mix_base"] + deltas)
+    shard = active()
+    if shard is not None and shard.is_part(p["wr"]["w"].shape[-1], d):
+        return _time_mix_sharded(p, x, mixed, wkv_state, shard,
+                                 head_dim=head_dim, chunk=chunk)
     xr, xk, xv, xw, xg = mixed.unbind(2)
 
     r = (xr @ p["wr"]["w"]).reshape(b, s, h, head_dim)
@@ -128,11 +148,74 @@ def time_mix_apply(p, x, x_prev, wkv_state, *, head_dim: int = 64,
     return y @ p["wo"]["w"], new_state, x[:, -1:]
 
 
+def _time_mix_sharded(p, x, mixed, wkv_state, shard, *, head_dim,
+                      chunk):
+    """:func:`time_mix_apply` from the token-shift mixes on, on this rank's
+    columns of ``wr``/``wk``/``wv``/``wg`` and rows of ``wo``."""
+    b, s, d = x.shape
+    # the projections' inputs enter the region (their gradients are
+    # partial); the decay's input stays whole
+    xr, xk, xv, xg = copy_to_region(mixed[:, :, [0, 1, 2, 4]],
+                                    shard).unbind(2)
+    xw = mixed[:, :, 3]
+    r, k, v = (xr @ p["wr"]["w"], xk @ p["wk"]["w"], xv @ p["wv"]["w"])
+    g = F.silu(xg @ p["wg"]["w"])
+    ww = p["decay_base"].float() + (
+        torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]).float()
+    lw = -torch.exp(ww)                                 # (B,S,D), whole
+    cols = r.shape[-1]
+    if cols % head_dim == 0:
+        # this rank's whole heads: the per-head leaves sliced at use
+        h = cols // head_dim
+        lo = shard.bounds(d // head_dim)[0]
+        lw = constrain(lw, None, None, "M")
+        u = constrain(p["bonus"], "M", None)
+        ln_x = {n: constrain(t, "M") for n, t in p["ln_x"].items()}
+        state = wkv_state[:, lo:lo + h]
+    else:
+        # a rank's columns cut a head: every rank computes every head
+        r, k, v, g = (gather_from_region(t, -1, shard) for t in (r, k, v, g))
+        h, u, ln_x, state = d // head_dim, p["bonus"], p["ln_x"], wkv_state
+    heads = lambda t: t.reshape(b, s, h, head_dim)
+    y, new_state = wkv6_apply(heads(r.float()), heads(k.float()),
+                              heads(v.float()), heads(lw), u.float(), state,
+                              chunk=chunk)
+    y = _group_norm(ln_x, y.reshape(b, s, h * head_dim).to(x.dtype), h) * g
+    if h * head_dim == d:
+        y = constrain(y, None, None, "M")        # this rank's rows of wo
+    return (reduce_from_region(y @ p["wo"]["w"], shard), new_state,
+            x[:, -1:])
+
+
 def channel_mix_apply(p, x, x_prev):
     xs = torch.cat([x_prev, x[:, :-1]], dim=1)
     dx = xs - x
     xk = x + dx * p["mix_k"]
     xr = x + dx * p["mix_r"]
+    shard = active()
+    if shard is not None:
+        return _channel_mix_sharded(p, x, xk, xr, shard)
     k = F.relu(xk @ p["wk"]["w"]).square()
     r = torch.sigmoid(xr @ p["wr"]["w"])
     return r * (k @ p["wv"]["w"]), x[:, -1:]
+
+
+def _channel_mix_sharded(p, x, xk, xr, shard):
+    """The channel mix on the parts the rules give this rank: ``wk``'s
+    columns (``d_ff``), then the whole ``d_ff`` activation into ``wv``'s
+    columns (``d_model``, the ``"wv"`` rule), beside ``wr``'s columns."""
+    d = x.shape[-1]
+    d_ff = p["wv"]["w"].shape[0]
+    k_part = shard.is_part(p["wk"]["w"].shape[-1], d_ff)
+    out_part = shard.is_part(p["wv"]["w"].shape[-1], d)
+    if k_part:
+        xk = copy_to_region(xk, shard)
+    k = F.relu(xk @ p["wk"]["w"]).square()
+    if k_part:
+        k = gather_from_region(k, -1, shard)
+    if not out_part:
+        return torch.sigmoid(xr @ p["wr"]["w"]) * (k @ p["wv"]["w"]), \
+            x[:, -1:]
+    k = copy_to_region(k, shard)
+    r = torch.sigmoid(copy_to_region(xr, shard) @ p["wr"]["w"])
+    return gather_from_region(r * (k @ p["wv"]["w"]), -1, shard), x[:, -1:]

@@ -10,7 +10,8 @@ x size x 1 B, against the ~2 x size x 4 B of a ring fp32 all-reduce),
 decompresses and sums locally; the quantization error is fed back into
 the next step. ``plain_psum_tree`` is an ``all_reduce`` divided by the
 world. ``make_dp_update`` wraps one rank's gradient function into the
-data-parallel update with either reduction.
+data-parallel update with either reduction, selected by
+``TrainConfig.grad_compression``.
 """
 from __future__ import annotations
 
@@ -57,13 +58,15 @@ def wire_bytes(grads, world: int, compression: str = "none") -> int:
 
 
 def make_dp_update(grad_fn, opt_update, group=None, *,
-                   compression: str = "none"):
+                   compression="none"):
     """``grad_fn(params, batch) -> (loss, grads)`` on this rank's shard of
     the batch. Returns ``update(params, opt_state, error, batch) ->
     (params, opt_state, error, loss)``: the gradient reduced over
-    ``group`` (``compression`` ``"none"`` or ``"int8"``), one
+    ``group`` (``compression`` ``"none"`` or ``"int8"``, or a
+    ``TrainConfig``, whose ``grad_compression`` is taken), one
     ``opt_update(grads, opt_state, params)`` step on every rank (the
     parameters stay replicated), and the mean loss."""
+    compression = getattr(compression, "grad_compression", compression)
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown compression {compression!r} (none or "
                          f"int8)")

@@ -60,9 +60,26 @@ def _flatten(tree):
     return flat, rebuild
 
 
+def model_square_sums(sharded, shard):
+    """The ``reduce_square_sums`` of a member sharded over ``shard``'s
+    group: ``sharded[j]`` says whether gradient leaf ``j`` is this rank's
+    part of the leaf (its square-sums are added over the group) or whole
+    (the same on every rank: the first rank's are taken), so the sums are
+    the whole members' and every rank gets them."""
+    from repro_torch.core.distributed import all_reduce
+    mask = torch.tensor([bool(x) for x in sharded])
+
+    def reduce(sums):
+        keep = mask.to(sums.device) | (shard.coord == 0)
+        return all_reduce(torch.where(keep, sums, 0.0).contiguous(),
+                          shard.group)
+    return reduce
+
+
 def population_adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
                     eps: float = 1e-8, weight_decay: float = 0.0,
-                    max_grad_norm=None, fused=None, flat: bool = False):
+                    max_grad_norm=None, fused=None, flat: bool = False,
+                    reduce_square_sums=None):
     """Build ``(init_fn, apply_fn)`` over population-stacked trees::
 
         state = init_fn(stacked_params)               # leaves (N, ...)
@@ -73,7 +90,12 @@ def population_adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     vectors. Unlike the stock pair this applies the update itself (the
     kernel fuses moment update, bias correction, decay and apply in one
     pass). ``grads`` has the structure of ``params``; with ``flat=True``
-    all four trees are views of flat buffers, stepped in place."""
+    all four trees are views of flat buffers, stepped in place.
+
+    ``reduce_square_sums`` (a member sharded over several ranks) takes the
+    ``(N, leaves)`` square-sums of this rank's gradient leaves and returns
+    the whole members' (a sum over the ranks that counts each whole leaf
+    once), so every rank applies the same clip scale."""
     step_fn = pop_adam_plain if fused is False else pop_adam
 
     def init_fn(params):
@@ -115,9 +137,12 @@ def population_adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
             # cascade keeps float32 accurate over a row of 494M elements
             # (torch.linalg.vector_norm on the CPU does not: 0.5% off at
             # 60M)
-            norm = torch.sqrt(sum(
+            sums = torch.stack([
                 torch.square(x.reshape(n, -1).float()).sum(1)
-                for x in flatten(grads)[0]))
+                for x in flatten(grads)[0]], dim=1)
+            if reduce_square_sums is not None:
+                sums = reduce_square_sums(sums)
+            norm = torch.sqrt(sum(sums.unbind(1)))
             scale = torch.clamp(max_grad_norm / (norm + 1e-9), max=1.0)
         p2, m2, v2 = step_fn(pf, gf, mf, nf, lr_vec, step, wd=wd_vec,
                              scale=scale, b1=b1, b2=b2, eps=eps,

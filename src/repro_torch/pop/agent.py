@@ -181,7 +181,14 @@ class LMAgent:
     ``repro_torch.elastic.restore_elastic`` at another population size)
     writes the checkpoint's rows into the same buffers, so the leaves
     stay their views and ``pop_adam`` steps them in place after it.
+
+    ``model_sharded_params``: over an island's model axis the members are
+    sharded by the rules of :mod:`repro_torch.models.sharding`
+    (``population_init(shard=...)``, ``fused_update(shard=...)``); the
+    buffers then hold this rank's parts, ``(N_island, P_local)``.
     """
+
+    model_sharded_params = True
 
     def __init__(self, cfg, tcfg, *, device=DEFAULT_DEVICE):
         from repro_torch.models import lm
@@ -194,22 +201,50 @@ class LMAgent:
         member_gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._lm.init_params(member_gen, self.cfg)
 
-    def population_init(self, generator, n: int, *, rows=None):
+    def shard_dims(self, tree, shard, *, lead: int = 1) -> list:
+        """For each leaf of ``tree`` (a state, or any tree whose leaves
+        end in parameter paths, with ``lead`` leading axes), the dimension
+        ``shard``'s rules split, or None; all None without a shard."""
+        from repro_torch.models.sharding import tree_paths
+        paths = tree_paths(tree)
+        if shard is None or shard.size <= 1:
+            return [None] * len(paths)
+        table = self._lm.shard_table(self.cfg, shard.size)
+        out = []
+        for path in paths:
+            hit = next((d for p, d in table.items()
+                        if path == p or path.endswith("." + p)), None)
+            out.append(None if hit is None else hit + lead)
+        return out
+
+    def population_init(self, generator, n: int, *, rows=None, shard=None):
         """``n`` members in flat ``(N, P)`` buffers (parameters, mu, nu),
         drawn and written one member at a time. With ``rows`` (a
         :class:`repro_torch.core.distributed.Rows`) the buffers hold only
         those members: every member's seed is drawn, and those of the rows
-        are built, so each has its one-rank parameters."""
+        are built, so each has its one-rank parameters. With ``shard`` (a
+        :class:`repro_torch.models.sharding.ModelShard`) they hold this
+        rank's parts of each member, cut from the whole member by the
+        rules."""
+        from repro_torch.models.sharding import local_tree
+        sharded = shard is not None and shard.size > 1
+        if sharded:
+            self._lm.refuse_model_axis(self.cfg, shard.size)
+            dims = self.shard_dims(self._lm.param_shapes(self.cfg), shard,
+                                   lead=0)
+        member_params = (self._member_params if not sharded else
+                         lambda seed: local_tree(
+                             self._member_params(seed), dims, shard))
         seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                    device=generator.device))
                  for _ in range(n)]
         keep = range(n) if rows is None else range(rows.lo, rows.hi)
-        first = self._member_params(seeds[keep[0]])
+        first = member_params(seeds[keep[0]])
         n = len(keep)
         like = tree_map(lambda x: x[None].expand((n,) + x.shape), first)
         _, params = flat_empty(like)
         for i, m in enumerate(keep):
-            member = first if i == 0 else self._member_params(seeds[m])
+            member = first if i == 0 else member_params(seeds[m])
             tree_map(lambda d, x: d[i].copy_(x), params, member)
             del member
         del first
@@ -236,9 +271,11 @@ class LMAgent:
             warmup_frac=h.get("warmup_frac"))
         return LMState(params, opt_state, state.step + 1), metrics
 
-    def fused_update(self):
-        """The population update: one ``pop_adam`` launch a step."""
-        return self._lm.make_population_update(self.cfg, self.tcfg)
+    def fused_update(self, shard=None):
+        """The population update: one ``pop_adam`` launch a step (a rank's,
+        over its parts of the members, with ``shard``)."""
+        return self._lm.make_population_update(self.cfg, self.tcfg,
+                                               shard=shard)
 
     def actor_params(self, pop_state):
         return pop_state.params

@@ -74,6 +74,18 @@ rows of every island and writes the checkpoints (in the one-rank format);
 every rank reads them and takes its rows. CEM and DvD, a fused epoch and
 ``policy_lag=1`` over more than one island are refused by name.
 
+On an islands layout whose model axis is above 1, an LM agent's members
+are model-sharded (``shard``, this rank's
+:class:`~repro_torch.models.sharding.ModelShard`): each rank holds its
+parts of its island's members, cut by the rules of
+:mod:`repro_torch.models.sharding`, and updates them with one
+``pop_adam`` launch a step; PBT's exchange moves each part to the rank at
+the same model coordinate of the destination island; rank 0 gathers every
+leaf whole along its sharded dimension, so a checkpoint has the one-rank
+format and resumes at any model width. An RL agent's members stay whole
+on every model rank. The families without a sharded forward (MoE, MLA,
+Mamba2) are refused by name.
+
 ``run_env_loop(fused=True)`` runs whole train-evolve epochs
 (``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
 one CUDA graph per epoch shape, captured at first use and replayed
@@ -93,6 +105,7 @@ from repro_torch.configs.base import PopulationConfig
 from repro_torch.core.distributed import (MemberExchange, Rows, all_members,
                                           gather_to_root, member_generator,
                                           take_rows, world)
+from repro_torch.models.sharding import local_tree
 from repro_torch.pop.backend import make_update
 from repro_torch.pop.strategy import CEM, DvD, make_strategy
 from repro_torch.telemetry import RunTelemetry
@@ -123,14 +136,20 @@ class PopTrainer:
         self.layout, self.mesh = self._plan(layout, mesh)
         self.rows = (self.layout.rows() if self.layout is not None
                      else Rows(0, self.n, self.n))
+        self.shard = None
+        if getattr(agent, "model_sharded_params", False):
+            from repro_torch.launch.mesh import model_shard
+            self.shard = model_shard(self.mesh)
         self.generator = member_generator(agent.device,
                                           self.rows).manual_seed(seed)
 
         init_gen = torch.Generator().manual_seed(seed)
-        self.state = (agent.population_init(init_gen, self.n)
-                      if not self.split else
-                      agent.population_init(init_gen, self.n,
-                                            rows=self.rows))
+        where = {}
+        if self.split:
+            where["rows"] = self.rows
+        if self.shard is not None:
+            where["shard"] = self.shard
+        self.state = agent.population_init(init_gen, self.n, **where)
         self.strategy.configure_agent(agent)
         self.state = self.strategy.bind(self.generator, agent, self.state)
         if self.split and hasattr(self.strategy, "gather"):
@@ -174,8 +193,7 @@ class PopTrainer:
         backend = self.pcfg.backend
         if backend not in ("islands", "sharded"):
             return None, mesh
-        from repro_torch.elastic.layout import (MODEL_REFUSAL, plan_layout,
-                                                sharded_layout)
+        from repro_torch.elastic.layout import plan_layout, sharded_layout
         _, size = world()
         if backend == "islands":
             layout = layout if layout is not None else plan_layout(size,
@@ -184,12 +202,25 @@ class PopTrainer:
             from repro_torch.launch.mesh import make_host_mesh, mesh_size
             if mesh is None and size > 1:
                 mesh = make_host_mesh(model=1)
-            if mesh_size(mesh, "model") > 1:
-                raise NotImplementedError(MODEL_REFUSAL)
+            if mesh_size(mesh, "model") > 1 or (layout is not None
+                                                and layout.model > 1):
+                raise NotImplementedError(
+                    "the sharded backend splits the population only: "
+                    "model-sharded members run on the islands backend "
+                    "(backend='islands' with a layout whose model axis is "
+                    "above 1)")
             layout = layout if layout is not None else sharded_layout(
                 size, self.n)
-        if layout.model > 1:
-            raise NotImplementedError(MODEL_REFUSAL)
+        if layout.model > 1 and getattr(self.agent, "model_sharded_params",
+                                        False):
+            from repro_torch.models.lm import refuse_model_axis
+            refuse_model_axis(self.agent.cfg, layout.model)
+            if isinstance(self.strategy, (CEM, DvD)):
+                raise NotImplementedError(
+                    f"{type(self.strategy).__name__} over model-sharded "
+                    f"members is not ported yet: its draws would be made "
+                    f"at each rank's part of the parameters, not at the "
+                    f"whole members' shape")
         if layout.population != self.n:
             raise ValueError(f"{layout} is planned for another population "
                              f"than size={self.n}")
@@ -241,11 +272,21 @@ class PopTrainer:
         """This rank's rows of a whole-population tree (the hypers)."""
         return tree if tree is None else take_rows(tree, self.rows)
 
+    def model_part(self, tree):
+        """This rank's parts of a tree of whole members (leaves narrowed
+        along the dimension the rules shard; views); the tree itself
+        unless the members are model-sharded."""
+        if self.shard is None:
+            return tree
+        return local_tree(tree, self.agent.shard_dims(tree, self.shard),
+                          self.shard)
+
     def _placement(self):
         """How this trainer places a whole-population host tree (a
-        restored checkpoint): its rows, the same choice ``__init__`` made
-        for the fresh state (``repro.pop.trainer``'s ``_placement``)."""
-        return self.local
+        restored checkpoint): its rows and, model-sharded, its parts of
+        them, the same choice ``__init__`` made for the fresh state
+        (``repro.pop.trainer``'s ``_placement``)."""
+        return lambda tree: self.model_part(self.local(tree))
 
     def all_members(self, tree):
         """Every member's rows of a tree of this rank's rows (metrics,
@@ -625,7 +666,8 @@ class PopTrainer:
         (also the ``ckpt`` row's ``secs``)."""
         if self._mgr is None:
             raise ValueError("PopTrainer built without checkpoint_dir")
-        if self.distributed and world()[0] != 0 and not self.split:
+        whole = not self.split and self.shard is None
+        if self.distributed and world()[0] != 0 and whole:
             # every rank holds every member: rank 0's copy is written
             if blocking:
                 self._barrier()
@@ -639,9 +681,11 @@ class PopTrainer:
         if self._rollout is not None:
             members["rollout"] = self._rollout.export_state()
         with self.telemetry.phase("ckpt"):
-            if self.split:     # rank 0 writes every island's rows
-                members = gather_to_root(members, self.layout,
-                                         self._host_group)
+            if not whole:      # rank 0 writes every island's rows, whole
+                members = gather_to_root(
+                    members, self.layout, self._host_group,
+                    dims=None if self.shard is None else
+                    self.agent.shard_dims(members, self.shard))
             if members is not None:
                 aux = {"actors": members["actors"],
                        "rng": self.generator.get_state()}

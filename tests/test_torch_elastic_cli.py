@@ -107,17 +107,27 @@ def test_lm_cli_resize_auto(tmp_path, capsys):
                          str(tmp_path)])
 
 
-def test_multi_device_flags_stay_refused():
-    """Islands over several ranks are ported (one rank per GPU under
-    ``torch.distributed.run``): ``--devices`` must be 0 or the world size
-    (one here), and model-sharded members are not ported."""
+def test_multi_device_flags_stay_refused(monkeypatch):
+    """Islands over several ranks and model-sharded members are ported
+    (one rank per GPU under ``torch.distributed.run``): ``--devices`` must
+    be 0 or the world size (one here), ``--model-axis`` is taken by the
+    islands backend only, and a family without a sharded forward (an MoE
+    config, here on a world of 2 set through ``WORLD_SIZE``) is refused by
+    name before any group is joined."""
     for flag, error, match in (
             (["--devices", "4"], ValueError, "--nproc-per-node 4"),
-            (["--model-axis", "2"], NotImplementedError,
-             "model-sharded members are not ported yet")):
+            (["--model-axis", "2"], ValueError,
+             "taken by --backend islands only")):
         with pytest.raises(error, match=match):
             train_main(RL + ["--population", "2", "--ckpt-dir", "unused"]
                        + flag)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError,
+                       match="model-sharded members of the mixture of "
+                             "experts family are not ported yet"):
+        train_main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--population",
+                    "2", "--ckpt-dir", "unused", "--device", "cpu",
+                    "--backend", "islands", "--model-axis", "2"])
 
 
 def test_quickstart_example_runs(capsys):

@@ -4,12 +4,14 @@
 repro_torch.launch.train ... --device cpu --backend islands`` (two gloo
 ranks) writes the checkpoint a one-rank run writes, bit for bit, and the
 islands runs of both the RL and the LM workloads print their layout.
-``--devices`` other than 0 or the world size, ``--model-axis`` above 1,
-``--fused-epoch``, ``--policy-lag 1`` and ``--strategy cem`` over more
-than one island, another backend on a world of two, and CEM or DvD in a
-trainer over more than one island are refused by name (the world is set
-through ``WORLD_SIZE`` in-process: the refusals come before any group is
-joined). The ``pbt_td3`` example takes ``--backend islands``.
+``--devices`` other than 0 or the world size, ``--model-axis`` above 1
+beside another backend than islands, ``--fused-epoch``, ``--policy-lag
+1`` and ``--strategy cem`` over more than one island, another backend on
+a world of two, CEM or DvD in a trainer over more than one island, and a
+model axis on a family without a sharded forward are refused by name (the
+world is set through ``WORLD_SIZE`` in-process: the refusals come before
+any group is joined). The ``pbt_td3`` example takes ``--backend
+islands``.
 """
 import os
 import subprocess
@@ -86,8 +88,8 @@ def test_lm_islands_on_two_ranks(tmp_path):
 
 _REFUSALS = (
     (["--devices", "4"], 2, ValueError, "--nproc-per-node 4"),
-    (["--model-axis", "2"], 1, NotImplementedError,
-     "model-sharded members are not ported yet"),
+    (["--model-axis", "2", "--backend", "vectorized"], 1, ValueError,
+     "taken by --backend islands only"),
     (["--fused-epoch"], 2, NotImplementedError, "--fused-epoch over more"),
     (["--policy-lag", "1"], 2, NotImplementedError, "--policy-lag 1 over"),
     (["--strategy", "cem"], 2, NotImplementedError, "--strategy cem over"),
@@ -108,8 +110,9 @@ def test_refusals_by_name(tmp_path, monkeypatch, flags, world, error, match):
 
 def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
     """CEM and DvD need every rank's members at the evolve; a layout with a
-    model axis needs model-sharded members. The trainer refuses them by
-    name before building anything (here on the layout of 2 ranks)."""
+    model axis needs a sharded forward, which the MoE family does not have
+    yet. The trainer refuses them by name before building anything (here
+    on the layout of 2 ranks, planned with JAX's halving warning)."""
     for strategy in ("cem", "dvd"):
         pcfg = PopulationConfig(size=4, strategy=strategy, backend="islands")
         with pytest.raises(NotImplementedError,
@@ -119,8 +122,12 @@ def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
     with pytest.warns(UserWarning, match="preferred_model=4"):
         layout = plan_layout(2, 4, preferred_model=4)
     assert layout.model == 2
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.pop import LMAgent
+    moe = LMAgent(get_config("qwen3-moe-30b-a3b").smoke(), TrainConfig(),
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="model-sharded"):
-        PopTrainer(agent_td3(), pcfg, layout=layout)
+        PopTrainer(moe, pcfg, layout=layout)
 
 
 def test_pbt_td3_example_takes_islands(capsys):

@@ -205,8 +205,20 @@ def test_rows_owners_and_placement():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         sharded_model = port_layout.plan_layout(4, 4, preferred_model=2)
-    with pytest.raises(NotImplementedError, match="model-sharded members"):
-        sharded_model.place(tree, rank=0)
+    # a model axis of 2: without the rules (RL) both model ranks of an
+    # island hold its members whole; with them a ruled leaf is cut
+    assert sharded_model.model == 2 and sharded_model.islands == 2
+    four = {"w": torch.arange(16.0).reshape(4, 4)}
+    for r in (2, 3):
+        assert torch.equal(sharded_model.place(four, rank=r)["w"],
+                           four["w"][2:])
+    ruled = {"wq": {"w": torch.arange(4 * 3 * 8.0).reshape(4, 3, 8)},
+             "bonus": torch.ones(4, 2, 5)}
+    for r, cols in ((2, slice(0, 4)), (3, slice(4, 8))):
+        cut = sharded_model.place(ruled, rank=r, model_rules=True)
+        assert torch.equal(cut["wq"]["w"], ruled["wq"]["w"][2:, :, cols])
+        assert cut["wq"]["w"].is_contiguous()
+        assert torch.equal(cut["bonus"], ruled["bonus"][2:])
 
 
 def test_member_draw_keeps_the_rows_of_the_whole_draw():
