@@ -399,6 +399,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ms of one reduction of a 4 Mi-element gradient (gloo goes
                 through the host). Phases 49, 50 and 52 share one spawn
                 of the two ranks.
+ 53-55. model-sharded members — qwen2-0.5b and rwkv6-1.6b at full width
+                over one island of model 2 (two gloo ranks sharing the
+                card) against the one-rank run, the exchange and the
+                checkpoints across model widths, qwen3-8b's memory a rank;
+ 56. model-sharded MoE, MLA and Mamba2 members — qwen3-moe-30b-a3b (1
+                layer), deepseek-v2-lite-16b (its dense layer and one MoE
+                layer) and zamba2-7b (2 Mamba2 layers under the shared
+                block) at full width, float32, N = 2 over one island of
+                model 2: the one-rank reference first, in this process
+                (its routing recorded), then the two ranks (the routing
+                replayed), each held at up to 4,096 sampled elements a
+                leaf and member by the LM update rule, 1 ``pop_adam`` a
+                rank and step; member 0's bf16 forward on the ranks' parts
+                (``flash_attention`` and ``ssd`` at a rank's heads) within
+                ``BF16_TP_RMS_RATIO`` of the one-rank forward's error; the
+                kernels at those shapes against their plain versions,
+                timed.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
@@ -407,8 +424,8 @@ The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"shared": ...}``, ``{"fig4": ...}``, ``{"sac_dqn": ...}``,
 ``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
 ``{"frontends": ...}``, ``{"lm_cem": ...}``, ``{"slice15": ...}``,
-``{"slice16": ...}`` and ``{"slice18": ...}`` lines (the last with the
-whole run's seconds), the card's
+``{"slice16": ...}``, ``{"slice18": ...}`` (with the whole run's
+seconds), ``{"slice19": ...}`` and ``{"slice20": ...}`` lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -801,6 +818,20 @@ MP = dict(parity=(("qwen2-0.5b", 4), ("rwkv6-1.6b", 2)), layers=2,
 MP_ISLANDS = dict(arch="rwkv6-test", population=4, batch=2, seq_len=64)
 MP_MEMORY = dict(arch="qwen3-8b", layers=1, population=2, batch=1,
                  seq_len=512)
+# slice 20: 56, model-sharded members of the MoE, MLA and Mamba2 families,
+# each at full width, float32, N = 2 over one island of model 2 (2 gloo
+# ranks sharing cuda:0): the update on a seq_len of zamba2's chunk, up to
+# `samples` elements of each leaf a member held against the one-rank run,
+# then member 0's bf16 forward without autograd on 4 x 512 tokens, whose
+# kernels launch at a rank's heads as `launches` says
+MP_FAMILIES = dict(
+    archs=(("qwen3-moe-30b-a3b", 1), ("deepseek-v2-lite-16b", 2),
+           ("zamba2-7b", 2)),
+    population=2, batch=2, seq_len=256, forward_batch=4, forward_len=512,
+    samples=4096, timeout=600,
+    launches={"qwen3-moe-30b-a3b": {"flash_attention": 1, "ssd": 0},
+              "deepseek-v2-lite-16b": {"flash_attention": 0, "ssd": 0},
+              "zamba2-7b": {"flash_attention": 1, "ssd": 2}})
 # the bf16 forward on a rank's parts against the one-rank forward, both
 # measured from the float32 one-rank forward: a bf16 forward strays from
 # it by more than any fixed tolerance would allow between the two, and
@@ -7802,6 +7833,19 @@ def _mp_memory_rank(rank, world, job):
                           layout.mesh)
 
 
+def _log_rank_rows(rows):
+    """One line for each (name, row) of a kernel timed at a model-2 rank's
+    shape."""
+    for name, row in rows:
+        log(f"{name} at a model-2 rank's shape {row['shape']}: == plain "
+            f"(max abs err {row['max_abs_err']:.3g}, "
+            f"{row['max_err_over_tolerance']:.3g} of {row['tolerance']}); "
+            f"kernel {row['ms'] * 1e3:.3f} us, plain "
+            f"{row['plain_ms'] * 1e3:.3f} us, library "
+            f"{'none' if row['library_ms'] is None else '%.3f us' % (row['library_ms'] * 1e3)}"
+            f", bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+
+
 def _mp_kernel_rows():
     """flash_attention and wkv6 against their plain versions at the shapes
     a rank of model 2 gives them in phase 53's forward (qwen2-0.5b: 7 of
@@ -7863,14 +7907,7 @@ def _mp_kernel_rows():
     p_local = sum(x.numel() // (1 if table[path] is None else 2)
                   for path, x in zip(tree_paths(shapes), leaves(shapes)))
     adam = pop_adam_inplace_row(gen, n, p_local, f"{arch} model-2 rank")
-    for name, row in rows.items():
-        log(f"{name} at a model-2 rank's shape {row['shape']}: == plain "
-            f"(max abs err {row['max_abs_err']:.3g}, "
-            f"{row['max_err_over_tolerance']:.3g} of {row['tolerance']}); "
-            f"kernel {row['ms'] * 1e3:.3f} us, plain "
-            f"{row['plain_ms'] * 1e3:.3f} us, library "
-            f"{'none' if row['library_ms'] is None else '%.3f us' % (row['library_ms'] * 1e3)}"
-            f", bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    _log_rank_rows(rows.items())
     rows["pop_adam"] = adam
     return rows
 
@@ -8031,6 +8068,438 @@ def phase_model_sharded(root):
         f"{gb(one_rank['state_bytes'])} on one; peak allocated "
         f"{[gb(r['peak_bytes']) for r in mem]} GB a rank against "
         f"{gb(one_rank['peak_bytes'])}; {out['seconds']:.1f} s in all")
+    return out
+
+
+# ------- slice 20: model-sharded members of the MoE, MLA and Mamba2 families
+def _mpf_sample_indices(shapes, count, seed):
+    """For each leaf of one member's tree of ``shapes`` (its whole leaves),
+    up to ``count`` distinct flat indices drawn from a seeded generator
+    (sorted; none for an empty leaf)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for shape in shapes:
+        numel = int(np.prod(shape))
+        idx = torch.randint(0, max(numel, 1), (min(count, numel),),
+                            generator=gen)
+        out.append(torch.unique(idx))
+    return out
+
+
+def _mpf_values(tree, idx):
+    """Every member's values of each leaf of the population ``tree``
+    (leaves (N, ...)) at that leaf's flat indices, on the host, float32."""
+    from repro_torch.tree import leaves
+    return [x.reshape(x.shape[0], -1)[:, i.to(x.device)].float().cpu()
+            for x, i in zip(leaves(tree), idx)]
+
+
+def _mpf_local(idx, shape, dim, coord, size):
+    """Of a whole leaf's flat indices ``idx`` (a member's leaf of
+    ``shape``), those in the part that model coordinate ``coord`` of
+    ``size`` holds along ``dim`` (None: whole): (a mask over ``idx``,
+    their flat indices in the part)."""
+    if dim is None:
+        return torch.ones(idx.shape, dtype=torch.bool), idx
+    multi = list(np.unravel_index(idx.numpy(), shape))
+    per = shape[dim] // size
+    lo = coord * per
+    held = (multi[dim] >= lo) & (multi[dim] < lo + per)
+    multi = [m[held] for m in multi]
+    multi[dim] = multi[dim] - lo
+    local = list(shape)
+    local[dim] = per
+    return (torch.from_numpy(held),
+            torch.from_numpy(np.ravel_multi_index(multi, local)).long())
+
+
+def _mpf_setup(arch, layers, device="cuda"):
+    """MP_FAMILIES' config of ``arch`` at full width, ``layers`` layers,
+    float32, its agent, its 2 update batches and hypers."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.lm_pipeline import host_batches
+    from repro_torch.pop import LMAgent
+    c = MP_FAMILIES
+    n = c["population"]
+    cfg = _lm_config(arch, num_layers=layers, dtype="float32")
+    agent = LMAgent(cfg, TrainConfig(total_steps=2, warmup_steps=1),
+                    device=device)
+    stream = host_batches(cfg.vocab_size, n * c["batch"], c["seq_len"],
+                          seed=SEED)
+    batches = [{"tokens": torch.from_numpy(next(stream)).reshape(
+        n, c["batch"], c["seq_len"]).to(device)} for _ in range(2)]
+    return cfg, agent, batches, _lm_hypers(n, device)
+
+
+def _mpf_reference(arch, layers):
+    """56, the one-rank side, in this process with the card to itself:
+    MP_FAMILIES' population of ``arch`` whole, member 0's initial
+    parameters forward in bf16 (its MoE routing recorded) and in float32
+    (replaying that routing), then 2 vectorized-backend steps (their
+    routing recorded). Keeps on the host only what the ranks are held
+    to: the losses, each leaf's values at its sampled indices after step
+    1 (parameters, mu) and step 2 (parameters, mu), both forwards'
+    logits, the routings and the tokens of the forward."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.models import lm
+    from repro_torch.pop.backend import make_update
+    from repro_torch.tree import flat_buffer, leaves, tree_map
+    c = MP_FAMILIES
+    n = c["population"]
+    cfg, agent, batches, h = _mpf_setup(arch, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n)
+    p_whole = flat_buffer(state.params).shape[1]
+    shapes = [tuple(x.shape[1:]) for x in leaves(state.params)]
+    idx = _mpf_sample_indices(shapes, c["samples"], SEED + 56)
+    bf16 = cfg.replace(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (c["forward_batch"], c["forward_len"]),
+                           generator=gen, device="cuda")
+    forward_routes = []
+    member = tree_map(lambda x: x[0], state.params)
+    reset_counts(flash_attention, ssd)
+    with torch.no_grad():
+        with moe_routes(forward_routes, replay=False):
+            want, _ = lm.forward(lm.cast_params(member, bf16), bf16,
+                                 {"tokens": tokens})
+        launches = {"flash_attention": flash_attention.launches,
+                    "ssd": ssd.launches}
+        with moe_routes(list(forward_routes), replay=True) as own:
+            exact, _ = lm.forward(member, cfg, {"tokens": tokens})
+    want, exact = want.cpu(), exact.cpu()
+    del member
+    routes = []
+    update = make_update(agent, "vectorized")
+    reset_counts(pop_adam)
+    with moe_routes(routes, replay=False):
+        state, m1 = update(state, batches[0], h)
+        after1 = (_mpf_values(state.params, idx),
+                  _mpf_values(state.opt_state.mu, idx))
+        state, m2 = update(state, batches[1], h)
+        after2 = (_mpf_values(state.params, idx),
+                  _mpf_values(state.opt_state.mu, idx))
+    torch.cuda.synchronize()
+    out = {"p_whole": p_whole, "shapes": shapes, "idx": idx,
+           "after1": after1, "after2": after2,
+           "loss": [m1["loss"].cpu(), m2["loss"].cpu()],
+           "routes": [r.cpu() for r in routes],
+           "forward_routes": [r.cpu() for r in forward_routes],
+           "tokens": tokens.cpu(), "want": want, "exact": exact,
+           "launches": launches, "pop_adam_launches": pop_adam.launches,
+           "fp32_own_routes_differ": own["differ"],
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "seconds": time.perf_counter() - t0}
+    del state, update, m1, m2, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mpf_rank(rank, world, job):
+    """56, a rank of one island of model 2: its parts of the same members
+    (``LMAgent.population_init(shard=...)``), member 0's initial parts
+    forward in bf16 without autograd (the reference's routing replayed;
+    its kernels launched at the rank's heads), then the same 2 steps on
+    the islands backend (the routing replayed). Held here against the
+    reference's samples that lie in this rank's parts: the parameters
+    after step 1 (lr 0 under warmup) bit for bit, the gradients (from
+    Adam's first moment) at rtol 1e-4, atol 1e-6, the step p - p' where
+    both steps' reference gradients exceed 1e-6. Returns the shares, the
+    masks of the samples it held, its launches, P_local, its peak memory
+    and its bf16 logits."""
+    from repro_torch.elastic import plan_layout
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pop_adam import pop_adam
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch.mesh import model_shard
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import model_parallel
+    from repro_torch.pop.backend import make_update
+    from repro_torch.tree import flat_buffer, tree_map
+
+    arch, layers, ref = job["arch"], job["layers"], job["ref"]
+    n = MP_FAMILIES["population"]
+    cfg, agent, batches, h = _mpf_setup(arch, layers)
+    layout = plan_layout(world, n, preferred_model=world)
+    shard = model_shard(layout.mesh)
+    coord = layout.model_coord()
+    dims = agent.shard_dims(lm.param_shapes(cfg), shard, lead=0)
+    local = [_mpf_local(i, s, d, coord, world)
+             for i, s, d in zip(ref["idx"], ref["shapes"], dims)]
+    held = [m for m, _ in local]
+    pick = lambda tree: _mpf_values(tree, [i for _, i in local])
+    want_at = lambda values: torch.cat([v[:, m].reshape(-1) for v, m in
+                                        zip(values, held)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = agent.population_init(torch.Generator().manual_seed(SEED), n,
+                                  shard=shard)
+    p_local = flat_buffer(state.params).shape[1]
+    bf16 = cfg.replace(dtype="bfloat16")
+    member = tree_map(torch.clone, lm.cast_params(
+        tree_map(lambda x: x[0], state.params), bf16))
+    reset_counts(flash_attention, ssd)
+    with torch.no_grad(), model_parallel(shard), moe_routes(
+            list(ref["forward_routes"]), replay=True) as fwd_own:
+        got, _ = lm.forward(member, bf16,
+                            {"tokens": ref["tokens"].cuda()})
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_by_route": dict(
+                    flash_attention.launches_by_route),
+                "ssd": ssd.launches}
+    got = got.cpu()
+    del member
+    update = make_update(agent, "islands", mesh=layout.mesh)
+    reset_counts(pop_adam)
+    with moe_routes(list(ref["routes"]), replay=True) as own:
+        state, m1 = update(state, batches[0], h)
+        p1, mu1 = pick(state.params), pick(state.opt_state.mu)
+        state, m2 = update(state, batches[1], h)
+        p2, mu2 = pick(state.params), pick(state.opt_state.mu)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    flat = lambda values: torch.cat([v.reshape(-1) for v in values])
+    q1, nu1 = (want_at(v) for v in ref["after1"])
+    q2, nu2 = (want_at(v) for v in ref["after2"])
+    p1, mu1, p2, mu2 = (flat(v) for v in (p1, mu1, p2, mu2))
+    g_mp = (mu1 / 0.1, (mu2 - 0.9 * mu1) / 0.1)
+    g_ref = (nu1 / 0.1, (nu2 - 0.9 * nu1) / 0.1)
+    keep = ((g_ref[0].abs() > LM_STEP_GRAD_FLOOR)
+            & (g_ref[1].abs() > LM_STEP_GRAD_FLOOR))
+    out = {"coord": coord, "p_local": p_local,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "steps_s": steps_s, "pop_adam_launches": pop_adam.launches,
+           "launches": launches,
+           "loss": [m1["loss"].cpu(), m2["loss"].cpu()],
+           "params_after_step1_equal": bool(torch.equal(p1, q1)),
+           "grad_share": max(tol_share(a, b, STEP1_GRAD_TOL)
+                             for a, b in zip(g_mp, g_ref)),
+           "step_share": tol_share((p1 - p2)[keep], (q1 - q2)[keep],
+                                   STEP1_GRAD_TOL),
+           "step_elements_held": int(keep.sum()), "samples": keep.numel(),
+           "held": held,
+           "routes_overridden": [own["differ"], own["choices"]],
+           "forward_routes_overridden": [fwd_own["differ"],
+                                         fwd_own["choices"]],
+           "logits": got}
+    del state, update, m1, m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mpf_kernel_rows(p_locals):
+    """ssd and flash_attention against their plain versions at the shapes
+    a rank of model 2 gives them in phase 56's forward (zamba2-7b: 56 of
+    112 SSD heads; qwen3-moe-30b-a3b: 16 of 32 q heads over 2 of 4 kv
+    heads, a GQA group of 8; zamba2's shared block: 16 of 32 heads of
+    112, MHA), timed beside their bounds (and SDPA for the attention);
+    and pop_adam at each arch's rank part (N, P_local)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 57)
+    b, s = MP_FAMILIES["forward_batch"], MP_FAMILIES["forward_len"]
+    rows = {"flash_attention": {}, "pop_adam": {}}
+    tol = FLASH_TOL[torch.bfloat16]
+    for arch, (h, hkv, d) in (("qwen3-moe-30b-a3b", (16, 2, 128)),
+                              ("zamba2-7b", (16, 16, 112))):
+        q, k, v = _flash_inputs(gen, b, h, hkv, s, d, torch.bfloat16,
+                                model_layout=True)
+        got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        bound, bound_by = flash_bound(b, h, hkv, s, d)
+        rows["flash_attention"][arch] = {
+            "shape": (b, h, hkv, s, d), "dtype": "bfloat16",
+            "route": "bf16_mma",
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "max_err_over_tolerance": tol_share(got.float(), want.float(),
+                                                tol),
+            "tolerance": "rtol=atol=2e-2 (bf16)",
+            "ms": graph_ms(lambda: flash_attention(q, k, v)),
+            "plain_ms": graph_ms(lambda: flash_attention_plain(q, k, v),
+                                 reps=5, iters=5),
+            "library_ms": graph_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                enable_gqa=True)),
+            "bound_ms": bound, "bound_by": bound_by}
+        del q, k, v, got, want
+    h, p, n, chunk = 56, 64, 64, 256
+    x, dt, a, bm, cm, state = _ssd_inputs(gen, b, h, s, p, n,
+                                          model_layout=True)
+    got, got_state = ssd(x, dt, a, bm, cm, state, chunk=chunk)
+    want, want_state = ssd_plain(x, dt, a, bm, cm, state, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **SCAN_TOL)
+    torch.testing.assert_close(got_state, want_state, **SCAN_TOL)
+    bound, bound_by = ssd_bound(b, h, s, p, n)
+    rows["ssd"] = {
+        "shape": (b, h, s, p), "n": n, "chunk": chunk,
+        "max_abs_err": max((got - want).abs().max().item(),
+                           (got_state - want_state).abs().max().item()),
+        "max_err_over_tolerance": max(tol_share(got, want, SCAN_TOL),
+                                      tol_share(got_state, want_state,
+                                                SCAN_TOL)),
+        "tolerance": "rtol=atol=2e-4",
+        "ms": graph_ms(lambda: ssd(x, dt, a, bm, cm, state, chunk=chunk)),
+        "plain_ms": graph_ms(lambda: ssd_plain(x, dt, a, bm, cm, state,
+                                               chunk=chunk), reps=5,
+                             iters=5),
+        "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+    del x, dt, a, bm, cm, state, got, want, got_state, want_state
+    _log_rank_rows([("ssd zamba2-7b", rows["ssd"])] + [
+        (f"flash_attention {arch}", r)
+        for arch, r in rows["flash_attention"].items()])
+    torch.cuda.empty_cache()
+    for arch, p_local in p_locals.items():
+        rows["pop_adam"][arch] = pop_adam_inplace_row(
+            gen, MP_FAMILIES["population"], p_local,
+            f"{arch} model-2 rank")
+    return rows
+
+
+def phase_model_sharded_families(root):
+    """56. Model-sharded members of the MoE, MLA and Mamba2 families on 2
+    gloo ranks sharing cuda:0 (one island of model 2). For each arch the
+    one-rank reference runs first, in this process with the card to
+    itself (a qwen3-moe population of 2 with its moments and a step's
+    gradient is about 40 GB, so two ranks could not each hold one beside
+    their parts); it keeps only samples on the host. Then one session of
+    2 ranks runs each arch's parts and holds them to the samples, and
+    this process holds their bf16 logits against the one-rank bf16
+    forward's RMS error from float32 and times the kernels at the ranks'
+    shapes."""
+    from repro_torch.models import lm
+    c = MP_FAMILIES
+    t0 = time.perf_counter()
+    refs = {arch: _mpf_reference(arch, layers)
+            for arch, layers in c["archs"]}
+    ref_s = time.perf_counter() - t0
+    jobs = [(arch, "_mpf_rank", {
+        "arch": arch, "layers": layers,
+        "ref": {k: refs[arch][k] for k in ("idx", "shapes", "after1",
+                                           "after2", "routes",
+                                           "forward_routes", "tokens")}})
+        for arch, layers in c["archs"]]
+    ranks = _spawn_session(jobs, 2, Path(root), c["timeout"])
+    ranks_s = time.perf_counter() - t0 - ref_s
+    out = {"archs": {}}
+    for arch, layers in c["archs"]:
+        ref = refs.pop(arch)
+        per_rank = [r[arch] for r in ranks]
+        exact = ref["exact"].cuda()
+        rms = lambda a: a.cuda().float().sub(exact).square().mean().sqrt(
+        ).item()
+        one_rank_rms = rms(ref["want"])
+        want = ref["want"].cuda().float()
+        for r, res in enumerate(per_rank):
+            res["logits_rms_err"] = rms(res["logits"])
+            res["logits_share"] = (res["logits_rms_err"] / one_rank_rms
+                                   / BF16_TP_RMS_RATIO)
+            res["logits_max_abs_err"] = (res.pop("logits").cuda().float()
+                                         - want).abs().max().item()
+            for what in ("grad_share", "step_share", "logits_share"):
+                if not res[what] <= 1:
+                    raise AssertionError(
+                        f"model-sharded {arch} rank {r}: {what} "
+                        f"{res[what]:.3g} of its tolerance from the "
+                        f"one-rank run")
+            if not res["params_after_step1_equal"]:
+                raise AssertionError(
+                    f"model-sharded {arch} rank {r}: the parameters after "
+                    f"step 1 (lr 0) moved apart from the one-rank run's")
+            for got, want_loss in zip(res["loss"], ref["loss"]):
+                torch.testing.assert_close(got, want_loss, rtol=1e-4,
+                                           atol=0.0)
+            res["loss"] = [x.tolist() for x in res["loss"]]
+            if res["pop_adam_launches"] != 2:
+                raise AssertionError(
+                    f"model-sharded {arch} rank {r}: "
+                    f"{res['pop_adam_launches']} pop_adam launches in 2 "
+                    f"steps, want 1 a step")
+            for kernel, count in c["launches"][arch].items():
+                if res["launches"][kernel] != count:
+                    raise AssertionError(
+                        f"model-sharded {arch} rank {r}: "
+                        f"{res['launches'][kernel]} {kernel} launches in the "
+                        f"no-grad forward, want {count}")
+        del exact, want
+        unheld = [i for i, masks in enumerate(zip(*(r["held"]
+                                                    for r in per_rank)))
+                  if not torch.stack(masks).any(0).all()]
+        if unheld:
+            raise AssertionError(f"model-sharded {arch}: sampled elements "
+                                 f"of leaves {unheld} lie in no rank's part")
+        for res in per_rank:
+            res.pop("held")
+        table = lm.shard_table(_lm_config(arch, num_layers=layers), 2)
+        out["archs"][arch] = {
+            "layers": layers, "population": c["population"],
+            "p_whole": ref["p_whole"], "ranks": per_rank,
+            "samples_per_leaf": c["samples"],
+            "leaves": len(ref["shapes"]),
+            "whole_leaves": [p for p, d in table.items() if d is None],
+            "one_rank": {"loss": [x.tolist() for x in ref["loss"]],
+                         "peak_bytes": ref["peak_bytes"],
+                         "pop_adam_launches": ref["pop_adam_launches"],
+                         "launches": ref["launches"],
+                         "logits_rms_err": one_rank_rms,
+                         "seconds": ref["seconds"],
+                         "fp32_own_routes_differ":
+                             ref["fp32_own_routes_differ"]}}
+        del ref
+        gc.collect()
+    torch.cuda.empty_cache()
+    out["kernels"] = _mpf_kernel_rows(
+        {arch: a["ranks"][0]["p_local"] for arch, a in out["archs"].items()})
+    out["seconds"] = time.perf_counter() - t0
+    out["reference_seconds"] = ref_s
+    out["ranks_seconds"] = ranks_s
+    gb = lambda x: round(x / 1e9, 2)
+    for arch, a in out["archs"].items():
+        rs = a["ranks"]
+        log(f"model-sharded {arch} ({a['layers']} layers, fp32, "
+            f"N={a['population']}) over 2 gloo ranks on cuda:0 at model 2: "
+            f"P_local {[r['p_local'] for r in rs]} of {a['p_whole']:,} a "
+            f"member; peak allocated {[gb(r['peak_bytes']) for r in rs]} GB "
+            f"a rank against {gb(a['one_rank']['peak_bytes'])} on one; "
+            f"pop_adam {[r['pop_adam_launches'] for r in rs]} in 2 steps; "
+            f"vs one rank at {a['leaves']} leaves x up to "
+            f"{a['samples_per_leaf']} sampled elements a member (every one "
+            f"held on some rank): parameters after step 1 bit for bit, "
+            f"gradients {[r['grad_share'] for r in rs]}, step "
+            f"{[r['step_share'] for r in rs]} of rtol 1e-4, atol 1e-6 "
+            f"({[r['step_elements_held'] for r in rs]} steps held of "
+            f"{[r['samples'] for r in rs]}); loss "
+            f"{[[round(float(x), 6) for x in r['loss'][-1]] for r in rs]} "
+            f"against {[round(x, 6) for x in a['one_rank']['loss'][-1]]}; "
+            f"routing overridden by the replay "
+            f"{[r['routes_overridden'] for r in rs]} (update), "
+            f"{[r['forward_routes_overridden'] for r in rs]} (forward); "
+            f"bf16 forward {(c['forward_batch'], c['forward_len'])} "
+            f"launches {[r['launches'] for r in rs]}, logits' RMS error "
+            f"from the float32 forward "
+            f"{[round(r['logits_rms_err'], 5) for r in rs]} against the "
+            f"one-rank bf16's {round(a['one_rank']['logits_rms_err'], 5)} "
+            f"(at most x{BF16_TP_RMS_RATIO}; max abs err against the "
+            f"one-rank bf16 "
+            f"{max(r['logits_max_abs_err'] for r in rs):.3g}); steps "
+            f"{[round(r['steps_s'], 1) for r in rs]} s")
+    log(f"model-sharded families: {out['seconds']:.1f} s in all (the "
+        f"one-rank references {ref_s:.1f} s, the ranks {ranks_s:.1f} s)")
     return out
 
 
@@ -8318,6 +8787,13 @@ def main() -> int:
             (Path(root) / sub).mkdir()
         slice19 = phase_model_sharded(root)
     lap("53-55 model-sharded members")
+    # 56. model-sharded members of the MoE, MLA and Mamba2 families
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        slice20 = phase_model_sharded_families(root)
+    lap("56 model-sharded MoE, MLA and Mamba2 members")
+    slice20["card"] = smi
     slice19["card"] = smi
     slice18["card"] = smi
     slice15["card"] = smi
@@ -8380,11 +8856,20 @@ def main() -> int:
         f"model_sharded_{arch}_rank{r}": res["launches"][name]
         for arch, per_rank in mp_parity.items()
         for r, res in enumerate(per_rank)}
+    mpf_archs = slice20["archs"]
+    mpf_paths = lambda name: {
+        f"model_sharded_{arch}_rank{r}": res["launches"][name]
+        for arch, a in mpf_archs.items()
+        for r, res in enumerate(a["ranks"])}
     adam_paths = {**by_path("pop_adam"),
                   **{f"model_sharded_{arch}_rank{r}": res[
                       "pop_adam_launches"]
                      for arch, per_rank in mp_parity.items()
                      for r, res in enumerate(per_rank)},
+                  **{f"model_sharded_{arch}_rank{r}": res[
+                      "pop_adam_launches"]
+                     for arch, a in mpf_archs.items()
+                     for r, res in enumerate(a["ranks"])},
                   **{f"model_sharded_memory_rank{r}": res[
                       "pop_adam_launches"]
                      for r, res in enumerate(slice19["memory"]["ranks"])},
@@ -8406,6 +8891,7 @@ def main() -> int:
     flash_paths = {**{f"serve_{arch}": r["launches"]["flash_attention"]
                       for arch, r in lm_serve.items()},
                    **mp_paths("flash_attention"),
+                   **mpf_paths("flash_attention"),
                    "serve_qwen2-0.5b_telemetry": slice15["serve"]["lm"][
                        "launches"]["flash_attention"]}
     kernels = [{
@@ -8501,14 +8987,18 @@ def main() -> int:
                             ppo["kernels"]["adam_max_abs_err"],
                             slice19["kernels"]["pop_adam"]["max_abs_err"]]
                            + [r["pop_adam"]["max_abs_err"]
-                              for r in frontends["train"].values()]),
+                              for r in frontends["train"].values()]
+                           + [r["max_abs_err"] for r in
+                              slice20["kernels"]["pop_adam"].values()]),
         "tolerance": "rtol=1e-5, atol=1e-6",
         "max_err_over_tolerance": max(
             [adam_share, adam_lm_share, sac_dqn["kernels"]["adam_share"],
              ppo["kernels"]["adam_share"],
              slice19["kernels"]["pop_adam"]["max_err_over_tolerance"]]
             + [r["pop_adam"]["max_err_over_tolerance"]
-               for r in frontends["train"].values()]),
+               for r in frontends["train"].values()]
+            + [r["max_err_over_tolerance"] for r in
+               slice20["kernels"]["pop_adam"].values()]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -8550,6 +9040,16 @@ def main() -> int:
                                   "scale, in place; device times of eager "
                                   "launches, cold",
                           **slice19["kernels"]["pop_adam"]},
+        "model_sharded_families": {
+            arch: {"work": f"one launch of a model-2 rank's step over its "
+                           f"parts of {arch}'s 2 members "
+                           f"({mpf_archs[arch]['layers']} layers at full "
+                           f"width), decay and clip scale, in place; device "
+                           f"times of eager launches, cold",
+                   "launches_per_rank": [
+                       r["pop_adam_launches"]
+                       for r in mpf_archs[arch]["ranks"]], **row}
+            for arch, row in slice20["kernels"]["pop_adam"].items()},
         "lm_cem": {"work": "qwen2-0.5b's population step under CEM, N=4: "
                            "the LM row's shape (lm above)",
                    "launches": lm_cem["launches"]["pop_adam"]},
@@ -8562,8 +9062,10 @@ def main() -> int:
                                     ("ssd", "zamba2-7b", 81)):
         err, share, row = scans[name]
         paths = {f"serve_{arch}": lm_serve[arch]["launches"][name],
-                 **(mp_paths(name) if name == "wkv6" else {})}
-        sharded = slice19["kernels"].get(name)
+                 **(mp_paths(name) if name == "wkv6" else
+                    mpf_paths(name))}
+        sharded = (slice19["kernels"].get(name) if name == "wkv6"
+                   else slice20["kernels"]["ssd"])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -8613,7 +9115,9 @@ def main() -> int:
                            + [lm_parity["qwen3-moe-30b-a3b"][0]]
                            + [e for e, _ in frontends["parity"].values()]
                            + [slice19["kernels"]["flash_attention"][
-                               "max_abs_err"]]),
+                               "max_abs_err"]]
+                           + [r["max_abs_err"] for r in slice20["kernels"][
+                               "flash_attention"].values()]),
         "tolerance": "rtol=atol=2e-4 float32, 2e-2 bf16 (kernel vs plain); "
                      "1e-3 (the path, card vs CPU)",
         "max_err_over_tolerance": max([flash_share]
@@ -8623,8 +9127,12 @@ def main() -> int:
                                          frontends["parity"].values()]
                                       + [slice19["kernels"][
                                           "flash_attention"][
-                                          "max_err_over_tolerance"]]),
+                                          "max_err_over_tolerance"]]
+                                      + [r["max_err_over_tolerance"]
+                                         for r in slice20["kernels"][
+                                             "flash_attention"].values()]),
         "model_sharded": slice19["kernels"]["flash_attention"],
+        "model_sharded_families": slice20["kernels"]["flash_attention"],
         "work": "one causal launch at the qwen3-8b prefill's shape "
                 f"(B,H,Hkv,S,D)={head['shape']} bf16, 36 per served "
                 "prefill; device times, CUDA graph replay, L2-warm",
@@ -8705,6 +9213,7 @@ def main() -> int:
     slice18["seconds_total"] = round(time.perf_counter() - T_START, 1)
     print(json.dumps({"slice18": slice18}))
     print(json.dumps({"slice19": slice19}))
+    print(json.dumps({"slice20": slice20}))
     log(f"the whole run took {slice18['seconds_total']} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

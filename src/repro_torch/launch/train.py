@@ -124,8 +124,9 @@ attention, MLP, RWKV6 and vocabulary; a rank's Adam step is one
 ``pop_adam`` launch over its parts), so a member larger than one card
 trains; the checkpoint holds whole leaves and resumes at any model width.
 An ``--algo`` member stays whole on every model rank, as in the JAX
-package. The dense attention and RWKV6 configs shard; the MoE, MLA and
-Mamba2 ones are refused by name::
+package. Every LM family shards: the dense attention, RWKV6, MoE (experts
+over the model axis), MLA (the latent and heads split) and Mamba2 (the
+SSD heads split) configs::
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m repro_torch.launch.train --arch qwen2-0.5b --population 2 \
@@ -133,9 +134,9 @@ Mamba2 ones are refused by name::
 
 ``--devices`` is 0 or the world size (the ranks are the devices; any
 other value raises, naming ``--nproc-per-node``); ``--model-axis`` above
-1 beside another backend, on a family without a sharded forward, and
-``--fused-epoch``, ``--policy-lag 1`` and ``--strategy cem`` over more
-than one island are refused by name before any group is joined. Any
+1 beside another backend, ``--strategy cem`` over model-sharded members,
+and ``--fused-epoch``, ``--policy-lag 1`` and ``--strategy cem`` over
+more than one island are refused by name before any group is joined. Any
 other backend refuses a world of more than one rank.
 """
 from __future__ import annotations
@@ -562,9 +563,9 @@ def main(argv=None):
 def _check_layout(args):
     """The refusals of the multi-rank flags, before any group is joined:
     ``--devices`` other than 0 or the world size, ``--model-axis`` above 1
-    beside another backend than islands or on an ``--arch`` family with
-    no sharded forward, another backend on a world of several ranks, and
-    the fused epoch, lag 1 and CEM over more than one island."""
+    beside another backend than islands, CEM over model-sharded ``--arch``
+    members, another backend on a world of several ranks, and the fused
+    epoch, lag 1 and CEM over more than one island."""
     from repro_torch.elastic.layout import plan_layout, sharded_layout
     args.layout = None
     size = int(os.environ.get("WORLD_SIZE", 1))
@@ -595,15 +596,11 @@ def _check_layout(args):
                 warnings.simplefilter("ignore")
             layout = args.layout = plan_layout(
                 size, args.population, preferred_model=args.model_axis)
-    if args.arch is not None and layout.model > 1:
-        from repro_torch.configs import get_config
-        from repro_torch.models.lm import refuse_model_axis
-        refuse_model_axis(get_config(args.arch), layout.model)
-        if args.strategy == "cem":
-            raise NotImplementedError(
-                f"--strategy cem over model-sharded members (model axis "
-                f"{layout.model}) is not ported yet: its draws would be "
-                f"made at each rank's part of the parameters")
+    if args.arch is not None and layout.model > 1 and args.strategy == "cem":
+        raise NotImplementedError(
+            f"--strategy cem over model-sharded members (model axis "
+            f"{layout.model}) is not ported yet: its draws would be made at "
+            f"each rank's part of the parameters")
     islands = layout.islands
     if islands == 1:
         return

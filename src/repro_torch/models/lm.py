@@ -71,10 +71,15 @@ update run on this rank's parts of a member placed by the rules of
 :mod:`repro_torch.models.sharding`: the dense attention blocks and RWKV6
 (:mod:`repro_torch.nn.attention`, :mod:`repro_torch.nn.rwkv6`), the
 embedding and the head vocab-parallel, the cross-entropy's log-sum-exp
-and gold logit reduced over the group in float32. The result is the
-one-rank one's up to rounding: sharding decides where, never what. The
-MoE and MLA configs and the Mamba2 stacks are refused at a model axis
-above 1 (:func:`refuse_model_axis`), and so is a decode state.
+and gold logit reduced over the group in float32; the MoE layers with
+their experts over the model axis (:mod:`repro_torch.nn.moe`, the
+balancing loss the same whole term on every rank), MLA with its latent
+and heads split, and the Mamba2 blocks with their SSD heads split
+(:mod:`repro_torch.nn.mamba2`; Zamba2's shared block, unstacked, takes
+the rules as an unstacked leaf does: a bias under a 2-D rule stays
+whole). The result is the one-rank one's up to rounding: sharding decides
+where, never what. Every family shards; a decode state over a model axis
+(serving a model-sharded member) is refused.
 
 Not ported: a Mamba2 stack without the shared attention (no config has
 one), and ``input_specs``.
@@ -219,7 +224,8 @@ def _attn_block_apply(p, cfg: LMConfig, h, positions, cache, cache_index,
     m = cfg.moe
     y, aux = moe_apply(p["mlp"], y, num_experts=m.num_experts,
                        top_k=m.top_k, capacity_factor=m.capacity_factor,
-                       group_size=m.group_size, activation=cfg.activation)
+                       group_size=m.group_size, activation=cfg.activation,
+                       d_shared=m.d_expert * m.num_shared)
     return h + y, aux
 
 
@@ -572,7 +578,12 @@ def _make_grads_fn(cfg: LMConfig, tcfg: TrainConfig):
         inputs = [p.detach().requires_grad_(True) for p in flat]
         with torch.enable_grad():
             loss, metrics = lm_loss(unflatten(treedef, inputs), cfg, batch)
-            grads = torch.autograd.grad(loss, inputs)
+            # an empty leaf (a segment of no layers: zamba2 cut below one
+            # super-block) is never used; its gradient is empty
+            used = iter(torch.autograd.grad(
+                loss, [x for x in inputs if x.numel()]))
+        grads = [next(used) if x.numel() else torch.zeros_like(x)
+                 for x in inputs]
         return grads, loss.detach(), metrics
 
     def grads_of(params, batch):
@@ -699,7 +710,7 @@ def make_population_update(cfg: LMConfig, tcfg: TrainConfig,
 
 
 # ---------------------------------------------------------------------------
-# model-sharded members: shapes, the rules' dims, the families refused
+# model-sharded members: shapes and the rules' dims
 # ---------------------------------------------------------------------------
 
 
@@ -730,26 +741,6 @@ def shard_table(cfg: LMConfig, size: int) -> dict:
         dims = member_dims(shapes, ModelShard(0, size), lead=0)
         table = _SHARD_TABLES[key] = dict(zip(tree_paths(shapes), dims))
     return table
-
-
-def refuse_model_axis(cfg: LMConfig, model: int):
-    """Raise ``NotImplementedError`` naming the config when its family has
-    no model-sharded forward yet (a model axis above 1): the MoE configs
-    (expert parallelism over ``model``), MLA and the Mamba2 stacks."""
-    if model <= 1:
-        return
-    family, needs = (
-        ("mixture of experts", "experts over the model axis")
-        if cfg.moe is not None else
-        ("multi-head latent attention", "the latent's heads over it")
-        if cfg.mla is not None else
-        ("Mamba2", "the SSD heads over it")
-        if cfg.block_type == "mamba2" else (None, None))
-    if family is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: model-sharded members of the {family} family are "
-            f"not ported yet (model axis {model}: {needs}); the dense "
-            f"attention and RWKV6 configs shard over it")
 
 
 def make_serve_step(cfg: LMConfig):

@@ -35,7 +35,18 @@ member sharded by the rules: ``wq``/``wk``/``wv`` column-parallel,
 shard columns, not heads, so where a rank's columns are not whole heads,
 or its kv heads are not those its q heads read, the projections are
 gathered and every rank computes every head (the output then takes this
-rank's rows of ``wo``). MLA is not sharded.
+rank's rows of ``wo``).
+
+MLA's full-sequence form shards the same way: ``wq`` and ``w_ukv`` on
+their columns, which are whole heads when the heads divide over the
+group, ``w_dkv`` on the latent (a rank's partial latent is gathered
+before ``kv_norm``, since ``w_ukv``'s rows need the whole latent) and
+``wo`` row-parallel. The rope key comes from the whole ``w_kr`` and is
+broadcast over the rank's heads. The latent and the rope key enter the
+region through ``copy_to_region``, so ``kv_norm`` and ``w_kr``, whole
+leaves, get their whole gradients. Where the heads do not divide, the
+query and the up-projection are gathered and every rank computes every
+head.
 """
 from __future__ import annotations
 
@@ -237,29 +248,66 @@ def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int,
               qk_nope_dim: int = 128, qk_rope_dim: int = 64,
               v_dim: int = 128, rope_theta: float = 10000.0, cache=None,
               cache_index=None):
-    """x: (B,S,Dm); positions (B,S). Without ``cache`` returns (out, None);
-    with one, the new latent and rope key are written into it in place
-    and (out, cache) is returned."""
+    """x: (B,S,Dm); positions (B,S). Without ``cache`` returns (out, None)
+    (on a model axis, from this rank's parts: see the module's
+    docstring); with one, the new latent and rope key are written into it
+    in place and (out, cache) is returned."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]["w"]).reshape(b, s, num_heads,
-                                   qk_nope_dim + qk_rope_dim)
-    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
-    q_rope = apply_rope(q_rope, positions, theta=rope_theta)
-    c_kv = rmsnorm_apply(p["kv_norm"], x @ p["w_dkv"]["w"])
+    qk, kv = qk_nope_dim + qk_rope_dim, qk_nope_dim + v_dim
+    shard = active()
+    if shard is not None and cache is not None:
+        raise NotImplementedError(
+            "MLA with a latent cache over a model axis (serving a "
+            "model-sharded member) is not ported yet")
+    part = lambda leaf, whole: shard is not None and shard.is_part(leaf,
+                                                                   whole)
+    q_part = part(p["wq"]["w"].shape[-1], num_heads * qk)
+    dkv_part = part(p["w_dkv"]["w"].shape[-1], kv_lora_rank)
+    ukv_part = part(p["w_ukv"]["w"].shape[-1], num_heads * kv)
+    o_part = part(p["wo"]["w"].shape[0], num_heads * v_dim)
+    aligned = (q_part and ukv_part and o_part
+               and num_heads % shard.size == 0)
+    x_in = copy_to_region(x, shard) if q_part or dkv_part else x
+    q = (x_in if q_part else x) @ p["wq"]["w"]
+    latent = (x_in if dkv_part else x) @ p["w_dkv"]["w"]
+    if dkv_part:
+        latent = gather_from_region(latent, -1, shard)
+    c_kv = rmsnorm_apply(p["kv_norm"], latent)
     k_rope = apply_rope(x @ p["w_kr"]["w"], positions, theta=rope_theta)
-    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+    scale = qk ** -0.5
 
     if cache is None:
-        ukv = (c_kv @ p["w_ukv"]["w"].to(x.dtype)).reshape(
-            b, s, num_heads, qk_nope_dim + v_dim)
-        k_nope, v = ukv[..., :qk_nope_dim], ukv[..., qk_nope_dim:]
-        q_eff = torch.cat([q_nope, q_rope], dim=-1)
-        k_eff = torch.cat([k_nope, k_rope[:, :, None].expand(
-            b, s, num_heads, qk_rope_dim)], dim=-1)
-        out = sdpa(q_eff, k_eff, v, positions, positions, causal=True,
-                   scale=scale)
-        return out @ p["wo"]["w"], None
+        if ukv_part:
+            c_kv = copy_to_region(c_kv, shard)  # each rank's columns read it
+        ukv = c_kv @ p["w_ukv"]["w"].to(x.dtype)
+        h = num_heads
+        if aligned:
+            # each rank's whole heads, the rope key broadcast over them
+            h //= shard.size
+            k_rope = copy_to_region(k_rope, shard)
+        else:
+            # every rank computes every head
+            if q_part:
+                q = gather_from_region(q, -1, shard)
+            if ukv_part:
+                ukv = gather_from_region(ukv, -1, shard)
+        q = q.reshape(b, s, h, qk)
+        q_eff = torch.cat([q[..., :qk_nope_dim], apply_rope(
+            q[..., qk_nope_dim:], positions, theta=rope_theta)], dim=-1)
+        ukv = ukv.reshape(b, s, h, kv)
+        k_eff = torch.cat([ukv[..., :qk_nope_dim], k_rope[:, :, None].expand(
+            b, s, h, qk_rope_dim)], dim=-1)
+        out = sdpa(q_eff, k_eff, ukv[..., qk_nope_dim:], positions,
+                   positions, causal=True, scale=scale)
+        if not o_part:
+            return out @ p["wo"]["w"], None
+        if not aligned:
+            out = constrain(out, None, None, "M")   # this rank's rows of wo
+        return reduce_from_region(out @ p["wo"]["w"], shard), None
 
+    q = q.reshape(b, s, num_heads, qk)
+    q_nope = q[..., :qk_nope_dim]
+    q_rope = apply_rope(q[..., qk_nope_dim:], positions, theta=rope_theta)
     cache["c_kv"][:, cache_index:cache_index + s] = c_kv.to(
         cache["c_kv"].dtype)
     cache["k_rope"][:, cache_index:cache_index + s] = k_rope.to(

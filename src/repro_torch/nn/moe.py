@@ -21,6 +21,20 @@ rounded to it, as the JAX package rounds them.
 
 The JAX package computes this layer outside any Pallas kernel; so does
 the port, in plain PyTorch.
+
+Inside a model-parallel context (:func:`repro_torch.models.sharding.
+model_parallel`) the experts are cut over the model axis by the rules
+(``experts.*`` on E): a rank holds E/M consecutive experts. The router is
+whole, so every rank computes the same logits, the top k over all E
+experts and the gates. A token's place in an expert's queue is a cumsum
+down that expert's column, so a rank builds the dispatch and combine
+tensors of its own experts' columns only, equal to those columns of the
+whole ones; it runs its experts on their capacity slots, and the partial
+outputs are summed over the group. The gates enter the region through
+``copy_to_region``, so the router's gradient from the combine is summed
+over the ranks, while the balancing loss, the same whole term on every
+rank, adds its gradient once. The shared experts take the sharded
+:func:`repro_torch.nn.basic.glu_mlp_apply`.
 """
 from __future__ import annotations
 
@@ -29,6 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import copy_to_region, reduce_from_region
+from repro_torch.models.sharding import active
 from repro_torch.nn.basic import (glu_mlp_apply, glu_mlp_init,
                                   lecun_normal)
 
@@ -68,16 +84,21 @@ def _one_hot(idx, n: int):
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def _dispatch_combine(gates, idx, num_experts: int, capacity: int):
+def _dispatch_combine(gates, idx, num_experts: int, capacity: int, *,
+                      experts: tuple | None = None):
     """gates/idx: (B, G, T, k). Returns combine (B,G,T,E,C) float32 and
-    dispatch, its nonzero pattern, in bf16."""
+    dispatch, its nonzero pattern, in bf16. With ``experts`` (lo, hi) only
+    those experts' columns, (B,G,T,hi-lo,C): each column's queue is its
+    own cumsum, so they equal those columns of the whole tensors."""
     b, g, t, k = idx.shape
-    onehot = F.one_hot(idx, num_experts).float()               # (B,G,T,k,E)
+    lo, hi = (0, num_experts) if experts is None else experts
+    e = hi - lo
+    onehot = _one_hot(idx - lo, e)                             # (B,G,T,k,E)
     # position of each (token, slot) in its expert's queue, counting
     # slot-major then token-major (GShard's order)
-    flat = onehot.transpose(2, 3).reshape(b, g, k * t, num_experts)
+    flat = onehot.transpose(2, 3).reshape(b, g, k * t, e)
     pos_flat = torch.cumsum(flat, dim=2) - flat                # (B,G,k*T,E)
-    pos = pos_flat.reshape(b, g, k, t, num_experts).transpose(2, 3)
+    pos = pos_flat.reshape(b, g, k, t, e).transpose(2, 3)
     pos = (pos * onehot).sum(-1)                               # (B,G,T,k)
     keep = (pos < capacity).float()
     cap_onehot = _one_hot(pos.long(), capacity)
@@ -98,9 +119,12 @@ def load_balancing_loss(probs, idx, num_experts: int):
 
 def moe_apply(p, x, *, num_experts: int, top_k: int,
               capacity_factor: float = 1.25, group_size: int = 256,
-              activation: str = "silu"):
+              activation: str = "silu", d_shared: int | None = None):
     """x: (B, S, D) -> (out (B, S, D), aux loss, a float32 scalar). The
-    experts' MLPs are SwiGLU; ``activation`` is the shared experts'."""
+    experts' MLPs are SwiGLU; ``activation`` is the shared experts'.
+    ``d_shared``, the shared experts' whole width (``d_expert *
+    num_shared``), tells a model-sharded forward whether their columns
+    are cut."""
     b, s, d = x.shape
     gs = min(group_size, s)
     while s % gs:                  # keep groups exact for any seq length
@@ -112,9 +136,19 @@ def moe_apply(p, x, *, num_experts: int, top_k: int,
         xg @ p["router"]["w"].to(x.dtype), top_k)
     capacity = max(top_k, int(math.ceil(gs * top_k * capacity_factor
                                         / num_experts)))
-    combine, dispatch = _dispatch_combine(gates, idx, num_experts, capacity)
-
     we = p["experts"]
+    shard = active()
+    experts = None
+    if shard is not None and shard.is_part(we["w_gate"].shape[0],
+                                           num_experts):
+        # this rank's experts: their columns, the router's gradient from
+        # them summed over the group
+        experts = shard.bounds(num_experts)
+        gates = copy_to_region(gates, shard)
+        xg = copy_to_region(xg, shard)
+    combine, dispatch = _dispatch_combine(gates, idx, num_experts, capacity,
+                                          experts=experts)
+
     xs = torch.einsum("bgtec,bgtd->bgecd", dispatch.to(x.dtype), xg)
     hg = F.silu(torch.einsum("bgecd,edf->bgecf", xs,
                              we["w_gate"].to(x.dtype)))
@@ -123,7 +157,10 @@ def moe_apply(p, x, *, num_experts: int, top_k: int,
                       we["w_down"].to(x.dtype))
     out = torch.einsum("bgtec,bgecd->bgtd", combine.to(x.dtype), ye)
     out = out.reshape(b, s, d)
+    if experts is not None:
+        out = reduce_from_region(out, shard)
 
     if "shared" in p:
-        out = out + glu_mlp_apply(p["shared"], x, activation=activation)
+        out = out + glu_mlp_apply(p["shared"], x, activation=activation,
+                                  d_ff=d_shared)
     return out, load_balancing_loss(probs, idx, num_experts)

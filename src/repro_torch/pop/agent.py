@@ -229,7 +229,6 @@ class LMAgent:
         from repro_torch.models.sharding import local_tree
         sharded = shard is not None and shard.size > 1
         if sharded:
-            self._lm.refuse_model_axis(self.cfg, shard.size)
             dims = self.shard_dims(self._lm.param_shapes(self.cfg), shard,
                                    lead=0)
         member_params = (self._member_params if not sharded else

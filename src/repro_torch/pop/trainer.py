@@ -83,8 +83,8 @@ parts of its island's members, cut by the rules of
 the same model coordinate of the destination island; rank 0 gathers every
 leaf whole along its sharded dimension, so a checkpoint has the one-rank
 format and resumes at any model width. An RL agent's members stay whole
-on every model rank. The families without a sharded forward (MoE, MLA,
-Mamba2) are refused by name.
+on every model rank. Every LM family shards; CEM and DvD over
+model-sharded members are refused by name.
 
 ``run_env_loop(fused=True)`` runs whole train-evolve epochs
 (``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
@@ -211,16 +211,13 @@ class PopTrainer:
                     "above 1)")
             layout = layout if layout is not None else sharded_layout(
                 size, self.n)
-        if layout.model > 1 and getattr(self.agent, "model_sharded_params",
-                                        False):
-            from repro_torch.models.lm import refuse_model_axis
-            refuse_model_axis(self.agent.cfg, layout.model)
-            if isinstance(self.strategy, (CEM, DvD)):
-                raise NotImplementedError(
-                    f"{type(self.strategy).__name__} over model-sharded "
-                    f"members is not ported yet: its draws would be made "
-                    f"at each rank's part of the parameters, not at the "
-                    f"whole members' shape")
+        if (layout.model > 1 and getattr(self.agent, "model_sharded_params",
+                                         False)
+                and isinstance(self.strategy, (CEM, DvD))):
+            raise NotImplementedError(
+                f"{type(self.strategy).__name__} over model-sharded members "
+                f"is not ported yet: its draws would be made at each rank's "
+                f"part of the parameters, not at the whole members' shape")
         if layout.population != self.n:
             raise ValueError(f"{layout} is planned for another population "
                              f"than size={self.n}")

@@ -5,10 +5,12 @@ that came with it, on the CPU.
 (TD3 smaller and larger; an LM population) and prints the lineage;
 ``--resize strict`` (the default) raises a message that names ``--resize
 auto``, and ``PopTrainer.resume`` one that names ``restore_elastic``;
-``--devices`` other than 0 or the world size and ``--model-axis`` above 1
-stay refused (the islands themselves are ``test_torch_islands*.py``'s). ``quickstart`` and
-``pbt_td3`` (``repro_torch.examples``) run two iterations each. Nothing
-here calls JAX. (Under 11 tests: ROADMAP §3 on xdist's file queue.)
+``--devices`` other than 0 or the world size, ``--model-axis`` beside
+another backend and CEM over model-sharded members stay refused (the
+islands themselves are ``test_torch_islands*.py``'s). ``quickstart``
+and ``pbt_td3`` (``repro_torch.examples``) run two iterations each.
+Nothing here calls JAX. (Under 11 tests: ROADMAP §3 on xdist's file
+queue.)
 """
 import re
 
@@ -111,9 +113,10 @@ def test_multi_device_flags_stay_refused(monkeypatch):
     """Islands over several ranks and model-sharded members are ported
     (one rank per GPU under ``torch.distributed.run``): ``--devices`` must
     be 0 or the world size (one here), ``--model-axis`` is taken by the
-    islands backend only, and a family without a sharded forward (an MoE
-    config, here on a world of 2 set through ``WORLD_SIZE``) is refused by
-    name before any group is joined."""
+    islands backend only, and CEM over model-sharded members is refused
+    by name before any group is joined (on a world of 2 set through
+    ``WORLD_SIZE``). An MoE config now passes that check: its run stops
+    only where the process group is joined, for want of a ``RANK``."""
     for flag, error, match in (
             (["--devices", "4"], ValueError, "--nproc-per-node 4"),
             (["--model-axis", "2"], ValueError,
@@ -122,12 +125,14 @@ def test_multi_device_flags_stay_refused(monkeypatch):
             train_main(RL + ["--population", "2", "--ckpt-dir", "unused"]
                        + flag)
     monkeypatch.setenv("WORLD_SIZE", "2")
+    moe = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--population", "2",
+           "--ckpt-dir", "unused", "--device", "cpu", "--backend",
+           "islands", "--model-axis", "2"]
     with pytest.raises(NotImplementedError,
-                       match="model-sharded members of the mixture of "
-                             "experts family are not ported yet"):
-        train_main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--population",
-                    "2", "--ckpt-dir", "unused", "--device", "cpu",
-                    "--backend", "islands", "--model-axis", "2"])
+                       match="--strategy cem over model-sharded members"):
+        train_main(moe + ["--strategy", "cem"])
+    with pytest.raises(ValueError, match="RANK"):
+        train_main(moe)       # the group's rendezvous: no RANK set here
 
 
 def test_quickstart_example_runs(capsys):

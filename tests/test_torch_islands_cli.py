@@ -109,10 +109,12 @@ def test_refusals_by_name(tmp_path, monkeypatch, flags, world, error, match):
 
 
 def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
-    """CEM and DvD need every rank's members at the evolve; a layout with a
-    model axis needs a sharded forward, which the MoE family does not have
-    yet. The trainer refuses them by name before building anything (here
-    on the layout of 2 ranks, planned with JAX's halving warning)."""
+    """CEM and DvD need every rank's members at the evolve, and over a
+    model axis their draws would be made at a rank's parts. The trainer
+    refuses them by name before building anything (here on the layout of
+    2 ranks, planned with JAX's halving warning). An MoE member, which
+    now has a sharded forward, passes the refusal and stops only at the
+    ranks the layout needs."""
     for strategy in ("cem", "dvd"):
         pcfg = PopulationConfig(size=4, strategy=strategy, backend="islands")
         with pytest.raises(NotImplementedError,
@@ -126,7 +128,11 @@ def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
     from repro_torch.pop import LMAgent
     moe = LMAgent(get_config("qwen3-moe-30b-a3b").smoke(), TrainConfig(),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="model-sharded"):
+    cem = PopulationConfig(size=4, strategy="cem", backend="islands")
+    with pytest.raises(NotImplementedError,
+                       match="CEM over model-sharded members"):
+        PopTrainer(moe, cem, layout=layout)
+    with pytest.raises(ValueError, match="needs 2 ranks but the world has 1"):
         PopTrainer(moe, pcfg, layout=layout)
 
 

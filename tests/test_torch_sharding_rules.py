@@ -8,8 +8,8 @@ from the port's ``spec_for``, at model 2 and 4, under ``population_mode``
 and outside it, on the islands mesh ``("pop", "data", "model")`` and on a
 ``("pod", "data", "model")`` one (the JAX side handed a stand-in mesh of
 ``axis_names`` and ``shape``). Then the quirks by name, ``batch_spec``,
-the placement and ``relayout`` by the rules, the families refused at a
-model axis above 1, and ``TrainConfig.grad_compression``.
+the placement and ``relayout`` by the rules, what a model axis above 1
+still refuses, and ``TrainConfig.grad_compression``.
 """
 from contextlib import nullcontext
 from types import SimpleNamespace
@@ -188,9 +188,13 @@ def test_constrain_cuts_only_inside_a_model_parallel_context():
 
 def test_families_without_a_sharded_forward_are_refused_by_name(
         monkeypatch):
-    """The MoE, MLA and Mamba2 families at a model axis above 1, and CEM
-    over model-sharded members (its draws would be made at a rank's
-    parts), by name, before any group is joined."""
+    """What a model axis above 1 still refuses, by name, before any group
+    is joined: CEM over model-sharded members (its draws would be made at
+    a rank's parts), a decode state (serving a model-sharded member) and
+    ``--model-axis`` beside another backend than islands. Every family
+    now has a sharded forward: the MoE, MLA and Mamba2 configs pass the
+    pre-group check as the dense attention and RWKV6 ones do."""
+    from repro_torch.launch.train import _check_layout
     from repro_torch.launch.train import main as train_main
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError,
@@ -198,21 +202,23 @@ def test_families_without_a_sharded_forward_are_refused_by_name(
         train_main(["--arch", "rwkv6-test", "--population", "2",
                     "--ckpt-dir", "unused", "--device", "cpu", "--backend",
                     "islands", "--model-axis", "2", "--strategy", "cem"])
-    for arch, family in (("qwen3-moe-30b-a3b", "mixture of experts"),
-                         ("deepseek-v2-lite-16b", "mixture of experts"),
-                         ("zamba2-7b", "Mamba2")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{arch}: model-sharded members of the "
-                                 f"{family} family"):
-            lm.refuse_model_axis(get_config(arch), 2)
-        lm.refuse_model_axis(get_config(arch), 1)
-    mla = get_config("deepseek-v2-lite-16b").replace(moe=None)
-    with pytest.raises(NotImplementedError, match="latent attention"):
-        lm.refuse_model_axis(mla, 4)
-    for arch in ("qwen2-0.5b", "qwen2-1.5b", "qwen3-8b", "gemma-7b",
-                 "pixtral-12b", "rwkv6-1.6b", "rwkv6-test",
-                 "musicgen-medium"):
-        lm.refuse_model_axis(get_config(arch), 4)
+    with pytest.raises(ValueError, match="taken by --backend islands only"):
+        train_main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
+                    "--population", "2", "--ckpt-dir", "unused", "--device",
+                    "cpu", "--backend", "sharded", "--model-axis", "2"])
+    cfg = get_config("zamba2-7b").smoke()
+    with sharding.model_parallel(ModelShard(0, 2)), pytest.raises(
+            NotImplementedError, match="a decode state over a model axis"):
+        lm.forward(lm.param_shapes(cfg), cfg,
+                   {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                   state={}, cache_index=0)
+    for arch in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "zamba2-7b",
+                 "qwen2-0.5b", "rwkv6-1.6b"):
+        args = SimpleNamespace(devices=0, model_axis=2, backend="islands",
+                               population=2, arch=arch, strategy="pbt",
+                               fused_epoch=False, policy_lag=None)
+        _check_layout(args)
+        assert args.layout.model == 2 and args.layout.islands == 1
 
 
 def test_grad_compression_field_matches_jax():
