@@ -106,7 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 CLI feeds them) and ``pixtral-12b`` (fed no patches), at
                 full published size through
                 ``repro_torch.launch.serve.main`` (``--arch A --batch 4
-                --prompt-len 512 --tokens 32``) with every launch count set
+                --prompt-len 512 --tokens 8``) with every launch count set
                 to 0 just before and read just after: exactly 24, 36, 0,
                 14, 48, 0, 48 and 40 ``flash_attention`` launches, all on
                 the bf16 tensor-core route, 24 ``wkv6`` for
@@ -139,7 +139,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 qwen2-0.5b, qwen3-moe-30b-a3b and deepseek-v2-lite-16b
                 with each backend: launch counts, evolutions, and the
                 checkpoint read back bit for bit;
- 15. Fig. 2 — TD3 at the repo's width, batch 256, 32 chained steps a
+ 15. Fig. 2 — TD3 at the repo's width, batch 256, 8 chained steps a
                 call, N = 1, 8, 32: ms per member-update-step of the
                 sequential and the vectorized backend, and each one's
                 ratio of a call's time at N = 32 to N = 1;
@@ -198,7 +198,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 DQN update with it, card against CPU;
  25. Fig. 2, SAC — the SAC arm beside phase 15's TD3 one (its dims, N =
                 1, 8, 32, both backends): the median of 3 calls with their
-                min and max (one call where 3 would pass 75 s);
+                min and max (one call where 3 would pass 25 s);
  26. PPO kernels — ``pop_matmul`` against its plain version at the slice's
                 new (K, M): first layers of K 3 and 4, the value head
                 256->1 and cartpole's logits 256->2, each narrow shape on
@@ -222,7 +222,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ``repro_torch.launch.serve.main`` (pendulum ``mean``,
                 cartpole ``vote``), 3 ``pop_matmul`` launches a batch,
                 answers against the plain ensemble;
- 30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 45 s;
+ 30. Fig. 2, PPO — the PPO arm at the SAC arm's dims, capped at 15 s;
  31. hopper2d — its two kernels against their plain versions at 8
                 members x 4,096 envs, from states 50 random-action steps
                 in (the count with a contact active logged), actions
@@ -306,7 +306,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the eager TD3 ``--fused-adam --fused-linear`` CLI on
                 pendulum run twice on one ``--ckpt-dir`` against one run
                 of twice the steps, its last checkpoint bit for bit;
- 40. LM resume — qwen2-0.5b at full width, 2 layers, N = 4, through the
+ 40. LM resume — qwen2-0.5b at full width, 2 layers, N = 2, through the
                 CLI: 4 steps with checkpoints at 2 and 4, and the same 4
                 steps resumed from step 2's checkpoint (``--resume
                 auto``), equal at the update parity's tolerance; the
@@ -346,7 +346,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and 12: 2 epochs captured after the restore against the
                 eager loop, bit for bit, ``hopper2d`` launches counted;
  45. LM elastic — phase 40's step-2 checkpoint (qwen2-0.5b at full
-                width, 2 layers, N = 4) resumed at 2 and 6 through the
+                width, 2 layers, N = 2) resumed at 1 and 3 through the
                 CLI with ``--resize auto``: the lineage it prints, every
                 row bit for bit, the flat buffers kept, the gather's
                 host seconds and the peak of allocated memory, one
@@ -509,9 +509,11 @@ LM_PARITY_ARCHS = (("rwkv6-1.6b", 2, {"wkv6": 2}),
                    ("gemma-7b", 2, {"flash_attention": 2}),
                    ("qwen3-moe-30b-a3b", 2, {"flash_attention": 2}),
                    ("deepseek-v2-lite-16b", 2, {}))
-# the LM serving runs: 4 prompts of 512 tokens, 32 new tokens each; each
+# the LM serving runs: 4 prompts of 512 tokens, 8 new tokens each (32
+# before slice 21: the decode, host-bound, is the served phases' largest
+# part, and a quarter of it keeps the whole script in its time limit); each
 # arch with its kernel launches of one served run
-LM_SERVE = dict(batch=4, prompt_len=512, tokens=32)
+LM_SERVE = dict(batch=4, prompt_len=512, tokens=8)
 LM_SERVE_ARCHS = (("qwen2-0.5b", {"flash_attention": 24}),
                   ("qwen3-8b", {"flash_attention": 36}),
                   ("rwkv6-1.6b", {"wkv6": 24}),
@@ -545,7 +547,12 @@ LM_CLI = ["--arch", "qwen2-0.5b", "--smoke", "--population", "2", "--steps",
 # pop_adam at the LM's flat size, and at one past the old grid's limit of
 # 65,535 blocks of 4096 on its second axis
 POP_ADAM_LM = ((4, LM_PARAMS), (4, 2 ** 28 + 1))
-FIG2 = dict(sizes=(1, 8, 32), batch=256, num_steps=32)
+# Fig. 2's unit: N = 1, 8, 32 at B = 256, 8 chained update steps a call
+# (32 before slice 21: the sequential arm's N = 32 calls were the largest
+# part of the three arms' 96 s, and a quarter of them keeps the whole
+# script in its time limit; a call's ms per member-update-step is the
+# figure)
+FIG2 = dict(sizes=(1, 8, 32), batch=256, num_steps=8)
 # the train CLI's LM hyper space (src/repro/launch/train.py:241-251)
 LM_HYPER_SPACE = dict(log_uniform=(("lr_scale", 0.1, 10.0),
                                    ("weight_decay", 1e-3, 0.3)),
@@ -629,7 +636,7 @@ SAC_DQN_TRAIN = dict(steps=5, pbt_interval=2, eval_every=1, num_envs=8,
 TORSO = dict(frames=32, actions=6)
 TORSO_TOL = dict(rtol=1e-4, atol=1e-5)
 # Fig. 2's SAC arm: the median of 3 calls a cell, unless the arm would
-# pass 75 s; its projection allows for the host's spread between calls
+# pass its limit (FIG2_ARMS); its projection allows for the host's spread between calls
 # (a cell's slowest call 1.15x its median in PR 22's run 1)
 FIG2_REPS = 3
 FIG2_HOST_SPREAD = 1.15
@@ -657,8 +664,8 @@ GAE_TOL = dict(rtol=1e-5, atol=1e-6)
 # Fig. 2's arms beside the TD3 one: the seconds each may take with
 # FIG2_REPS calls a cell, and the pop_matmul and pop_adam launches of one
 # vectorized update step
-FIG2_ARMS = {"sac": dict(limit_s=75.0, launches=(24, 3)),
-             "ppo": dict(limit_s=45.0, launches=(6, 1))}
+FIG2_ARMS = {"sac": dict(limit_s=25.0, launches=(24, 3)),
+             "ppo": dict(limit_s=15.0, launches=(6, 1))}
 # slice 13, the acting engine. hopper2d's kernels against their plain
 # versions at 8 members x 4,096 envs, from states 50 random-action steps in, with
 # actions past the [-1, 1] clip, at the tolerance at which the JAX package
@@ -761,11 +768,14 @@ HOPPER_CRITIC_LAYERS = ((14, 256, "relu"), (256, 256, "relu"),
 RESUME_CLI = dict(steps=4, pbt_interval=2, eval_every=2, num_envs=8,
                   collect_steps=32, updates=32)
 # qwen2-0.5b at full width with its depth cut to 2 layers (about 166 M
-# parameters a member, 136 M of them the embedding), N = 4: 4 steps with a
-# checkpoint every 2 (about 8 GB of main tree: the parameters and both
-# Adam moments of the 4 members; with the actors 10.6 GB), resumed from
-# the first; held at the LM update parity's tolerance
-LM_RESUME = dict(arch="qwen2-0.5b", layers=2, population=4, batch=4,
+# parameters a member, 136 M of them the embedding), N = 2: 4 steps with a
+# checkpoint every 2 (about 4 GB of main tree: the parameters and both
+# Adam moments of the 2 members; with the actors 5.3 GB), resumed from
+# the first; held at the LM update parity's tolerance. N was 4 before
+# slice 21: the checkpoints' bytes, written three times and read three
+# times with phase 45, were a tenth of the run, and half of them keeps
+# the whole script in its time limit
+LM_RESUME = dict(arch="qwen2-0.5b", layers=2, population=2, batch=4,
                  seq_len=512, steps=4, pbt_interval=2, ckpt_every=2)
 LM_RESUME_TOL = dict(rtol=1e-4, atol=1e-6)
 # the fused epoch with and without a live JSONL sink: ACTING's shape,
@@ -783,8 +793,8 @@ SERVE_TELEMETRY = dict(profile_iters=16)
 ELASTIC = dict(population=8, sizes=(6, 12), iters=2,
                fitness=(5.0, 1.0, 7.0, 3.0, 8.0, 2.0, 6.0, 4.0))
 # the LM population resumed at these sizes from phase 40's step-2
-# checkpoint (N = 4), one step each through the CLI
-LM_ELASTIC_SIZES = (2, 6)
+# checkpoint (N = 2), one step each through the CLI: shrunk and grown
+LM_ELASTIC_SIZES = (1, 3)
 # DoubleBuffer on the card: this many batches of the LM train phase's
 # token shape, with a float leaf beside them
 DOUBLE_BUFFER = dict(batches=4, floats=(256, 64))
@@ -845,10 +855,31 @@ BF16_TP_RMS_RATIO = 1.25
 # this many fp32 elements
 DP = dict(steps=300, converge_atol=0.05, plain_atol=0.1,
           grad_elems=1 << 22)
+# slice 21. 57: CEM over islands, TD3 on pendulum at the repo's width,
+# N = 8 (2 islands of 4 over two gloo ranks on cuda:0), bind and 4
+# iterations with an evaluation and an evolve every 2; 58: CEM over
+# qwen2-0.5b at full width, 2 layers, fp32, N = 4, at islands x model 1 x 2
+# and 2 x 1, bind, 2 steps on the given fitness and an evolve (elites
+# members 1 and 3, on both islands at 2 x 1); 59: the RL ensemble served
+# over two ranks (`serve --islands`): case -> (algo, env, mode, ensemble),
+# and the newer checkpoint's fitness
+CEM_ISLANDS = dict(population=8, num_envs=8, collect_steps=32, updates=2,
+                   batch=256, iters=4, pbt_interval=2, cli_iters=2,
+                   timeout=420)
+LM_CEM_ISLANDS = dict(arch="qwen2-0.5b", layers=2, population=4, batch=2,
+                      seq_len=128, fitness=(1.0, 4.0, 2.0, 3.0),
+                      timeout=600)
+SERVE_ISLANDS = dict(cases={"td3_mean": ("td3", "pendulum", "mean", 8),
+                            "td3_best": ("td3", "pendulum", "best", 8),
+                            "dqn_vote": ("dqn", "cartpole", "vote", 4)},
+                     requests=32, timeout=420,
+                     newer_fitness=(5.0, -1.0, 0.0, 9.0, 2.0, 8.0, 1.0, 7.0))
 
 
 def log(msg: str):
-    print(f"[smoke] {msg}", flush=True)
+    """A line of the run's log, led by the seconds since the script was
+    imported in this process (a rank of a session imports it anew)."""
+    print(f"[smoke {time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -2510,7 +2541,7 @@ def _profile_step(step):
 
 def phase_lm_serve():
     """Each config at its full published size through the port's entry
-    point, ``--batch 4 --prompt-len 512 --tokens 32``: the launch counts
+    point, ``--batch 4 --prompt-len 512 --tokens 8``: the launch counts
     set to 0 just before each run and read just after (one flash_attention
     launch per GQA attention layer or shared-block call of the prefill: 24
     for qwen2-0.5b, 36 for qwen3-8b, 14 for zamba2-7b, 48 for
@@ -2650,9 +2681,17 @@ def _leaf_paths(tree, prefix=""):
 def _lm_state_on(state, device):
     """An LM population copied to ``device``, in flat buffers of its own."""
     from repro_torch.pop import LMState
-    from repro_torch.tree import flat_copy, tree_map
+    from repro_torch.tree import flat_views, leaves, tree_map
 
-    flat = lambda tree: flat_copy(tree_map(lambda x: x.to(device), tree))[1]
+    def flat(tree):
+        """``tree``'s leaves copied straight into a new ``(N, P)`` buffer
+        on ``device`` (one copy, no staging tree): its views."""
+        xs = leaves(tree)
+        buffer = torch.empty((xs[0].shape[0], sum(x[0].numel() for x in xs)),
+                             dtype=torch.float32, device=device)
+        views = flat_views(buffer, tree)
+        tree_map(lambda d, x: d.copy_(x), views, tree)
+        return views
     return LMState(params=flat(state.params),
                    opt_state=state.opt_state._replace(
                        step=state.opt_state.step.to(device),
@@ -2826,6 +2865,7 @@ def phase_lm_update_parity(u):
                              f"{flat_buffer(card.params).shape[1]:,} "
                              f"parameters a member, reckoned {p_member:,}")
     host = _lm_state_on(card, "cpu")
+    log(f"LM update {cfg.name}: the population copied to the host")
     card_update = make_update(card_agent, "vectorized")
     host_update = make_update(LMAgent(cfg, tcfg, device="cpu"),
                               "vectorized")
@@ -2875,6 +2915,8 @@ def phase_lm_update_parity(u):
             raise AssertionError("LM update: the parameters moved apart in "
                                  "the first step, whose learning rate is 0")
     torch.cuda.synchronize()
+    log(f"LM update {cfg.name}: {u['steps']} steps on the card and the "
+        f"host")
     counts = [c.launches for c in counters]
     if counts != [u["steps"], 0, 0, 0]:
         raise AssertionError(f"LM update: launches (pop_adam, flash, wkv6, "
@@ -3134,7 +3176,7 @@ def phase_lm_cli(arch="qwen2-0.5b"):
 
 def phase_fig2():
     """The paper's Fig. 2 unit on the card: TD3 at the repo's width
-    (``HIDDEN=(256,256)``), batches of 256, 32 chained update steps a
+    (``HIDDEN=(256,256)``), batches of 256, 8 chained update steps a
     call, for N in 1, 8 and 32: ms per member-update-step of the
     sequential arm (each member's step on plain dense layers and the stock
     Adam, in a Python loop; no kernel) and the vectorized one (every
@@ -4068,7 +4110,7 @@ def phase_torso():
 
 def phase_fig2_arm(algo):
     """One of Fig. 2's arms beside the TD3 one (the same dims: pendulum,
-    the repo's width, B=256, 32 chained steps a call, N = 1, 8, 32): ms
+    the repo's width, B=256, 8 chained steps a call, N = 1, 8, 32): ms
     per member-update-step of the sequential arm (no kernel) and the
     vectorized one (FIG2_ARMS' pop_matmul and pop_adam launches a step),
     the median of FIG2_REPS synchronised calls each with their min and
@@ -5729,13 +5771,13 @@ def phase_lm_cem():
     real = {"bind": strategy_mod.CEM.bind, "evolve": strategy_mod.CEM.evolve}
 
     def timed(name):
-        def call(self, generator, *a):
+        def call(self, generator, *a, **kw):
             agent = self._agent if name == "evolve" else a[0]
             pop_state = a[0] if name == "evolve" else a[1]
             before = agent.evolvable_buffer(pop_state).data_ptr()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            result = real[name](self, generator, *a)
+            result = real[name](self, generator, *a, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             new_state = result[0] if name == "evolve" else result
@@ -5987,7 +6029,7 @@ def phase_resume_rl(ckpt_root):
 
 
 def phase_resume_lm(d):
-    """qwen2-0.5b at full width, 2 layers, N = 4, through the train CLI:
+    """qwen2-0.5b at full width, 2 layers, N = 2, through the train CLI:
     4 steps with --ckpt-every 2, and the same 4 steps resumed from the
     step-2 checkpoint; the resumed trainer's state against the
     uninterrupted one's. The async saves' blocked seconds from the ckpt
@@ -6015,7 +6057,7 @@ def phase_resume_lm(d):
     ckpt_rows = [x for x in rows if x["kind"] == "ckpt"]
     if [x["step"] for x in ckpt_rows] != [1, 3]:
         raise AssertionError(f"LM resume log: ckpt rows {ckpt_rows}")
-    # the step-2 checkpoint moves (a rename, not a 10 GB copy) into
+    # the step-2 checkpoint moves (a rename, not a 5 GB copy) into
     # the resumed run's directory; that run writes none of its own
     saved = d / "whole" / f"step_{1:010d}"
     ckpt_bytes = {p.name: p.stat().st_size for p in saved.iterdir()}
@@ -6624,7 +6666,7 @@ def _npz_arrays(path):
 
 def phase_elastic_lm(ckpt):
     """qwen2-0.5b at full width, 2 layers: phase 40's step-2 checkpoint (N
-    = 4) resumed at 2 and at 6 members through the train CLI with
+    = 2) resumed at 1 and at 3 members through the train CLI with
     ``--resize auto`` and ``--steps`` at the checkpoint's (so the CLI
     restores and returns): the lineage it prints, the host seconds of
     ``restore_elastic`` and the peak of allocated memory; every row of
@@ -7070,17 +7112,18 @@ def _dp_rank(rank, world, job):
     return out
 
 
-def _session_rank(rank, world, store, out, jobs):
-    """One spawned gloo rank on cuda:0: joins the group through a
-    FileStore and runs each job in turn (the name of a module-level
-    function of this script and its arguments); writes the results, or
-    the traceback, beside ``out``."""
+def _session_rank(rank, world, store, out, jobs_file):
+    """One gloo rank of a session on cuda:0: joins the group through a
+    FileStore and runs each job of ``jobs_file`` in turn (the name of a
+    module-level function of this script and its arguments); writes the
+    results, or the traceback, beside ``out``."""
     import traceback
     from datetime import timedelta
 
     import torch.distributed as dist
     torch.cuda.set_device(0)
     try:
+        jobs = torch.load(jobs_file, weights_only=False)
         dist.init_process_group("gloo", store=dist.FileStore(store, world),
                                 rank=rank, world_size=world,
                                 timeout=timedelta(seconds=600))
@@ -7095,16 +7138,54 @@ def _session_rank(rank, world, store, out, jobs):
         raise SystemExit(1)
 
 
-def _spawn_session(jobs, world, tmp, timeout):
-    """``jobs`` on ``world`` spawned gloo ranks sharing cuda:0; each
-    rank's results, in rank order. A rank that raises fails the phase
-    with its traceback; ranks alive at ``timeout`` are killed."""
+# what the ranks' fork server imports once: a rank forked from it starts
+# with torch (and what its first collective and Triton launch import)
+# already imported, where a rank spawned afresh paid for their import in
+# every session; it imports this script anew, which is quick once torch
+# is in. None of them touches the card.
+SESSION_PRELOAD = ("torch", "torch._dynamo", "torch.distributed", "numpy",
+                   "repro_torch.pop", "repro_torch.rl", "repro_torch.elastic",
+                   "repro_torch.launch.train", "repro_torch.launch.serve")
+
+
+def _start_fork_server():
+    """Start the session ranks' fork server now, so that its imports
+    (SESSION_PRELOAD) run beside the kernels' build; it and the resource
+    tracker it uses are stopped when the script exits."""
+    import atexit
     import multiprocessing as mp
-    ctx = mp.get_context("spawn")
+    from multiprocessing import forkserver
+    mp.get_context("forkserver").set_forkserver_preload(list(SESSION_PRELOAD))
+    forkserver.ensure_running()
+    atexit.register(_stop_fork_server)
+
+
+def _stop_fork_server():
+    """Stop the fork server and then the resource tracker, each waited
+    for: no process of the script outlives it."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+def _spawn_session(jobs, world, tmp, timeout):
+    """``jobs`` on ``world`` gloo ranks sharing cuda:0, forked by the fork
+    server (:func:`_start_fork_server`) that holds SESSION_PRELOAD
+    imported and never touched the card; each rank's
+    results, in rank order. The jobs reach the ranks in a file, not
+    through the fork server's pipe, which passes at most a few hundred
+    descriptors (a tensor shared through it takes one). A rank that raises
+    fails the phase with its traceback; ranks alive at ``timeout`` are
+    killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(SESSION_PRELOAD))
     store = str(Path(tmp) / "store")
+    jobs_file = str(Path(tmp) / "jobs.pt")
+    torch.save(jobs, jobs_file)
     outs = [str(Path(tmp) / f"rank{r}.pt") for r in range(world)]
     procs = [ctx.Process(target=_session_rank,
-                         args=(r, world, store, outs[r], jobs))
+                         args=(r, world, store, outs[r], jobs_file))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -7418,12 +7499,20 @@ def phase_islands_ranks(root):
     return out
 
 
-def _digest(t):
+def _digest(t, chunk: int = 1 << 24):
     """A bit-level digest of a tensor on the card: the sum of its 32-bit
-    words and their sum weighted by position (mod 65521)."""
-    v = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
-    return (int(v.sum()), int((v * w).sum()))
+    words and their sum weighted by position (mod 65521), taken ``chunk``
+    words at a time (int64 sums wrap alike in any grouping), so that its
+    temporaries stay small beside a population's buffer."""
+    words = t.contiguous().view(torch.int32).reshape(-1)
+    total = weighted = 0
+    for c in range(0, words.numel(), chunk):
+        v = words[c:c + chunk].to(torch.int64)
+        w = (torch.arange(c, c + v.numel(), device=v.device) % 65521) + 1
+        total += int(v.sum())
+        weighted += int((v * w).sum())
+    wrap = lambda x: (x + 2 ** 63) % 2 ** 64 - 2 ** 63
+    return (wrap(total), wrap(weighted))
 
 
 def _lm_islands_rank(rank, world, job):
@@ -8503,6 +8592,723 @@ def phase_model_sharded_families(root):
     return out
 
 
+# ------------- slice 21: CEM over islands and model-sharded members, and
+# the RL ensemble served over ranks
+@contextlib.contextmanager
+def _cem_clock():
+    """CEM's bind and evolve timed, the card synchronised at each end:
+    yields a dict whose ``"bind"`` and ``"evolve"`` lists get each call's
+    seconds, in order."""
+    from repro_torch.pop import strategy as strategy_mod
+    seconds = {"bind": [], "evolve": []}
+    real = {name: getattr(strategy_mod.CEM, name) for name in seconds}
+
+    def timed(name):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return result
+        return call
+    with mock.patch.object(strategy_mod.CEM, "bind", timed("bind")), \
+            mock.patch.object(strategy_mod.CEM, "evolve", timed("evolve")):
+        yield seconds
+
+
+def _cem_row_bytes(n, p_local, islands):
+    """(bind, evolve): the bytes of rows CEM broadcasts over ``islands``,
+    reckoned: member 0's row at bind and the elites' at each evolve, a
+    rank's ``p_local`` float32 columns of each; none on one island."""
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.core.cem import cem_weights
+    if islands == 1:
+        return 0, 0
+    elites = cem_weights(n, PopulationConfig(size=n).elite_frac).numel()
+    return 4 * p_local, 4 * elites * p_local
+
+
+def _cem_record(trainer, clock):
+    """Wrap the trainer's CEM evolve to keep, at each call, this rank's
+    actors before and after it, the fitness, the generator's state, the
+    distribution before and after it (this rank's columns), and its
+    ``seconds`` (from ``clock``, :func:`_cem_clock`'s)."""
+    strat, evolve = trainer.strategy, trainer.strategy.evolve
+    calls = []
+
+    def recorded(generator, pop_state, hypers, fitness):
+        pre = _cpu_leaves(trainer.agent.actor_params(pop_state))
+        cem = [x.detach().cpu().clone() for x in strat.export_state()]
+        gen = generator.get_state()
+        out = evolve(generator, pop_state, hypers, fitness)
+        calls.append({"pre": pre, "cem_pre": cem, "gen": gen,
+                      "fitness": fitness.detach().cpu().clone(),
+                      "post": _cpu_leaves(trainer.agent.actor_params(out[0])),
+                      "cem_post": [x.detach().cpu().clone()
+                                   for x in strat.export_state()],
+                      "lineage": out[2].tolist(),
+                      "seconds": clock["evolve"][-1]})
+        return out
+    strat.evolve = recorded
+    return calls
+
+
+def _cem_islands_run(rank, world, job):
+    """CEM_ISLANDS' TD3 on this rank's island (or alone: world 1): bind,
+    then 4 iterations with an evaluation and an evolve every 2. The
+    actors and distribution after bind, every evolve's record
+    (``_cem_record``) and the run's launch counts."""
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.elastic import plan_layout
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import get_algo, make_agent
+
+    c = CEM_ISLANDS
+    env = make("pendulum")
+    pcfg = PopulationConfig(size=c["population"], strategy="cem",
+                            backend="islands", num_steps=c["updates"],
+                            pbt_interval=c["pbt_interval"],
+                            hyper_space=get_algo("td3").hyper_space)
+    _reset_island_counts()
+    with _cem_clock() as clock:
+        tr = PopTrainer(make_agent("td3", env.spec, device="cuda"), pcfg,
+                        seed=SEED, layout=plan_layout(world, c["population"])
+                        if world > 1 else None)
+        bind = {"actors": _cpu_leaves(tr.actors),
+                "cem": [x.cpu() for x in tr.strategy.export_state()],
+                "seconds": clock["bind"][-1]}
+        tr.attach_rollout(env, num_envs=c["num_envs"],
+                          collect_steps=c["collect_steps"],
+                          batch_size=c["batch"])
+        calls = _cem_record(tr, clock)
+        _reset_island_counts()
+        tr.run_env_loop(c["iters"], eval_every=c["pbt_interval"])
+        torch.cuda.synchronize()
+    return {"rows": tuple(tr.rows), "bind": bind, "evolves": calls,
+            "counts": _island_counts()}
+
+
+def _cem_isolated(calls):
+    """Each recorded evolve of the ranks again on one rank: the ranks'
+    actors before it put together, rank 0's generator state and
+    distribution, the same fitness; returns (actors after, distribution
+    after) of each."""
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.envs import make
+    from repro_torch.pop import PopTrainer
+    from repro_torch.rl import make_agent
+    from repro_torch.tree import flatten, unflatten
+
+    c = CEM_ISLANDS
+    tr = PopTrainer(make_agent("td3", make("pendulum").spec, device="cuda"),
+                    PopulationConfig(size=c["population"], strategy="cem"),
+                    seed=SEED)
+    out = []
+    for ranks in calls:
+        first = ranks[0]
+        _, treedef = flatten(tr.actors)
+        whole = [torch.cat([r["pre"][i] for r in ranks]).cuda()
+                 for i in range(len(first["pre"]))]
+        state = tr.agent.with_evolvable_params(tr.state,
+                                               unflatten(treedef, whole))
+        tr.generator.set_state(first["gen"])
+        tr.strategy.import_state([x.cuda() for x in first["cem_pre"]])
+        new, _, lineage = tr.strategy.evolve(tr.generator, state, None,
+                                             first["fitness"].cuda())
+        out.append((_cpu_leaves(tr.agent.actor_params(new)),
+                    [x.cpu() for x in tr.strategy.export_state()],
+                    lineage.tolist()))
+    return out
+
+
+def phase_cem_islands(root):
+    """57. CEM over islands (TD3 on pendulum at the repo's width, N = 8,
+    B = 256): the run on one rank in this process, then on two gloo ranks
+    sharing cuda:0 (2 islands of 4). Held: each rank's actors and
+    distribution after bind are the one-rank run's, bit for bit; each
+    rank's evolves in lockstep (the same generator state, distribution and
+    fitness on both ranks) and equal, bit for bit, to the same evolve on
+    one rank from the ranks' actors before it (the updates between them
+    differ by rounding at N = 4 against 8: phase 49); lineage all -1; each
+    rank's launches the one-rank run's (24 pop_matmul and 2 pop_adam an
+    update step, at its 4 members). Then the train CLI with ``--strategy
+    cem --backend islands`` as a world of one NCCL rank beside ``--backend
+    vectorized``: their checkpoints bit for bit."""
+    c = CEM_ISLANDS
+    t0 = time.perf_counter()
+    one = _cem_islands_run(0, 1, {})
+    ranks = [r["cem"] for r in _spawn_session(
+        [("cem", "_cem_islands_run", {})], 2, root, c["timeout"])]
+    iso = _cem_isolated(list(zip(*[r["evolves"] for r in ranks])))
+    n = c["population"]
+    _, evolve_bytes = _cem_row_bytes(n, one["bind"]["cem"][0].numel(), 2)
+    for r, res in enumerate(ranks):
+        lo, hi, _ = res["rows"]
+        for what, got, want in (
+                ("actors", res["bind"]["actors"],
+                 [x[lo:hi] for x in one["bind"]["actors"]]),
+                ("distribution", res["bind"]["cem"], one["bind"]["cem"])):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"CEM islands rank {r}: the {what} "
+                                     f"after bind are not the one-rank "
+                                     f"run's")
+        if res["counts"] != one["counts"]:
+            raise AssertionError(f"CEM islands rank {r}: launches "
+                                 f"{res['counts']}, one rank's "
+                                 f"{one['counts']}")
+        if len(res["evolves"]) != c["iters"] // c["pbt_interval"]:
+            raise AssertionError(f"CEM islands rank {r}: "
+                                 f"{len(res['evolves'])} evolves")
+        for k, (call, (post, cem, lineage)) in enumerate(zip(
+                res["evolves"], iso)):
+            other = ranks[1 - r]["evolves"][k]
+            same = (torch.equal(call["gen"], other["gen"])
+                    and torch.equal(call["fitness"], other["fitness"])
+                    and all(torch.equal(a, b) for a, b in
+                            zip(call["cem_pre"], other["cem_pre"])))
+            if not same:
+                raise AssertionError(f"CEM islands evolve {k}: the ranks "
+                                     f"are not in lockstep")
+            if not (all(torch.equal(g, w[lo:hi])
+                        for g, w in zip(call["post"], post))
+                    and all(torch.equal(g, w)
+                            for g, w in zip(call["cem_post"], cem))
+                    and call["lineage"] == lineage == [-1] * n):
+                raise AssertionError(f"CEM islands rank {r} evolve {k}: "
+                                     f"not the one-rank evolve of the same "
+                                     f"population, bit for bit")
+    out = {"population": n, "launches_one_rank": one["counts"],
+           "launches_by_rank": [res["counts"] for res in ranks],
+           "evolve_ms_one_rank": [1e3 * e["seconds"]
+                                  for e in one["evolves"]],
+           "evolve_ms_two_ranks": [max(1e3 * res["evolves"][k]["seconds"]
+                                       for res in ranks)
+                                   for k in range(len(iso))],
+           "evolve_bytes_broadcast": [evolve_bytes] * len(iso),
+           "bind_ms_one_rank": 1e3 * one["bind"]["seconds"],
+           "bind_ms_two_ranks": max(1e3 * res["bind"]["seconds"]
+                                    for res in ranks),
+           "evolves_bit_for_bit": len(iso)}
+    log(f"CEM over islands, TD3 pendulum N={n}, 2 gloo ranks on cuda:0: "
+        f"bind == one rank's bit for bit ({out['bind_ms_one_rank']:.2f} ms "
+        f"one rank, {out['bind_ms_two_ranks']:.2f} ms two); {len(iso)} "
+        f"evolves in lockstep, each == the one-rank evolve of the ranks' "
+        f"population bit for bit, lineage all -1; evolve ms one rank "
+        f"{[round(x, 2) for x in out['evolve_ms_one_rank']]}, two ranks "
+        f"{[round(x, 2) for x in out['evolve_ms_two_ranks']]} (elite rows "
+        f"broadcast {out['evolve_bytes_broadcast']} bytes, reckoned, gloo "
+        f"via the host); launches per rank {ranks[0]['counts']} = one rank's")
+
+    # the CLI: islands as a world of one NCCL rank against vectorized
+    argv = ["--algo", "td3", "--env", "pendulum", "--strategy", "cem",
+            "--population", str(n), "--fused-linear", "--num-envs",
+            str(c["num_envs"]), "--collect-steps", str(c["collect_steps"]),
+            "--updates-per-iter", str(c["updates"]), "--batch",
+            str(c["batch"]), "--steps", str(c["cli_iters"]),
+            "--pbt-interval", str(c["pbt_interval"]), "--eval-every",
+            str(c["pbt_interval"]), "--seed", str(SEED)]
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    runs = {}
+    for backend in ("vectorized", "islands"):
+        launch = [sys.executable] if backend == "vectorized" else [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1"]
+        runs[backend] = subprocess.Popen(
+            launch + ["-m", "repro_torch.launch.train", *argv, "--backend",
+                      backend, "--ckpt-dir", str(Path(root) / backend)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    printed = {}
+    for backend, proc in runs.items():
+        stdout, stderr = proc.communicate(timeout=c["timeout"])
+        if proc.returncode:
+            raise AssertionError(f"CEM CLI --backend {backend} exited "
+                                 f"{proc.returncode}:\n{stdout[-2000:]}\n"
+                                 f"{stderr[-3000:]}")
+        printed[backend] = stdout
+    if "process group nccl over 1 rank" not in printed["islands"]:
+        raise AssertionError("CEM CLI: no NCCL layout printed:\n"
+                             + printed["islands"][-1500:])
+    evolves = [re.findall(r"evolve at iter \d+: lineage=(\[[-\d, ]*\])",
+                          printed[b]) for b in runs]
+    if (evolves[0] != evolves[1]
+            or len(evolves[0]) != c["cli_iters"] // c["pbt_interval"]):
+        raise AssertionError(f"CEM CLI: evolves printed {evolves}")
+    want_dir, leaves_n = Path(root) / "vectorized", 0
+    for step in sorted(p.name for p in want_dir.iterdir()):
+        for f in sorted((want_dir / step).glob("*.npz")):
+            got = _npz_leaves(Path(root) / "islands" / step / f.name)
+            want = _npz_leaves(f)
+            if len(got) != len(want) or not all(
+                    np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"CEM CLI: islands' {step}/{f.name} "
+                                     f"is not vectorized's, bit for bit")
+            leaves_n += len(want)
+    out["cli_leaves_bit_for_bit"] = leaves_n
+    out["seconds"] = time.perf_counter() - t0
+    log(f"CEM CLI --strategy cem --backend islands (torch.distributed.run, "
+        f"one NCCL rank) == --backend vectorized: {leaves_n} checkpoint "
+        f"leaves bit for bit, the CEM state among them; phase 57 "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def _lm_cem_rank(rank, world, job):
+    """LM_CEM_ISLANDS' qwen2-0.5b population under CEM on this rank's place
+    of ``job["layout"]`` (islands, model): bind, 2 steps on the fitness
+    given (the window's mean is it), optionally an async checkpoint, and
+    an evolve. Digests of this rank's parameter buffer after bind, before
+    and after the evolve; rank 0's whole distribution after it; the
+    pop_adam launches of the steps; the bind's and evolve's seconds; the
+    peak of allocated memory."""
+    from repro_torch.elastic import IslandLayout
+    from repro_torch.kernels.pop_adam import pop_adam
+
+    islands, model = job["layout"]
+    layout = IslandLayout(devices=islands * model, islands=islands, data=1,
+                          model=model, population=LM_CEM_ISLANDS["population"])
+    torch.cuda.reset_peak_memory_stats()
+    with _cem_clock() as clock:
+        tr = _lm_cem_trainer(layout, job.get("ckpt"))
+        bind = {"digest": _digest(tr.agent.evolvable_buffer(tr.state)),
+                "seconds": clock["bind"][-1]}
+        reset_counts(pop_adam)
+        pre = _lm_cem_steps(tr)
+        adam = pop_adam.launches
+        if job.get("ckpt"):
+            tr.save()                  # async: written during the evolve
+        tr.evolve()
+    torch.cuda.synchronize()
+    state = tr.strategy.checkpoint_state()
+    tr.wait()
+    out = {"rows": tuple(tr.rows), "coord": layout.model_coord(),
+           "bind": bind, "pre": pre, "pop_adam": adam,
+           "post": _digest(tr.agent.evolvable_buffer(tr.state)),
+           "cem": None if state is None else [_digest(x.cuda())
+                                              for x in state[:2]],
+           "evolve": {"seconds": clock["evolve"][-1]},
+           "p_local": tr.agent.evolvable_buffer(tr.state).shape[1],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_cem_trainer(layout, ckpt=None):
+    from repro_torch.configs import HyperSpace, TrainConfig
+    from repro_torch.configs.base import PopulationConfig
+    from repro_torch.pop import LMAgent, PopTrainer
+    c = LM_CEM_ISLANDS
+    cfg = _lm_config(c["arch"], num_layers=c["layers"], dtype="float32")
+    pcfg = PopulationConfig(size=c["population"], strategy="cem",
+                            backend="islands", pbt_interval=0,
+                            hyper_space=HyperSpace(**LM_HYPER_SPACE))
+    return PopTrainer(LMAgent(cfg, TrainConfig(total_steps=2, warmup_steps=1),
+                              device="cuda"), pcfg, seed=SEED,
+                      layout=layout, checkpoint_dir=ckpt)
+
+
+def _lm_cem_steps(tr):
+    """Two steps of this rank's rows on LM_CEM_ISLANDS' fitness; the digest
+    of the parameter buffer after them."""
+    from repro_torch.data.lm_pipeline import host_batches
+    c = LM_CEM_ISLANDS
+    n = c["population"]
+    stream = host_batches(tr.agent.cfg.vocab_size, n * c["batch"],
+                          c["seq_len"], seed=SEED)
+    fitness = torch.tensor(c["fitness"], device="cuda")
+    for _ in range(2):
+        tokens = torch.from_numpy(next(stream)).reshape(
+            n, c["batch"], c["seq_len"]).cuda()
+        tr.step({"tokens": tokens}, fitness=fitness)
+    torch.cuda.synchronize()
+    return _digest(tr.agent.evolvable_buffer(tr.state))
+
+
+def _lm_cem_parts(tr, rows, coord, model):
+    """The digest of rank ``(rows, coord)``'s part of a one-rank trainer's
+    parameter buffer."""
+    from repro_torch.models.sharding import ModelShard
+    buf = tr.agent.evolvable_buffer(tr.state)[rows[0]:rows[1]]
+    if model == 1:
+        return _digest(buf)
+    parts = tr.agent.part_map(ModelShard(coord, model))
+    return _digest(torch.stack([parts.local_of(row) for row in buf]))
+
+
+def phase_lm_cem_islands(root):
+    """58. CEM over qwen2-0.5b at full width, 2 layers, float32, N = 4: the
+    one-rank run (bind, 2 steps, evolve) in this process, then two gloo
+    ranks sharing cuda:0 at islands 1 x model 2 (writing an async
+    checkpoint before the evolve) and islands 2 x model 1. Held: every
+    rank's parameters after bind are its part of the one-rank run's, bit
+    for bit; 1 pop_adam launch a rank and step. At 2 x 1 the steps are the
+    one-rank run's bit for bit (whole members: phase 51), so the evolve is
+    held to the one-rank run's; at 1 x 2 (the steps' sums split over the
+    model ranks round otherwise) the checkpoint resumes on one rank, its
+    distribution the one-rank bind's bit for bit, and the resumed evolve
+    is each rank's parts after its evolve, bit for bit, rank 0's whole
+    distribution after it too. Prints bind and evolve ms, the bytes of
+    rows broadcast and each rank's peak of allocated memory against one
+    rank's."""
+    c = LM_CEM_ISLANDS
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _cem_clock() as clock:
+        ref = _lm_cem_trainer(None)
+    layouts = {"1x2": (1, 2), "2x1": (2, 1)}
+    per = {key: [] for key in layouts}
+    for key, (islands, model) in layouts.items():
+        n_per = c["population"] // islands
+        for rank in range(islands * model):
+            rows = ((rank // model) * n_per, (rank // model + 1) * n_per)
+            per[key].append({"rows": rows, "coord": rank % model,
+                             "bind": _lm_cem_parts(ref, rows, rank % model,
+                                                   model)})
+    bind_cem = [x.clone() for x in ref.strategy.export_state()]
+    one = {"bind": {"seconds": clock["bind"][-1]}}
+    pre = _lm_cem_steps(ref)
+    for r in per["2x1"]:
+        r["pre"] = _lm_cem_parts(ref, r["rows"], 0, 1)
+    with _cem_clock() as clock:
+        ref.evolve()
+    one["evolve"] = {"seconds": clock["evolve"][-1]}
+    for r in per["2x1"]:
+        r["post"] = _lm_cem_parts(ref, r["rows"], 0, 1)
+    want_cem_2x1 = [_digest(x) for x in ref.strategy.export_state()[:2]]
+    one["peak_bytes"] = torch.cuda.max_memory_allocated()
+    one["p"] = ref.agent.evolvable_buffer(ref.state).shape[1]
+    del ref, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = str(Path(root) / "lm_cem")
+    ranks = _spawn_session(
+        [("1x2", "_lm_cem_rank", {"layout": (1, 2), "ckpt": ckpt}),
+         ("2x1", "_lm_cem_rank", {"layout": (2, 1)})], 2, root,
+        c["timeout"])
+    # the checkpoint written at 1 x 2 resumes on one rank
+    res = _lm_cem_trainer(None, ckpt)
+    step = res.resume()
+    resumed_cem = [x.clone() for x in res.strategy.export_state()]
+    if step != 1 or not all(torch.equal(a, b)
+                            for a, b in zip(resumed_cem, bind_cem)):
+        raise AssertionError(f"LM CEM 1 x 2: the checkpoint (step {step}) "
+                             f"does not hold the one-rank bind's "
+                             f"distribution bit for bit")
+    res.report_fitness(torch.tensor(c["fitness"], device="cuda"))
+    res.evolve()
+    for r in per["1x2"]:
+        r["post"] = _lm_cem_parts(res, r["rows"], r["coord"], 2)
+    want_cem_1x2 = [_digest(x) for x in res.strategy.export_state()[:2]]
+    del res, bind_cem, resumed_cem
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, want_cem in (("1x2", want_cem_1x2), ("2x1", want_cem_2x1)):
+        for rank, (got, want) in enumerate(zip([r[key] for r in ranks],
+                                               per[key])):
+            checks = {"bind": got["bind"]["digest"] == want["bind"],
+                      "post": got["post"] == want["post"],
+                      "pop_adam": got["pop_adam"] == 2}
+            if key == "2x1":
+                checks["pre"] = got["pre"] == want["pre"]
+            if rank == 0:
+                checks["cem"] = got["cem"] == want_cem
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"LM CEM {key} rank {rank}: {bad} not "
+                                     f"the one-rank run's, bit for bit "
+                                     f"(pop_adam launches "
+                                     f"{got['pop_adam']}, want 2)")
+    out = {"arch": c["arch"], "layers": c["layers"],
+           "population": c["population"], "p": one["p"],
+           "bind_ms_one_rank": 1e3 * one["bind"]["seconds"],
+           "evolve_ms_one_rank": 1e3 * one["evolve"]["seconds"],
+           "peak_bytes_one_rank": one["peak_bytes"], "resumed_step": step}
+    for key, (islands, _) in layouts.items():
+        rs = [r[key] for r in ranks]
+        bind_bytes, evolve_bytes = _cem_row_bytes(
+            c["population"], rs[0]["p_local"], islands)
+        out[key] = {"p_local": rs[0]["p_local"],
+                    "bind_ms": [1e3 * r["bind"]["seconds"] for r in rs],
+                    "bind_bytes": [bind_bytes] * len(rs),
+                    "evolve_ms": [1e3 * r["evolve"]["seconds"] for r in rs],
+                    "evolve_bytes": [evolve_bytes] * len(rs),
+                    "peak_bytes": [r["peak_bytes"] for r in rs],
+                    "pop_adam_launches": [r["pop_adam"] for r in rs]}
+        log(f"LM CEM {c['arch']} {c['layers']} layers fp32 N="
+            f"{c['population']} at islands x model {key} on 2 gloo ranks: "
+            f"bind and evolve == one rank's bit for bit (P_local "
+            f"{rs[0]['p_local']:,} of {one['p']:,}); bind ms "
+            f"{[round(x, 1) for x in out[key]['bind_ms']]}, evolve ms "
+            f"{[round(x, 1) for x in out[key]['evolve_ms']]} (one rank "
+            f"{out['bind_ms_one_rank']:.1f} / "
+            f"{out['evolve_ms_one_rank']:.1f}); rows broadcast at bind "
+            f"{out[key]['bind_bytes']} and at the evolve "
+            f"{out[key]['evolve_bytes']} bytes (reckoned; gloo via the "
+            f"host); peak "
+            f"a rank {[round(b / 2**30, 2) for b in out[key]['peak_bytes']]}"
+            f" GiB, one rank {one['peak_bytes'] / 2**30:.2f} GiB; pop_adam "
+            f"{out[key]['pop_adam_launches']} launches a rank in 2 steps")
+    # pop_adam at a model rank's shape (2 x 1's (2, P) moves the same
+    # bytes), held to plain and timed
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 58)
+    out["kernels"] = {"1x2": pop_adam_inplace_row(
+        gen, c["population"], out["1x2"]["p_local"],
+        f"{c['arch']} CEM 1x2 rank")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 58 took {out['seconds']:.1f} s")
+    return out
+
+
+def _write_dqn_population(ckpt_dir, step, fitness):
+    """A seeded DQN population checkpoint on cartpole, as
+    ``write_population`` writes TD3's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.envs import make
+    from repro_torch.rl import make_agent
+    agent = make_agent("dqn", make("cartpole").spec, device="cuda")
+    state = agent.population_init(torch.Generator().manual_seed(SEED),
+                                  len(fitness))
+    CheckpointManager(ckpt_dir).save(
+        step, (state, {}),
+        {"size": len(fitness), "fitness": [float(f) for f in fitness]},
+        aux={"actors": agent.actor_params(state)})
+
+
+def _serve_islands_argv(case, ckpt):
+    algo, env, mode, ensemble = SERVE_ISLANDS["cases"][case]
+    return ["--algo", algo, "--env", env, "--mode", mode, "--ensemble",
+            str(ensemble), "--fused-linear", "--batch", str(BATCH),
+            "--requests", str(SERVE_ISLANDS["requests"]), "--poll-every",
+            "0", "--diversity-weight", "0.0", "--seed", str(SEED),
+            "--ckpt-dir", ckpt]
+
+
+def _serve_islands_rank(rank, world, job):
+    """Each SERVE_ISLANDS case through ``repro_torch.launch.serve.main``
+    with ``--islands`` on this rank (rank 0's requests): its answers, the
+    set's members and this rank's slots, p50/p99, the pop_matmul launches
+    a batch, and the answers held to the plain ensemble; then rank 0
+    writes a newer TD3 checkpoint and every rank polls it."""
+    import torch.distributed as dist
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.serve import main as serve_main
+
+    out, reports = {}, {}
+    for case in SERVE_ISLANDS["cases"]:
+        reset_counts(pop_matmul)
+        report = serve_main(_serve_islands_argv(case, job[case]) +
+                            ["--islands"])
+        torch.cuda.synchronize()
+        server = report.server
+        batches = SERVE_ISLANDS["requests"] + 2
+        err, near = 0.0, 0
+        mode = SERVE_ISLANDS["cases"][case][2]
+        reports[case] = report
+        out[case] = {"answers": [a for _, a in report.batches],
+                     "members": server.set.members.tolist(),
+                     "rows": server.rows, "islands": server.islands,
+                     "p50_ms": report.p50_ms, "p99_ms": report.p99_ms,
+                     "pop_matmul": pop_matmul.launches,
+                     "pop_matmul_per_batch": pop_matmul.launches / batches,
+                     "block": server.rows[1] - server.rows[0]}
+        if rank == 0:
+            for obs, actions in report.batches:
+                if mode == "vote":
+                    near += check_votes(server, obs, actions)
+                else:
+                    err = max(err, check_answers(server, obs, actions))
+            out[case].update(max_abs_err=err, near_ties=near)
+    # a newer checkpoint promotes the same set on every rank
+    watcher, server = reports["td3_mean"].watcher, reports["td3_mean"].server
+    if rank == 0:
+        write_population(job["td3_mean"], 10, SERVE_ISLANDS["newer_fitness"])
+    dist.barrier()
+    newer = watcher.poll(server)
+    out["promotion"] = {"step": None if newer is None else newer.step,
+                        "members": None if newer is None else
+                        newer.members.tolist(), "rows": server.rows,
+                        "event": watcher.events[-1]}
+    return out
+
+
+def phase_serve_islands(root):
+    """59. The RL ensemble served over ranks: TD3 (8 actors, ``mean`` and
+    ``best``) and DQN on cartpole (4 members, ``vote``) through ``serve
+    --islands --fused-linear --batch 256``, on two gloo ranks sharing
+    cuda:0 and as a world of one (this process, no group; and the TD3
+    ``best`` run through ``torch.distributed.run`` as one NCCL rank). Held:
+    the answers against the plain ensemble on rank 0 (``mean`` and ``best``
+    at rtol = atol = 1e-5, ``vote`` exactly off near ties), against the
+    world of one on every rank (``mean`` at the tolerance, ``best`` and
+    ``vote`` exactly); each rank its island's block of the set, 3
+    pop_matmul launches a batch a rank; a newer checkpoint promoting the
+    same set on both ranks, re-split. Prints p50/p99 a batch beside the
+    world of one's."""
+    from repro_torch.kernels.pop_matmul import pop_matmul
+    from repro_torch.launch.serve import main as serve_main
+
+    c = SERVE_ISLANDS
+    t0 = time.perf_counter()
+    ckpts = {case: str(Path(root) / case) for case in c["cases"]}
+    fitness = np.linspace(-40.0, 30.0, 8)[[3, 0, 7, 5, 1, 6, 2, 4]]
+    for case, (algo, _, _, ensemble) in c["cases"].items():
+        (write_population if algo == "td3" else _write_dqn_population)(
+            ckpts[case], 0, fitness[:ensemble if algo == "dqn" else 8])
+    nccl = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+         *_serve_islands_argv("td3_best", ckpts["td3_best"]), "--islands"],
+        env=dict(__import__("os").environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    alone = {}
+    for case in c["cases"]:
+        reset_counts(pop_matmul)
+        report = serve_main(_serve_islands_argv(case, ckpts[case]) +
+                            ["--islands"])
+        alone[case] = {"answers": [a for _, a in report.batches],
+                       "p50_ms": report.p50_ms, "p99_ms": report.p99_ms,
+                       "members": report.server.set.members.tolist(),
+                       "pop_matmul": pop_matmul.launches}
+    ranks = [r["serve"] for r in _spawn_session(
+        [("serve", "_serve_islands_rank", ckpts)], 2, root, c["timeout"])]
+    stdout, stderr = nccl.communicate(timeout=c["timeout"])
+    if nccl.returncode or "process group nccl over 1 rank" not in stdout:
+        raise AssertionError(f"serve --islands on one NCCL rank exited "
+                             f"{nccl.returncode}:\n{stdout[-2000:]}\n"
+                             f"{stderr[-3000:]}")
+    last = json.loads(re.search(r"last actions\[:2\] = (.*)", stdout)[1])
+    if not np.array_equal(np.asarray(last, np.float32),
+                          alone["td3_best"]["answers"][-1][:2]):
+        raise AssertionError("serve --islands on one NCCL rank: its last "
+                             "answers are not the world of one's")
+    out = {"cases": {}, "card_shared_by": 2}
+    for case, (algo, env, mode, ensemble) in c["cases"].items():
+        want = alone[case]
+        block = ensemble // 2
+        for r, res in enumerate(ranks):
+            got = res[case]
+            if (got["members"] != want["members"] or got["islands"] != 2
+                    or got["rows"] != (r * block, (r + 1) * block)
+                    or got["pop_matmul_per_batch"] != 3):
+                raise AssertionError(
+                    f"serve islands {case} rank {r}: members "
+                    f"{got['members']} (one rank {want['members']}), "
+                    f"islands {got['islands']}, slots {got['rows']}, "
+                    f"{got['pop_matmul_per_batch']} pop_matmul launches a "
+                    f"batch (want 3)")
+            for a, b in zip(got["answers"], want["answers"]):
+                if mode == "mean":
+                    np.testing.assert_allclose(a, b, **TOL)
+                elif not np.array_equal(a, b):
+                    raise AssertionError(f"serve islands {case} rank {r}: "
+                                         f"answers are not the world of "
+                                         f"one's, exactly")
+        res0 = ranks[0][case]
+        out["cases"][case] = {
+            "algo": algo, "mode": mode, "ensemble": ensemble,
+            "block": block, "members": want["members"],
+            "launches_by_rank": [res[case]["pop_matmul"] for res in ranks],
+            "launches_world_of_one": want["pop_matmul"],
+            "max_abs_err": res0["max_abs_err"],
+            "near_ties": res0["near_ties"],
+            "p50_ms": [res[case]["p50_ms"] for res in ranks],
+            "p99_ms": [res[case]["p99_ms"] for res in ranks],
+            "p50_ms_world_of_one": want["p50_ms"],
+            "p99_ms_world_of_one": want["p99_ms"]}
+        log(f"serve --islands {algo} {mode} E={ensemble} over 2 gloo ranks "
+            f"on cuda:0 (a block of {block} a rank, 3 pop_matmul launches a "
+            f"batch a rank): == plain ensemble (max abs err "
+            f"{res0['max_abs_err']:.3g}, near ties {res0['near_ties']}), == "
+            f"a world of one ({'rtol 1e-5' if mode == 'mean' else 'exactly'}"
+            f"); p50/p99 a batch rank 0 {res0['p50_ms']:.3f} / "
+            f"{res0['p99_ms']:.3f} ms, world of one "
+            f"{want['p50_ms']:.3f} / {want['p99_ms']:.3f} ms")
+    promos = [r["promotion"] for r in ranks]
+    if (promos[0]["step"] != 10 or promos[0]["members"] != promos[1][
+            "members"] or [p["rows"] for p in promos] != [(0, 4), (4, 8)]):
+        raise AssertionError(f"serve islands promotion: {promos}")
+    out["promotion"] = promos[0]
+    # pop_matmul at a rank's block (E = 4 of 8, B = 256) and DQN's (2 of 4)
+    out["kernels"] = {"td3": serve_block_rows(
+        4, (("layer_0", 3, 256, "relu", True),
+            ("layer_1", 256, 256, "relu", False),
+            ("layer_2", 256, 1, "tanh", False))),
+        "dqn": serve_block_rows(
+        2, (("layer_0", 4, 256, "relu", True),
+            ("layer_1", 256, 256, "relu", False),
+            ("layer_2", 256, 2, "none", False)))}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve islands: a newer checkpoint promoted {promos[0]['members']} "
+        f"on both ranks, slots {[p['rows'] for p in promos]}; phase 59 "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def serve_block_rows(n, layers):
+    """pop_matmul at a rank's serving block (``n`` members, B = 256) held
+    to its plain version and timed beside its bound and ``baddbmm``+act,
+    layer by layer; the batch's sums and the largest error."""
+    from repro_torch.kernels.pop_matmul import pop_matmul, pop_matmul_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 59)
+    acts = {"none": lambda t: t, "relu": torch.relu, "tanh": torch.tanh}
+    rows, worst, share = [], 0.0, 0.0
+    for name, k, m, act, broadcast in layers:
+        w = torch.randn((n, k, m), generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn((n, m), generator=gen, device="cuda")
+        x = (torch.randn((BATCH, k), generator=gen, device="cuda")
+             .unsqueeze(0).expand(n, BATCH, k) if broadcast else
+             torch.randn((n, BATCH, k), generator=gen, device="cuda"))
+        kernel = lambda: pop_matmul(x, w, b, activation=act)
+        plain = lambda: pop_matmul_plain(x, w, b, activation=act)
+        library = lambda: acts[act](torch.baddbmm(b[:, None, :], x, w))
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        worst = max(worst, (got - want).abs().max().item())
+        share = max(share, tol_share(got, want, TOL))
+        bound, bound_by = pop_matmul_bound(n, BATCH, k, m,
+                                           broadcast=broadcast)
+        rows.append({"layer": name, "n": n, "b": BATCH, "k": k, "m": m,
+                     "act": act, "ms": graph_ms(kernel),
+                     "plain_ms": graph_ms(plain),
+                     "library_ms": graph_ms(library), "bound_ms": bound,
+                     "bound_by": bound_by})
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"pop_matmul at a rank's serving block (N={n}, B={BATCH}, "
+        f"{len(rows)} layers): == plain (max abs err {worst:.3g}); kernel "
+        f"{total['ms'] * 1e3:.3f} us a batch, plain "
+        f"{total['plain_ms'] * 1e3:.3f}, baddbmm+act "
+        f"{total['library_ms'] * 1e3:.3f}, bound "
+        f"{total['bound_ms'] * 1e3:.3f} us")
+    return {**total, "bound_by": "bytes" if all(
+        r["bound_by"] == "bytes" for r in rows) else "operations",
+        "max_abs_err": worst, "max_err_over_tolerance": share,
+        "per_launch": rows}
+
+
+def _cache_bytecode():
+    """Keep the bytecode of every module this process and the processes it
+    starts import under the checkout's ignored ``.pycache``: a machine that
+    sets ``PYTHONDONTWRITEBYTECODE`` and ships no ``.pyc`` otherwise has
+    every one of them (CLI runs, spawned ranks, ``torch.distributed.run``
+    and its workers) compile torch's sources anew, about 8 s of CPU a
+    process."""
+    import os
+    cache = str(ROOT / ".pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -8512,6 +9318,7 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}"
               f"; run it from a checkout of the repository", file=sys.stderr)
         return 2
+    _cache_bytecode()
     sys.path.insert(0, str(SRC))
     import repro_torch
     if not Path(repro_torch.__file__).resolve().is_relative_to(SRC):
@@ -8540,6 +9347,7 @@ def main() -> int:
         built["seconds"] = time.perf_counter() - t0
 
     thread = threading.Thread(target=nvcc)
+    _start_fork_server()
     thread.start()
     t0 = time.perf_counter()
     one = torch.ones((1, 1), device="cuda")
@@ -8793,6 +9601,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         slice20 = phase_model_sharded_families(root)
     lap("56 model-sharded MoE, MLA and Mamba2 members")
+    # 57. CEM over islands (TD3); 58. CEM over model-sharded LM members;
+    # 59. the RL ensemble served over ranks: gloo ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice21 = {}
+    with tempfile.TemporaryDirectory() as root:
+        slice21["cem_islands"] = phase_cem_islands(root)
+    lap("57 CEM over islands")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        slice21["lm_cem_islands"] = phase_lm_cem_islands(root)
+    lap("58 CEM over model-sharded members")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        slice21["serve_islands"] = phase_serve_islands(root)
+    lap("59 the ensemble served over ranks")
+    slice21["card"] = smi
     slice20["card"] = smi
     slice19["card"] = smi
     slice18["card"] = smi
@@ -8881,13 +9708,34 @@ def main() -> int:
                       "pop_adam"],
                   "elastic_lm": slice16["elastic_lm"]["launches"][
                       "pop_adam"]}
+    # slice 21's paths: CEM over islands (one rank, each gloo rank), the
+    # LM under CEM at each layout, and each served case over ranks
+    cem21 = slice21["cem_islands"]
+    lm21 = slice21["lm_cem_islands"]
+    serve21 = slice21["serve_islands"]
+    paths21 = lambda name: {
+        "cem_islands_one_rank": cem21["launches_one_rank"][name],
+        **{f"cem_islands_rank{r}": c[name]
+           for r, c in enumerate(cem21["launches_by_rank"])}}
+    mm_paths21 = {
+        **paths21("pop_matmul"),
+        **{f"serve_islands_{case}_rank{r}": n
+           for case, c in serve21["cases"].items()
+           for r, n in enumerate(c["launches_by_rank"])},
+        **{f"serve_islands_{case}_world_of_one": c["launches_world_of_one"]
+           for case, c in serve21["cases"].items()}}
+    adam_paths.update(paths21("pop_adam"))
+    adam_paths.update({f"lm_cem_{key}_rank{r}": n
+                       for key in ("1x2", "2x1")
+                       for r, n in enumerate(lm21[key][
+                           "pop_adam_launches"])})
     per_batch = lambda key: sum(r[key] for r in rows)
     per_step = lambda key, rs: sum(r[key] * r["launches_per_update_step"]
                                    for r in rs)
     ops_share = per_step("bound_ms", [r for r in train_rows
                                       if r["bound_by"] == "operations"])
     mm_paths = {**by_path("pop_matmul"), "serve_telemetry": slice15[
-        "serve"]["rl"]["launches"]["pop_matmul"]}
+        "serve"]["rl"]["launches"]["pop_matmul"], **mm_paths21}
     flash_paths = {**{f"serve_{arch}": r["launches"]["flash_attention"]
                       for arch, r in lm_serve.items()},
                    **mp_paths("flash_attention"),
@@ -8910,7 +9758,11 @@ def main() -> int:
                            sac_dqn["sac"]["serve"]["max_abs_err"],
                            ppo["kernels"]["max_abs_err"],
                            ppo["pendulum"]["serve"]["max_abs_err"],
-                           ppo["gae"]["value_max_abs_err"]),
+                           ppo["gae"]["value_max_abs_err"],
+                           *[k["max_abs_err"] for k in
+                             serve21["kernels"].values()],
+                           *[c["max_abs_err"] for c in
+                             serve21["cases"].values()]),
         "tolerance": "rtol=atol=1e-5",
         "grad_max_abs_err": max(grad_err,
                                 sac_dqn["kernels"]["grad_max_abs_err"],
@@ -8921,7 +9773,9 @@ def main() -> int:
         "max_err_over_tolerance": max(kernel_share, train_share,
                                       shared_share,
                                       sac_dqn["kernels"]["share"],
-                                      ppo["kernels"]["share"]),
+                                      ppo["kernels"]["share"],
+                                      *[k["max_err_over_tolerance"] for k
+                                        in serve21["kernels"].values()]),
         "work": "the 24 forward launches of one TD3 update step (N=8, "
                 "B=256); times are device times (CUDA graph replay, "
                 "L2-warm)",
@@ -8966,6 +9820,16 @@ def main() -> int:
                    "per_launch": shared_mm_rows},
         "sac_dqn": sac_dqn_entry("pop_matmul"),
         "ppo": ppo_entry("pop_matmul"),
+        "serve_islands": {
+            case: {"work": f"the 3 launches of one served batch on a "
+                           f"rank's block ({c['block']} of E="
+                           f"{c['ensemble']} members, B={BATCH}), "
+                           f"{c['algo']}'s layers; device times, CUDA "
+                           f"graph replay, L2-warm",
+                   "launches_by_rank": c["launches_by_rank"],
+                   **{k: v for k, v in serve21["kernels"][
+                       c["algo"]].items() if k != "per_launch"}}
+            for case, c in serve21["cases"].items()},
         "acting_update": {
             "work": acting["update_kernels"]["work"],
             **acting["update_kernels"]["pop_matmul"],
@@ -8989,7 +9853,9 @@ def main() -> int:
                            + [r["pop_adam"]["max_abs_err"]
                               for r in frontends["train"].values()]
                            + [r["max_abs_err"] for r in
-                              slice20["kernels"]["pop_adam"].values()]),
+                              slice20["kernels"]["pop_adam"].values()]
+                           + [r["max_abs_err"] for r in
+                              lm21["kernels"].values()]),
         "tolerance": "rtol=1e-5, atol=1e-6",
         "max_err_over_tolerance": max(
             [adam_share, adam_lm_share, sac_dqn["kernels"]["adam_share"],
@@ -8998,7 +9864,9 @@ def main() -> int:
             + [r["pop_adam"]["max_err_over_tolerance"]
                for r in frontends["train"].values()]
             + [r["max_err_over_tolerance"] for r in
-               slice20["kernels"]["pop_adam"].values()]),
+               slice20["kernels"]["pop_adam"].values()]
+            + [r["max_err_over_tolerance"] for r in
+               lm21["kernels"].values()]),
         "work": "the 2 launches of one TD3 update step (actor and critic, "
                 "N=8); device times, CUDA graph replay, L2-warm",
         "ms": per_step("ms", adam_rows),
@@ -9053,6 +9921,15 @@ def main() -> int:
         "lm_cem": {"work": "qwen2-0.5b's population step under CEM, N=4: "
                            "the LM row's shape (lm above)",
                    "launches": lm_cem["launches"]["pop_adam"]},
+        "lm_cem_islands": {
+            key: {"work": f"one launch of a rank's step under CEM at "
+                          f"islands x model {key} over qwen2-0.5b's 4 "
+                          f"members (2 layers): ({row['n']}, {row['p']}), "
+                          f"decay and clip scale, in place; device times "
+                          f"of eager launches, cold",
+                  "launches_per_rank": lm21[key]["pop_adam_launches"],
+                  **row}
+            for key, row in lm21["kernels"].items()},
         "acting_update": {
             "work": acting["update_kernels"]["work"],
             **acting["update_kernels"]["pop_adam"],
@@ -9214,6 +10091,7 @@ def main() -> int:
     print(json.dumps({"slice18": slice18}))
     print(json.dumps({"slice19": slice19}))
     print(json.dumps({"slice20": slice20}))
+    print(json.dumps({"slice21": slice21}))
     log(f"the whole run took {slice18['seconds_total']} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,19 @@ and :func:`cem_sample_into` redraws the members into the buffer, both a
 column chunk at a time and in place. Each computes what the plain form
 does, element for element in the same order, so the two agree bit for
 bit given the same draw.
+
+Over several ranks (a population split over islands, members sharded
+over a model axis) the same two forms run on a rank's rows and columns:
+every draw goes through
+:func:`repro_torch.core.distributed.member_draw`, made at the whole
+population's rows and, with a
+:class:`~repro_torch.models.sharding.PartMap`, at the whole member's
+columns, of which the rank keeps its own; the refit takes the elites'
+rows from their owners (``elites=``,
+:func:`repro_torch.core.distributed.owner_rows`) and refits only the
+rank's columns, which is exact since the refit is elementwise per
+column. A rank then computes the numbers a one-rank run computes for
+its rows and columns.
 """
 from __future__ import annotations
 
@@ -26,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.distributed import member_draw
 from repro_torch.tree import flatten, unflatten
 
 CHUNK = 1 << 24   # columns the chunked forms refit and redraw at a time
@@ -84,29 +98,41 @@ def cem_centre(mean, sigma_init: float = 1e-2, noise_init: float = 1e-2):
 def cem_sample(generator, state: CEMState, n: int, *, eps=None):
     """``n`` draws, ``(N, P)``: ``mean + sqrt(var + noise) * eps`` (the
     noise is added to the variance). ``eps`` is the ``(N, P)`` standard
-    normal draw, made from ``generator`` when not given."""
+    normal draw, made from ``generator`` when not given (a member-axis
+    draw: a rank's ``n`` rows of the whole population's)."""
     if eps is None:
-        eps = torch.randn((n,) + tuple(state.mean.shape), generator=generator,
-                          device=generator.device)
+        eps = member_draw(torch.randn, (n,) + tuple(state.mean.shape),
+                          generator)
     return state.mean + torch.sqrt(state.var + state.noise) * \
         eps.to(state.mean.device)
 
 
 def cem_sample_into(out, generator, state: CEMState, *, eps=None,
-                    chunk: int | None = None):
+                    chunk: int | None = None, parts=None):
     """:func:`cem_sample` written into ``out``, an ``(N, P)`` tensor, in
     place, ``chunk`` columns (default :data:`CHUNK`) at a time. Each
     chunk's ``(N, chunk)`` standard normal draw is made from
-    ``generator``, or taken from the ``(N, P)`` ``eps``."""
+    ``generator`` (a member-axis draw), or taken from the ``(N, P)``
+    ``eps``.
+
+    With ``parts`` (a :class:`~repro_torch.models.sharding.PartMap`)
+    ``out`` and ``state`` hold this rank's columns of a model-sharded
+    member: the chunks walk the whole member's columns, each draw is made
+    at the whole chunk's width, and the rank writes its columns of it, so
+    its numbers are those of the one-rank redraw."""
     n, p = out.shape
     chunk = chunk or CHUNK
-    for c in range(0, p, chunk):
-        cols = slice(c, min(c + chunk, p))
-        e = (eps[:, cols] if eps is not None else
-             torch.randn((n, cols.stop - c), generator=generator,
-                         device=generator.device))
-        out[:, cols] = state.mean[cols] + torch.sqrt(
-            state.var[cols] + state.noise) * e.to(out.device)
+    width = p if parts is None else parts.whole
+    for c in range(0, width, chunk):
+        c1 = min(c + chunk, width)
+        e = (eps[:, c:c1] if eps is not None else
+             member_draw(torch.randn, (n, c1 - c), generator))
+        e = e.to(out.device)
+        pieces = ([((c, c1), lambda block: block)] if parts is None
+                  else parts.pieces(c, c1))
+        for (lo, hi), select in pieces:
+            out[:, lo:hi] = state.mean[lo:hi] + torch.sqrt(
+                state.var[lo:hi] + state.noise) * select(e)
     return out
 
 
@@ -159,17 +185,28 @@ def cem_update(state: CEMState, samples, fitness, elite_frac: float = 0.5,
 
 def cem_update_chunked(state: CEMState, samples, fitness,
                        elite_frac: float = 0.5, noise_decay: float = 0.999,
-                       *, weights=None, chunk: int | None = None):
+                       *, weights=None, chunk: int | None = None,
+                       elites=None):
     """:func:`cem_update` written into ``state.mean`` and ``state.var``
     in place, ``chunk`` columns (default :data:`CHUNK`) at a time, so that
     its temporaries are a few ``(k, chunk)`` blocks and not copies of the
-    ``(N, P)`` samples. Returns the state with the decayed noise."""
+    ``(N, P)`` samples. Returns the state with the decayed noise.
+
+    ``fitness`` is every member's ``(N,)``; ``samples`` may hold only some
+    rows (a rank's), when ``elites(members, block)`` gives the rows
+    ``members`` (host indices) from this rank's ``block`` of the columns
+    (the owners' rows over islands:
+    :func:`repro_torch.core.distributed.owner_rows`)."""
     w, idx = _elites(samples, fitness, elite_frac, weights)
     p = samples.shape[1]
     chunk = chunk or CHUNK
+    if elites is not None:
+        members = idx.tolist()
     for c in range(0, p, chunk):
         cols = slice(c, min(c + chunk, p))
-        mean, var = _refit(w, samples[idx, cols], state.mean[cols])
+        block = (samples[idx, cols] if elites is None
+                 else elites(members, samples[:, cols]))
+        mean, var = _refit(w, block, state.mean[cols])
         state.mean[cols] = mean
         state.var[cols] = var
     return CEMState(mean=state.mean, var=state.var,

@@ -21,6 +21,11 @@ population-wide values cross ranks by explicit collectives.
     makes it at the whole population's shape and keeps the rank's rows.
     Every rank therefore consumes the generator as a one-rank run does,
     and its members see the numbers they would see there.
+  * :func:`owner_rows` and :func:`gather_columns_to_root` — the two
+    collectives of CEM over ranks: some members' rows (the elites, or
+    member 0) broadcast by their owners to every island, and a vector over
+    one member's columns put back whole on rank 0 from the model ranks'
+    parts (the checkpoint's CEM state).
   * :func:`copy_to_region`, :func:`reduce_from_region`,
     :func:`gather_from_region`, :func:`scatter_to_region` — the
     tensor-parallel collectives of a member sharded over an island's model
@@ -399,6 +404,64 @@ def gather_to_root(tree, layout, group=None, dims=None):
             [island(parts, j, dim) for j in range(layout.islands)])
     out = unflatten(treedef, [gather(x, d) for x, d in zip(flat, dims)])
     return out if rank == 0 else None
+
+
+def owner_rows(block, members, layout, group=None):
+    """Rows ``members`` of a population split over ``layout``'s islands,
+    ``(len(members), C)`` on every rank in the order given: ``members``
+    are population indices, the same list on every rank, and ``block`` is
+    this rank's rows ``(rows.count, C)`` of the columns wanted (a model
+    rank's columns of its parts). Each island that holds some of them
+    broadcasts exactly those rows, from its rank in this rank's column,
+    over ``group`` (that column's ``pop`` group), as
+    :class:`MemberExchange` moves rows. Without a layout, or on one
+    island, it is ``block[members]``."""
+    index = lambda xs: torch.as_tensor(xs, device=block.device)
+    if layout is None or layout.islands == 1:
+        return block[index(members)]
+    mine = layout.island_of()
+    column = layout.position() % (layout.data * layout.model)
+    per = layout.members_per_island
+    shape = tuple(block.shape[1:])
+    out = block.new_empty((len(members),) + shape)
+    for j in range(layout.islands):
+        at = [i for i, m in enumerate(members) if layout.owner(m) == j]
+        if not at:
+            continue
+        buf = (block[index([members[i] - j * per for i in at])].contiguous()
+               if mine == j else block.new_empty((len(at),) + shape))
+        broadcast(buf, layout.rank_of(j, column), group)
+        out[index(at)] = buf
+    return out
+
+
+def gather_columns_to_root(vector, layout, whole_of, group=None):
+    """On rank 0, a vector over one member's columns (CEM's mean or
+    variance) put back whole, in the one-rank ravel order, from the parts
+    island 0's model ranks hold (``whole_of``:
+    :meth:`repro_torch.models.sharding.PartMap.whole_of`), as a host
+    tensor; None on the other ranks. Every rank calls it with its own
+    ``(P_local,)`` part; only island 0's first data rank at each model
+    coordinate sends its part, point to point to rank 0 over ``group``
+    (a group over the whole world whose ranks are the global ranks:
+    gloo, host tensors), so the traffic is one member's columns whatever
+    the world's size."""
+    rank, _ = world()
+    sources = [layout.rank_of(0, c) for c in range(layout.model)]
+    host = vector.detach().contiguous().cpu()
+    if rank != 0:
+        if rank in sources:
+            dist.send(host, dst=0, group=group)
+        return None
+    parts = []
+    for src in sources:
+        if src == 0:
+            parts.append(host)
+            continue
+        part = torch.empty_like(host)
+        dist.recv(part, src=src, group=group)
+        parts.append(part)
+    return whole_of(parts)
 
 
 class MemberExchange:

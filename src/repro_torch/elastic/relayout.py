@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.elastic.resize import plan_resize, resize_into, resize_tree
 from repro_torch.models.sharding import _axes, _size_of, spec_for, tree_paths
-from repro_torch.tree import copy_into, flatten, leaves, unflatten
+from repro_torch.tree import flatten, leaves, unflatten
 
 
 def relayout(tree, mesh, *, coords=None, device=None):
@@ -100,7 +100,9 @@ def restore_elastic(trainer, directory=None, *, step=None, layout=None):
     Every leaf is gathered from the loaded numpy tree into the trainer's
     own tensors (the population state, the hypers, the engine's buffers
     and env states), never rebinding them. The strategy's state is
-    restored unresized (it has no member axis), as in the JAX package.
+    restored unresized (it has no member axis), as in the JAX package: a
+    CEM run's whole distribution, of which each rank keeps its columns,
+    so it resumes at another size, world and model width.
     The trainer's generator is restored from the ``rng`` aux tree, as
     :meth:`PopTrainer.resume` restores it: the port draws every member's
     numbers from that one generator where the JAX package carries a key a
@@ -152,9 +154,8 @@ def restore_elastic(trainer, directory=None, *, step=None, layout=None):
             hypers = mgr.restore_aux("hypers", trainer.hypers, step)
             if hypers is not None:       # source run had none
                 resize_into(trainer.hypers, hypers, old_n, parents)
-        if strat_state is not None:
-            trainer.strategy.import_state(
-                copy_into(trainer.strategy.export_state(), strat_state))
+        if strat_state is not None:   # whole: this rank's columns of it
+            trainer.strategy.import_state(strat_state)
 
         if trainer._rollout is not None:
             rstate = mgr.restore_aux("rollout",

@@ -82,6 +82,7 @@ _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 _BUILD_DIR = Path(__file__).parent / "_build"
 PLAIN_CHUNK = 1 << 24   # columns the plain version steps at a time in place
+PLAIN_CHUNK_HOST = 1 << 18   # at most this many on the CPU
 
 
 def pop_adam_plain(params, grads, mu, nu, lr, step, *, wd=None, scale=None,
@@ -91,10 +92,14 @@ def pop_adam_plain(params, grads, mu, nu, lr, step, *, wd=None, scale=None,
     In place it steps ``PLAIN_CHUNK`` columns at a time, the same
     elementwise expressions, so that its temporaries stay a few chunks in
     size, not a few copies of the population (of 8 GB each for two
-    members of a billion parameters)."""
-    if inplace and params.shape[1] > PLAIN_CHUNK:
-        for c in range(0, params.shape[1], PLAIN_CHUNK):
-            cols = slice(c, c + PLAIN_CHUNK)
+    members of a billion parameters). On the CPU a chunk is at most
+    ``PLAIN_CHUNK_HOST`` columns, so that its temporaries are reused from
+    the cache rather than mapped afresh for each expression."""
+    chunk = (PLAIN_CHUNK if params.is_cuda
+             else min(PLAIN_CHUNK, PLAIN_CHUNK_HOST))
+    if inplace and params.shape[1] > chunk:
+        for c in range(0, params.shape[1], chunk):
+            cols = slice(c, c + chunk)
             pop_adam_plain(params[:, cols], grads[:, cols], mu[:, cols],
                            nu[:, cols], lr, step, wd=wd, scale=scale, b1=b1,
                            b2=b2, eps=eps, inplace=True)

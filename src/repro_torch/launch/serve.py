@@ -42,6 +42,24 @@ The ensemble heads are td3's tanh actor, sac's tanh of the gaussian's
 mean, dqn's greedy action and ppo's tanh mean (continuous) or the argmax
 of its logits (discrete); ``vote`` needs a discrete env.
 
+``--islands`` serves the ensemble over ranks, one process a GPU under
+``torch.distributed.run`` (NCCL on the card, gloo with ``--device
+cpu``): the layout is ``plan_layout(world, ensemble size)``, each rank
+holds its island's block of the members and runs their forward, rank 0
+alone draws the requests and its batch is broadcast, the reduction
+across islands is the one collective of a batch, and rank 0 prints and
+logs (the others answer silently). Every promotion is collective: rank 0
+picks the members and every rank installs them, re-split over the
+islands. A plain ``python`` run is a world of one, one island::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --algo td3 --islands --fused-linear \
+        --batch 256 --ckpt-dir DIR
+
+``--islands`` is taken with ``--algo`` only: the LM branch has no
+islands path (the JAX CLI's never reads the flag), so beside ``--arch``
+it is refused.
+
 ``--log-dir DIR`` writes the run's telemetry as ``DIR/telemetry.jsonl``:
 for ``--algo``, a ``serve`` row (latency p50/p99, batch fill, queue
 depth) every ``--telemetry-every`` batches and the ``promotion`` rows of
@@ -186,9 +204,50 @@ def _serve_lm(args) -> LMServeReport:
                          num_params=num_params, weight_bytes=weight_bytes)
 
 
+def _islands_layout(size: int, ensemble: int):
+    """The serving layout over the world's ranks (the JAX CLI's
+    ``plan_layout(len(jax.devices()), sset.size)``), and its line."""
+    import torch.distributed as dist
+
+    from repro_torch.elastic import plan_layout
+    layout = plan_layout(size, ensemble)
+    per = ensemble // layout.islands
+    group = (f"process group {dist.get_backend()} over {size} rank"
+             f"{'s' if size > 1 else ''}" if dist.is_initialized()
+             else "no process group")
+    return layout, (f"[serve] islands {layout}: {layout.islands} island"
+                    f"{'s' if layout.islands > 1 else ''}, rank 0 serves "
+                    f"slots 0..{per - 1} of the set, {group}")
+
+
 def _serve_rl(args) -> ServeReport:
     """RL branch: ensemble inference over a trained population. Requests
-    are synthesized from env resets, drawn on the host from ``--seed``."""
+    are synthesized from env resets, drawn on the host from ``--seed``
+    (by rank 0 alone over ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import world
+
+    device = resolve_device(args.device)
+    joined = False
+    if args.islands:
+        from repro_torch.launch.mesh import init_distributed
+        joined = not dist.is_initialized()
+        device = init_distributed(device)
+        joined = joined and dist.is_initialized()
+    rank, size = world() if args.islands else (0, 1)
+    root = rank == 0
+    say = print if root else (lambda *a, **k: None)
+    if not root:                   # rank 0 logs and traces the run
+        args.log_dir = args.profile = None
+    try:
+        return _serve_rl_on(args, device, rank, size, say)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve_rl_on(args, device, rank, size, say) -> ServeReport:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.envs import make
     from repro_torch.rl import make_agent
@@ -196,7 +255,6 @@ def _serve_rl(args) -> ServeReport:
                                    PolicyForward, probe_observations)
     from repro_torch.telemetry import make_telemetry
 
-    device = resolve_device(args.device)
     env = make(args.env)
     agent = make_agent(args.algo, env.spec, device=device)
     forward = PolicyForward.fused_for_agent(agent) if args.fused_linear \
@@ -213,20 +271,32 @@ def _serve_rl(args) -> ServeReport:
               "mode": args.mode, "ensemble": args.ensemble,
               "batch": args.batch})
     tel = telemetry if telemetry.enabled else None
+    if size > 1 and device.type == "cuda" and args.fused_linear:
+        import torch.distributed as dist
+        if rank == 0:          # built once before any rank loads it
+            from repro_torch.kernels.build import build
+            build(("pop_matmul",))
+        dist.barrier()
     gen = torch.Generator().manual_seed(args.seed)
     watcher = ContinuousEvaluator(
         mgr, agent, size=args.ensemble,
         probe_obs=probe_observations(env, gen, args.probe, device),
         diversity_weight=args.diversity_weight, forward=forward,
-        telemetry=tel)
+        telemetry=tel, collective=size > 1)
     sset = watcher.poll()
+    layout = None
+    if args.islands:
+        layout, line = _islands_layout(size, sset.size)
+        say(line)
     server = BatchServer(watcher.forward, env.spec, sset,
                          max_batch=args.batch, mode=args.mode, telemetry=tel,
-                         telemetry_every=args.telemetry_every)
-    print(f"[serve] algo={args.algo} env={args.env} mode={args.mode} "
-          f"batch={args.batch} device={device} {sset.describe()}")
+                         telemetry_every=args.telemetry_every, layout=layout)
+    say(f"[serve] algo={args.algo} env={args.env} mode={args.mode} "
+        f"batch={args.batch} device={device} {sset.describe()}")
 
     def _request_batch():
+        if rank != 0:         # rank 0's requests are served
+            return None
         _, obs = env.reset(gen, args.batch, "cpu")
         return obs.numpy()
 
@@ -248,16 +318,16 @@ def _serve_rl(args) -> ServeReport:
                 newer = watcher.poll(server)
             if newer is not None:
                 ev = watcher.events[-1]
-                print(f"[serve] promoted step {newer.step}: "
-                      f"+{ev['promoted']} -{ev['demoted']}")
+                say(f"[serve] promoted step {newer.step}: "
+                    f"+{ev['promoted']} -{ev['demoted']}")
     dt = time.perf_counter() - t0
     served = args.requests * args.batch
     lat_ms = 1e3 * np.asarray(lat)
     p50, p99 = (float(np.percentile(lat_ms, q)) for q in (50, 99))
-    print(f"[serve] {served} requests in {dt:.2f}s "
-          f"({served / dt:.0f} req/s, p50 {p50:.3f} ms p99 {p99:.3f} ms "
-          f"per batch)")
-    print(f"[serve] last actions[:2] = {np.asarray(actions)[:2].tolist()}")
+    say(f"[serve] {served} requests in {dt:.2f}s "
+        f"({served / dt:.0f} req/s, p50 {p50:.3f} ms p99 {p99:.3f} ms "
+        f"per batch)")
+    say(f"[serve] last actions[:2] = {np.asarray(actions)[:2].tolist()}")
     server.report_telemetry()            # the partial tail window
     telemetry.record("run_end", requests=served, secs=round(dt, 4),
                      req_per_s=round(served / dt, 2),
@@ -302,6 +372,11 @@ def main(argv=None):
                     help="serve the ensemble through the population-"
                     "batched forward (one pop_matmul launch per layer) "
                     "instead of member by member")
+    ap.add_argument("--islands", action="store_true",
+                    help="with --algo: serve the ensemble over the ranks "
+                    "torch.distributed.run launches, each rank its "
+                    "island's block of the members (a plain run is one "
+                    "island)")
     ap.add_argument("--smoke", action="store_true",
                     help="with --arch: the config's reduced smoke version")
     ap.add_argument("--batch", type=int, default=4,
@@ -331,6 +406,10 @@ def main(argv=None):
     if (args.arch is None) == (args.algo is None):
         ap.error("pass exactly one of --arch (LM) or --algo (RL ensemble)")
     if args.arch is not None:
+        if args.islands:
+            ap.error("--islands serves an --algo ensemble over ranks; the "
+                     "--arch branch has no islands path (it would ignore "
+                     "the flag)")
         return _serve_lm(args)
     if args.ckpt_dir is None:
         ap.error("--algo needs --ckpt-dir")

@@ -132,12 +132,26 @@ SSD heads split) configs::
         -m repro_torch.launch.train --arch qwen2-0.5b --population 2 \
         --backend islands --model-axis 2 --ckpt-dir DIR
 
+``--strategy cem`` runs over islands and over model-sharded members:
+member 0 and each evolve's elites are broadcast by the ranks that hold
+them, a column chunk at a time, every rank refits and redraws its rows
+and columns with the one-rank run's draws, and rank 0 checkpoints the
+whole distribution, so the run writes what one rank writes::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --algo td3 --strategy cem \
+        --backend islands --fused-linear --ckpt-dir DIR
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen2-0.5b --num-layers 2 \
+        --population 4 --strategy cem --backend islands --model-axis 2 \
+        --ckpt-dir DIR2
+
 ``--devices`` is 0 or the world size (the ranks are the devices; any
 other value raises, naming ``--nproc-per-node``); ``--model-axis`` above
-1 beside another backend, ``--strategy cem`` over model-sharded members,
-and ``--fused-epoch``, ``--policy-lag 1`` and ``--strategy cem`` over
-more than one island are refused by name before any group is joined. Any
-other backend refuses a world of more than one rank.
+1 beside another backend, and ``--fused-epoch`` and ``--policy-lag 1``
+over more than one island (their collectives would sit inside a captured
+graph or on a second stream) are refused by name before any group is
+joined. Any other backend refuses a world of more than one rank.
 """
 from __future__ import annotations
 
@@ -563,9 +577,9 @@ def main(argv=None):
 def _check_layout(args):
     """The refusals of the multi-rank flags, before any group is joined:
     ``--devices`` other than 0 or the world size, ``--model-axis`` above 1
-    beside another backend than islands, CEM over model-sharded ``--arch``
-    members, another backend on a world of several ranks, and the fused
-    epoch, lag 1 and CEM over more than one island."""
+    beside another backend than islands, another backend on a world of
+    several ranks, and the fused epoch and lag 1 over more than one
+    island."""
     from repro_torch.elastic.layout import plan_layout, sharded_layout
     args.layout = None
     size = int(os.environ.get("WORLD_SIZE", 1))
@@ -596,24 +610,19 @@ def _check_layout(args):
                 warnings.simplefilter("ignore")
             layout = args.layout = plan_layout(
                 size, args.population, preferred_model=args.model_axis)
-    if args.arch is not None and layout.model > 1 and args.strategy == "cem":
-        raise NotImplementedError(
-            f"--strategy cem over model-sharded members (model axis "
-            f"{layout.model}) is not ported yet: its draws would be made at "
-            f"each rank's part of the parameters")
     islands = layout.islands
     if islands == 1:
         return
     refused = {"--fused-epoch": args.fused_epoch,
-               "--policy-lag 1": args.policy_lag == 1,
-               "--strategy cem": args.strategy == "cem"}
+               "--policy-lag 1": args.policy_lag == 1}
     for flag, given in refused.items():
         if given:
             raise NotImplementedError(
                 f"{flag} over more than one island ({islands} here) is not "
-                f"ported yet: it would need a collective inside a captured "
-                f"graph or a second stream (the fused epoch, lag 1), or "
-                f"the elites' parameters from every rank (CEM)")
+                f"ported yet: it would need the islands' NCCL collectives "
+                f"inside a captured CUDA graph (the fused epoch) or on a "
+                f"second stream (lag 1), which needs one card a rank to "
+                f"run")
 
 
 if __name__ == "__main__":

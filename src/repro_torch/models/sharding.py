@@ -327,3 +327,106 @@ def local_tree(tree, dims, shard: ModelShard):
             x = _narrow(torch.as_tensor(x), d, shard)
         out.append(x)
     return unflatten(treedef, out)
+
+
+class PartMap:
+    """Where this rank's parts of one member's parameters sit in the
+    member's raveled vector (:func:`repro_torch.core.cem.ravel`'s order:
+    the leaves in flatten order, each raveled row-major), and where its
+    own flat buffer holds them (the parts in the same leaf order, each
+    raveled row-major): the map CEM refits and redraws a model-sharded
+    member by.
+
+    ``shapes`` are one whole member's leaf shapes in flatten order and
+    ``dims`` the dimension the rules cut in each (None: whole), over
+    ``shard``'s model axis. A leaf is viewed as ``(A, S, B)`` around its
+    cut dimension ``S``; this rank holds ``[lo, hi)`` of ``S`` in every
+    one of the ``A`` outer rows. Nothing of the size of the member is
+    materialised: :meth:`pieces` maps a block of whole columns to at most
+    three slices a leaf."""
+
+    def __init__(self, shapes, dims, shard: ModelShard):
+        import math
+        if len(shapes) != len(dims):
+            raise ValueError(f"{len(dims)} shard dims for {len(shapes)} "
+                             f"leaves")
+        self.shard = shard
+        self.leaves = []        # (whole offset, local offset, A, S, B, cut)
+        whole = local = 0
+        for shape, d in zip(shapes, dims):
+            shape = tuple(shape)
+            if d is None:
+                a, s, b = 1, 1, math.prod(shape)
+            else:
+                a, s, b = (math.prod(shape[:d]), shape[d],
+                           math.prod(shape[d + 1:]))
+                shard.bounds(s)          # raises when it does not split
+            self.leaves.append((whole, local, a, s, b, d is not None))
+            whole += a * s * b
+            local += a * (s // shard.size if d is not None else s) * b
+        self.whole, self.local = whole, local
+
+    def _cut(self, s: int, cut: bool, coord: int | None = None):
+        if not cut:
+            return 0, s
+        per = s // self.shard.size
+        c = self.shard.coord if coord is None else coord
+        return c * per, (c + 1) * per
+
+    def pieces(self, c0: int, c1: int):
+        """The parts of whole columns ``[c0, c1)`` this rank holds, as
+        ``(local, select)`` pairs: ``local`` its ``(lo, hi)`` columns of
+        the rank's buffer, ``select(block)`` those columns of ``block``,
+        an ``(n, c1 - c0)`` tensor of the whole columns (a view where the
+        part is contiguous there)."""
+        out = []
+        for w0, l0, a, s, b, cut in self.leaves:
+            lo_d, hi_d = self._cut(s, cut)
+            row, q = s * b, (hi_d - lo_d) * b
+            x0, x1 = max(c0, w0) - w0, min(c1, w0 + a * row) - w0
+            if x0 >= x1:
+                continue
+            shift = w0 - c0
+            full0, full1 = -(-x0 // row), x1 // row
+            if full1 > full0:
+                def select(block, f0=full0, f1=full1, row=row, shift=shift,
+                           lo=lo_d * b, hi=hi_d * b):
+                    rows = block[:, f0 * row + shift:f1 * row + shift]
+                    part = rows.reshape(block.shape[0], f1 - f0, row)
+                    return part[:, :, lo:hi].reshape(block.shape[0], -1)
+                out.append(((l0 + full0 * q, l0 + full1 * q), select))
+                partial = [r for r in {x0 // row, (x1 - 1) // row}
+                           if r < full0 or r >= full1]
+            else:
+                partial = range(x0 // row, (x1 - 1) // row + 1)
+            for r in sorted(partial):
+                s0 = max(x0, r * row + lo_d * b)
+                s1 = min(x1, r * row + hi_d * b)
+                if s0 >= s1:
+                    continue
+                at = l0 + r * q + s0 - r * row - lo_d * b
+                out.append(((at, at + s1 - s0),
+                            lambda block, s0=s0 + shift, s1=s1 + shift:
+                            block[:, s0:s1]))
+        return out
+
+    def local_of(self, vector):
+        """This rank's columns of a whole ``(P,)`` vector, ``(P_local,)``."""
+        out = vector.new_empty((self.local,))
+        for (lo, hi), select in self.pieces(0, self.whole):
+            out[lo:hi] = select(vector[None])[0]
+        return out
+
+    def whole_of(self, parts):
+        """The whole ``(P,)`` vector from every model rank's columns
+        (``parts[c]`` the ``(P_local,)`` vector of coordinate ``c``)."""
+        import torch
+        out = []
+        for w0, l0, a, s, b, cut in self.leaves:
+            if not cut:
+                out.append(parts[0][l0:l0 + a * s * b])
+                continue
+            q = s // self.shard.size
+            out.append(torch.cat([p[l0:l0 + a * q * b].view(a, q, b)
+                                  for p in parts], dim=1).reshape(-1))
+        return torch.cat(out)

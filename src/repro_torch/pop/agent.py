@@ -32,7 +32,7 @@ from repro_torch.core.distributed import take_rows
 from repro_torch.core.population import population_init
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.optim.optimizers import AdamState
-from repro_torch.tree import flat_buffer, flat_empty, tree_map
+from repro_torch.tree import flat_buffer, flat_empty, leaves, tree_map
 
 
 class ModuleAgent:
@@ -216,6 +216,19 @@ class LMAgent:
                         if path == p or path.endswith("." + p)), None)
             out.append(None if hit is None else hit + lead)
         return out
+
+    def part_map(self, shard):
+        """This rank's :class:`~repro_torch.models.sharding.PartMap` of one
+        member's parameters over ``shard``: which columns of the whole
+        member's raveled vector its parts are, and where its flat buffer
+        holds them (what CEM refits and redraws a sharded member by);
+        None without a shard."""
+        if shard is None or shard.size <= 1:
+            return None
+        from repro_torch.models.sharding import PartMap
+        shapes = self._lm.param_shapes(self.cfg)
+        return PartMap([tuple(x.shape) for x in leaves(shapes)],
+                       self.shard_dims(shapes, shard, lead=0), shard)
 
     def population_init(self, generator, n: int, *, rows=None, shard=None):
         """``n`` members in flat ``(N, P)`` buffers (parameters, mu, nu),

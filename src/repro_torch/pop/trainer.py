@@ -32,7 +32,7 @@ generator on the agent's device, so on the card no draw crosses from the
 host.
 
 The fitness window stays on the device. ``save`` writes the main tree
-``(state, strategy.export_state())``, the ``actors``, ``hypers``,
+``(state, strategy.checkpoint_state())``, the ``actors``, ``hypers``,
 ``rollout`` (the engine's buffers and env states) and ``rng`` (the
 trainer's generator state) aux trees, and the ``size`` and ``fitness``
 extras, in the layout of :mod:`repro_torch.checkpoint` (which the JAX
@@ -71,8 +71,17 @@ generator is a :func:`~repro_torch.core.distributed.member_generator`,
 whose member-axis draws are made at the whole population's shape, so a
 run on K ranks computes what a run on one computes. Rank 0 gathers the
 rows of every island and writes the checkpoints (in the one-rank format);
-every rank reads them and takes its rows. CEM and DvD, a fused epoch and
-``policy_lag=1`` over more than one island are refused by name.
+every rank reads them and takes its rows. CEM runs over the islands too
+(:class:`~repro_torch.pop.strategy.CEM` bound over the trainer's
+:class:`~repro_torch.pop.strategy.Spread`: its rows, its model parts and
+its ``pop`` group): member 0 and the elites are broadcast by their
+owners, every draw is made at the whole population's and the whole
+member's shape, and rank 0 checkpoints the whole distribution, so the run
+is the one-rank run bit for bit. DvD's evolve is the identity on any
+layout (a shared-critic agent is refused by the backend, as in the JAX
+package). A fused epoch and ``policy_lag=1`` over more than one island
+are refused by name: they would need the islands' collectives inside a
+captured graph or on a second stream.
 
 On an islands layout whose model axis is above 1, an LM agent's members
 are model-sharded (``shard``, this rank's
@@ -83,8 +92,9 @@ parts of its island's members, cut by the rules of
 the same model coordinate of the destination island; rank 0 gathers every
 leaf whole along its sharded dimension, so a checkpoint has the one-rank
 format and resumes at any model width. An RL agent's members stay whole
-on every model rank. Every LM family shards; CEM and DvD over
-model-sharded members are refused by name.
+on every model rank. Every LM family shards, under PBT, CEM (each rank
+refits and redraws its columns of the members, through the agent's
+:class:`~repro_torch.models.sharding.PartMap`) and DvD.
 
 ``run_env_loop(fused=True)`` runs whole train-evolve epochs
 (``RolloutEngine.build_epoch``): eagerly on the CPU, and on the card as
@@ -107,7 +117,7 @@ from repro_torch.core.distributed import (MemberExchange, Rows, all_members,
                                           take_rows, world)
 from repro_torch.models.sharding import local_tree
 from repro_torch.pop.backend import make_update
-from repro_torch.pop.strategy import CEM, DvD, make_strategy
+from repro_torch.pop.strategy import Spread, make_strategy
 from repro_torch.telemetry import RunTelemetry
 from repro_torch.tree import copy_into, leaves, tree_map
 
@@ -142,6 +152,17 @@ class PopTrainer:
             self.shard = model_shard(self.mesh)
         self.generator = member_generator(agent.device,
                                           self.rows).manual_seed(seed)
+        self.strategy.configure_agent(agent)
+        # ``pcfg.num_steps`` chained update steps per call, shared with the
+        # acting engine (built first: a backend refuses an agent it cannot
+        # split before any state is made)
+        self.update = make_update(agent, pcfg.backend,
+                                  num_steps=max(1, pcfg.num_steps),
+                                  mesh=self.mesh)
+        self._host_group = None
+        self._log_rows = False
+        if self.distributed:
+            self._join_ranks()
 
         init_gen = torch.Generator().manual_seed(seed)
         where = {}
@@ -150,21 +171,12 @@ class PopTrainer:
         if self.shard is not None:
             where["shard"] = self.shard
         self.state = agent.population_init(init_gen, self.n, **where)
-        self.strategy.configure_agent(agent)
-        self.state = self.strategy.bind(self.generator, agent, self.state)
+        self.state = self.strategy.bind(self.generator, agent, self.state,
+                                        over=self._spread())
         if self.split and hasattr(self.strategy, "gather"):
             self.strategy.gather = MemberExchange(self.strategy.gather,
                                                   self.layout)
         self.hypers = self.strategy.init_hypers(self.generator, self.n)
-        # ``pcfg.num_steps`` chained update steps per call, shared with the
-        # acting engine
-        self.update = make_update(agent, pcfg.backend,
-                                  num_steps=max(1, pcfg.num_steps),
-                                  mesh=self.mesh)
-        self._host_group = None
-        self._log_rows = False
-        if self.distributed:
-            self._join_ranks()
 
         self._window: deque = deque(maxlen=pcfg.fitness_window)
         self.last_fitness = None  # the (N,) fitness used at the last evolve
@@ -211,24 +223,22 @@ class PopTrainer:
                     "above 1)")
             layout = layout if layout is not None else sharded_layout(
                 size, self.n)
-        if (layout.model > 1 and getattr(self.agent, "model_sharded_params",
-                                         False)
-                and isinstance(self.strategy, (CEM, DvD))):
-            raise NotImplementedError(
-                f"{type(self.strategy).__name__} over model-sharded members "
-                f"is not ported yet: its draws would be made at each rank's "
-                f"part of the parameters, not at the whole members' shape")
         if layout.population != self.n:
             raise ValueError(f"{layout} is planned for another population "
                              f"than size={self.n}")
-        if layout.islands > 1 and isinstance(self.strategy, (CEM, DvD)):
-            raise NotImplementedError(
-                f"{type(self.strategy).__name__} over more than one island "
-                f"is not ported yet: it needs the elites' parameters (or "
-                f"the whole population's policies) from every rank")
         if mesh is None and backend == "islands":
             mesh = layout.mesh
         return layout, mesh
+
+    def _spread(self):
+        """The :class:`~repro_torch.pop.strategy.Spread` the strategy binds
+        over: None when this rank holds every member whole."""
+        if not self.split and self.shard is None:
+            return None
+        parts = (self.agent.part_map(self.shard)
+                 if self.shard is not None else None)
+        return Spread(self.layout, self.rows, self._pop_group,
+                      self._host_group, parts)
 
     @property
     def split(self) -> bool:
@@ -678,7 +688,10 @@ class PopTrainer:
         if self._rollout is not None:
             members["rollout"] = self._rollout.export_state()
         with self.telemetry.phase("ckpt"):
-            if not whole:      # rank 0 writes every island's rows, whole
+            # rank 0 writes every island's rows, whole, and the strategy's
+            # whole state
+            strat_state = self.strategy.checkpoint_state()
+            if not whole:
                 members = gather_to_root(
                     members, self.layout, self._host_group,
                     dims=None if self.shard is None else
@@ -691,9 +704,8 @@ class PopTrainer:
                 if "rollout" in members:
                     aux["rollout"] = members["rollout"]
                 save = self._mgr.save if blocking else self._mgr.save_async
-                save(self.step_count - 1,
-                     (members["state"], self.strategy.export_state()), meta,
-                     aux=aux)
+                save(self.step_count - 1, (members["state"], strat_state),
+                     meta, aux=aux)
             if blocking:
                 self._barrier()
         secs = time.perf_counter() - t0
@@ -755,9 +767,8 @@ class PopTrainer:
             hypers = self._mgr.restore_aux("hypers", self.hypers)
             if hypers is not None:
                 copy_into(self.hypers, hypers)
-        if strat_state is not None:
-            self.strategy.import_state(
-                copy_into(self.strategy.export_state(), strat_state))
+        if strat_state is not None:      # this rank's columns of it
+            self.strategy.import_state(strat_state)
         if self._rollout is not None:
             rstate = self._mgr.restore_aux("rollout",
                                            self._rollout.export_state())

@@ -8,6 +8,12 @@ embeds every member's behavior on a fixed probe batch, and reselects the
 serving set by fitness + DvD diversity. The latest checkpoint always
 wins; membership changes are recorded as promote/demote events, and,
 given a telemetry object, as ``promotion`` rows.
+
+Served over ranks (``collective=True``: every rank of the default group
+polls together), rank 0 decides: the step it sees is broadcast, every
+rank reads that checkpoint, and rank 0's selection (its member indices,
+not each rank's own float scores) is broadcast, so every rank installs
+the same :class:`ServingSet`.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import broadcast, world
 from repro_torch.core.dvd import behavior_embedding
 from repro_torch.serve.ensemble import (ServingSet, make_serving_set,
                                         select_members)
@@ -61,12 +68,15 @@ class ContinuousEvaluator:
     ``size`` is the ensemble size; ``probe_obs`` the shared probe batch for
     behavioral embeddings (None selects on fitness alone);
     ``diversity_weight`` trades nats of ensemble volume against standard
-    deviations of fitness (0 = pure fitness ranking).
+    deviations of fitness (0 = pure fitness ranking). ``collective``:
+    every rank polls together, and rank 0's step and selection are
+    broadcast (module docstring).
     """
 
     def __init__(self, manager, agent, *, size: int = 4, probe_obs=None,
                  diversity_weight: float = 1.0,
-                 forward: PolicyForward | None = None, telemetry=None):
+                 forward: PolicyForward | None = None, telemetry=None,
+                 collective: bool = False):
         self.mgr = manager
         self.agent = agent
         self.size = size
@@ -77,7 +87,14 @@ class ContinuousEvaluator:
         self.serving: ServingSet | None = None
         self.events: list[dict] = []
         self.telemetry = telemetry
+        self.collective = collective
         self._last_step: int | None = None
+
+    def _from_root(self, values):
+        """Rank 0's int64 ``values`` on every rank (a broadcast over the
+        default group)."""
+        t = torch.as_tensor(values, dtype=torch.int64).to(self.agent.device)
+        return broadcast(t, 0).cpu().numpy()
 
     def select(self, actors, fitness) -> np.ndarray:
         """The promotion criterion on a loaded actor stack."""
@@ -104,11 +121,20 @@ class ContinuousEvaluator:
         that promotes appends ``{"step", "promoted", "demoted",
         "members"}`` to ``self.events``."""
         step = self.mgr.latest()
+        if self.collective:
+            step = int(self._from_root([-1 if step is None else step])[0])
+            step = None if step < 0 else step
         if step is None or step == self._last_step:
             return None
         actors, extra = load_actor_stack(self.mgr, self.agent, step=step)
         fitness = extra["fitness"]
-        members = self.select(actors, fitness)
+        if not self.collective:
+            members = self.select(actors, fitness)
+        else:
+            n = leaves(actors)[0].shape[0]
+            members = (self.select(actors, fitness) if world()[0] == 0
+                       else np.zeros(max(1, min(self.size, n)), np.int64))
+            members = self._from_root(members)
         new = make_serving_set(actors, members, step=step, fitness=fitness)
         old = set() if self.serving is None else set(
             self.serving.members.tolist())

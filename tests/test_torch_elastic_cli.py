@@ -5,9 +5,10 @@ that came with it, on the CPU.
 (TD3 smaller and larger; an LM population) and prints the lineage;
 ``--resize strict`` (the default) raises a message that names ``--resize
 auto``, and ``PopTrainer.resume`` one that names ``restore_elastic``;
-``--devices`` other than 0 or the world size, ``--model-axis`` beside
-another backend and CEM over model-sharded members stay refused (the
-islands themselves are ``test_torch_islands*.py``'s). ``quickstart``
+``--devices`` other than 0 or the world size and ``--model-axis``
+beside another backend stay refused, and CEM over model-sharded members
+passes the pre-group checks (the islands themselves are
+``test_torch_islands*.py``'s). ``quickstart``
 and ``pbt_td3`` (``repro_torch.examples``) run two iterations each.
 Nothing here calls JAX. (Under 11 tests: ROADMAP §3 on xdist's file
 queue.)
@@ -112,11 +113,11 @@ def test_lm_cli_resize_auto(tmp_path, capsys):
 def test_multi_device_flags_stay_refused(monkeypatch):
     """Islands over several ranks and model-sharded members are ported
     (one rank per GPU under ``torch.distributed.run``): ``--devices`` must
-    be 0 or the world size (one here), ``--model-axis`` is taken by the
-    islands backend only, and CEM over model-sharded members is refused
-    by name before any group is joined (on a world of 2 set through
-    ``WORLD_SIZE``). An MoE config now passes that check: its run stops
-    only where the process group is joined, for want of a ``RANK``."""
+    be 0 or the world size (one here), and ``--model-axis`` is taken by
+    the islands backend only. An MoE config at model 2, under CEM (no
+    longer refused over model-sharded members) as under PBT, passes every
+    check on a world of 2 set through ``WORLD_SIZE``: its run stops only
+    where the process group is joined, for want of a ``RANK``."""
     for flag, error, match in (
             (["--devices", "4"], ValueError, "--nproc-per-node 4"),
             (["--model-axis", "2"], ValueError,
@@ -128,8 +129,7 @@ def test_multi_device_flags_stay_refused(monkeypatch):
     moe = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--population", "2",
            "--ckpt-dir", "unused", "--device", "cpu", "--backend",
            "islands", "--model-axis", "2"]
-    with pytest.raises(NotImplementedError,
-                       match="--strategy cem over model-sharded members"):
+    with pytest.raises(ValueError, match="RANK"):
         train_main(moe + ["--strategy", "cem"])
     with pytest.raises(ValueError, match="RANK"):
         train_main(moe)       # the group's rendezvous: no RANK set here

@@ -5,13 +5,13 @@ repro_torch.launch.train ... --device cpu --backend islands`` (two gloo
 ranks) writes the checkpoint a one-rank run writes, bit for bit, and the
 islands runs of both the RL and the LM workloads print their layout.
 ``--devices`` other than 0 or the world size, ``--model-axis`` above 1
-beside another backend than islands, ``--fused-epoch``, ``--policy-lag
-1`` and ``--strategy cem`` over more than one island, another backend on
-a world of two, CEM or DvD in a trainer over more than one island, and a
-model axis on a family without a sharded forward are refused by name (the
-world is set through ``WORLD_SIZE`` in-process: the refusals come before
-any group is joined). The ``pbt_td3`` example takes ``--backend
-islands``.
+beside another backend than islands, ``--fused-epoch`` (CEM beside it
+too) and ``--policy-lag 1`` over more than one island, another backend on
+a world of two, and a shared critic in a trainer over islands are refused
+by name (the world is set through ``WORLD_SIZE`` in-process: the
+refusals come before any group is joined); CEM and DvD in a trainer over
+islands and over model-sharded members pass. The ``pbt_td3`` example
+takes ``--backend islands``.
 """
 import os
 import subprocess
@@ -92,7 +92,10 @@ _REFUSALS = (
      "taken by --backend islands only"),
     (["--fused-epoch"], 2, NotImplementedError, "--fused-epoch over more"),
     (["--policy-lag", "1"], 2, NotImplementedError, "--policy-lag 1 over"),
-    (["--strategy", "cem"], 2, NotImplementedError, "--strategy cem over"),
+    # CEM runs over islands now; beside a fused epoch the epoch's refusal
+    # stands
+    (["--strategy", "cem", "--fused-epoch"], 2, NotImplementedError,
+     "--fused-epoch over more"),
     (["--backend", "vectorized"], 2, ValueError, "runs on one rank"),
 )
 
@@ -109,17 +112,20 @@ def test_refusals_by_name(tmp_path, monkeypatch, flags, world, error, match):
 
 
 def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
-    """CEM and DvD need every rank's members at the evolve, and over a
-    model axis their draws would be made at a rank's parts. The trainer
-    refuses them by name before building anything (here on the layout of
-    2 ranks, planned with JAX's halving warning). An MoE member, which
-    now has a sharded forward, passes the refusal and stops only at the
-    ranks the layout needs."""
+    """CEM and DvD run over islands and over model-sharded members now:
+    on the layout of 2 ranks (planned with JAX's halving warning) a TD3
+    trainer under either, and an MoE member under CEM at model 2, pass
+    every refusal and stop only at the ranks the layout needs. What still
+    stands is the JAX package's: a shared critic is replicated, not split,
+    so the islands backend refuses it by name before any state is made."""
+    from repro_torch.pop import SharedCriticAgent
     for strategy in ("cem", "dvd"):
         pcfg = PopulationConfig(size=4, strategy=strategy, backend="islands")
-        with pytest.raises(NotImplementedError,
-                           match=f"{strategy.upper() if strategy == 'cem' else 'DvD'} over more than one island"):
+        with pytest.raises(ValueError,
+                           match="needs 2 ranks but the world has 1"):
             PopTrainer(agent_td3(), pcfg, layout=plan_layout(2, 4))
+        with pytest.raises(ValueError, match="requires per-member agents"):
+            PopTrainer(SharedCriticAgent(3, 1, device="cpu"), pcfg)
     pcfg = PopulationConfig(size=4, backend="islands")
     with pytest.warns(UserWarning, match="preferred_model=4"):
         layout = plan_layout(2, 4, preferred_model=4)
@@ -129,11 +135,10 @@ def test_trainer_refuses_cem_dvd_and_model_axis_over_islands(tmp_path):
     moe = LMAgent(get_config("qwen3-moe-30b-a3b").smoke(), TrainConfig(),
                   device="cpu")
     cem = PopulationConfig(size=4, strategy="cem", backend="islands")
-    with pytest.raises(NotImplementedError,
-                       match="CEM over model-sharded members"):
-        PopTrainer(moe, cem, layout=layout)
-    with pytest.raises(ValueError, match="needs 2 ranks but the world has 1"):
-        PopTrainer(moe, pcfg, layout=layout)
+    for cfg in (cem, pcfg):
+        with pytest.raises(ValueError,
+                           match="needs 2 ranks but the world has 1"):
+            PopTrainer(moe, cfg, layout=layout)
 
 
 def test_pbt_td3_example_takes_islands(capsys):

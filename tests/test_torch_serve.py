@@ -296,10 +296,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
         resolve_device("meta")
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     """musicgen, once refused by name, is served (on the CPU when asked;
     without CUDA the entry point still refuses the default device); the
-    refusals of what is not ported stand."""
+    refusals of what is not ported stand, and ``--islands`` beside
+    ``--arch`` is refused by name."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_main(["--arch", "musicgen_medium", "--ckpt-dir",
@@ -311,9 +312,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit):
         serve_main(["--algo", "td3", "--arch", "x",
                     "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit):                 # left out, not a no-op
-        serve_main(["--algo", "td3", "--islands",
-                    "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    # --islands serves an --algo ensemble over ranks; beside --arch, whose
+    # branch has no islands path, it is refused by name, not a no-op
+    with pytest.raises(SystemExit):
+        serve_main(["--arch", "rwkv6-test", "--smoke", "--islands",
+                    "--device", "cpu"])
+    assert "--islands serves an --algo ensemble" in capsys.readouterr().err
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         serve_main(["--algo", "td3", "--ckpt-dir", str(tmp_path),
                     "--device", "cpu"])

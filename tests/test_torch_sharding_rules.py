@@ -189,16 +189,16 @@ def test_constrain_cuts_only_inside_a_model_parallel_context():
 def test_families_without_a_sharded_forward_are_refused_by_name(
         monkeypatch):
     """What a model axis above 1 still refuses, by name, before any group
-    is joined: CEM over model-sharded members (its draws would be made at
-    a rank's parts), a decode state (serving a model-sharded member) and
+    is joined: a decode state (serving a model-sharded member) and
     ``--model-axis`` beside another backend than islands. Every family
     now has a sharded forward: the MoE, MLA and Mamba2 configs pass the
-    pre-group check as the dense attention and RWKV6 ones do."""
+    pre-group check as the dense attention and RWKV6 ones do, under PBT
+    and under CEM, which now runs over model-sharded members (its run
+    stops only where the group is joined, for want of a ``RANK``)."""
     from repro_torch.launch.train import _check_layout
     from repro_torch.launch.train import main as train_main
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError,
-                       match="--strategy cem over model-sharded members"):
+    with pytest.raises(ValueError, match="RANK"):
         train_main(["--arch", "rwkv6-test", "--population", "2",
                     "--ckpt-dir", "unused", "--device", "cpu", "--backend",
                     "islands", "--model-axis", "2", "--strategy", "cem"])
@@ -214,11 +214,13 @@ def test_families_without_a_sharded_forward_are_refused_by_name(
                    state={}, cache_index=0)
     for arch in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "zamba2-7b",
                  "qwen2-0.5b", "rwkv6-1.6b"):
-        args = SimpleNamespace(devices=0, model_axis=2, backend="islands",
-                               population=2, arch=arch, strategy="pbt",
-                               fused_epoch=False, policy_lag=None)
-        _check_layout(args)
-        assert args.layout.model == 2 and args.layout.islands == 1
+        for strategy in ("pbt", "cem"):
+            args = SimpleNamespace(devices=0, model_axis=2,
+                                   backend="islands", population=2,
+                                   arch=arch, strategy=strategy,
+                                   fused_epoch=False, policy_lag=None)
+            _check_layout(args)
+            assert args.layout.model == 2 and args.layout.islands == 1
 
 
 def test_grad_compression_field_matches_jax():
