@@ -403,6 +403,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 over one island of model 2 (two gloo ranks sharing the
                 card) against the one-rank run, the exchange and the
                 checkpoints across model widths, qwen3-8b's memory a rank;
+                after the bf16 forward each rank serves the prompt at
+                model 2 with its part of the decode state (the heads
+                layout) and 8 decode steps, held as the forward is to the
+                whole member's decode, the state exactly the layout
+                rule's part;
  56. model-sharded MoE, MLA and Mamba2 members — qwen3-moe-30b-a3b (1
                 layer), deepseek-v2-lite-16b (its dense layer and one MoE
                 layer) and zamba2-7b (2 Mamba2 layers under the shared
@@ -413,9 +418,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                 leaf and member by the LM update rule, 1 ``pop_adam`` a
                 rank and step; member 0's bf16 forward on the ranks' parts
                 (``flash_attention`` and ``ssd`` at a rank's heads) within
-                ``BF16_TP_RMS_RATIO`` of the one-rank forward's error; the
-                kernels at those shapes against their plain versions,
-                timed.
+                ``BF16_TP_RMS_RATIO`` of the one-rank forward's error;
+                zamba2 (SSD heads, conv channels, the shared block's KV
+                heads) and deepseek (MLA's latent cache cut on its
+                sequence, combined by log-sum-exp) served at model 2 with
+                8 decode steps, held as phase 53's decode (deepseek's
+                routing replayed); the kernels at those shapes against
+                their plain versions, timed.
+ 57-59. CEM over islands and model-sharded members; the RL ensemble
+                served over ranks.
+ 60. the dry run's cell — qwen2-0.5b x decode_32k on a 1 x 1 mesh
+                reckoned by ``launch.dryrun.build_cell`` on the meta
+                device, then allocated (a 51.5 GB KV cache) and stepped
+                on the card: the reckoned argument bytes equal the bytes
+                allocated; the reckoned peak and ``t_memory`` printed
+                beside ``max_memory_allocated`` and 5 timed steps.
 
 A captured graph's kernel launches are counted as its captured launches
 times its replays (the wrappers' Python counts do not see a replay).
@@ -425,7 +442,8 @@ The last lines are ``{"fig2": ...}``, ``{"lm_train": ...}``,
 ``{"fig2_sac": ...}``, ``{"ppo": ...}``, ``{"acting": ...}``,
 ``{"frontends": ...}``, ``{"lm_cem": ...}``, ``{"slice15": ...}``,
 ``{"slice16": ...}``, ``{"slice18": ...}`` (with the whole run's
-seconds), ``{"slice19": ...}`` and ``{"slice20": ...}`` lines, the card's
+seconds), ``{"slice19": ...}``, ``{"slice20": ...}``, ``{"slice21":
+...}`` and ``{"slice22": ...}`` lines, the card's
 ``nvidia-smi`` name and power limit, one JSON line with every kernel's
 numbers, and ``{"ok": true, "device": ...}``.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -437,6 +455,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -849,6 +868,17 @@ MP_FAMILIES = dict(
 # they are added (in float32). The sharded forward's RMS error may be at
 # most this multiple of the one-rank forward's (phase 53 prints both)
 BF16_TP_RMS_RATIO = 1.25
+# slice 22: a decode state over the model axis. After phases 53's and 56's
+# bf16 forwards, each rank serves the same 4 x 512-token prompt into a
+# cache of prompt + `tokens` positions and then `tokens` decode steps of
+# random tokens at model 2 (qwen2-0.5b and rwkv6-1.6b in 53; zamba2-7b and
+# deepseek-v2-lite-16b in 56), its state the layout rule's part; the
+# logits' RMS error from the float32 one-rank decode is held as the
+# forward's (BF16_TP_RMS_RATIO)
+MP_DECODE = dict(tokens=8, archs_56=("deepseek-v2-lite-16b", "zamba2-7b"))
+# slice 22, phase 60: the dry run's cell one H100 holds, reckoned on the
+# meta device and then allocated and stepped on the card
+DRYRUN_CELL = dict(arch="qwen2-0.5b", shape="decode_32k", steps=5)
 # the data-parallel reduction on the JAX test's problem
 # (tests/test_dp_compression.py: convergence within 0.05, int8 within 0.1
 # of plain), and the wire bytes and ms of one reduction of a gradient of
@@ -2679,24 +2709,32 @@ def _leaf_paths(tree, prefix=""):
 
 
 def _lm_state_on(state, device):
-    """An LM population copied to ``device``, in flat buffers of its own."""
+    """A fresh LM population (its Adam moments zero) on ``device``, in flat
+    buffers of its own: the parameters copied, the moments made as zeros
+    there (no copy across), after holding ``state``'s moments zero where
+    they are."""
     from repro_torch.pop import LMState
     from repro_torch.tree import flat_views, leaves, tree_map
 
-    def flat(tree):
+    def flat(tree, copy=True):
         """``tree``'s leaves copied straight into a new ``(N, P)`` buffer
-        on ``device`` (one copy, no staging tree): its views."""
+        on ``device`` (one copy, no staging tree), or zeros: its views."""
         xs = leaves(tree)
-        buffer = torch.empty((xs[0].shape[0], sum(x[0].numel() for x in xs)),
-                             dtype=torch.float32, device=device)
+        shape = (xs[0].shape[0], sum(x[0].numel() for x in xs))
+        if not copy:
+            if any(x.any() for x in xs):
+                raise AssertionError("a fresh LM population's Adam moments "
+                                     "are not zero")
+            return flat_views(torch.zeros(shape, device=device), tree)
+        buffer = torch.empty(shape, dtype=torch.float32, device=device)
         views = flat_views(buffer, tree)
         tree_map(lambda d, x: d.copy_(x), views, tree)
         return views
     return LMState(params=flat(state.params),
                    opt_state=state.opt_state._replace(
                        step=state.opt_state.step.to(device),
-                       mu=flat(state.opt_state.mu),
-                       nu=flat(state.opt_state.nu)),
+                       mu=flat(state.opt_state.mu, copy=False),
+                       nu=flat(state.opt_state.nu, copy=False)),
                    step=state.step.to(device))
 
 
@@ -2818,8 +2856,9 @@ def phase_lm_update_parity(u):
     on the card
     (one pop_adam launch each, nothing else launched) against the same
     updates on the CPU (pop_adam's plain version), from one population
-    copied across. Held: the losses (rtol 1e-4); the gradients Adam took
-    (from its first moment: mu = (1 - b1) g after the first step, mu' =
+    (its parameters copied across, its zero moments made on the host).
+    Held: the losses (rtol 1e-4); the gradients Adam took (from its first
+    moment: mu = (1 - b1) g after the first step, mu' =
     b1 mu + (1 - b1) g' after the second) at rtol 1e-4, atol 1e-6; the
     parameters after the first step, whose learning rate is 0 under
     warmup, bit for bit; the step p - p' of the second at rtol 1e-4, atol
@@ -2852,12 +2891,12 @@ def phase_lm_update_parity(u):
     n = u["population"]
     p_member = lm_param_count(cfg)
     # card: parameters, mu, nu, the gradients' buffer, mu after step 1,
-    # one member's gradient tree; host: the same but the copy of mu and
-    # with the parameters before step 2
+    # the parameters before step 2, one member's gradient tree; host: the
+    # same but the parameters before step 2
     gb = lambda rows: f"{rows * p_member * 4 / 1e9:.1f} GB"
     log(f"LM update {cfg.name}: {p_member:,} parameters a member "
-        f"(reckoned from the config), N={n}: about {gb(5 * n + 1)} on the "
-        f"card and {gb(6 * n + 1)} on the host")
+        f"(reckoned from the config), N={n}: about {gb(6 * n + 1)} on the "
+        f"card and {gb(5 * n + 1)} on the host")
     card_agent = LMAgent(cfg, tcfg, device="cuda")
     card = card_agent.population_init(torch.Generator().manual_seed(SEED), n)
     if flat_buffer(card.params).shape[1] != p_member:
@@ -2891,7 +2930,9 @@ def phase_lm_update_parity(u):
         tokens = torch.from_numpy(next(stream)).reshape(n, u["batch"],
                                                         u["seq_len"])
         if k == 1:
-            before = [p.clone() for p in leaves(host.params)]
+            # the card's: the host's bit for bit after step 1 (held at the
+            # end of step 1), and kept where the step check runs
+            before = [p.clone() for p in leaves(card.params)]
         routes = []
         with moe_routes(routes, replay=False):
             card, mc = card_update(card, {"tokens": tokens.cuda()},
@@ -2931,7 +2972,7 @@ def phase_lm_update_parity(u):
             (path, *(t[i] for t in ts)) for path, *ts in zip(
                 paths, before, leaves(card.params), leaves(host.params),
                 card1, host1, card2, host2) for i in range(n)):
-        p0, ph, h1, h2 = (t.cuda() for t in (p0, ph, h1, h2))
+        ph, h1, h2 = (t.cuda() for t in (ph, h1, h2))
         # the gradients (clipped) each step took, card and CPU
         gc = (c1 / 0.1, (c2 - 0.9 * c1) / 0.1)
         gh = (h1 / 0.1, (h2 - 0.9 * h1) / 0.1)
@@ -7121,6 +7162,8 @@ def _session_rank(rank, world, store, out, jobs_file):
     from datetime import timedelta
 
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import leave_distributed
     torch.cuda.set_device(0)
     try:
         jobs = torch.load(jobs_file, weights_only=False)
@@ -7131,7 +7174,7 @@ def _session_rank(rank, world, store, out, jobs_file):
         for name, fn, job in jobs:
             results[name] = globals()[fn](rank, world, job)
             dist.barrier()
-        dist.destroy_process_group()
+        leave_distributed()
         torch.save(results, out)
     except BaseException:
         Path(out + ".err").write_text(traceback.format_exc())
@@ -7679,7 +7722,9 @@ def _mp_parity_rank(rank, world, job):
     1e-6). Then member 0's initial parameters in bf16, forward without
     autograd on the rank's parts (its kernels launched at the rank's local
     heads), whose RMS error from the float32 one-rank forward may be at
-    most BF16_TP_RMS_RATIO times the one-rank bf16 forward's."""
+    most BF16_TP_RMS_RATIO times the one-rank bf16 forward's; and the same
+    prompt served at model 2 with 8 decode steps, held the same way to
+    the whole member's decode (:func:`_decode_held`)."""
     from repro_torch.data.lm_pipeline import host_batches
     from repro_torch.elastic import plan_layout
     from repro_torch.kernels.flash_attention import flash_attention
@@ -7688,7 +7733,8 @@ def _mp_parity_rank(rank, world, job):
     from repro_torch.configs import TrainConfig
     from repro_torch.launch.mesh import model_shard
     from repro_torch.models import lm
-    from repro_torch.models.sharding import model_parallel
+    from repro_torch.models.sharding import (local_tree, member_dims,
+                                             model_parallel)
     from repro_torch.pop import LMAgent
     from repro_torch.pop.backend import make_update
     from repro_torch.tree import flat_buffer, tree_map
@@ -7760,7 +7806,19 @@ def _mp_parity_rank(rank, world, job):
             want, _ = lm.forward(lm.cast_params(whole, bf16), bf16,
                                  {"tokens": tokens})
             exact, _ = lm.forward(whole, cfg, {"tokens": tokens})
-        del whole
+        # slice 22: the same prompt served at model 2, then 8 decode steps,
+        # against the whole member's decode in bf16 and in float32
+        feed = _decode_feed(cfg, tokens)
+        whole_bf16 = lm.cast_params(whole, bf16)
+        decode = _decode_rank(cfg, local_tree(
+            whole_bf16, member_dims(whole_bf16, shard, lead=0), shard),
+            shard, feed)
+        dec_want, _ = _decode_logits(bf16, whole_bf16, feed)
+        dec_exact, _ = _decode_logits(cfg, whole, feed)
+        kernel = "wkv6" if arch.startswith("rwkv6") else "flash_attention"
+        decode = _decode_held(f"model-sharded {arch} rank {rank}", decode,
+                              dec_exact, dec_want, {kernel: MP["layers"]})
+        del whole, whole_bf16, feed
         if not torch.equal(p1, q1):
             raise AssertionError(f"model-sharded {arch} rank {rank}: the "
                                  f"parameters after step 1 (lr 0) moved "
@@ -7791,7 +7849,7 @@ def _mp_parity_rank(rank, world, job):
             "logits_max_abs_err": (got.float() - want.float()).abs()
             .max().item(),
             "forward_shape": (MP["forward_batch"], MP["forward_len"]),
-            "launches": launches}
+            "launches": launches, "decode": decode}
         del got, want, exact, p1, p2, mu1, mu2, q1, q2, nu1, nu2
         gc.collect()
         torch.cuda.empty_cache()
@@ -8146,6 +8204,7 @@ def phase_model_sharded(root):
             f"one-rank bf16 "
             f"{max(r['logits_max_abs_err'] for r in per_rank):.3g}); peak "
             f"allocated {[gb(r['peak_bytes']) for r in per_rank]} GB")
+        log(_decode_line(arch, [r["decode"] for r in per_rank]))
     log(f"model-sharded islands ({MP_ISLANDS['arch']}, 2 islands x model 2 "
         f"over 4 ranks): lineage {want}, member 0's parts in member 3's "
         f"slot bit for bit at both model coordinates; exchange "
@@ -8264,6 +8323,19 @@ def _mpf_reference(arch, layers):
         with moe_routes(list(forward_routes), replay=True) as own:
             exact, _ = lm.forward(member, cfg, {"tokens": tokens})
     want, exact = want.cpu(), exact.cpu()
+    decode = {}
+    if arch in MP_DECODE["archs_56"]:
+        # slice 22: the whole member's decode, bf16 (routing recorded) and
+        # float32 (replaying it), for the ranks' model-2 decode
+        feed = _decode_feed(cfg, tokens)
+        decode["routes"] = []
+        with moe_routes(decode["routes"], replay=False):
+            decode["want"], _ = _decode_logits(
+                bf16, lm.cast_params(member, bf16), feed)
+        with moe_routes(list(decode["routes"]), replay=True):
+            decode["exact"], _ = _decode_logits(cfg, member, feed)
+        decode["routes"] = [r.cpu() for r in decode["routes"]]
+        del feed
     del member
     routes = []
     update = make_update(agent, "vectorized")
@@ -8282,6 +8354,7 @@ def _mpf_reference(arch, layers):
            "routes": [r.cpu() for r in routes],
            "forward_routes": [r.cpu() for r in forward_routes],
            "tokens": tokens.cpu(), "want": want, "exact": exact,
+           "decode": decode,
            "launches": launches, "pop_adam_launches": pop_adam.launches,
            "fp32_own_routes_differ": own["differ"],
            "peak_bytes": torch.cuda.max_memory_allocated() - base,
@@ -8349,6 +8422,13 @@ def _mpf_rank(rank, world, job):
                     flash_attention.launches_by_route),
                 "ssd": ssd.launches}
     got = got.cpu()
+    decode = None
+    if ref["decode_routes"] is not None:
+        # slice 22: the prompt served on the rank's parts, 8 decode steps
+        with moe_routes([r.cuda() for r in ref["decode_routes"]],
+                        replay=True):
+            decode = _decode_rank(cfg, member, shard, _decode_feed(
+                cfg, ref["tokens"].cuda()))
     del member
     update = make_update(agent, "islands", mesh=layout.mesh)
     reset_counts(pop_adam)
@@ -8382,7 +8462,7 @@ def _mpf_rank(rank, world, job):
            "routes_overridden": [own["differ"], own["choices"]],
            "forward_routes_overridden": [fwd_own["differ"],
                                          fwd_own["choices"]],
-           "logits": got}
+           "logits": got, "decode": decode}
     del state, update, m1, m2
     gc.collect()
     torch.cuda.empty_cache()
@@ -8479,9 +8559,10 @@ def phase_model_sharded_families(root):
     ref_s = time.perf_counter() - t0
     jobs = [(arch, "_mpf_rank", {
         "arch": arch, "layers": layers,
-        "ref": {k: refs[arch][k] for k in ("idx", "shapes", "after1",
-                                           "after2", "routes",
-                                           "forward_routes", "tokens")}})
+        "ref": {**{k: refs[arch][k] for k in ("idx", "shapes", "after1",
+                                              "after2", "routes",
+                                              "forward_routes", "tokens")},
+                "decode_routes": refs[arch]["decode"].get("routes")}})
         for arch, layers in c["archs"]]
     ranks = _spawn_session(jobs, 2, Path(root), c["timeout"])
     ranks_s = time.perf_counter() - t0 - ref_s
@@ -8526,6 +8607,15 @@ def phase_model_sharded_families(root):
                         f"{res['launches'][kernel]} {kernel} launches in the "
                         f"no-grad forward, want {count}")
         del exact, want
+        if ref["decode"]:
+            for r, res in enumerate(per_rank):
+                res["decode"] = _decode_held(
+                    f"model-sharded {arch} rank {r}", res["decode"],
+                    ref["decode"]["exact"], ref["decode"]["want"],
+                    c["launches"][arch])
+        else:
+            for res in per_rank:
+                res.pop("decode")
         unheld = [i for i, masks in enumerate(zip(*(r["held"]
                                                     for r in per_rank)))
                   if not torch.stack(masks).any(0).all()]
@@ -8587,6 +8677,8 @@ def phase_model_sharded_families(root):
             f"one-rank bf16 "
             f"{max(r['logits_max_abs_err'] for r in rs):.3g}); steps "
             f"{[round(r['steps_s'], 1) for r in rs]} s")
+        if "decode" in rs[0]:
+            log(_decode_line(arch, [r["decode"] for r in rs]))
     log(f"model-sharded families: {out['seconds']:.1f} s in all (the "
         f"one-rank references {ref_s:.1f} s, the ranks {ranks_s:.1f} s)")
     return out
@@ -9294,6 +9386,217 @@ def serve_block_rows(n, layers):
         "per_launch": rows}
 
 
+# ------------------- slice 22: a decode state over the model axis, the
+# dry run on the meta device
+def _decode_feed(cfg, tokens):
+    """A prompt (``tokens``, B x S), then MP_DECODE["tokens"] single
+    random tokens, drawn from the seed on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    return [tokens] + [torch.randint(0, cfg.vocab_size,
+                                     (tokens.shape[0], 1), generator=gen,
+                                     device="cuda")
+                       for _ in range(MP_DECODE["tokens"])]
+
+
+def _decode_logits(cfg, params, feed, shard=None):
+    """The serve step over ``feed`` (the prompt's prefill, then one token a
+    step) with a state of the prompt plus the tokens, ``shard``'s part of
+    it with one: every step's last-position logits (B, steps, V) float32
+    on the host, and the final state."""
+    from repro_torch.models import lm
+    b, s = feed[0].shape
+    step = lm.make_serve_step(cfg, shard)
+    state = lm.init_decode_state(cfg, b, s + len(feed) - 1, device="cuda",
+                                 shard=shard)
+    out = []
+    for i, t in enumerate(feed):
+        logits, state = step(params, {"tokens": t}, state,
+                             0 if i == 0 else s + i - 1)
+        out.append(logits[:, -1].float().cpu())
+    return torch.stack(out, 1), state
+
+
+def _decode_state_bytes(cfg, b, max_len, size):
+    """(the whole decode state's bytes, a rank's bytes by the layout
+    rule: a cut leaf's 1/size, the rest whole)."""
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import decode_state_dims
+    shapes = lm.decode_state_shapes(cfg, b, max_len)
+    dims = decode_state_dims(cfg, shapes, size)
+
+    def walk(tree, dim):
+        if isinstance(tree, dict):
+            parts = [walk(tree[k], dim[k]) for k in tree]
+            return tuple(sum(x) for x in zip(*parts))
+        shape, dtype = tree
+        whole = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return whole, whole // (size if dim is not None else 1)
+    return walk(shapes, dims)
+
+
+def _decode_rank(cfg, part_bf16, shard, feed):
+    """A rank's bf16 decode on its parts (``part_bf16``) and its part of
+    the state: its logits, launches (the prefill's kernels at the rank's
+    heads; the decode steps are plain), its state's bytes against the
+    rule's and the whole's, and its seconds."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.tree import leaves
+    bf16 = cfg.replace(dtype="bfloat16")
+    reset_counts(flash_attention, wkv6, ssd)
+    t0 = time.perf_counter()
+    got, state = _decode_logits(bf16, part_bf16, feed, shard)
+    torch.cuda.synchronize()
+    b, s = feed[0].shape
+    whole, rule = _decode_state_bytes(bf16, b, s + len(feed) - 1,
+                                      shard.size)
+    out = {"logits": got, "seconds": time.perf_counter() - t0,
+           "launches": {"flash_attention": flash_attention.launches,
+                        "wkv6": wkv6.launches, "ssd": ssd.launches},
+           "state_bytes": sum(x.numel() * x.element_size()
+                              for x in leaves(state)),
+           "state_bytes_rule": rule, "state_bytes_whole": whole}
+    del state
+    return out
+
+
+def _decode_held(what, res, exact, want, launches):
+    """Holds a rank's decode (``res`` from :func:`_decode_rank`) to the
+    one-rank decode: its logits' RMS error from the float32 one-rank
+    decode ``exact`` at most BF16_TP_RMS_RATIO times the one-rank bf16
+    decode's (``want``), its state exactly the rule's part, its kernel
+    launches ``launches`` (the forward's: the prefill's at the rank's
+    heads, none in the decode steps). Returns the figures."""
+    rms = lambda a: a.float().sub(exact).square().mean().sqrt().item()
+    got = res.pop("logits")
+    res["logits_rms_err"] = rms(got)
+    res["logits_rms_err_one_rank"] = rms(want)
+    res["logits_share"] = (res["logits_rms_err"]
+                           / res["logits_rms_err_one_rank"]
+                           / BF16_TP_RMS_RATIO)
+    res["logits_max_abs_err"] = (got - want).abs().max().item()
+    if not res["logits_share"] <= 1:
+        raise AssertionError(f"{what}: the model-2 decode's logits are "
+                             f"{res['logits_share']:.3g} of their tolerance "
+                             f"from the one-rank decode")
+    if res["state_bytes"] != res["state_bytes_rule"]:
+        raise AssertionError(f"{what}: the decode state holds "
+                             f"{res['state_bytes']} bytes a rank, the "
+                             f"layout rule's part is "
+                             f"{res['state_bytes_rule']}")
+    if {k: res["launches"][k] for k in launches} != launches:
+        raise AssertionError(f"{what}: decode launches {res['launches']}, "
+                             f"want {launches}")
+    return res
+
+
+def _decode_line(arch, per_rank):
+    """The log line of a model-2 decode over its ranks."""
+    gb = lambda x: round(x / 1e9, 4)
+    a = per_rank[0]
+    return (f"model-2 decode {arch} (bf16, prompt "
+            f"{MP['forward_batch']} x {MP['forward_len']}, "
+            f"{MP_DECODE['tokens']} decode steps): state "
+            f"{[gb(r['state_bytes']) for r in per_rank]} GB a rank (the "
+            f"rule's part) of {gb(a['state_bytes_whole'])} whole; launches "
+            f"{[r['launches'] for r in per_rank]} (the prefill's, at the "
+            f"rank's heads; the shapes of the forward's, held to the plain "
+            f"versions in this phase's kernel rows); logits' RMS error from "
+            f"the float32 one-rank decode "
+            f"{[round(r['logits_rms_err'], 5) for r in per_rank]} against "
+            f"the one-rank bf16's {round(a['logits_rms_err_one_rank'], 5)} "
+            f"(at most x{BF16_TP_RMS_RATIO}; max abs err against the "
+            f"one-rank bf16 "
+            f"{max(r['logits_max_abs_err'] for r in per_rank):.3g}); "
+            f"{[round(r['seconds'], 2) for r in per_rank]} s a rank; "
+            f"{nvidia_smi_line()}")
+
+
+def phase_dryrun_cell():
+    """60. The dry run against the card: qwen2-0.5b x decode_32k on a mesh
+    of 1 x 1 (a KV cache of 24 x 2 x 128 x 32,768 x 2 x 64 x 2 B = 51.5 GB
+    and 0.99 GB of weights), reckoned by ``launch.dryrun.build_cell`` on
+    the meta device, then the same decode step allocated and run on
+    cuda:0. Held: the reckoned ``arguments`` bytes equal the bytes of the
+    parameters, state and batch allocated, plus the int32 cache index the
+    reckoning counts (a Python int here). Printed, not held: the reckoned
+    peak against ``max_memory_allocated``, and the median of 5 decode
+    steps (CUDA events) against the reckoned ``t_memory``. The cache is freed
+    before the next phase."""
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import MeshShape
+    from repro_torch.tree import leaves
+    c = DRYRUN_CELL
+    t0 = time.perf_counter()
+    cfg, shape = get_config(c["arch"]), LM_SHAPES[c["shape"]]
+    counter, info = dryrun.build_cell(c["arch"], c["shape"],
+                                      mesh=MeshShape(("data", "model"),
+                                                     (1, 1)))
+    info = dryrun.analyze_cell(counter, info)
+    reckon_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    params = lm.init_params(gen, cfg, dtype=lm.compute_dtype(cfg))
+    state = lm.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                 device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    nb = lambda tree: sum(x.numel() * x.element_size() for x in leaves(tree))
+    allocated = nb(params) + nb(state) + nb(tokens)
+    reckoned = info["bytes_per_device"]["arguments"]
+    if reckoned != allocated + 4:
+        raise AssertionError(f"dry run {c['arch']} x {c['shape']}: "
+                             f"{reckoned} argument bytes reckoned, "
+                             f"{allocated} allocated (+ 4 for the index)")
+    step = lm.make_serve_step(cfg)
+    index = shape.seq_len - 1
+    # each step between its own CUDA events, after one warm step
+    step(params, {"tokens": tokens}, state, index)
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(c["steps"])]
+    for start, end in events:
+        start.record()
+        step(params, {"tokens": tokens}, state, index)
+        end.record()
+    torch.cuda.synchronize()
+    step_ms = sorted(start.elapsed_time(end) for start, end in events)
+    ms = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated() - base
+    reckoned_peak = reckoned + info["bytes_per_device"]["temps"]
+    del params, state, tokens, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": c["arch"], "shape": c["shape"], "mesh": info["mesh"],
+           "arguments_reckoned": reckoned, "arguments_allocated": allocated,
+           "cache_index_bytes": 4,
+           "peak_reckoned": reckoned_peak, "peak_allocated": peak,
+           "decode_ms": ms, "decode_ms_each": step_ms,
+           "decode_steps": c["steps"],
+           "t_memory_ms": 1e3 * info["t_memory"],
+           "t_compute_ms": 1e3 * info["t_compute"],
+           "bottleneck": info["bottleneck"],
+           "traffic_bytes": info["hlo_traffic_bytes_per_device"],
+           "flops": info["hlo_flops_per_device"],
+           "reckon_s": reckon_s, "seconds": time.perf_counter() - t0}
+    log(f"dry run {c['arch']} x {c['shape']} at 1 x 1, reckoned on the meta "
+        f"device in {reckon_s:.1f} s: arguments {reckoned:,} bytes == the "
+        f"{allocated:,} allocated (weights, KV cache, tokens) + 4 (the "
+        f"index); peak reckoned {reckoned_peak / 1e9:.2f} GB against "
+        f"max_memory_allocated {peak / 1e9:.2f} GB; a decode step "
+        f"{ms:.3f} ms (median of {c['steps']}, CUDA events; "
+        f"{step_ms[0]:.3f}-{step_ms[-1]:.3f}) against "
+        f"t_memory {1e3 * info['t_memory']:.3f} ms (traffic "
+        f"{info['hlo_traffic_bytes_per_device'] / 1e9:.2f} GB at 3.35 TB/s)"
+        f"; {nvidia_smi_line()}")
+    return out
+
+
 def _cache_bytecode():
     """Keep the bytecode of every module this process and the processes it
     starts import under the checkout's ignored ``.pycache``: a machine that
@@ -9619,6 +9922,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         slice21["serve_islands"] = phase_serve_islands(root)
     lap("59 the ensemble served over ranks")
+    # 60. the dry run's decode cell, reckoned on the meta device, then
+    # allocated and stepped on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice22 = {"dryrun_cell": phase_dryrun_cell(), "card": smi,
+               "decode_model_2": {
+                   **{arch: [r["decode"] for r in per_rank]
+                      for arch, per_rank in slice19["parity"].items()},
+                   **{arch: [r["decode"] for r in a["ranks"]]
+                      for arch, a in slice20["archs"].items()
+                      if "decode" in a["ranks"][0]}}}
+    lap("60 the dry run's cell on the card")
     slice21["card"] = smi
     slice20["card"] = smi
     slice19["card"] = smi
@@ -9680,14 +9995,20 @@ def main() -> int:
 
     mp_parity = slice19["parity"]
     mp_paths = lambda name: {
-        f"model_sharded_{arch}_rank{r}": res["launches"][name]
-        for arch, per_rank in mp_parity.items()
-        for r, res in enumerate(per_rank)}
+        **{f"model_sharded_{arch}_rank{r}": res["launches"][name]
+           for arch, per_rank in mp_parity.items()
+           for r, res in enumerate(per_rank)},
+        **{f"model_2_decode_{arch}_rank{r}": res["decode"]["launches"][name]
+           for arch, per_rank in mp_parity.items()
+           for r, res in enumerate(per_rank)}}
     mpf_archs = slice20["archs"]
     mpf_paths = lambda name: {
-        f"model_sharded_{arch}_rank{r}": res["launches"][name]
-        for arch, a in mpf_archs.items()
-        for r, res in enumerate(a["ranks"])}
+        **{f"model_sharded_{arch}_rank{r}": res["launches"][name]
+           for arch, a in mpf_archs.items()
+           for r, res in enumerate(a["ranks"])},
+        **{f"model_2_decode_{arch}_rank{r}": res["decode"]["launches"][name]
+           for arch, a in mpf_archs.items()
+           for r, res in enumerate(a["ranks"]) if "decode" in res}}
     adam_paths = {**by_path("pop_adam"),
                   **{f"model_sharded_{arch}_rank{r}": res[
                       "pop_adam_launches"]
@@ -10092,6 +10413,7 @@ def main() -> int:
     print(json.dumps({"slice19": slice19}))
     print(json.dumps({"slice20": slice20}))
     print(json.dumps({"slice21": slice21}))
+    print(json.dumps({"slice22": slice22}))
     log(f"the whole run took {slice18['seconds_total']} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

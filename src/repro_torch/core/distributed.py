@@ -29,13 +29,22 @@ population-wide values cross ranks by explicit collectives.
   * :func:`copy_to_region`, :func:`reduce_from_region`,
     :func:`gather_from_region`, :func:`scatter_to_region` — the
     tensor-parallel collectives of a member sharded over an island's model
-    axis, as autograd Functions.
+    axis, as autograd Functions; :func:`combine_softmax_parts`, attention
+    over a KV cache whose sequence is split over that axis.
+
+:func:`all_reduce`, :func:`broadcast` and :func:`all_gather` are the one
+choke point of every collective above. Under :func:`recording` (the dry
+run's counter, :mod:`repro_torch.launch.hlo_analysis`) they reach no
+process group: each call is handed to the recorder, which counts it and
+returns a result of the right shape, and a :class:`VirtualGroup` stands
+for a group of a given size that no process joined.
 
 Collectives on a gloo group go through the host when the tensor is on the
 card (gloo's CUDA support covers few of them); NCCL takes device tensors.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -193,6 +202,37 @@ def world() -> tuple[int, int]:
     return 0, 1
 
 
+class VirtualGroup(NamedTuple):
+    """A process group of ``size`` ranks that no process joined: the dry
+    run's model axis, whose collectives are recorded, never run."""
+    name: str
+    size: int
+
+
+_RECORDER = None
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Context: every collective of this module is handed to
+    ``recorder(kind, tensor, group)`` ("all-reduce", "broadcast" or
+    "all-gather"), which returns its result, instead of reaching a process
+    group."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDER = prev
+
+
+def group_size(group=None) -> int:
+    """The number of ranks of ``group`` (a :class:`VirtualGroup`'s own)."""
+    if isinstance(group, VirtualGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
 def _via_host(tensor, group) -> bool:
     return tensor.is_cuda and dist.get_backend(group) == "gloo"
 
@@ -200,6 +240,8 @@ def _via_host(tensor, group) -> bool:
 def all_reduce(tensor, group=None, op: str = "sum"):
     """Reduce ``tensor`` in place over ``group`` by ``op`` ("sum" or
     "max"; through the host on a gloo group)."""
+    if _RECORDER is not None:
+        return _RECORDER("all-reduce", tensor, group)
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if _via_host(tensor, group):
         host = tensor.cpu()
@@ -213,6 +255,8 @@ def all_reduce(tensor, group=None, op: str = "sum"):
 def broadcast(tensor, src: int, group=None):
     """Broadcast ``tensor`` in place from global rank ``src`` (through the
     host on a gloo group)."""
+    if _RECORDER is not None:
+        return _RECORDER("broadcast", tensor, group)
     if _via_host(tensor, group):
         host = tensor.cpu()
         dist.broadcast(host, src, group=group)
@@ -225,6 +269,8 @@ def broadcast(tensor, src: int, group=None):
 def all_gather(tensor, group=None) -> list:
     """Every rank's ``tensor`` of ``group``, in group-rank order (through
     the host on a gloo group)."""
+    if _RECORDER is not None:
+        return _RECORDER("all-gather", tensor, group)
     size = dist.get_world_size(group)
     if _via_host(tensor, group):
         host = tensor.contiguous().cpu()
@@ -343,6 +389,22 @@ def scatter_to_region(x, dim: int, shard):
     """This rank's part of a whole ``x`` along ``dim`` (the backward
     all-gathers)."""
     return _ScatterToRegion.apply(x, dim, shard)
+
+
+def combine_softmax_parts(m, l, o, shard):
+    """Attention over a sequence split across ``shard``'s model group
+    (the flash-decoding layout of a KV cache): this rank's row maxima
+    ``m`` (...), sums of ``exp(logit - m)`` ``l`` (...) and
+    exp-weighted values ``o`` (..., X) over its positions, float32,
+    combined by log-sum-exp with one all-gather. Returns the softmax-
+    weighted values over every position (..., X), float32, the same on
+    every rank (each sums the parts in rank order)."""
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    parts = torch.stack(all_gather(packed.contiguous(), shard.group))
+    top = parts[..., 0].amax(0)
+    w = torch.exp(parts[..., 0] - top)
+    return ((parts[..., 2:] * w[..., None]).sum(0)
+            / (parts[..., 1] * w).sum(0)[..., None])
 
 
 def all_members(tree, rows: Rows, group=None):

@@ -204,6 +204,12 @@ class IslandLayout:
 _MESH_CACHE: dict = {}
 
 
+def drop_meshes() -> None:
+    """Forget every layout's mesh (before the process group is
+    destroyed: :func:`repro_torch.launch.mesh.leave_distributed`)."""
+    _MESH_CACHE.clear()
+
+
 def _build_mesh(layout: IslandLayout):
     from repro_torch.launch.mesh import ISLAND_AXES, build_mesh
     _, available = world()

@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import meta_call, refuse_grad
 
 DIMS = (32, 64, 112, 128, 256)   # the head sizes the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
@@ -150,6 +150,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        b, h, s, d = q.shape
+        pairs = s * (s + 1) // 2 if causal else s * s
+        return meta_call("flash_attention", (q, k, v),
+                         [(q.shape, q.dtype)], 4.0 * b * h * d * pairs)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     refuse_grad("flash_attention", q, k, v)

@@ -76,6 +76,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import meta_call
+
 BLOCK = 4096
 NUM_WARPS = 8
 _MAX_GRID_X = 2 ** 31 - 1
@@ -237,6 +239,11 @@ def pop_adam(params, grads, mu, nu, lr, step, *, wd=None, scale=None,
         return pop_adam_plain(params, grads, mu, nu, lr, step, wd=wd,
                               scale=scale, b1=b1, b2=b2, eps=eps,
                               inplace=inplace)
+    if params.device.type == "meta":
+        outs = meta_call("pop_adam", (params, grads, mu, nu, lr, step, wd,
+                                      scale),
+                         [(params.shape, params.dtype)] * 3, 0.0)
+        return (params, mu, nu) if inplace else tuple(outs)
     if params.device.type != "cuda":
         raise ValueError(f"pop_adam: no kernel for device {params.device}")
     return _launch(params, grads, mu, nu, lr, step, wd, scale, b1, b2, eps,

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import differentiated
+from repro_torch.kernels import differentiated, meta_call
 
 ACTIVATIONS = ("none", "relu", "tanh")
 _ACT_CODE = {"none": 0, "relu": 1, "tanh": 2}
@@ -152,6 +152,11 @@ def _launch(x, w, b, activation, route=None):
 def _forward(x, w, b, activation):
     if x.device.type == "cpu":
         return pop_matmul_plain(x, w, b, activation=activation)
+    if x.device.type == "meta":
+        n, bsz, k = x.shape
+        return meta_call("pop_matmul", (x, w, b),
+                         [((n, bsz, w.shape[2]), x.dtype)],
+                         2.0 * n * bsz * k * w.shape[2])[0]
     if x.device.type != "cuda":
         raise ValueError(f"pop_matmul: no kernel for device {x.device}")
     return _launch(x, w, b, activation)

@@ -47,7 +47,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import meta_call, refuse_grad
 
 HEAD_DIMS = (32, 64)        # P the kernel is built for
 STATE_DIMS = (16, 32, 64)   # N the kernel is built for
@@ -176,6 +176,13 @@ def ssd(x, dt, a, b, c, state, *, chunk: int = 128):
     _check(x, dt, a, b, c, state, chunk)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a, b, c, state, chunk=chunk)
+    if x.device.type == "meta":
+        bsz, h, s, p = x.shape
+        n, cl = state.shape[-1], min(chunk, s)
+        return tuple(meta_call(
+            "ssd", (x, dt, a, b, c, state),
+            [(x.shape, x.dtype), (state.shape, state.dtype)],
+            float(bsz * h * s * (4 * p * n + cl * (n + p)))))
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
     refuse_grad("ssd", x, dt, a, b, c, state)

@@ -46,7 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import meta_call, refuse_grad
 
 DIMS = (32, 64)   # the head sizes the kernel is built for
 
@@ -161,6 +161,13 @@ def wkv6(r, k, v, lw, u, state, *, chunk: int = 64):
     _check(r, k, v, lw, u, state, chunk)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, lw, u, state, chunk=chunk)
+    if r.device.type == "meta":
+        b, h, s, d = r.shape
+        c = min(chunk, s)
+        return tuple(meta_call(
+            "wkv6", (r, k, v, lw, u, state),
+            [(r.shape, r.dtype), (state.shape, state.dtype)],
+            float(b * h * s * (4 * d * d + 2 * c * d))))
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     refuse_grad("wkv6", r, k, v, lw, u, state)

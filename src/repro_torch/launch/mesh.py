@@ -11,10 +11,14 @@ controller sees. The port runs one process per GPU, launched by
 on the CPU. It never falls back: NCCL failing to start raises. Without
 ``WORLD_SIZE`` in the environment (a plain ``python`` run) there is no
 group, and the run is a world of one. The meshes are functions, so
-importing this module touches no process group.
+importing this module touches no process group. :func:`leave_distributed`
+is the way out: a gloo subgroup still referenced when the interpreter
+exits aborts the process ("terminate called without an active
+exception"), so the meshes go before the group does.
 """
 from __future__ import annotations
 
+import gc
 import math
 import os
 from datetime import timedelta
@@ -48,6 +52,21 @@ def init_distributed(device="cuda", *, timeout: float = 600.0
             timeout=timedelta(seconds=timeout),
             device_id=dev if dev.type == "cuda" else None)
     return dev
+
+
+def leave_distributed() -> None:
+    """Destroy the process group, after dropping every reference this
+    process holds to its meshes and subgroups (the layouts' mesh cache, and
+    whatever a cycle keeps alive). A ``DeviceMesh`` subgroup that outlives
+    ``destroy_process_group`` is torn down at the interpreter's exit,
+    where gloo aborts the rank, and its peer is then killed. A no-op
+    without a group."""
+    if not dist.is_initialized():
+        return
+    from repro_torch.elastic.layout import drop_meshes
+    drop_meshes()
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def mesh_size(mesh, name: str) -> int:

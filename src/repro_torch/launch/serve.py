@@ -244,7 +244,8 @@ def _serve_rl(args) -> ServeReport:
         return _serve_rl_on(args, device, rank, size, say)
     finally:
         if joined:
-            dist.destroy_process_group()
+            from repro_torch.launch.mesh import leave_distributed
+            leave_distributed()
 
 
 def _serve_rl_on(args, device, rank, size, say) -> ServeReport:

@@ -569,9 +569,9 @@ def main(argv=None):
             return _run_lm(args)
         return _run_rl(args)
     finally:
-        import torch.distributed as dist
-        if args.backend in _MULTI_RANK and dist.is_initialized():
-            dist.destroy_process_group()
+        if args.backend in _MULTI_RANK:
+            from repro_torch.launch.mesh import leave_distributed
+            leave_distributed()
 
 
 def _check_layout(args):

@@ -78,11 +78,17 @@ and heads split, and the Mamba2 blocks with their SSD heads split
 (:mod:`repro_torch.nn.mamba2`; Zamba2's shared block, unstacked, takes
 the rules as an unstacked leaf does: a bias under a 2-D rule stays
 whole). The result is the one-rank one's up to rounding: sharding decides
-where, never what. Every family shards; a decode state over a model axis
-(serving a model-sharded member) is refused.
+where, never what. Every family shards, and so does its decode state:
+``init_decode_state(shard=)`` allocates this rank's part of each leaf by
+:func:`repro_torch.models.sharding.decode_state_dim` (heads where they
+divide, else the cache's sequence), and the serve step of
+``make_serve_step(cfg, shard)`` runs on it (the JAX package serves over a
+model axis only in its dry run's decode cells). :func:`whole_decode_state`
+puts the ranks' parts back together.
 
-Not ported: a Mamba2 stack without the shared attention (no config has
-one), and ``input_specs``.
+:func:`input_specs` gives a cell's inputs as ``meta`` tensors, the dry
+run's (:mod:`repro_torch.launch.dryrun`). Not ported: a Mamba2 stack
+without the shared attention (no config has one).
 """
 from __future__ import annotations
 
@@ -92,12 +98,14 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LMConfig, TrainConfig
-from repro_torch.core.distributed import (all_reduce, copy_to_region,
+from repro_torch.configs.base import LMConfig, ShapeSpec, TrainConfig
+from repro_torch.core.distributed import (all_gather, all_reduce,
+                                          copy_to_region,
                                           gather_from_region,
                                           reduce_from_region)
 from repro_torch.kernels.ops import attention
-from repro_torch.models.sharding import (ModelShard, active, member_dims,
+from repro_torch.models.sharding import (ModelShard, active,
+                                         decode_state_dims, member_dims,
                                          model_parallel)
 from repro_torch.nn.attention import (gqa_apply, gqa_init, mla_apply,
                                       mla_init)
@@ -382,10 +390,6 @@ def _forward(params, cfg: LMConfig, batch, state=None, cache_index=None, *,
                         f"through cast_params first")
     keep = state is not None
     shard = active()
-    if keep and shard is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: a decode state over a model axis (serving a "
-            f"model-sharded member) is not ported yet")
     if not keep:
         # fresh zero recurrent states, as the JAX package's blocks make
         # without one; max_len 0: no KV cache, attention is cache-less
@@ -743,11 +747,15 @@ def shard_table(cfg: LMConfig, size: int) -> dict:
     return table
 
 
-def make_serve_step(cfg: LMConfig):
+def make_serve_step(cfg: LMConfig, shard: ModelShard | None = None):
     """``serve_step(params, batch, state, cache_index) -> (logits, state)``:
-    a whole prompt (prefill, ``cache_index`` 0) or one token (decode)."""
+    a whole prompt (prefill, ``cache_index`` 0) or one token (decode).
+    With ``shard`` the step runs under ``model_parallel(shard)`` on this
+    rank's parts of the parameters and of the decode state
+    (``init_decode_state(..., shard=shard)``); the logits are whole on
+    every rank."""
     def serve_step(params, batch, state, cache_index):
-        with torch.no_grad():
+        with torch.no_grad(), model_parallel(shard):
             return forward(params, cfg, batch, state=state,
                            cache_index=cache_index)
     return serve_step
@@ -789,16 +797,75 @@ def _map_shapes(fn, tree):
     return fn(*tree)
 
 
-def decode_state_shapes(cfg: LMConfig, batch: int, max_len: int):
+def decode_state_shapes(cfg: LMConfig, batch: int, max_len: int, *,
+                        shard: ModelShard | None = None):
     """{segment: tree of (shape, dtype)}, each shape led by the segment's
-    layer count: the JAX package's ``decode_state_shapes``."""
-    return {seg.name: _map_shapes(lambda s, d: ((seg.count,) + s, d),
-                                  _seg_state_shape(seg, cfg, batch, max_len))
-            for seg in layout(cfg)}
+    layer count: the JAX package's ``decode_state_shapes``. With
+    ``shard`` each shape is this rank's part
+    (:func:`repro_torch.models.sharding.decode_state_dim`)."""
+    whole = {seg.name: _map_shapes(
+        lambda s, d: ((seg.count,) + s, d),
+        _seg_state_shape(seg, cfg, batch, max_len)) for seg in layout(cfg)}
+    if shard is None or shard.size == 1:
+        return whole
+    dims = decode_state_dims(cfg, whole, shard.size)
+
+    def part(tree, dim):
+        if isinstance(tree, dict):
+            return {k: part(v, dim[k]) for k, v in tree.items()}
+        shape, dtype = tree
+        if dim is None:
+            return tree
+        shape = list(shape)
+        # a rank's part; a sequence that does not divide is padded
+        shape[dim] = -(-shape[dim] // shard.size)
+        return tuple(shape), dtype
+    return part(whole, dims)
 
 
 def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,
-                      device="cpu"):
+                      device="cpu", shard: ModelShard | None = None):
+    """Zero decode state; with ``shard`` only this rank's part of each
+    leaf (:func:`decode_state_shapes`)."""
     return _map_shapes(
         lambda s, d: torch.zeros(s, dtype=d, device=device),
-        decode_state_shapes(cfg, batch, max_len))
+        decode_state_shapes(cfg, batch, max_len, shard=shard))
+
+
+def whole_decode_state(cfg: LMConfig, state, batch: int, max_len: int,
+                       shard: ModelShard):
+    """The whole decode state from every rank's part of it (an all-gather
+    over ``shard.group`` along each cut dimension, the padding of a cut
+    sequence dropped); every rank of the group calls it."""
+    dims = decode_state_dims(
+        cfg, decode_state_shapes(cfg, batch, max_len), shard.size)
+    whole = decode_state_shapes(cfg, batch, max_len)
+
+    def walk(tree, dim, shape):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], dim[k], shape[k]) for k in tree}
+        if dim is None:
+            return tree
+        out = torch.cat(all_gather(tree.contiguous(), shard.group), dim=dim)
+        return out.narrow(dim, 0, shape[0][dim])
+    return walk(state, dims, whole)
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec, *, device="meta"):
+    """Every model input of a cell as tensors on ``device`` (the ``meta``
+    device by default: shapes and dtypes, nothing allocated), the JAX
+    package's ``input_specs``: (B, S) tokens for train and prefill, (B, 1)
+    for decode, and a frontend's embeddings."""
+    b = shape.global_batch
+    s = 1 if shape.kind == "decode" else shape.seq_len
+    dtype = compute_dtype(cfg)
+    batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
+                                   device=device)}
+    if cfg.frontend == "audio_frames":
+        batch["embeds"] = torch.zeros((b, s, cfg.d_model), dtype=dtype,
+                                      device=device)
+    if cfg.frontend == "vision_patches" and shape.kind != "decode":
+        batch["patch_embeds"] = torch.zeros(
+            (b, cfg.num_frontend_positions, cfg.d_model), dtype=dtype,
+            device=device)
+    return batch

@@ -36,6 +36,12 @@ forward, and inside it
 
 Outside a context (or on a model axis of 1) both return their input, as
 the JAX package's do outside a mesh.
+
+A decode state (KV caches, recurrent states) over the model axis follows
+:func:`decode_state_dim`, the rule of the JAX dry run's
+``_decode_state_shardings``: a head dimension where the heads divide over
+the axis, else the cache's sequence (flash-decoding), never a stacked
+layer axis, one dimension at most.
 """
 from __future__ import annotations
 
@@ -430,3 +436,63 @@ class PartMap:
             out.append(torch.cat([p[l0:l0 + a * q * b].view(a, q, b)
                                   for p in parts], dim=1).reshape(-1))
         return torch.cat(out)
+
+
+# ---------------------------------------------------- the decode state
+# The layout of each decode-state leaf over a model axis of ``size``
+# ranks, by the leaf's name (``lm.decode_state_shapes``' trees). As the
+# JAX dry run's ``_decode_state_shardings``: heads where they divide,
+# else the cache's sequence. Where the port's sharded forward already
+# holds a part, the state follows the forward instead, so a block never
+# re-slices what it computes: a GQA cache takes heads only where the
+# forward computes the rank's own heads (q and kv heads both divide;
+# otherwise it computes every head and the cache takes the sequence);
+# Mamba2's conv state takes the rank's channels (the forward convolves
+# them; JAX keeps it whole). A cache cut on its sequence is padded to a
+# multiple of ``size`` (where JAX keeps a cache that does not divide
+# whole): the padded slots lie past every query and weigh exactly 0.
+
+def gqa_heads_split(cfg, size: int) -> bool:
+    """Whether a sharded GQA forward computes this rank's own heads."""
+    return cfg.num_heads % size == 0 and cfg.num_kv_heads % size == 0
+
+
+def rwkv_heads_split(cfg, size: int) -> bool:
+    heads = cfg.d_model // cfg.ssm_head_dim
+    return cfg.d_model % size == 0 and heads % size == 0
+
+
+def mamba_heads_split(cfg, size: int) -> bool:
+    d_inner = 2 * cfg.d_model
+    return d_inner % size == 0 and (d_inner // cfg.ssm_head_dim) % size == 0
+
+
+def decode_state_dim(name: str, shape, cfg, size: int) -> int | None:
+    """The dimension of the decode-state leaf ``name`` (its key: ``k``,
+    ``v``, ``c_kv``, ``k_rope``, ``wkv``, ``tm_x``, ``cm_x``, ``ssm`` or
+    ``conv``) of whole ``shape`` (stacked layer axes first) that a model
+    axis of ``size`` cuts, or None (whole on every rank)."""
+    n = len(shape)
+    if size == 1:
+        return None
+    if name in ("k", "v"):          # (..., B, S, KV, D)
+        return n - 2 if gqa_heads_split(cfg, size) else n - 3
+    if name in ("c_kv", "k_rope"):  # (..., B, S, X): no head dimension
+        return n - 2
+    if name == "wkv":               # (..., B, H, D, D)
+        return n - 3 if rwkv_heads_split(cfg, size) else None
+    if name == "ssm":               # (..., B, H, P, N)
+        return n - 3 if mamba_heads_split(cfg, size) else None
+    if name == "conv":              # (..., B, K - 1, channels)
+        return n - 1 if shape[-1] % size == 0 else None
+    return None                     # the token shifts tm_x, cm_x
+
+
+def decode_state_dims(cfg, shapes, size: int):
+    """:func:`decode_state_dim` over a tree of ``(shape, dtype)`` leaves
+    (``lm.decode_state_shapes``), as a tree of the same keys."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return decode_state_dim(name, tree[0], cfg, size)
+    return walk(shapes, "")

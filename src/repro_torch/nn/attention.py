@@ -47,12 +47,28 @@ region through ``copy_to_region``, so ``kv_norm`` and ``w_kr``, whole
 leaves, get their whole gradients. Where the heads do not divide, the
 query and the up-projection are gathered and every rank computes every
 head.
+
+With a cache over a model axis the cache holds this rank's part, as
+:func:`repro_torch.models.sharding.decode_state_dim` lays it out. GQA's
+cache holds the rank's kv heads where the forward computes its own heads,
+and is written and read as on one rank. Otherwise (every rank computes
+every head), and for MLA's latent and rope key, which have no head
+dimension, rank r holds cache positions ``[r L, (r + 1) L)``: a write
+lands on the rank that owns its position, and attention over the cache
+takes each rank's partial softmax (row maximum, sum and weighted values
+over its positions), combined over the group by log-sum-exp in one
+collective (:func:`repro_torch.core.distributed.combine_softmax_parts`,
+the flash-decoding layout). A GQA prefill into an empty cache still
+attends over the new keys through ``attn_fn``, which every rank holds
+whole. MLA's absorbed form reads ``w_ukv`` whole there, gathered from the
+ranks' columns.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.distributed import (copy_to_region, gather_from_region,
+from repro_torch.core.distributed import (combine_softmax_parts,
+                                          copy_to_region, gather_from_region,
                                           reduce_from_region)
 from repro_torch.models.sharding import active, constrain
 from repro_torch.nn.basic import lecun_normal, rmsnorm_apply, rmsnorm_init
@@ -77,6 +93,60 @@ def sdpa(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, h * v.shape[-1])
+
+
+def _softmax_part(q, k, v, q_positions, kv_positions, *, scale: float):
+    """:func:`sdpa`'s causal attention over some of the keys, unnormalised:
+    per (B, Hkv, G, Sq) the row maximum, the sum of ``exp(logit - max)``,
+    and the exp-weighted values (B, Hkv, G, Sq, D), all float32."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    q = q.reshape(b, sq, hkv, h // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    mask = (q_positions[:, None, None, :, None]
+            >= kv_positions[:, None, None, None, :])
+    logits = torch.where(mask, logits, BIG_NEG)
+    top = logits.amax(-1)
+    w = torch.exp(logits - top[..., None])
+    return top, w.sum(-1), torch.einsum("bhgqk,bkhd->bhgqd", w, v.float())
+
+
+def _write_cache(cache, new: dict, cache_index, length_lo: int = 0):
+    """Write the S new tokens' entries (``new[name]`` (B, S, ...)) into the
+    cache at positions ``[cache_index, cache_index + S)``; a cache holding
+    positions from ``length_lo`` on (a rank's part of the sequence) takes
+    only the positions it holds."""
+    ci = int(cache_index)
+    for name, t in new.items():
+        held = cache[name].shape[1]
+        lo, hi = max(ci, length_lo), min(ci + t.shape[1], length_lo + held)
+        if lo < hi:
+            cache[name][:, lo - length_lo:hi - length_lo] = (
+                t[:, lo - ci:hi - ci].to(cache[name].dtype))
+
+
+def _cache_attention(q, k, v, positions, cache, cache_index, attn_fn,
+                     scale, seq_shard=None):
+    """GQA with a cache: the new k and v written, then attention. A
+    prefill into an empty cache attends over the new keys through
+    ``attn_fn``; any other step over the cache, this rank's positions of
+    it with ``seq_shard`` (combined over its group). Returns (B,S,H*D)."""
+    b, s = q.shape[:2]
+    held = cache["k"].shape[1]
+    lo = 0 if seq_shard is None else seq_shard.coord * held
+    _write_cache(cache, {"k": k, "v": v}, cache_index, lo)
+    if attn_fn is not None and s > 1 and int(cache_index) == 0:
+        # the prefill: the cache holds these keys and nothing else yet
+        return attn_fn(q, k, v, positions, positions, causal=True,
+                       scale=scale)
+    kv_positions = (lo + torch.arange(held, device=q.device)).expand(b, held)
+    ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    if seq_shard is None:
+        return sdpa(q, ck, cv, positions, kv_positions, causal=True,
+                    scale=scale)
+    out = combine_softmax_parts(*_softmax_part(
+        q, ck, cv, positions, kv_positions, scale=scale), seq_shard)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, -1).to(v.dtype)
 
 
 def gqa_init(generator, *, d_model: int, num_heads: int, num_kv_heads: int,
@@ -112,13 +182,10 @@ def gqa_apply(p, x, positions, *, num_heads: int, num_kv_heads: int,
     b, s, _ = x.shape
     shard = active()
     if shard is not None:
-        if cache is not None:
-            raise NotImplementedError(
-                "attention with a KV cache over a model axis (serving a "
-                "model-sharded member) is not ported yet")
         return _gqa_sharded(p, x, positions, shard, num_heads=num_heads,
                             num_kv_heads=num_kv_heads, head_dim=head_dim,
-                            rope_theta=rope_theta, attn_fn=attn_fn), None
+                            rope_theta=rope_theta, attn_fn=attn_fn,
+                            cache=cache, cache_index=cache_index), cache
 
     def proj(name, heads):
         y = x @ p[name]["w"]
@@ -141,25 +208,17 @@ def gqa_apply(p, x, positions, *, num_heads: int, num_kv_heads: int,
                                 scale=scale)
         return out @ p["wo"]["w"], None
 
-    cache["k"][:, cache_index:cache_index + s] = k.to(cache["k"].dtype)
-    cache["v"][:, cache_index:cache_index + s] = v.to(cache["v"].dtype)
-    if attn_fn is not None and s > 1 and cache_index == 0:
-        # the prefill: the cache holds these keys and nothing else yet
-        out = attn_fn(q, k, v, positions, positions, causal=True,
-                      scale=scale)
-        return out @ p["wo"]["w"], cache
-    max_len = cache["k"].shape[1]
-    kv_positions = torch.arange(max_len, device=x.device).expand(b, max_len)
-    out = sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), positions,
-               kv_positions, causal=True, scale=scale)
+    out = _cache_attention(q, k, v, positions, cache, cache_index, attn_fn,
+                           scale)
     return out @ p["wo"]["w"], cache
 
 
 def _gqa_sharded(p, x, positions, shard, *, num_heads, num_kv_heads,
-                 head_dim, rope_theta, attn_fn):
-    """The stateless GQA forward on this rank's parts (see the module's
-    docstring). x (B,S,Dm) is the same on every rank of the group, and so
-    is the (B,S,Dm) result."""
+                 head_dim, rope_theta, attn_fn, cache=None,
+                 cache_index=None):
+    """The GQA forward on this rank's parts, with or without this rank's
+    part of a cache (see the module's docstring). x (B,S,Dm) is the same
+    on every rank of the group, and so is the (B,S,Dm) result."""
     b, s, _ = x.shape
     hd = head_dim
     width = {"wq": num_heads * hd, "wk": num_kv_heads * hd,
@@ -202,8 +261,14 @@ def _gqa_sharded(p, x, positions, shard, *, num_heads, num_kv_heads,
         k = rmsnorm_apply(norm("k_norm"), k)
     q = apply_rope(q, positions, theta=rope_theta)
     k = apply_rope(k, positions, theta=rope_theta)
-    out = (attn_fn or sdpa)(q, k, v, positions, positions, causal=True,
-                            scale=hd ** -0.5)
+    if cache is None:
+        out = (attn_fn or sdpa)(q, k, v, positions, positions, causal=True,
+                                scale=hd ** -0.5)
+    else:
+        # the rank's heads in its cache, or every head over its positions
+        out = _cache_attention(q, k, v, positions, cache, cache_index,
+                               attn_fn, hd ** -0.5,
+                               None if aligned else shard)
     if not o_part:
         return out @ p["wo"]["w"]
     if not aligned:
@@ -255,10 +320,6 @@ def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int,
     b, s, _ = x.shape
     qk, kv = qk_nope_dim + qk_rope_dim, qk_nope_dim + v_dim
     shard = active()
-    if shard is not None and cache is not None:
-        raise NotImplementedError(
-            "MLA with a latent cache over a model axis (serving a "
-            "model-sharded member) is not ported yet")
     part = lambda leaf, whole: shard is not None and shard.is_part(leaf,
                                                                    whole)
     q_part = part(p["wq"]["w"].shape[-1], num_heads * qk)
@@ -305,19 +366,23 @@ def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int,
             out = constrain(out, None, None, "M")   # this rank's rows of wo
         return reduce_from_region(out @ p["wo"]["w"], shard), None
 
+    # every head on every rank: the cache's positions are split, not heads
+    if q_part:
+        q = gather_from_region(q, -1, shard)
+    w_ukv = p["w_ukv"]["w"]
+    if ukv_part:
+        w_ukv = gather_from_region(w_ukv, -1, shard)
     q = q.reshape(b, s, num_heads, qk)
     q_nope = q[..., :qk_nope_dim]
     q_rope = apply_rope(q[..., qk_nope_dim:], positions, theta=rope_theta)
-    cache["c_kv"][:, cache_index:cache_index + s] = c_kv.to(
-        cache["c_kv"].dtype)
-    cache["k_rope"][:, cache_index:cache_index + s] = k_rope.to(
-        cache["k_rope"].dtype)
-    max_len = cache["c_kv"].shape[1]
-    kv_positions = torch.arange(max_len, device=x.device).expand(b, max_len)
+    held = cache["c_kv"].shape[1]
+    seq_shard = shard
+    lo = 0 if seq_shard is None else seq_shard.coord * held
+    _write_cache(cache, {"c_kv": c_kv, "k_rope": k_rope}, cache_index, lo)
+    kv_positions = (lo + torch.arange(held, device=x.device)).expand(b, held)
     # the absorbed form: w_ukv folded into the query and the output, so
     # that attention runs over the compressed latent
-    w_ukv = p["w_ukv"]["w"].to(x.dtype).reshape(-1, num_heads,
-                                                qk_nope_dim + v_dim)
+    w_ukv = w_ukv.to(x.dtype).reshape(-1, num_heads, qk_nope_dim + v_dim)
     w_k, w_v = w_ukv[..., :qk_nope_dim], w_ukv[..., qk_nope_dim:]
     ckv = cache["c_kv"].to(x.dtype)
     kr = cache["k_rope"].to(x.dtype)
@@ -326,9 +391,19 @@ def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int,
               + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
               ) * scale
     mask = positions[:, None, :, None] >= kv_positions[:, None, None, :]
-    probs = torch.softmax(torch.where(mask, logits, BIG_NEG), dim=-1).to(
-        x.dtype)
-    ctx = torch.einsum("bhqk,bkl->bqhl", probs, ckv)
+    logits = torch.where(mask, logits, BIG_NEG)
+    if seq_shard is None:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqk,bkl->bqhl", probs, ckv)
+    else:
+        top = logits.amax(-1)
+        w = torch.exp(logits - top[..., None])
+        ctx = combine_softmax_parts(
+            top, w.sum(-1), torch.einsum("bhqk,bkl->bhql", w, ckv.float()),
+            seq_shard).transpose(1, 2).to(x.dtype)
     out = torch.einsum("bqhl,lhd->bqhd", ctx, w_v).reshape(
         b, s, num_heads * v_dim)
-    return out @ p["wo"]["w"], cache
+    if not o_part:
+        return out @ p["wo"]["w"], cache
+    out = constrain(out, None, None, "M")           # this rank's rows of wo
+    return reduce_from_region(out @ p["wo"]["w"], shard), cache

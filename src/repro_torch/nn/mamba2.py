@@ -30,7 +30,10 @@ squares over all of ``d_inner`` is summed over the group in float32, and
 every rank computes every head and takes its rows of ``out_proj``. The
 whole leaves a rank reads only its heads of (``a_log``, ``dt_bias``,
 ``d_skip``, ``norm``) enter the region through ``copy_to_region``, so
-their gradients are whole.
+their gradients are whole. A decode state over the axis holds the rank's
+channels of the conv state and, where the heads divide, its heads of the
+SSD state (``models.sharding.decode_state_dim``); a whole state (the
+stateless forward's fresh one) is sliced to them.
 """
 from __future__ import annotations
 
@@ -145,9 +148,12 @@ def mamba2_block_apply(p, x, state, *, d_state: int = 64, head_dim: int = 64,
         bias = p["conv"]["b"]
         if bias.shape[-1] == conv_ch:
             bias = constrain(bias, "M")       # a whole bias, sliced
+        conv_prev = state["conv"]      # whole, or the rank's channels
+        if conv_prev.shape[-1] == conv_ch:
+            conv_prev = conv_prev[..., lo:hi]
         xbc, conv_state = _causal_conv(
             p["conv"]["w"], bias, copy_to_region(xbc, shard)[..., lo:hi],
-            state["conv"][..., lo:hi])
+            conv_prev)
         xbc = gather_from_region(F.silu(xbc), -1, shard)
     else:
         xbc, conv_state = _causal_conv(p["conv"]["w"], p["conv"]["b"], xbc,
@@ -167,7 +173,8 @@ def mamba2_block_apply(p, x, state, *, d_state: int = 64, head_dim: int = 64,
         scale = scale[heads.start * head_dim:heads.stop * head_dim]
         dt_raw, a_log, dt_bias, d_skip = (
             t[..., heads] for t in (dt_raw, a_log, dt_bias, d_skip))
-        ssm = ssm[:, heads]
+        if ssm.shape[1] == n_heads:    # else the rank's heads already
+            ssm = ssm[:, heads]
     nh = heads.stop - heads.start
     xh = xbc[..., :d_inner].reshape(bsz, s, n_heads, head_dim)[:, :, heads]
     b = xbc[..., d_inner:d_inner + d_state]

@@ -171,7 +171,9 @@ def _time_mix_sharded(p, x, mixed, wkv_state, shard, *, head_dim,
         lw = constrain(lw, None, None, "M")
         u = constrain(p["bonus"], "M", None)
         ln_x = {n: constrain(t, "M") for n, t in p["ln_x"].items()}
-        state = wkv_state[:, lo:lo + h]
+        # a decode state over the axis holds these heads already
+        state = (wkv_state if wkv_state.shape[1] == h
+                 else wkv_state[:, lo:lo + h])
     else:
         # a rank's columns cut a head: every rank computes every head
         r, k, v, g = (gather_from_region(t, -1, shard) for t in (r, k, v, g))

@@ -81,7 +81,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.core.distributed", "repro_torch.launch.mesh",
                  "repro_torch.elastic.layout", "repro_torch.elastic.islands",
                  "repro_torch.optim.compress", "repro_torch.optim.dp",
-                 "repro_torch.models.sharding"):
+                 "repro_torch.models.sharding",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hlo_analysis"):
         assert name in result["modules"]
     # no module imported triton either: kernels compile at first use
     assert "triton" not in result["loaded"]

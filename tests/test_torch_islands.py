@@ -35,6 +35,7 @@ from repro_torch.configs.base import PopulationConfig
 from repro_torch.core.distributed import member_generator, take_rows
 from repro_torch.core.hyperparams import sample_hypers
 from repro_torch.elastic import plan_layout
+from repro_torch.launch.mesh import leave_distributed
 from repro_torch.pop import ModuleAgent, PopTrainer
 from repro_torch.pop.backend import make_update
 from repro_torch.rl import get_algo, td3
@@ -58,7 +59,7 @@ def _rank_main(fn, rank, world, store, out, args):
                                 rank=rank, world_size=world,
                                 timeout=timedelta(seconds=120))
         result = fn(rank, world, *args)
-        dist.destroy_process_group()
+        leave_distributed()
         torch.save(result, out)
     except BaseException:
         Path(out + ".err").write_text(traceback.format_exc())

@@ -189,8 +189,10 @@ def test_constrain_cuts_only_inside_a_model_parallel_context():
 def test_families_without_a_sharded_forward_are_refused_by_name(
         monkeypatch):
     """What a model axis above 1 still refuses, by name, before any group
-    is joined: a decode state (serving a model-sharded member) and
-    ``--model-axis`` beside another backend than islands. Every family
+    is joined: ``--model-axis`` beside another backend than islands. A
+    decode state over the axis is no longer refused: zamba2's smoke
+    serve step runs at model 2 (on the ``meta`` device, its collectives
+    recorded by the dry run's counter, so no group is needed). Every family
     now has a sharded forward: the MoE, MLA and Mamba2 configs pass the
     pre-group check as the dense attention and RWKV6 ones do, under PBT
     and under CEM, which now runs over model-sharded members (its run
@@ -206,12 +208,21 @@ def test_families_without_a_sharded_forward_are_refused_by_name(
         train_main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
                     "--population", "2", "--ckpt-dir", "unused", "--device",
                     "cpu", "--backend", "sharded", "--model-axis", "2"])
+    from repro_torch.core.distributed import VirtualGroup
+    from repro_torch.launch.hlo_analysis import OpCounter
     cfg = get_config("zamba2-7b").smoke()
-    with sharding.model_parallel(ModelShard(0, 2)), pytest.raises(
-            NotImplementedError, match="a decode state over a model axis"):
-        lm.forward(lm.param_shapes(cfg), cfg,
-                   {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                   state={}, cache_index=0)
+    shard = ModelShard(0, 2, VirtualGroup("model", 2))
+    whole = lm.cast_params(lm.param_shapes(cfg), cfg)
+    params = sharding.local_tree(
+        whole, sharding.member_dims(whole, shard, lead=0), shard)
+    state = lm.init_decode_state(cfg, 1, 8, device="meta", shard=shard)
+    step = lm.make_serve_step(cfg, shard)
+    with OpCounter() as counter:
+        for index, s in ((0, 4), (4, 1)):
+            logits, state = step(params, {"tokens": torch.zeros(
+                (1, s), dtype=torch.long, device="meta")}, state, index)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert counter.analysis()["collective_counts"]["all-reduce"] > 0
     for arch in ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "zamba2-7b",
                  "qwen2-0.5b", "rwkv6-1.6b"):
         for strategy in ("pbt", "cem"):
